@@ -1,0 +1,73 @@
+"""Command-line interface: ``python -m nthash_tpu_torch count FILE``.
+
+Counterpart of ``nthash_tpu/__main__.py``'s ``count`` command: stream a
+FASTA/FASTQ file through the hash-and-sketch pipeline on one device and print
+totals and throughput. (``hash`` needs the scalar facade, not ported yet.)
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def _cmd_count(args) -> int:
+    import torch
+
+    from .models.pipeline import PipelineConfig, ReadHashingPipeline
+    from .utils import metrics
+
+    metrics.configure_logging()
+    pipe = ReadHashingPipeline(
+        PipelineConfig(k=args.k, num_hashes=args.num_hashes,
+                       sketch_width_log2=args.width_log2),
+        device=args.device,
+    )
+    where = f"on {pipe.device}"
+    t0 = time.perf_counter()
+    if args.fused:
+        reads = pipe.count_file(args.file, batch_size=args.batch_size)
+        total = int(pipe.sketch.rows[0].sum(dtype=torch.int64))
+        dt = time.perf_counter() - t0
+        print(f"{reads} reads, {total} valid {args.k}-mers in {dt:.2f}s "
+              f"({reads / max(dt, 1e-9):.3g} reads/s) {where}")
+        return 0
+    total = pipe.run_file(args.file, batch_size=args.batch_size)
+    dt = time.perf_counter() - t0
+    print(f"{total} valid {args.k}-mers in {dt:.2f}s "
+          f"({total / max(dt, 1e-9):.3g} k-mers/s) {where}")
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="nthash_tpu_torch",
+                                description=__doc__.splitlines()[0])
+    sub = p.add_subparsers(dest="command", required=True)
+
+    pc = sub.add_parser("count", help="stream a FASTA/FASTQ into a sketch")
+    pc.add_argument("file")
+    pc.add_argument("-k", type=int, default=32)
+    pc.add_argument("-n", "--num-hashes", type=int, default=4)
+    pc.add_argument("--width-log2", type=int, default=14,
+                    help="sketch width 2**W, W in [10, 18] (wider widths "
+                         "are not ported yet)")
+    pc.add_argument("--batch-size", type=int, default=65536)
+    pc.add_argument("--fused", action="store_true",
+                    help="fused hash->count path (sketch only, fastest)")
+    pc.add_argument("--device", default="cuda",
+                    help="torch device to count on (default: cuda)")
+    pc.set_defaults(fn=_cmd_count)
+
+    args = p.parse_args(argv)
+    try:
+        return args.fn(args)
+    except (ValueError, FileNotFoundError, NotImplementedError) as e:
+        # reference raise_error prints to stderr and exits 1
+        # (reference src/internal.hpp:16-22)
+        print(e, file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,90 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by nvcc
+into ``nthash_tpu_torch/_build/lib<name>.so`` (git-ignored) at first use, and
+again whenever the source is newer than the library; it is then loaded with
+ctypes. No PyTorch header is involved, so a build takes seconds. Every C
+entry point returns ``cudaGetLastError()`` after its launch, which
+:func:`check` turns into an exception.
+
+Nothing here runs at import time: the CPU tests import every module on a
+machine with no nvcc and no GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+#: Hopper only: ``sm_90a`` keeps wgmma/setmaxnreg available to later kernels.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_libs: dict[str, ctypes.CDLL] = {}
+#: nvcc's stderr (ptxas register/spill report) per library built in this process.
+BUILD_LOGS: dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    """The nvcc to build with: ``$CUDA_HOME/bin/nvcc``, else the one on PATH,
+    else the toolkit's default location."""
+    home = os.environ.get("CUDA_HOME")
+    for cand in (
+        os.path.join(home, "bin", "nvcc") if home else None,
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
+
+    The library is written to a temporary name and renamed into place, so
+    processes building at once never load a half-written file.
+    """
+    src = CSRC_DIR / f"{name}.cu"
+    lib = BUILD_DIR / f"lib{name}.so"
+    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".lib{name}.{os.getpid()}.so"
+    proc = subprocess.run(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+    os.replace(tmp, lib)
+    BUILD_LOGS[name] = proc.stderr
+    return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        lib.nthash_cuda_error_string.restype = ctypes.c_char_p
+        lib.nthash_cuda_error_string.argtypes = [ctypes.c_int]
+        _libs[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, status: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if status:
+        msg = lib.nthash_cuda_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")

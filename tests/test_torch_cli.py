@@ -1,0 +1,50 @@
+"""CLI (`python -m nthash_tpu_torch count`) smoke tests on the CPU."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from nthash_tpu_torch.__main__ import main
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture
+def toy(tmp_path):
+    fa = tmp_path / "toy.fa"
+    fa.write_text(">r1\nACGTACGTACGTACGT\n>r2\nACGTNNACGTACGTAC\n")
+    return fa
+
+
+def test_count_fused(toy, capsys):
+    assert main(["count", str(toy), "-k", "4", "--batch-size", "8",
+                 "--width-log2", "12", "--fused", "--device", "cpu"]) == 0
+    # r1: 13 windows; r2: 13 windows - 5 overlapping the NN island = 8
+    assert capsys.readouterr().out.startswith("2 reads, 21 valid 4-mers")
+
+
+def test_count_full_hashes(toy, capsys):
+    assert main(["count", str(toy), "-k", "4", "-n", "2", "--batch-size", "8",
+                 "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.startswith("21 valid 4-mers")
+
+
+@pytest.mark.parametrize("args", [
+    ["count", "/nonexistent.fa", "--device", "cpu"],
+    ["count", "{toy}", "--width-log2", "20", "--device", "cpu"],
+    ["count", "{toy}", "-k", "0", "--fused", "--device", "cpu"],
+])
+def test_count_errors_exit_1(toy, capsys, args):
+    assert main([a.format(toy=toy) for a in args]) == 1
+    assert capsys.readouterr().err
+
+
+def test_python_dash_m(toy):
+    proc = subprocess.run(
+        [sys.executable, "-m", "nthash_tpu_torch", "count", str(toy), "-k",
+         "4", "--fused", "--device", "cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("2 reads, 21 valid 4-mers")

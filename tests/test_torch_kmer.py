@@ -1,0 +1,202 @@
+"""The port's k-mer engines against the JAX package, exactly.
+
+``hash_kmers_tm_plain`` (what ``hash_kmers_tm`` runs on a CPU tensor) in all
+three output modes, and the batch-major ``kmer_torch.hash_kmers``, are held
+against ``nthash_tpu.ops.kmer_jnp.hash_kmers`` and the host oracle on the
+same numpy-seeded codes, plus the reference's golden vectors and one tiny
+case against the Pallas kernel in interpret mode.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nthash_tpu import oracle
+from nthash_tpu.ops import kmer_jnp
+from nthash_tpu_torch.constants import encode_ascii
+from nthash_tpu_torch.ops import kmer_kernel, kmer_torch
+from nthash_tpu_torch.ops.kmer_kernel import (
+    hash_kmers_batch,
+    hash_kmers_tm,
+    hash_kmers_tm_auto,
+    hash_kmers_tm_plain,
+    prepare_codes,
+)
+from nthash_tpu_torch.u64 import to_numpy_u64
+from test_golden import ACATG_VECTORS, README_K5, README_SEQ
+
+KS = [1, 5, 9, 31, 32, 33, 64, 65, 100]
+B, L = 5, 110
+
+
+def _codes(rng, b=B, length=L):
+    """Codes 0-5: 4 is N, 5 is any other byte the engines clamp to 4."""
+    return rng.integers(0, 6, size=(b, length), dtype=np.uint8)
+
+
+def _tm(codes):
+    return prepare_codes(torch.from_numpy(codes))
+
+
+@pytest.mark.parametrize("h", [1, 4])
+@pytest.mark.parametrize("k", KS)
+def test_tm_hashes_and_fwd_rev_vs_jnp(rng, k, h):
+    codes = _codes(rng)
+    ref = kmer_jnp.hash_kmers(jnp.asarray(codes), k, h)
+    outs = hash_kmers_tm_plain(_tm(codes), k, h, emit_fwd_rev=True)
+    assert len(outs) == h + 2
+    assert all(o.shape == (L - k + 1, B) and o.dtype == torch.int64
+               for o in outs)
+    got = np.stack([to_numpy_u64(o).T for o in outs[:h]], axis=-1)
+    assert np.array_equal(got, ref.hashes.to_np())
+    assert np.array_equal(to_numpy_u64(outs[h]).T, ref.fwd.to_np())
+    assert np.array_equal(to_numpy_u64(outs[h + 1]).T, ref.rev.to_np())
+    plain = hash_kmers_tm_plain(_tm(codes), k, h)
+    assert all(torch.equal(a, b) for a, b in zip(plain, outs[:h]))
+
+
+@pytest.mark.parametrize("h", [1, 4])
+@pytest.mark.parametrize("k", KS)
+def test_tm_buckets_vs_jnp(rng, k, h):
+    wlog = 12
+    codes = _codes(rng)
+    ref = kmer_jnp.hash_kmers(jnp.asarray(codes), k, h)
+    want = np.where(np.asarray(ref.valid)[..., None],
+                    (ref.hashes.to_np() & np.uint64((1 << wlog) - 1))
+                    .astype(np.int32), 1 << wlog)
+    outs = hash_kmers_tm_plain(_tm(codes), k, h, emit_buckets=wlog)
+    assert all(o.dtype == torch.int32 for o in outs)
+    got = np.stack([o.numpy().T for o in outs], axis=-1)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("h", [1, 4])
+@pytest.mark.parametrize("k", KS)
+def test_batch_major_engine_vs_jnp(rng, k, h):
+    codes = _codes(rng)
+    ref = kmer_jnp.hash_kmers(jnp.asarray(codes), k, h)
+    res = kmer_torch.hash_kmers(torch.from_numpy(codes), k, h)
+    assert np.array_equal(to_numpy_u64(res.hashes), ref.hashes.to_np())
+    assert np.array_equal(to_numpy_u64(res.fwd), ref.fwd.to_np())
+    assert np.array_equal(to_numpy_u64(res.rev), ref.rev.to_np())
+    assert np.array_equal(res.valid.numpy(), np.asarray(ref.valid))
+    hashes, valid = hash_kmers_batch(torch.from_numpy(codes), k, h)
+    assert torch.equal(hashes, res.hashes)
+    assert torch.equal(valid, res.valid)
+
+
+@pytest.mark.parametrize("k", KS)
+def test_vs_oracle(rng, k):
+    codes = rng.integers(0, 5, size=(2, L), dtype=np.uint8)
+    res = kmer_torch.hash_kmers(torch.from_numpy(codes), k, 4)
+    outs = hash_kmers_tm_plain(_tm(codes), k, 4, emit_fwd_rev=True)
+    for b in range(2):
+        fwd, rev, hashes, valid = oracle.hash_all_windows(codes[b], k, 4)
+        assert np.array_equal(to_numpy_u64(res.hashes[b]), hashes)
+        assert np.array_equal(res.valid[b].numpy(), valid)
+        assert np.array_equal(to_numpy_u64(outs[4][:, b]), fwd)
+        assert np.array_equal(to_numpy_u64(outs[5][:, b]), rev)
+
+
+@pytest.mark.parametrize("k", [1, 5, 32])
+def test_window_valid_vs_jnp(rng, k):
+    codes = _codes(rng)
+    want = np.asarray(kmer_jnp.window_valid(jnp.asarray(codes), k))
+    assert np.array_equal(
+        kmer_torch.window_valid(torch.from_numpy(codes), k).numpy(), want)
+    tm = _tm(codes)
+    want_tm = np.asarray(kmer_jnp.window_valid_tm(jnp.asarray(tm.numpy()), k))
+    assert np.array_equal(kmer_torch.window_valid_tm(tm, k).numpy(), want_tm)
+
+
+def test_plane_tables_vs_jnp():
+    for k in KS:
+        assert tuple(kmer_torch.plane_tables(k)) == tuple(kmer_jnp.plane_tables(k))
+
+
+def test_golden_readme_k5():
+    codes = np.tile(encode_ascii(README_SEQ), (3, 1))
+    outs = hash_kmers_tm(_tm(codes), 5, 1, emit_fwd_rev=True)
+    canon, fwd, rev = (to_numpy_u64(o) for o in outs)
+    res = kmer_torch.hash_kmers(torch.from_numpy(codes[0]), 5, 1)
+    for pos, f, r, c in README_K5:
+        assert (fwd[pos] == f).all() and (rev[pos] == r).all()
+        assert (canon[pos] == c).all()
+        assert to_numpy_u64(res.hashes)[pos, 0] == c
+        assert to_numpy_u64(res.fwd)[pos] == f
+    assert res.valid.all()
+
+
+def test_golden_acatg_multihash():
+    codes = encode_ascii("ACATGCATGCA")[None]
+    outs = [to_numpy_u64(o) for o in hash_kmers_tm(_tm(codes), 5, 3)]
+    res = to_numpy_u64(kmer_torch.hash_kmers(torch.from_numpy(codes), 5, 3).hashes)
+    for pos, vals in ACATG_VECTORS:
+        assert tuple(int(o[pos, 0]) for o in outs) == vals
+        assert tuple(int(x) for x in res[0, pos]) == vals
+
+
+def test_buckets_vs_pallas_interpret(rng):
+    """One tiny case through the Pallas kernel itself (interpret mode,
+    eager: under jit its unrolled steps take minutes to compile)."""
+    from nthash_tpu.ops import kmer_pallas
+
+    codes = rng.integers(0, 6, size=(4, 21), dtype=np.uint8)
+    with jax.disable_jit():
+        tm_j = kmer_pallas.prepare_codes(jnp.asarray(codes), 1)
+        want = kmer_pallas.hash_kmers_tm(tm_j, 5, 2, emit_buckets=10,
+                                         interpret=True)
+        want = [np.asarray(w)[:, :4] for w in want]
+    got = hash_kmers_tm(_tm(codes), 5, 2, emit_buckets=10)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), w)
+
+
+def test_prepare_codes_layout():
+    codes = torch.tensor([[0, 1, 2, 3, 4, 5, 200]], dtype=torch.uint8)
+    tm = prepare_codes(codes)
+    assert tm.dtype == torch.int32 and tm.shape == (7, 1) and tm.is_contiguous()
+    assert tm[:, 0].tolist() == [0, 1, 2, 3, 4, 4, 4]
+    assert prepare_codes(torch.zeros((3, 30), dtype=torch.uint8)).shape == (30, 3)
+
+
+def test_cpu_route_launches_no_kernel(rng):
+    before = kmer_kernel.LAUNCHES
+    hash_kmers_tm(_tm(_codes(rng)), 5, 2, emit_buckets=10)
+    hash_kmers_tm(_tm(_codes(rng)), 5, 2)
+    assert kmer_kernel.LAUNCHES == before
+
+
+def test_auto_is_the_one_kernel(rng):
+    tm = _tm(_codes(rng))
+    assert hash_kmers_tm_auto is hash_kmers_tm
+    for a, b in zip(hash_kmers_tm(tm, 9, 2), hash_kmers_tm_plain(tm, 9, 2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad,err", [
+    (dict(codes=torch.zeros((10, 3), dtype=torch.int64)), TypeError),
+    (dict(codes=torch.zeros((3, 10), dtype=torch.int32).T), ValueError),
+    (dict(k=0), ValueError),
+    (dict(k=11), ValueError),
+    (dict(h=0), ValueError),
+    (dict(emit_fwd_rev=True, emit_buckets=10), ValueError),
+    (dict(emit_buckets=31), ValueError),
+    (dict(codes=torch.zeros((10, 3), dtype=torch.int32, device="meta")),
+     ValueError),
+])
+def test_wrapper_rejects(bad, err):
+    codes = bad.get("codes", torch.zeros((10, 3), dtype=torch.int32))
+    with pytest.raises(err):
+        hash_kmers_tm(codes, bad.get("k", 5), bad.get("h", 1),
+                      emit_fwd_rev=bad.get("emit_fwd_rev", False),
+                      emit_buckets=bad.get("emit_buckets"))
+
+
+def test_engine_rejects_short_and_bad_k():
+    with pytest.raises(ValueError, match="smaller than k"):
+        kmer_torch.hash_kmers(torch.zeros(4, dtype=torch.uint8), 5)
+    with pytest.raises(ValueError, match="greater than 0"):
+        kmer_torch.hash_kmers(torch.zeros(4, dtype=torch.uint8), 0)

@@ -1,0 +1,319 @@
+"""The port's sketch and streaming pipeline against the JAX package, exactly.
+
+JAX's ``count_file`` runs its Pallas kernels in interpret mode on the CPU,
+far too slowly for these tests, so the port's fused ``count_file`` is held
+against JAX's ``run_file`` (the jnp engine plus scatter counting), which
+builds the same sketch.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nthash_tpu.io import native_loader as jax_native_loader
+from nthash_tpu.models import pipeline as jpipe
+from nthash_tpu.models import sketch as jcms
+from nthash_tpu.ops import kmer_jnp
+from nthash_tpu.utils import checkpoint as jckpt
+from nthash_tpu_torch.io.stream import stream_code_batches
+from nthash_tpu_torch.models import sketch as cms
+from nthash_tpu_torch.models.pipeline import (
+    PipelineConfig,
+    ReadHashingPipeline,
+    fused_count_step,
+)
+from nthash_tpu_torch.ops.kmer_kernel import prepare_codes
+from nthash_tpu_torch.ops.kmer_torch import hash_kmers
+from nthash_tpu_torch.u64 import to_numpy_u64
+from nthash_tpu_torch.utils import checkpoint
+
+K, H, WL = 9, 3, 12
+CPU = torch.device("cpu")
+needs_native = pytest.mark.skipif(
+    not jax_native_loader.available(), reason="no C++ toolchain")
+
+
+@pytest.fixture
+def fastq(tmp_path, rng):
+    """300 reads of 40 bp with N: batches of 128 leave a partial last one."""
+    path = tmp_path / "reads.fq"
+    n, L = 300, 40
+    seqs = np.frombuffer(b"ACGTN", np.uint8)[rng.integers(0, 5, size=(n, L))]
+    with open(path, "wb") as f:
+        for i in range(n):
+            f.write(b"@r%d\n" % i + seqs[i].tobytes() + b"\n+\n" + b"I" * L
+                    + b"\n")
+    return path, n, L
+
+
+def _jax_reference_rows(codes, k, h, wl):
+    """The JAX jnp reference step (as __graft_entry__.entry runs it)."""
+    res = kmer_jnp.hash_kmers(jnp.asarray(codes), k, h)
+    sk = jcms.update(jcms.CountMinSketch.zeros(h, wl), res.hashes, res.valid,
+                     wl, ingestion="scatter")
+    return np.asarray(sk.rows)
+
+
+def _cfg(**kw):
+    return PipelineConfig(**{"k": K, "num_hashes": H, "sketch_width_log2": WL,
+                             **kw})
+
+
+def _jax_pipe(**kw):
+    return jpipe.ReadHashingPipeline(jpipe.PipelineConfig(
+        **{"k": K, "num_hashes": H, "sketch_width_log2": WL, "n_devices": 1,
+           **kw}))
+
+
+@pytest.mark.parametrize("k,h,wl", [(9, 3, 12), (32, 4, 14), (5, 1, 10)])
+def test_fused_count_step_vs_jnp(rng, k, h, wl):
+    codes = rng.integers(0, 5, size=(6, 60), dtype=np.uint8)
+    sk = cms.CountMinSketch.zeros(h, wl, CPU)
+    out = fused_count_step(prepare_codes(torch.from_numpy(codes)), sk, k)
+    assert out is sk  # updated in place
+    assert np.array_equal(sk.to_numpy(), _jax_reference_rows(codes, k, h, wl))
+
+
+def test_update_vs_jnp(rng):
+    codes = rng.integers(0, 5, size=(6, 60), dtype=np.uint8)
+    res = hash_kmers(torch.from_numpy(codes), K, H)
+    sk = cms.update(cms.CountMinSketch.zeros(H, WL, CPU), res.hashes,
+                    res.valid, WL)
+    assert np.array_equal(sk.to_numpy(), _jax_reference_rows(codes, K, H, WL))
+    # a second update accumulates
+    cms.update(sk, res.hashes, res.valid, WL)
+    assert np.array_equal(sk.to_numpy(),
+                          2 * _jax_reference_rows(codes, K, H, WL))
+
+
+def test_query_merge_vs_jnp(rng):
+    codes = rng.integers(0, 5, size=(4, 50), dtype=np.uint8)
+    res = hash_kmers(torch.from_numpy(codes), K, H)
+    sk = cms.update(cms.CountMinSketch.zeros(H, WL, CPU), res.hashes,
+                    res.valid, WL)
+    jres = kmer_jnp.hash_kmers(jnp.asarray(codes), K, H)
+    jsk = jcms.update(jcms.CountMinSketch.zeros(H, WL), jres.hashes,
+                      jres.valid, WL, ingestion="scatter")
+    assert np.array_equal(cms.query(sk, res.hashes, WL).numpy(),
+                          np.asarray(jcms.query(jsk, jres.hashes, WL)))
+    rows_t = [res.hashes[..., i].T for i in range(H)]
+    assert torch.equal(cms.query_rows(sk, rows_t, WL),
+                       cms.query(sk, res.hashes, WL).T)
+    merged = cms.merge(sk, sk)
+    assert np.array_equal(merged.to_numpy(),
+                          np.asarray(jcms.merge(jsk, jsk).rows))
+
+
+def test_update_from_buckets_guards(rng):
+    sk = cms.CountMinSketch.zeros(2, WL, CPU)
+    b = torch.zeros((3, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="sketch rows"):
+        cms.update_from_buckets(sk, [b])
+    with pytest.raises(ValueError, match="emitted at width"):
+        cms.update_from_buckets(sk, [b, b], emitted_width_log2=WL - 1)
+    cms.update_from_buckets(sk, [b, b + (1 << WL)], emitted_width_log2=WL)
+    assert sk.rows[0, 0] == 12 and sk.rows[1].sum() == 0  # sentinel dropped
+
+
+@pytest.mark.parametrize("time_major", [True, False])
+def test_step_and_query_vs_jax(rng, time_major):
+    codes = rng.integers(0, 5, size=(8, 30), dtype=np.uint8)
+    pipe = ReadHashingPipeline(_cfg(time_major=time_major), device=CPU)
+    jp = _jax_pipe(time_major=time_major)
+    hashes, valid = pipe.step(codes)
+    jh, jv = jp.step(codes)
+    assert np.array_equal(valid.numpy(), np.asarray(jv))
+    if time_major:
+        assert len(hashes) == H
+        for a, b in zip(hashes, jh):
+            assert np.array_equal(to_numpy_u64(a), b.to_np())
+    else:
+        assert np.array_equal(to_numpy_u64(hashes), jh.to_np())
+    assert np.array_equal(pipe.sketch.to_numpy(), np.asarray(jp.sketch.rows))
+    assert np.array_equal(pipe.query(hashes).numpy(), np.asarray(jp.query(jh)))
+
+
+def test_count_file_vs_jax_run_file(fastq):
+    path, n, L = fastq
+    pipe = ReadHashingPipeline(_cfg(), device=CPU)
+    assert pipe.count_file(path, batch_size=128) == n
+    jp = _jax_pipe()
+    jtotal = jp.run_file(path, batch_size=128, read_length=L)
+    assert np.array_equal(pipe.sketch.to_numpy(), np.asarray(jp.sketch.rows))
+    assert int(pipe.sketch.rows[0].sum()) == jtotal
+    # run_file: the full-hash step path builds the same sketch and total
+    pipe2 = ReadHashingPipeline(_cfg(), device=CPU)
+    assert pipe2.run_file(path, batch_size=128) == jtotal
+    assert torch.equal(pipe2.sketch.rows, pipe.sketch.rows)
+
+
+def _crashed_run(path, batches, batch_size, L):
+    """The state of a run that checkpointed after ``batches`` batches."""
+    sk = cms.CountMinSketch.zeros(H, WL, CPU)
+    reads = offset = 0
+    for i, (batch, m, off) in enumerate(
+            stream_code_batches(path, batch_size, L, with_offsets=True)):
+        if i == batches:
+            break
+        fused_count_step(prepare_codes(torch.from_numpy(batch)), sk, K)
+        reads, offset = reads + m, off
+    ctx = {"input": f"{path.name}:{path.stat().st_size}",
+           "batch_size": batch_size, "k": K, "num_hashes": H,
+           "sketch_width_log2": WL}
+    return sk, reads, offset, ctx
+
+
+@needs_native
+def test_checkpoint_resume(fastq, tmp_path):
+    path, n, L = fastq
+    ref = ReadHashingPipeline(_cfg(), device=CPU)
+    assert ref.count_file(path, batch_size=64) == n
+    sk, reads, offset, ctx = _crashed_run(path, 2, 64, L)
+    assert 0 < offset < path.stat().st_size
+    ckpt = tmp_path / "stream.ckpt.npz"
+    checkpoint.save(ckpt, {"rows": sk.rows, "reads": np.int64(reads),
+                           "offset": np.int64(offset)}, context=ctx)
+    resumed = ReadHashingPipeline(_cfg(), device=CPU)
+    assert resumed.count_file(path, batch_size=64, checkpoint_path=ckpt) == n
+    assert torch.equal(resumed.sketch.rows, ref.sketch.rows)
+    # the final checkpoint holds the whole stream
+    state = checkpoint.load(ckpt, {"rows": ref.sketch.rows,
+                                   "reads": np.int64(0),
+                                   "offset": np.int64(0)})
+    assert int(state["reads"]) == n
+    assert int(state["offset"]) == path.stat().st_size
+    assert torch.equal(state["rows"], ref.sketch.rows)
+
+
+@needs_native
+def test_checkpoint_every_and_context_mismatch(fastq, tmp_path):
+    path, n, L = fastq
+    ckpt = tmp_path / "every.npz"
+    pipe = ReadHashingPipeline(_cfg(), device=CPU)
+    assert pipe.count_file(path, batch_size=64, checkpoint_path=ckpt,
+                           checkpoint_every=1) == n
+    other = ReadHashingPipeline(_cfg(k=K + 1), device=CPU)
+    with pytest.raises(ValueError, match="context mismatch"):
+        other.count_file(path, batch_size=64, checkpoint_path=ckpt)
+
+
+@needs_native
+def test_jax_checkpoint_resumes_in_port(fastq, tmp_path):
+    path, n, L = fastq
+    _, reads, offset, ctx = _crashed_run(path, 2, 64, L)
+    # the JAX package counts the first two batches and checkpoints them
+    jp = _jax_pipe()
+    from nthash_tpu.io.stream import stream_code_batches as jstream
+
+    for i, (batch, m, off) in enumerate(
+            jstream(path, 64, L, with_offsets=True)):
+        if i == 2:
+            break
+        jp.step(batch)
+        assert off <= offset
+    ckpt = tmp_path / "jax.ckpt.npz"
+    jckpt.save(ckpt, {"rows": jp.sketch.rows, "reads": np.int64(reads),
+                      "offset": np.int64(offset)}, context=ctx)
+    resumed = ReadHashingPipeline(_cfg(), device=CPU)
+    assert resumed.count_file(path, batch_size=64, checkpoint_path=ckpt) == n
+    ref = ReadHashingPipeline(_cfg(), device=CPU)
+    ref.count_file(path, batch_size=64)
+    assert torch.equal(resumed.sketch.rows, ref.sketch.rows)
+
+
+def test_port_checkpoint_loads_in_jax(tmp_path, rng):
+    rows = rng.integers(-5, 100, size=(H, 1 << WL)).astype(np.int32)
+    ckpt = tmp_path / "port.ckpt.npz"
+    checkpoint.save(ckpt, {"rows": torch.from_numpy(rows),
+                           "reads": np.int64(7), "offset": np.int64(1234)},
+                    context={"k": K})
+    state = jckpt.load(ckpt, {"rows": jnp.zeros((H, 1 << WL), jnp.int32),
+                              "reads": np.int64(0), "offset": np.int64(0)},
+                       expect_context={"k": K})
+    assert np.array_equal(np.asarray(state["rows"]), rows)
+    assert int(state["reads"]) == 7 and int(state["offset"]) == 1234
+    # and the file itself is what the JAX package writes
+    jfile = tmp_path / "jax.ckpt.npz"
+    jckpt.save(jfile, {"rows": jnp.asarray(rows), "reads": np.int64(7),
+                       "offset": np.int64(1234)}, context={"k": K})
+    meta = [np.load(p)["__meta__"].tobytes() for p in (ckpt, jfile)]
+    assert meta[0] == meta[1]
+
+
+@pytest.mark.parametrize("like", [
+    {"rows": torch.zeros((2, 16), dtype=torch.int32)},
+    {"rows": torch.zeros((1, 8), dtype=torch.int32), "reads": np.int64(0),
+     "offset": np.int64(0)},
+])
+def test_checkpoint_rejects_other_structure(tmp_path, like):
+    p = tmp_path / "c.npz"
+    checkpoint.save(p, {"rows": torch.zeros((1, 16), dtype=torch.int32),
+                        "reads": np.int64(0), "offset": np.int64(0)})
+    with pytest.raises(ValueError):
+        checkpoint.load(p, like)
+
+
+def test_checkpoint_fn_name_guard(tmp_path, monkeypatch):
+    p = tmp_path / "c.npz"
+    sk = cms.CountMinSketch.zeros(2, 10, CPU)
+    checkpoint.save(p, sk)
+    assert torch.equal(checkpoint.load(p, sk).rows, sk.rows)
+    monkeypatch.setattr(checkpoint, "NTHASH_FN_NAME", "ntHash_v999")
+    with pytest.raises(ValueError, match="hash function"):
+        checkpoint.load(p, sk)
+
+
+def test_checkpoint_leaf_paths_match_jax(tmp_path):
+    """Structures beyond count_file's dict flatten in JAX's order."""
+    state = {"b": (np.arange(3), [np.ones(2)]),
+             "a": jcms.CountMinSketch(np.zeros((1, 4), np.int32))}
+    p = tmp_path / "tree.npz"
+    checkpoint.save(p, state)
+    back = jckpt.load(p, state)
+    assert np.array_equal(back["b"][0], np.arange(3))
+    assert np.array_equal(np.asarray(back["a"].rows), np.zeros((1, 4)))
+
+
+def test_from_numpy_roundtrip(rng):
+    jrows = jcms.CountMinSketch.zeros(H, WL).rows.at[1, 7].add(3)
+    sk = cms.CountMinSketch.from_numpy(np.asarray(jrows), CPU)
+    assert sk.rows.dtype == torch.int32 and sk.width == 1 << WL
+    assert np.array_equal(sk.to_numpy(), np.asarray(jrows))
+    with pytest.raises(TypeError):
+        cms.CountMinSketch.from_numpy(np.zeros((2, 8), np.int64), CPU)
+
+
+def test_wide_widths_raise(rng):
+    with pytest.raises(NotImplementedError, match="A3"):
+        ReadHashingPipeline(PipelineConfig(), device=CPU)  # default 2**20
+    with pytest.raises(NotImplementedError, match="A3"):
+        ReadHashingPipeline(_cfg(sketch_width_log2=19), device=CPU)
+    ReadHashingPipeline(_cfg(sketch_width_log2=18), device=CPU)
+    tm = prepare_codes(torch.zeros((2, 20), dtype=torch.uint8))
+    with pytest.raises(NotImplementedError, match="A3"):
+        fused_count_step(tm, cms.CountMinSketch.zeros(2, 19, CPU), 5)
+    res = hash_kmers(torch.zeros((2, 20), dtype=torch.uint8), 5, 2)
+    with pytest.raises(NotImplementedError, match="A3"):
+        cms.update(cms.CountMinSketch.zeros(2, 21, CPU), res.hashes,
+                   res.valid, 21)
+
+
+@pytest.mark.parametrize("cfg,err", [
+    (dict(n_devices=2), NotImplementedError),
+    (dict(pack_h2d=True), NotImplementedError),
+    (dict(engine="pallas"), ValueError),
+    (dict(engine="torch"), ValueError),
+])
+def test_unported_options_raise(cfg, err):
+    with pytest.raises(err):
+        ReadHashingPipeline(_cfg(**cfg), device=CPU)
+
+
+def test_parallel_parse_raises(fastq):
+    path, *_ = fastq
+    pipe = ReadHashingPipeline(_cfg(), device=CPU)
+    with pytest.raises(NotImplementedError):
+        pipe.count_file(path, threads=2)
+    with pytest.raises(NotImplementedError):
+        pipe.run_file(path, threads=2)
