@@ -6,18 +6,31 @@ Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and nvcc; it
 imports nothing of JAX. Phases, each printing its own lines:
 
 1. environment: card name and power limit, torch / CUDA / nvcc versions;
-2. build both CUDA kernels from ``nthash_tpu_torch/csrc`` and time it;
+2. build the three CUDA sources from ``nthash_tpu_torch/csrc`` (one nvcc
+   each, all at once) and print each kernel's registers and spills;
 3. golden ntHash2 vectors through the rolling-hash kernel;
 4. each kernel against its plain PyTorch version on the card, exact (the
    hash kernel also on one full main-path batch of 2**18 reads);
-5. the main path: ``ReadHashingPipeline.count_file`` over a 1M-read,
-   150-bp FASTQ at k=32, 4 hashes, sketch width 2**14, checked against the
-   plain hash->count on the same codes, with both kernels' launch counts;
+5. the width-2**14 path: ``ReadHashingPipeline.count_file`` over a 1M-read,
+   150-bp FASTQ at k=32, 4 hashes, checked against the plain hash->count,
+   with both kernels' launch counts;
 6. timings (median of 5 CUDA-event timings after warm-up) of each kernel
-   and its plain version at the main path's shapes, the fused step and
+   and its plain version at that path's shapes, the fused step and
    ``count_file``;
-7. one warm ``count_file`` under ``torch.profiler``: device busy time, the
-   device's idle share, and device time per kernel and copy.
+7. one warm ``count_file`` at 2**14 under ``torch.profiler``: device busy
+   time, the device's idle share, device time per kernel and copy;
+8. the partition kernels against their plain versions at every planned
+   width 2**19..2**30, the partitioned histogram against the plain one
+   (sparsely at 2**30), a skewed stream through the gated fallback and a
+   mostly-sentinel stream that must not trip it;
+9. the main path at ``PipelineConfig()`` (width 2**20): ``count_file`` over
+   the same FASTQ against the plain hash->count, every kernel's launch
+   count, each partition kernel against its plain version on the main
+   path's own batches, and whether the overflow flag fired;
+10. timings at 2**20: each partition kernel, its plain version, its bound
+   and ``torch.sort``; the sub-histograms; the direct histogram at full
+   width as a yardstick the path does not use; the fused step,
+   ``count_file``, and one traced ``count_file`` for the idle share.
 
 A failed check raises, so the exit code is not 0. The line before the last
 is the kernels' JSON record; the last line is ``{"ok": true, "device": ...}``.
@@ -27,10 +40,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -46,6 +61,7 @@ from nthash_tpu_torch.models.pipeline import (
     fused_count_step,
 )
 from nthash_tpu_torch.ops import cuda_build, hist_kernel, kmer_kernel
+from nthash_tpu_torch.ops import part_kernel as pk
 from nthash_tpu_torch.ops.hist_kernel import histogram_rows, histogram_rows_plain
 from nthash_tpu_torch.ops.kmer_kernel import (
     hash_kmers_tm,
@@ -119,18 +135,26 @@ def phase_env() -> tuple[str, str]:
     return smi, torch.cuda.get_device_name(0)
 
 
+SOURCES = ("kmer_hash", "histogram", "partition")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
-    for name in ("kmer_hash", "histogram"):
-        cuda_build.build(name)
+    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source
+        list(pool.map(cuda_build.build, SOURCES))
+    for name in SOURCES:
         cuda_build.load(name)
-    print(f"[build] both kernels built and loaded in "
+    print(f"[build] {len(SOURCES)} sources built and loaded in "
           f"{time.perf_counter() - t0:.3f} s")
-    for name, log in cuda_build.BUILD_LOGS.items():
-        regs = [ln.replace("ptxas info    :", "").strip()
-                for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"[build] {name}: {'; '.join(regs)}")
+    for name in SOURCES:
+        kernel = "?"
+        for ln in cuda_build.BUILD_LOGS.get(name, "").splitlines():
+            m = re.search(r"([a-z][a-z_]*_kernel)[EI]", ln)
+            if m:
+                kernel = m.group(1)
+            elif "spill" in ln or "registers" in ln:
+                print(f"[build] {name} {kernel}: "
+                      f"{ln.replace('ptxas info    :', '').strip()}")
 
 
 def phase_golden(dev) -> None:
@@ -285,7 +309,16 @@ def phase_timings(codes: np.ndarray, path: Path, pipe, dev, card: str):
     both(f"histogram {H} rows x {idx.shape[1]} at 2**{WLOG}", idx.numel(),
          "updates", lambda x: histogram_rows(x, None, WLOG),
          lambda x: histogram_rows_plain(x, None, WLOG), idx)
-    del idx
+    # the library call: one bincount over row * (width + 1) + idx, invalid
+    # windows in each row's spare bin (preparation untimed)
+    spare = (idx.long() + torch.arange(H, device=dev)[:, None]
+             * ((1 << WLOG) + 1)).reshape(-1)
+    times["library histogram"] = timeit(
+        lambda x: torch.bincount(x, minlength=H * ((1 << WLOG) + 1)),
+        spare).seconds_per_call
+    print(f"[time] library torch.bincount for the histogram above: "
+          f"{times['library histogram'] * 1e3:.4f} ms {tag}")
+    del idx, spare
     torch.cuda.empty_cache()
 
     sk = cms.CountMinSketch.zeros(H, WLOG, dev)
@@ -339,6 +372,346 @@ def phase_trace(path: Path, pipe, dev, card: str) -> None:
     for name, (t, n) in sorted(tr.by_name.items(), key=lambda kv: -kv[1][0]):
         print(f"[trace]   {t * 1e3:9.3f} ms  x{n:<3d} {name[:90]}")
 
+# ------------------------------------------------ the partitioned path ----
+
+WIDE = 20            # PipelineConfig()'s width: the main path of this slice
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+PART_KERNELS = ("sort_tiles", "merge_phase", "partition_bounds", "windows")
+
+
+def bound_ms(nbytes: float) -> float:
+    """The least time for a function that must move ``nbytes`` (each input
+    read once, each output written once) at the card's memory rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def check_partition_kernels(chunks, sub_log2, p_log2, cap, errs) -> torch.Tensor:
+    """Each partition kernel against its plain version on the same inputs,
+    exact; returns the kernels' overflow flags (on the device)."""
+    chunk = chunks.shape[2] * pk.LANES
+
+    def same(name, got, want):
+        errs[name] = max(errs[name], max_abs_err(got, want))
+        require(torch.equal(got, want), f"{name} != plain, chunk {chunk}, "
+                f"P 2**{p_log2}, {tuple(chunks.shape)}")
+
+    x, tile = pk.sort_tiles(chunks)
+    same("sort_tiles", x, pk.sort_tiles_plain(chunks, tile))
+    k = 2 * tile
+    while k <= chunk:
+        want = pk.merge_phase_plain(x, k)
+        pk.merge_phase(x, tile, k)
+        same("merge_phase", x, want)
+        k *= 2
+    fb, flags = pk.partition_bounds(x, sub_log2, p_log2, cap)
+    pfb, pflags = pk.partition_bounds_plain(x, sub_log2, p_log2, cap)
+    same("partition_bounds", fb, pfb)
+    same("partition_bounds", flags, pflags)
+    same("windows", pk.windows(x, fb, p_log2, sub_log2, cap),
+         pk.partition_windows_plain(x, pfb, p_log2, sub_log2, cap_rows=cap))
+    return flags
+
+
+def phase_partition_widths(rng, dev) -> dict:
+    """Phase 8: the partition kernels at every planned width, the whole
+    partitioned histogram against the plain one, skew and sentinels."""
+    errs = dict.fromkeys(PART_KERNELS, 0.0)
+    for wl in range(pk.PART_MIN_WIDTH_LOG2, pk.PART_MAX_WIDTH_LOG2 + 1):
+        p_log2, sub_log2, rows, cap = pk.plan(wl)
+        x = torch.from_numpy(rng.integers(0, (1 << wl) + 1,
+                                          size=(2, 8, rows, pk.LANES),
+                                          dtype=np.int32)).to(dev)
+        flags = check_partition_kernels(x, sub_log2, p_log2, cap, errs)
+        srt, fb = pk.sort_chunks(x, sub_log2, p_log2)
+        psrt, pfb = pk.sort_chunks_plain(x, sub_log2, p_log2)
+        over = pk.check_overflow(fb, p_log2, srt, sub_log2, cap)
+        require(torch.equal(srt, psrt) and torch.equal(fb, pfb),
+                f"sort_chunks != plain at 2**{wl}")
+        require(bool(over) == bool(pk.check_overflow_plain(
+            pfb, p_log2, psrt, sub_log2, cap)) == bool(flags[0]),
+            f"overflow flag != plain at 2**{wl}")
+        wins = pk.partition_windows(srt, fb, p_log2, sub_log2, cap_rows=cap)
+        require(torch.equal(wins, pk.partition_windows_plain(
+            psrt, pfb, p_log2, sub_log2, cap_rows=cap)),
+            f"partition_windows != plain at 2**{wl}")
+        print(f"[check] 2**{wl}: sort_chunks, table, flag ({bool(over)}) and "
+              f"windows == plain on 2 rows x 8 chunks of {rows} x 128, "
+              f"P 2**{p_log2}, cap {cap}")
+        del x, srt, psrt, wins
+    n = 1 << 22
+    for wl in (19, 20, 22, 26):
+        width = 1 << wl
+        idx = rng.integers(0, width, size=(4, n)).astype(np.int32)
+        idx[:, rng.random(n) < 0.01] = -1
+        idx[:, rng.random(n) < 0.01] = width
+        idx_d = torch.from_numpy(idx).to(dev)
+        got = pk.partitioned_histogram_rows(idx_d, wl)
+        require(torch.equal(got, histogram_rows_plain(idx_d, None, wl)),
+                f"partitioned_histogram_rows != plain at 2**{wl}")
+        print(f"[check] partitioned_histogram_rows == histogram_rows_plain at "
+              f"2**{wl}, 4 rows x 2**22 with -1 and width sentinels")
+        del idx_d, got
+    torch.cuda.empty_cache()
+    idx = torch.from_numpy(rng.integers(-1, (1 << 30) + 1, size=(1, n))
+                           .astype(np.int32)).to(dev)
+    got = pk.partitioned_histogram_rows(idx, 30)[0]
+    valid = idx[0][(idx[0] >= 0) & (idx[0] < (1 << 30))].long()
+    vals, cnt = torch.unique(valid, return_counts=True)
+    require(torch.equal(got[vals].long(), cnt)
+            and int(got.sum(dtype=torch.int64)) == valid.numel(),
+            "partitioned_histogram_rows at 2**30 != unique counts")
+    print(f"[check] partitioned_histogram_rows at 2**30, 1 row x 2**22: the "
+          f"{vals.numel()} counted buckets equal torch.unique's counts, row "
+          f"sum {valid.numel()}")
+    del idx, got, valid, vals, cnt
+    torch.cuda.empty_cache()
+    p_log2, sub_log2, rows, cap = pk.plan(WIDE)
+    skew = torch.full((1, 1 << 20), 77, dtype=torch.int32, device=dev)
+    srt, fb = pk.sort_chunks(pk._pad_chunks(skew, 1 << WIDE, rows * pk.LANES),
+                             sub_log2, p_log2)
+    require(bool(pk.check_overflow(fb, p_log2, srt, sub_log2, cap)),
+            "the all-identical stream must set the overflow flag")
+    got = pk.partitioned_histogram_rows(skew, WIDE)
+    require(int(got[0, 77]) == 1 << 20 and int(got.sum()) == 1 << 20,
+            "the gated fallback must count the skewed stream exactly")
+    sent = torch.full((1, 1 << 20), 1 << WIDE, dtype=torch.int32, device=dev)
+    sent[0, :130] = torch.from_numpy(rng.integers(0, 1 << WIDE, size=130,
+                                                  dtype=np.int32)).to(dev)
+    srt, fb = pk.sort_chunks(pk._pad_chunks(sent, 1 << WIDE, rows * pk.LANES),
+                             sub_log2, p_log2)
+    require(not bool(pk.check_overflow(fb, p_log2, srt, sub_log2, cap)),
+            "a mostly-sentinel stream must not set the overflow flag")
+    require(torch.equal(pk.partitioned_histogram_rows(sent, WIDE),
+                        histogram_rows_plain(sent, None, WIDE)),
+            "mostly-sentinel stream != plain")
+    print("[check] 2**20: all-identical 1 x 2**20 stream sets the flag and "
+          "counts exactly through the gated fallback; a mostly-sentinel "
+          "stream does not set it")
+    return errs
+
+
+def wide_batches(codes: np.ndarray, dev):
+    """(chunks, valid) of every main-path batch at 2**20, as count_file
+    feeds them to the partition kernels."""
+    _, _, rows, _ = pk.plan(WIDE)
+    out = []
+    for s in range(0, codes.shape[0], BATCH):
+        tm = prepare_codes(torch.from_numpy(codes[s:s + BATCH]).to(dev))
+        b = torch.stack([x.reshape(-1) for x in
+                         hash_kmers_tm(tm, K, H, emit_buckets=WIDE)])
+        out.append(pk._pad_chunks(b, 1 << WIDE, rows * pk.LANES))
+    return out
+
+
+def phase_main_wide(codes: np.ndarray, path: Path, dev, errs: dict):
+    """Phase 9: count_file at PipelineConfig(), width 2**20."""
+    cfg = PipelineConfig()
+    require((cfg.k, cfg.num_hashes, cfg.sketch_width_log2) == (K, H, WIDE),
+            f"PipelineConfig() is {cfg}")
+    pipe = ReadHashingPipeline(cfg, device=dev)
+    kmer_kernel.LAUNCHES = 0
+    hist_kernel.LAUNCHES = 0
+    for name in pk.LAUNCHES:
+        pk.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    reads = pipe.count_file(path, batch_size=BATCH)
+    seconds = time.perf_counter() - t0
+    launches = {"kmer_hash": kmer_kernel.LAUNCHES,
+                "histogram": hist_kernel.LAUNCHES, **pk.LAUNCHES}
+    require(reads == N_READS, f"count_file streamed {reads} reads")
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the 2**20 main path never launched: {launches}")
+    want = torch.zeros((H, 1 << WIDE), dtype=torch.int64, device=dev)
+    for s in range(0, codes.shape[0], BATCH):
+        tm = prepare_codes(torch.from_numpy(codes[s:s + BATCH]).to(dev))
+        for r, b in enumerate(hash_kmers_tm_plain(tm, K, H, emit_buckets=WIDE)):
+            want[r] += histogram_rows_plain(b.reshape(1, -1), None, WIDE)[0]
+    require(torch.equal(pipe.sketch.rows.long(), want),
+            "count_file sketch at 2**20 != plain hash->count")
+    nvalid = valid_windows(codes, K)
+    require(int(want[0].sum()) == nvalid, "plain row sum != valid windows")
+    print(f"[main] count_file at PipelineConfig() (k={K}, h={H}, 2**{WIDE}): "
+          f"{reads} reads, {nvalid} valid {K}-mers per row, sketch == plain "
+          f"hash->count (int64); launches {launches}; first run "
+          f"{seconds:.3f} s")
+    # the partition kernels on the main path's own batches, against plain,
+    # and the overflow flag of every batch (read once, at the end)
+    p_log2, sub_log2, _, cap = pk.plan(WIDE)
+    batches = wide_batches(codes, dev)
+    fired = []
+    for i, chunks in enumerate(batches):
+        if i == 0:
+            fired.append(check_partition_kernels(chunks, sub_log2, p_log2,
+                                                 cap, errs)[0])
+        else:
+            x = pk._sorted(chunks)
+            fired.append(pk.partition_bounds(x, sub_log2, p_log2, cap)[1][0])
+            del x
+    fired = [int(f) for f in fired]
+    print(f"[main] partition kernels == plain on batch 0 ({tuple(batches[0].shape)}); "
+          f"overflow flag per batch {fired} (fired: {any(fired)})")
+    return pipe, launches, batches
+
+
+def time_prepared(prepare, fn, calls: int = 5) -> float:
+    """Median seconds of ``fn(prepare())`` by CUDA events around ``fn`` only,
+    after one warm-up: for a kernel that works in place."""
+    fn(prepare())
+    samples = []
+    for _ in range(calls):
+        x = prepare()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(x)
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end) / 1e3)
+    return statistics.median(samples)
+
+
+def phase_wide_timings(codes, path, pipe, batches, dev, card: str) -> dict:
+    """Phase 10: timings at 2**20, per 2**18-read batch and over 1M reads
+    (the sum over the four batches of each batch's median)."""
+    tag = f"[{card}]"
+    p_log2, sub_log2, rows, cap = pk.plan(WIDE)
+    p = 1 << p_log2
+    tot = {}   # name -> [kernel, plain, library or None, bytes] over 1M reads
+
+    def add(name, i, k_s, p_s, lib_s, nbytes):
+        row = tot.setdefault(name, [0.0, 0.0, None if lib_s is None else 0.0,
+                                    0.0])
+        row[0] += k_s
+        row[1] += p_s
+        if lib_s is not None:
+            row[2] += lib_s
+        row[3] += nbytes
+        if i == 0:
+            lib = "" if lib_s is None else f", library {lib_s * 1e3:.4f} ms"
+            print(f"[time] {name} batch 0: kernel {k_s * 1e3:.4f} ms, plain "
+                  f"{p_s * 1e3:.4f} ms{lib}, bound {bound_ms(nbytes):.4f} ms "
+                  f"{tag}")
+
+    for i, chunks in enumerate(batches):
+        r, g = chunks.shape[:2]
+        nbytes = chunks.numel() * 4
+        tiles, tile = pk.sort_tiles(chunks)
+        add("sort_tiles", i,
+            timeit(lambda x: pk.sort_tiles(x), chunks).seconds_per_call,
+            timeit(lambda x: pk.sort_tiles_plain(x, tile), chunks)
+            .seconds_per_call,
+            timeit(lambda x: torch.sort(x.view(r * g, -1), dim=-1), chunks)
+            .seconds_per_call, 2 * nbytes)
+        rounds = []
+        k = 2 * tile
+        while k <= rows * pk.LANES:
+            rounds.append(k)
+            k *= 2
+
+        def merges(x):
+            for k in rounds:
+                pk.merge_phase(x, tile, k)
+
+        def merges_plain(x):
+            for k in rounds:
+                x = pk.merge_phase_plain(x, k)
+            return x
+
+        add("merge_phase", i, time_prepared(tiles.clone, merges),
+            timeit(merges_plain, tiles).seconds_per_call, None,
+            2 * nbytes * len(rounds))
+        srt = pk._sorted(chunks)
+        fb, _ = pk.partition_bounds(srt, sub_log2, p_log2, cap)
+        add("partition_bounds", i,
+            timeit(lambda x: pk.partition_bounds(x, sub_log2, p_log2, cap),
+                   srt).seconds_per_call,
+            timeit(lambda x: pk.partition_bounds_plain(x, sub_log2, p_log2,
+                                                       cap), srt)
+            .seconds_per_call, None, (r * g * rows + r * g * p + 2) * 4)
+        wins = pk.windows(srt, fb, p_log2, sub_log2, cap)
+        add("windows", i,
+            timeit(lambda x: pk.windows(x, fb, p_log2, sub_log2, cap), srt)
+            .seconds_per_call,
+            timeit(lambda x: pk.partition_windows_plain(
+                x, fb, p_log2, sub_log2, cap_rows=cap), srt).seconds_per_call,
+            None, nbytes + wins.numel() * 4)
+        flat = wins.reshape(r * p, -1)
+        spare = (torch.where((flat >= 0) & (flat < (1 << sub_log2)),
+                             flat.long(), 1 << sub_log2)
+                 + torch.arange(r * p, device=dev)[:, None]
+                 * ((1 << sub_log2) + 1)).reshape(-1)
+        add(f"histogram (sub-histograms at 2**{sub_log2}, {r * p} rows)", i,
+            timeit(lambda x: histogram_rows(x, None, sub_log2), flat)
+            .seconds_per_call,
+            timeit(lambda x: histogram_rows_plain(x, None, sub_log2), flat)
+            .seconds_per_call,
+            timeit(lambda x: torch.bincount(
+                x, minlength=r * p * ((1 << sub_log2) + 1)), spare)
+            .seconds_per_call, flat.numel() * 4 + r * (1 << WIDE) * 4)
+        del tiles, srt, fb, wins, flat, spare
+        torch.cuda.empty_cache()
+    for name, (k_s, p_s, lib_s, nbytes) in tot.items():
+        lib = "" if lib_s is None else f", library {lib_s * 1e3:.4f} ms"
+        print(f"[time] {name} over {N_READS} reads: kernel {k_s * 1e3:.4f} ms, "
+              f"plain {p_s * 1e3:.4f} ms{lib}, bound {bound_ms(nbytes):.4f} ms "
+              f"({nbytes / 1e9:.4f} GB) {tag}")
+
+    # does partitioning pay on this card? the whole partitioned histogram
+    # against the direct one at full width, on one batch's buckets
+    tm = prepare_codes(torch.from_numpy(codes[:BATCH]).to(dev))
+    for wl in (20, 22, 24, 26, 28, 30):
+        idx = torch.stack(hash_kmers_tm(tm, K, H, emit_buckets=wl)).reshape(H, -1)
+        t_part = timeit(lambda x: pk.partitioned_histogram_rows(x, wl), idx)
+        t_dir = timeit(lambda x: histogram_rows(x, None, wl), idx)
+        print(f"[time] crossover at 2**{wl}, {H} x {idx.shape[1]} buckets "
+              f"(one batch): partitioned_histogram_rows "
+              f"{t_part.seconds_per_call * 1e3:.4f} ms, direct histogram "
+              f"{t_dir.seconds_per_call * 1e3:.4f} ms {tag}")
+        del idx
+        torch.cuda.empty_cache()
+    del tm
+    tm = prepare_codes(torch.from_numpy(codes).to(dev))
+    reads, w = tm.shape[1], L - K + 1
+    idx = torch.stack(hash_kmers_tm(tm, K, H, emit_buckets=WIDE)).reshape(H, -1)
+    t_direct = timeit(lambda x: histogram_rows(x, None, WIDE), idx)
+    print(f"[time] yardstick, not on the path: histogram (A2) alone at full "
+          f"width 2**{WIDE}, {H} rows x {idx.shape[1]}: "
+          f"{t_direct.seconds_per_call * 1e3:.4f} ms, bound "
+          f"{bound_ms(idx.numel() * 4 + H * (1 << WIDE) * 4):.4f} ms {tag}")
+    del idx
+    torch.cuda.empty_cache()
+    sk = cms.CountMinSketch.zeros(H, WIDE, dev)
+    t_step = timeit(lambda x: fused_count_step(x, sk, K), tm).seconds_per_call
+    print(f"[time] fused_count_step k={K} h={H} 2**{WIDE} {reads}x{L}: "
+          f"{t_step * 1e3:.4f} ms, {reads * w / t_step:.6g} k-mers/s "
+          f"(all windows) {tag}")
+    del tm, sk
+    torch.cuda.empty_cache()
+
+    def count():
+        pipe.sketch.rows.zero_()
+        pipe.count_file(path, batch_size=BATCH)
+
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        count()
+        runs.append(time.perf_counter() - t0)
+    t_file = statistics.median(runs)
+    print(f"[time] count_file {N_READS} reads x {L} bp, PipelineConfig() "
+          f"2**{WIDE}, batch {BATCH}: median of 3 {t_file:.4f} s, "
+          f"{N_READS / t_file:.6g} reads/s (host clock, parse included) {tag}")
+    tr = trace_device(count, device=dev)
+    require(tr.busy_seconds > 0, "the trace recorded no device activity")
+    print(f"[trace] count_file at 2**{WIDE} under torch.profiler: wall "
+          f"{tr.wall_seconds * 1e3:.3f} ms, device busy "
+          f"{tr.busy_seconds * 1e3:.3f} ms (union of device rows), idle share "
+          f"{tr.idle_share:.4f} {tag}")
+    for name, (t, n) in sorted(tr.by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"[trace]   {t * 1e3:9.3f} ms  x{n:<4d} {name[:90]}")
+    return tot
+
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -352,27 +725,55 @@ def main() -> None:
     phase_golden(dev)
     codes = make_codes(rng, N_READS)
     k_err, h_err = phase_kernels_vs_plain(rng, codes, dev)
+    part_errs = phase_partition_widths(rng, dev)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "reads.fq"
         write_fastq(path, codes)
-        pipe, launches = phase_main_path(codes, path, dev)
+        pipe, _ = phase_main_path(codes, path, dev)
         times = phase_timings(codes, path, pipe, dev, smi)
         phase_trace(path, pipe, dev, smi)
+        del pipe
+        torch.cuda.empty_cache()
+        pipe, launches, batches = phase_main_wide(codes, path, dev, part_errs)
+        wide = phase_wide_timings(codes, path, pipe, batches, dev, smi)
 
+    w = L - K + 1
     t_kmer = times[f"kmer_hash k={K} h={H} buckets 2**{WLOG} {N_READS}x{L}"]
     t_hist = next(v for key, v in times.items() if key.startswith("histogram"))
-    print(json.dumps({"kernels": [
+    kmer_bytes = (L + H * w) * N_READS * 4
+    hist_bytes = H * w * N_READS * 4 + H * (1 << WLOG) * 4
+    kernels = [
         {"name": "kmer_hash", "route": "cuda",
          "source": "nthash_tpu_torch/csrc/kmer_hash.cu",
          "replaces": "nthash_tpu/ops/kmer_pallas.py:72",
          "launches": launches["kmer_hash"], "max_abs_err": k_err,
-         "ms": t_kmer[0] * 1e3, "plain_ms": t_kmer[1] * 1e3},
+         "ms": t_kmer[0] * 1e3, "plain_ms": t_kmer[1] * 1e3,
+         "bound_ms": bound_ms(kmer_bytes), "bound_by": "bytes",
+         "library_ms": None},
         {"name": "histogram", "route": "cuda",
          "source": "nthash_tpu_torch/csrc/histogram.cu",
          "replaces": "nthash_tpu/ops/hist_pallas.py:133",
          "launches": launches["histogram"], "max_abs_err": h_err,
-         "ms": t_hist[0] * 1e3, "plain_ms": t_hist[1] * 1e3},
-    ]}))
+         "ms": t_hist[0] * 1e3, "plain_ms": t_hist[1] * 1e3,
+         "bound_ms": bound_ms(hist_bytes), "bound_by": "bytes",
+         "library_ms": times["library histogram"] * 1e3},
+    ]
+    replaces = {"sort_tiles": "nthash_tpu/ops/part_pallas.py:255",
+                "merge_phase": "nthash_tpu/ops/part_pallas.py:283",
+                "partition_bounds": "nthash_tpu/ops/part_pallas.py:255",
+                "windows": "nthash_tpu/ops/part_pallas.py:385"}
+    for name in PART_KERNELS:
+        k_s, p_s, lib_s, nbytes = wide[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "nthash_tpu_torch/csrc/partition.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": part_errs[name], "ms": k_s * 1e3,
+            "plain_ms": p_s * 1e3, "bound_ms": bound_ms(nbytes),
+            "bound_by": "bytes",
+            "library_ms": None if lib_s is None else lib_s * 1e3})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
 

@@ -49,9 +49,8 @@ def main(argv=None) -> int:
     pc.add_argument("file")
     pc.add_argument("-k", type=int, default=32)
     pc.add_argument("-n", "--num-hashes", type=int, default=4)
-    pc.add_argument("--width-log2", type=int, default=14,
-                    help="sketch width 2**W, W in [10, 18] (wider widths "
-                         "are not ported yet)")
+    pc.add_argument("--width-log2", type=int, default=20,
+                    help="sketch width 2**W, W in [10, 30] (default 20)")
     pc.add_argument("--batch-size", type=int, default=65536)
     pc.add_argument("--fused", action="store_true",
                     help="fused hash->count path (sketch only, fastest)")

@@ -1,11 +1,11 @@
 """ctypes bindings for the native C++ FASTX parser.
 
 Counterpart of ``nthash_tpu/io/native_loader.py``, with its parser bindings.
-The one parser source, ``nthash_tpu/io/native/fastx.cpp``, is found by its path in
-the checkout (never imported: the JAX package needs JAX) and built with g++
-at first use into this package's git-ignored ``_build`` directory. Callers
-that cannot build it (no toolchain, no source) fall back to the numpy reader
-in ``io/fasta.py`` through :func:`available`: a choice of host parser only.
+The parser source is this package's own copy, ``io/native/fastx.cpp`` (a test
+keeps it byte-identical to the JAX package's), built with g++ at first use
+into this package's git-ignored ``_build`` directory. Callers that cannot
+build it (no toolchain) fall back to the numpy reader in ``io/fasta.py``
+through :func:`available`: a choice of host parser only.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from pathlib import Path
 import numpy as np
 
 _PKG = Path(__file__).resolve().parents[1]
-SRC = _PKG.parent / "nthash_tpu" / "io" / "native" / "fastx.cpp"
+SRC = _PKG / "io" / "native" / "fastx.cpp"
 LIB = _PKG / "_build" / "libfastx.so"
 
 _lib = None

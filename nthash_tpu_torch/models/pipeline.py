@@ -28,8 +28,6 @@ from . import sketch as cms
 class PipelineConfig:
     k: int = 32
     num_hashes: int = 4
-    #: The JAX default. Widths above 2**18 wait for the sort-partitioned
-    #: histogram (ROADMAP A3), so a pipeline at this default raises.
     sketch_width_log2: int = 20
     n_devices: int | None = None  # only one device (None or 1) for now
     #: Selects nothing: kept only so the field list matches the JAX

@@ -1,13 +1,14 @@
 """Count-min sketch over k-mer hashes.
 
 Counterpart of ``nthash_tpu/models/sketch.py``. Row r of the sketch counts
-the low ``width_log2`` bits of the r-th nte64 hash of every valid window.
-Counting goes through the exact row histogram of ``ops/hist_kernel.py`` (the
-CUDA kernel on a CUDA sketch) at widths 2**10..2**18, where the JAX package
-uses its direct MXU histogram. Its sort-partitioned path for widths
-2**19..2**30 has not been ported yet (ROADMAP kernel queue A3), so those
-widths raise :class:`NotImplementedError`. The JAX ``resolve_ingestion``
-choice between MXU and scatter has no counterpart: there is one path.
+the low ``width_log2`` bits of the r-th nte64 hash of every valid window, at
+widths 2**10..2**30, routed as the JAX package routes its fused path: at
+2**10..2**18 through the exact row histogram of ``ops/hist_kernel.py``, at
+2**19..2**30 through the sort-partitioned histogram of
+``ops/part_kernel.py`` (the CUDA kernels on a CUDA sketch, their plain
+versions on a CPU one). Other widths raise :class:`ValueError`. The JAX
+``resolve_ingestion`` choice of MXU, partitioned or scatter has no
+counterpart: the width alone picks the route.
 
 ``update`` and ``update_from_buckets`` add into ``sketch.rows`` in place and
 return the same sketch; ``merge`` returns a new one.
@@ -21,19 +22,21 @@ import numpy as np
 import torch
 
 from ..ops.hist_kernel import MIN_WIDTH_LOG2, histogram_rows
+from ..ops.part_kernel import (
+    PART_MAX_WIDTH_LOG2,
+    PART_MIN_WIDTH_LOG2,
+    partitioned_histogram_rows,
+)
 
-#: Widest sketch the port counts into (the JAX direct-histogram range).
-MAX_WIDTH_LOG2 = 18
+#: Widest sketch counted by the direct row histogram (the JAX package's MXU
+#: range); wider ones, up to 2**30, go through the partitioned histogram.
+DIRECT_MAX_WIDTH_LOG2 = PART_MIN_WIDTH_LOG2 - 1
+MAX_WIDTH_LOG2 = PART_MAX_WIDTH_LOG2
 
 
 def check_width(width_log2: int) -> None:
-    """Raise for a width the port cannot count into yet."""
-    if width_log2 > MAX_WIDTH_LOG2:
-        raise NotImplementedError(
-            f"sketch width 2**{width_log2}: widths 2**19..2**30 need the "
-            "sort-partitioned histogram, not yet ported (ROADMAP kernel "
-            f"queue A3); use width_log2 <= {MAX_WIDTH_LOG2}")
-    if width_log2 < MIN_WIDTH_LOG2:
+    """Raise ValueError for a width outside [2**10, 2**30]."""
+    if not MIN_WIDTH_LOG2 <= width_log2 <= MAX_WIDTH_LOG2:
         raise ValueError(
             f"width_log2 ({width_log2}) must be in "
             f"[{MIN_WIDTH_LOG2}, {MAX_WIDTH_LOG2}]")
@@ -83,9 +86,14 @@ def update(sketch: CountMinSketch, hashes: torch.Tensor, valid: torch.Tensor,
     """
     check_width(width_log2)
     num_rows = sketch.rows.shape[0]
-    idx = buckets(hashes, width_log2).reshape(-1, num_rows).T.contiguous()
+    idx = buckets(hashes, width_log2).reshape(-1, num_rows).T
+    if width_log2 > DIRECT_MAX_WIDTH_LOG2:
+        # fold validity into the index: invalid -> the dropped sentinel
+        folded = torch.where(valid.reshape(1, -1), idx, 1 << width_log2)
+        partitioned_histogram_rows(folded, width_log2, out=sketch.rows)
+        return sketch
     w = valid.reshape(-1).to(torch.int32)
-    sketch.rows.add_(histogram_rows(idx, w, width_log2))
+    histogram_rows(idx.contiguous(), w, width_log2, out=sketch.rows)
     return sketch
 
 
@@ -112,10 +120,17 @@ def update_from_buckets(sketch: CountMinSketch, buckets, *,
             f"buckets were emitted at width 2**{emitted_width_log2} but the "
             f"sketch width is 2**{width_log2}")
     check_width(width_log2)
+    if width_log2 > DIRECT_MAX_WIDTH_LOG2:
+        # the partitioned path copies the updates into padded chunks anyway
+        partitioned_histogram_rows(
+            torch.stack([b.reshape(-1) for b in buckets]), width_log2,
+            out=sketch.rows)
+        return sketch
     # one histogram per row: the rows stay separate views of the hash
     # kernel's output, and stacking them would copy every bucket once more
     for r, b in enumerate(buckets):
-        sketch.rows[r].add_(histogram_rows(b.reshape(1, -1), None, width_log2)[0])
+        histogram_rows(b.reshape(1, -1), None, width_log2,
+                       out=sketch.rows[r:r + 1])
     return sketch
 
 

@@ -33,12 +33,29 @@ def test_count_full_hashes(toy, capsys):
 
 @pytest.mark.parametrize("args", [
     ["count", "/nonexistent.fa", "--device", "cpu"],
-    ["count", "{toy}", "--width-log2", "20", "--device", "cpu"],
+    ["count", "{toy}", "--width-log2", "31", "--device", "cpu"],
     ["count", "{toy}", "-k", "0", "--fused", "--device", "cpu"],
 ])
 def test_count_errors_exit_1(toy, capsys, args):
     assert main([a.format(toy=toy) for a in args]) == 1
     assert capsys.readouterr().err
+
+
+def test_default_width_is_2_20(toy, monkeypatch):
+    """The CLI's default sketch width is the JAX CLI's, 2**20."""
+    from nthash_tpu_torch.models import pipeline
+
+    widths = []
+    real = pipeline.ReadHashingPipeline.__init__
+
+    def spy(self, config, device="cuda"):
+        widths.append(config.sketch_width_log2)
+        real(self, config, device)
+
+    monkeypatch.setattr(pipeline.ReadHashingPipeline, "__init__", spy)
+    assert main(["count", str(toy), "-k", "4", "--fused", "--device",
+                 "cpu"]) == 0
+    assert widths == [20]
 
 
 def test_python_dash_m(toy):

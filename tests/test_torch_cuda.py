@@ -20,6 +20,7 @@ from nthash_tpu_torch.models.pipeline import (
     fused_count_step,
 )
 from nthash_tpu_torch.ops import hist_kernel, kmer_kernel
+from nthash_tpu_torch.ops import part_kernel as pk
 from nthash_tpu_torch.ops.hist_kernel import histogram_rows, histogram_rows_plain
 from nthash_tpu_torch.ops.kmer_kernel import (
     hash_kmers_tm,
@@ -85,6 +86,108 @@ def test_histogram_kernel_vs_plain(rng, cuda, wl, weights):
     assert torch.equal(got, want)
 
 
+def test_histogram_kernel_2_30(rng, cuda):
+    """The widest row, which the partitioned path's skew fallback counts
+    into (one row of 4 GiB)."""
+    idx = rng.integers(-2, (1 << 30) + 2, size=(1, 300_001)).astype(np.int32)
+    idx = torch.from_numpy(idx).to(cuda)
+    got = histogram_rows(idx, None, 30)
+    want = histogram_rows_plain(idx, None, 30)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_histogram_gate_and_out(rng, cuda):
+    idx = torch.from_numpy(rng.integers(0, 1 << 12, size=(2, 5000))
+                           .astype(np.int32)).to(cuda)
+    want = histogram_rows_plain(idx, None, 12)
+    out = torch.ones((2, 1 << 12), dtype=torch.int32, device=cuda)
+    for g in (0, 1):
+        gate = torch.full((1,), g, dtype=torch.int32, device=cuda)
+        got = histogram_rows(idx, None, 12, gate=gate, out=out.clone())
+        assert torch.equal(got, out + g * want)
+        plain = histogram_rows_plain(idx, None, 12, gate=gate, out=out.clone())
+        assert torch.equal(plain, got)
+
+
+def _chunks(rng, wl, rows=2, g=8, skew=False):
+    p_log2, sub_log2, chunk_rows, cap = pk.plan(wl)
+    n = rows * g * chunk_rows * 128
+    if skew:
+        idx = np.full(n, 77, np.int32)
+    else:
+        idx = rng.integers(0, (1 << wl) + 1, size=n, dtype=np.int32)
+    x = torch.from_numpy(idx.reshape(rows, g, chunk_rows, 128))
+    return x, p_log2, sub_log2, cap
+
+
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("wl", [19, 20, 22, 28])
+def test_partition_kernels_vs_plain(rng, cuda, wl, skew):
+    x, p_log2, sub_log2, cap = _chunks(rng, wl, g=2 if wl == 28 else 8,
+                                      skew=skew)
+    xd = x.to(cuda)
+    before = dict(pk.LAUNCHES)
+    srt, fb = pk.sort_chunks(xd, sub_log2, p_log2)
+    over = pk.check_overflow(fb, p_log2, srt, sub_log2, cap)
+    wins = pk.partition_windows(srt, fb, p_log2, sub_log2, cap_rows=cap)
+    psrt, pfb = pk.sort_chunks_plain(xd, sub_log2, p_log2)
+    pover = pk.check_overflow_plain(pfb, p_log2, psrt, sub_log2, cap)
+    pwins = pk.partition_windows_plain(psrt, pfb, p_log2, sub_log2,
+                                       cap_rows=cap)
+    torch.cuda.synchronize()
+    assert torch.equal(srt, psrt) and torch.equal(fb, pfb)
+    assert bool(over) == bool(pover) == skew
+    assert torch.equal(wins, pwins)
+    assert pk.LAUNCHES["sort_tiles"] == before["sort_tiles"] + 1
+    assert pk.LAUNCHES["windows"] == before["windows"] + 1
+    merges = pk.LAUNCHES["merge_phase"] - before["merge_phase"]
+    assert merges == max(0, (x.shape[2] * 128).bit_length() - 16)
+
+
+@pytest.mark.parametrize("wl", [19, 20, 22, 26])
+def test_partitioned_histogram_vs_plain(rng, cuda, wl):
+    width = 1 << wl
+    idx = rng.integers(0, width, size=(4, 1 << 20)).astype(np.int32)
+    idx[:, rng.random(1 << 20) < 0.01] = -1
+    idx[:, rng.random(1 << 20) < 0.01] = width
+    idx = torch.from_numpy(idx).to(cuda)
+    got = pk.partitioned_histogram_rows(idx, wl)
+    want = histogram_rows_plain(idx, None, wl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_partitioned_histogram_skew_gated_fallback(rng, cuda):
+    """An all-identical stream overflows every window: the flag gates the
+    windows' histogram off and the full-width one on, on the device."""
+    idx = torch.full((1, 1 << 20), 12345, dtype=torch.int32, device=cuda)
+    before = hist_kernel.LAUNCHES
+    got = pk.partitioned_histogram_rows(idx, 20)
+    assert hist_kernel.LAUNCHES == before + 2  # both launched, one counts
+    torch.cuda.synchronize()
+    assert int(got[0, 12345]) == 1 << 20 and int(got.sum()) == 1 << 20
+
+
+def test_mostly_sentinel_stream_does_not_overflow(rng, cuda):
+    x = torch.full((1, 1 << 16), 1 << 20, dtype=torch.int32)
+    x[0, :130] = torch.from_numpy(rng.integers(0, 1 << 20, size=130,
+                                               dtype=np.int32))
+    p_log2, sub_log2, rows, cap = pk.plan(20)
+    chunks = pk._pad_chunks(x.to(cuda), 1 << 20, rows * 128)
+    srt, fb = pk.sort_chunks(chunks, sub_log2, p_log2)
+    assert not bool(pk.check_overflow(fb, p_log2, srt, sub_log2, cap))
+
+
+def test_fused_count_step_2_20_cuda_vs_cpu(rng, cuda):
+    codes = _codes(rng, 3000)
+    sk_gpu = cms.CountMinSketch.zeros(4, 20, cuda)
+    sk_cpu = cms.CountMinSketch.zeros(4, 20, "cpu")
+    fused_count_step(prepare_codes(codes.to(cuda)), sk_gpu, 32)
+    fused_count_step(prepare_codes(codes), sk_cpu, 32)
+    assert torch.equal(sk_gpu.rows.cpu(), sk_cpu.rows)
+
+
 def test_fused_count_step_cuda_vs_cpu(rng, cuda):
     codes = _codes(rng, 3000)
     sk_gpu = cms.CountMinSketch.zeros(4, 14, cuda)
@@ -100,12 +203,13 @@ def test_count_file_cuda_vs_cpu(tmp_path, rng, cuda):
     with open(path, "wb") as f:
         for s in seqs:
             f.write(b"@r\n" + s.tobytes() + b"\n+\n" + b"I" * 80 + b"\n")
-    cfg = PipelineConfig(k=21, num_hashes=3, sketch_width_log2=12)
-    gpu = ReadHashingPipeline(cfg, device=cuda)
-    cpu = ReadHashingPipeline(cfg, device="cpu")
-    assert gpu.count_file(path, batch_size=256) == 900
-    assert cpu.count_file(path, batch_size=256) == 900
-    assert torch.equal(gpu.sketch.rows.cpu(), cpu.sketch.rows)
+    for cfg in (PipelineConfig(k=21, num_hashes=3, sketch_width_log2=12),
+                PipelineConfig()):
+        gpu = ReadHashingPipeline(cfg, device=cuda)
+        cpu = ReadHashingPipeline(cfg, device="cpu")
+        assert gpu.count_file(path, batch_size=256) == 900
+        assert cpu.count_file(path, batch_size=256) == 900
+        assert torch.equal(gpu.sketch.rows.cpu(), cpu.sketch.rows)
 
 
 def test_timeit_cuda_events(cuda):

@@ -98,7 +98,7 @@ def test_any_index_shape(rng):
 
 @pytest.mark.parametrize("bad,err", [
     (dict(wl=9), ValueError),
-    (dict(wl=27), ValueError),
+    (dict(wl=31), ValueError),
     (dict(idx=torch.zeros((2, 8), dtype=torch.int64)), TypeError),
     (dict(weight=torch.ones(8, dtype=torch.int64)), TypeError),
     (dict(weight=torch.ones(5, dtype=torch.int32)), ValueError),

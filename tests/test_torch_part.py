@@ -1,0 +1,223 @@
+"""The port's sort-partitioned histogram against the JAX package, exactly.
+
+Inputs are made with numpy from a seed and given to both packages; every
+comparison is of integers, with tolerance 0. The JAX Pallas kernels run in
+interpret mode, as ``tests/test_part.py`` runs them; on the CPU the port's
+functions run their plain versions (``*_plain``), which ``chip_smoke.py`` and
+``tests/test_torch_cuda.py`` hold the CUDA kernels to on the card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nthash_tpu.ops import part_pallas as pp
+from nthash_tpu_torch.ops import part_kernel as pk
+
+
+def _counts_ok(got, idx, width):
+    """got [R, width] equals np.bincount per row, compared sparsely (a dense
+    int64 bincount at 2**30 would be 8 GiB)."""
+    got = got.numpy() if isinstance(got, torch.Tensor) else got
+    for r in range(idx.shape[0]):
+        vals = idx[r][(idx[r] >= 0) & (idx[r] < width)].astype(np.int64)
+        pos, cnt = np.unique(vals, return_counts=True)
+        assert np.array_equal(got[r, pos], cnt.astype(np.int32))
+        assert int(got[r].astype(np.int64).sum()) == len(vals)
+
+
+@pytest.mark.parametrize("wl", range(19, 31))
+def test_plan_matches_jax(wl):
+    assert pk.plan(wl) == pp.plan(wl)
+
+
+@pytest.mark.parametrize("wl", [18, 31])
+def test_plan_raises_outside_range(wl):
+    with pytest.raises(ValueError):
+        pk.plan(wl)
+    with pytest.raises(ValueError):
+        pp.plan(wl)
+
+
+@pytest.mark.parametrize("n,chunk", [
+    (3 * 1024 - 5, 1024),    # G = 3 < 8: no rounding
+    (9 * 1024 + 1, 1024),    # G = 10 -> 16
+    (8 * 1024, 1024),        # G = 8 exactly
+    (100, 8192),             # one mostly padded chunk
+])
+def test_pad_chunks_matches_jax(rng, n, chunk):
+    width = 1 << 19
+    idx = rng.integers(-width, 2 * width, size=(2, n)).astype(np.int32)
+    idx[:, :4] = [-1, width, width + 1, 0]
+    want = np.asarray(pp._pad_chunks(jnp.asarray(idx), width, chunk))
+    got = pk._pad_chunks(torch.from_numpy(idx), width, chunk)
+    assert got.shape == want.shape
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("sub_log2,p_log2,shape", [
+    (13, 6, (2, 2, 8, 128)),     # the fused-table shapes at 2**19
+    (15, 10, (2, 2, 64, 128)),   # the searchsorted shapes (P > 2**9)
+])
+def test_sort_chunks_matches_jax(rng, sub_log2, p_log2, shape):
+    x = rng.integers(0, 1 << (sub_log2 + p_log2), size=shape, dtype=np.int32)
+    srt, fb = pp.sort_chunks(jnp.asarray(x), sub_log2, p_log2, interpret=True)
+    got_srt, got_fb = pk.sort_chunks(torch.from_numpy(x), sub_log2, p_log2)
+    p = 1 << p_log2
+    assert np.array_equal(got_srt.numpy(), np.asarray(srt))
+    assert got_fb.shape == shape[:2] + (p,)
+    assert np.array_equal(got_fb.numpy(), np.asarray(fb)[:, :, 0, :p])
+
+
+def _sorted_both(idx, wl, rows=8):
+    """(jax (srt, fb), port (srt, fb), p_log2, sub_log2) of padded chunks."""
+    p_log2, sub_log2, *_ = pp.plan(wl)
+    jchunks = pp._pad_chunks(jnp.asarray(idx), 1 << wl, rows * 128)
+    j = pp.sort_chunks(jchunks, sub_log2, p_log2, interpret=True)
+    t = pk.sort_chunks(
+        pk._pad_chunks(torch.from_numpy(idx), 1 << wl, rows * 128),
+        sub_log2, p_log2)
+    return j, t, p_log2, sub_log2
+
+
+def test_partition_windows_matches_jax(rng):
+    wl = 19
+    idx = rng.integers(0, 1 << wl, size=(2, 3 * 1024), dtype=np.int32)
+    (jsrt, jfb), (srt, fb), p_log2, sub_log2 = _sorted_both(idx, wl)
+    want = np.asarray(pp.partition_windows(jsrt, jfb, p_log2, sub_log2,
+                                           interpret=True))
+    got = pk.partition_windows(srt, fb, p_log2, sub_log2)
+    assert got.shape == want.shape
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "identical", "sentinel"])
+def test_check_overflow_matches_jax(rng, kind):
+    wl = 19
+    if kind == "uniform":
+        idx = rng.integers(0, 1 << wl, size=(2, 2048), dtype=np.int32)
+    elif kind == "identical":
+        idx = np.full((1, 4 * 1024), 7, np.int32)
+    else:  # one real row of data per chunk, the rest pad sentinels
+        idx = rng.integers(0, 1 << wl, size=(1, 130), dtype=np.int32)
+    (jsrt, jfb), (srt, fb), p_log2, sub_log2 = _sorted_both(idx, wl)
+    want = bool(pp.check_overflow(jfb, p_log2, jsrt, sub_log2))
+    got = pk.check_overflow(fb, p_log2, srt, sub_log2)
+    assert got.dtype == torch.bool and got.dim() == 0
+    assert bool(got) == want == (kind == "identical")
+
+
+@pytest.mark.parametrize("wl", [19, 20, 22, 25, 30])
+def test_partitioned_histogram_vs_bincount(rng, wl):
+    width = 1 << wl
+    rows = 1 if wl == 30 else 2  # one 4 GiB row at 2**30
+    idx = rng.integers(-3, width + 3, size=(rows, 5000)).astype(np.int32)
+    got = pk.partitioned_histogram_rows(torch.from_numpy(idx), wl,
+                                        chunk_rows=8)
+    assert got.dtype == torch.int32 and got.shape == (rows, width)
+    _counts_ok(got, idx, width)
+
+
+def test_partitioned_histogram_full_plan_2_20(rng):
+    """The main path's plan: 65,536-update chunks, 128 partitions, 6-row
+    windows, over more than 8 chunks (G rounds up to 16)."""
+    wl = 20
+    idx = rng.integers(0, (1 << wl) + 1, size=(2, 9 * 65536 + 11),
+                       dtype=np.int32)
+    got = pk.partitioned_histogram_rows(torch.from_numpy(idx), wl)
+    _counts_ok(got, idx, 1 << wl)
+
+
+@pytest.mark.parametrize("case", ["uniform", "identical"])
+def test_partitioned_histogram_matches_jax(rng, case):
+    wl = 20
+    if case == "uniform":
+        idx = rng.integers(0, (1 << wl) + 1, size=(2, 2048), dtype=np.int32)
+    else:  # trips the overflow flag: the full-width fallback counts
+        idx = np.full((1, 4096), 77, np.int32)
+    # eager interpret mode: compiling the interpreted kernels under jit
+    # takes longer than running them (tests/conftest.py does the same)
+    with jax.disable_jit():
+        want = np.asarray(pp.partitioned_histogram_rows(
+            jnp.asarray(idx), wl, interpret=True, chunk_rows=8))
+    got = pk.partitioned_histogram_rows(torch.from_numpy(idx), wl,
+                                        chunk_rows=8)
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_skew_fallback_drops_negatives(rng):
+    wl = 19
+    idx = np.full((1, 2048), 123, dtype=np.int32)
+    idx[0, :300] = -rng.integers(1, 1 << wl, size=300, dtype=np.int32)
+    got = pk.partitioned_histogram_rows(torch.from_numpy(idx), wl,
+                                        chunk_rows=8)
+    assert got[0, 123] == 2048 - 300 and int(got.sum()) == 2048 - 300
+
+
+def test_accumulates_into_out(rng):
+    wl = 19
+    idx = rng.integers(0, 1 << wl, size=(2, 3000), dtype=np.int32)
+    out = torch.ones((2, 1 << wl), dtype=torch.int32)
+    res = pk.partitioned_histogram_rows(torch.from_numpy(idx), wl,
+                                        chunk_rows=8, out=out)
+    assert res is out
+    _counts_ok(out - 1, idx, 1 << wl)
+    single = pk.partitioned_histogram(torch.from_numpy(idx[0]), wl)
+    assert torch.equal(single, out[0] - 1)
+
+
+def test_sub_width_above_2_18_raises(monkeypatch):
+    """The plans never give a sub-width above 2**18, so the JAX package's
+    recursion is not ported; a plan that would need it raises."""
+    monkeypatch.setitem(pk._PLANS, 28, (9, 1))
+    with pytest.raises(ValueError, match="recurse"):
+        pk.partitioned_histogram_rows(torch.zeros((1, 8), dtype=torch.int32),
+                                      28)
+
+
+def test_cpu_route_launches_no_kernel(rng):
+    before = dict(pk.LAUNCHES)
+    pk.partitioned_histogram_rows(
+        torch.from_numpy(rng.integers(0, 1 << 19, size=(1, 500),
+                                      dtype=np.int32)), 19, chunk_rows=8)
+    assert pk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("bad", [
+    dict(idx=torch.zeros((1, 8), dtype=torch.int64)),
+    dict(out=torch.zeros((1, 1 << 19), dtype=torch.int64)),
+    dict(out=torch.zeros((2, 1 << 19), dtype=torch.int32)),
+    dict(idx=torch.zeros((1, 8), dtype=torch.int32, device="meta")),
+])
+def test_rejects(bad):
+    with pytest.raises((TypeError, ValueError)):
+        pk.partitioned_histogram_rows(
+            bad.get("idx", torch.zeros((1, 8), dtype=torch.int32)), 19,
+            out=bad.get("out"))
+
+
+@pytest.mark.parametrize("rows,tile", [(8, 1024), (64, 1024), (64, 8192)])
+def test_tile_sort_and_merge_rounds_compose_to_a_sort(rng, rows, tile):
+    """The plain versions of the card's two sort kernels: tile sorts in
+    alternating directions, then one merge round per doubling, give the
+    sorted chunk."""
+    x = torch.from_numpy(rng.integers(0, 1 << 20, size=(2, 3, rows, 128),
+                                      dtype=np.int32))
+    y = pk.sort_tiles_plain(x, tile)
+    k = 2 * tile
+    while k <= rows * 128:
+        y = pk.merge_phase_plain(y, k)
+        k *= 2
+    want = x.reshape(2, 3, -1).sort(dim=-1).values.reshape(x.shape)
+    assert torch.equal(y, want)
+
+
+def test_partition_bounds_plain_matches_jax_table_and_flag(rng):
+    wl = 19
+    idx = np.full((1, 4 * 1024), 7, np.int32)
+    (jsrt, jfb), (srt, _), p_log2, sub_log2 = _sorted_both(idx, wl)
+    fb, flags = pk.partition_bounds_plain(srt, sub_log2, p_log2, pk.CAP_ROWS)
+    assert np.array_equal(fb.numpy(), np.asarray(jfb)[:, :, 0, :1 << p_log2])
+    assert flags.tolist() == [1, 0]

@@ -285,18 +285,77 @@ def test_from_numpy_roundtrip(rng):
 
 
 def test_wide_widths_raise(rng):
-    with pytest.raises(NotImplementedError, match="A3"):
-        ReadHashingPipeline(PipelineConfig(), device=CPU)  # default 2**20
-    with pytest.raises(NotImplementedError, match="A3"):
-        ReadHashingPipeline(_cfg(sketch_width_log2=19), device=CPU)
-    ReadHashingPipeline(_cfg(sketch_width_log2=18), device=CPU)
+    """Widths 2**19..2**30 are counted (the partitioned route); a width
+    outside [2**10, 2**30] raises ValueError everywhere."""
+    pipe = ReadHashingPipeline(PipelineConfig(), device=CPU)  # default 2**20
+    assert pipe.sketch.width == 1 << 20
+    for wl in range(19, 31):
+        cms.check_width(wl)
+    for wl in (9, 31):
+        with pytest.raises(ValueError):
+            cms.check_width(wl)
+        with pytest.raises(ValueError):
+            ReadHashingPipeline(_cfg(sketch_width_log2=wl), device=CPU)
     tm = prepare_codes(torch.zeros((2, 20), dtype=torch.uint8))
-    with pytest.raises(NotImplementedError, match="A3"):
-        fused_count_step(tm, cms.CountMinSketch.zeros(2, 19, CPU), 5)
+    with pytest.raises(ValueError):
+        fused_count_step(tm, cms.CountMinSketch.zeros(2, 9, CPU), 5)
     res = hash_kmers(torch.zeros((2, 20), dtype=torch.uint8), 5, 2)
-    with pytest.raises(NotImplementedError, match="A3"):
-        cms.update(cms.CountMinSketch.zeros(2, 21, CPU), res.hashes,
-                   res.valid, 21)
+    with pytest.raises(ValueError):
+        cms.update(cms.CountMinSketch.zeros(2, 9, CPU), res.hashes,
+                   res.valid, 9)
+
+
+@pytest.mark.parametrize("wl", range(19, 31))
+def test_wide_widths_count(rng, wl):
+    """fused_count_step at every partitioned width, one row (4 GiB at
+    2**30), against the JAX engine's buckets, compared sparsely."""
+    codes = rng.integers(0, 5, size=(6, 60), dtype=np.uint8)
+    sk = cms.CountMinSketch.zeros(1, wl, CPU)
+    fused_count_step(prepare_codes(torch.from_numpy(codes)), sk, 7)
+    res = kmer_jnp.hash_kmers(jnp.asarray(codes), 7, 1)
+    lo = np.asarray(res.hashes.lo)[..., 0].astype(np.int64)
+    vals = (lo & ((1 << wl) - 1))[np.asarray(res.valid)]
+    pos, cnt = np.unique(vals, return_counts=True)
+    row = sk.rows[0]
+    assert torch.equal(row[torch.from_numpy(pos)],
+                       torch.from_numpy(cnt.astype(np.int32)))
+    assert int(row.sum(dtype=torch.int64)) == len(vals)
+
+
+@pytest.mark.parametrize("wl", [20, 22])
+def test_partitioned_update_vs_jax_scatter(rng, wl):
+    """update and update_from_buckets at partitioned widths equal the JAX
+    package's scatter ingestion (its partitioned route in interpret mode is
+    far too slow at the planned chunk size)."""
+    codes = rng.integers(0, 5, size=(6, 60), dtype=np.uint8)
+    want = _jax_reference_rows(codes, K, H, wl)
+    res = hash_kmers(torch.from_numpy(codes), K, H)
+    sk = cms.update(cms.CountMinSketch.zeros(H, wl, CPU), res.hashes,
+                    res.valid, wl)
+    assert np.array_equal(sk.to_numpy(), want)
+    hashes = [res.hashes[..., r].T for r in range(H)]
+    valid = res.valid.T
+    sk2 = cms.update_from_buckets(
+        cms.CountMinSketch.zeros(H, wl, CPU),
+        [torch.where(valid, cms.buckets(h, wl), 1 << wl) for h in hashes],
+        emitted_width_log2=wl)
+    assert np.array_equal(sk2.to_numpy(), want)
+
+
+def test_count_file_2_20_vs_jax_run_file(fastq):
+    path, n, L = fastq
+    cfg = _cfg(sketch_width_log2=20)
+    pipe = ReadHashingPipeline(cfg, device=CPU)
+    assert pipe.count_file(path, batch_size=128) == n
+    jp = _jax_pipe(sketch_width_log2=20)
+    jtotal = jp.run_file(path, batch_size=128, read_length=L)
+    assert np.array_equal(pipe.sketch.to_numpy(), np.asarray(jp.sketch.rows))
+    assert int(pipe.sketch.rows[0].sum()) == jtotal
+    # fused_count_step batch by batch builds the same sketch
+    sk = cms.CountMinSketch.zeros(H, 20, CPU)
+    for batch, _ in stream_code_batches(path, 128, L):
+        fused_count_step(prepare_codes(torch.from_numpy(batch)), sk, K)
+    assert torch.equal(sk.rows, pipe.sketch.rows)
 
 
 @pytest.mark.parametrize("cfg,err", [
