@@ -6,7 +6,7 @@ Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and nvcc; it
 imports nothing of JAX. Phases, each printing its own lines:
 
 1. environment: card name and power limit, torch / CUDA / nvcc versions;
-2. build the three CUDA sources from ``nthash_tpu_torch/csrc`` (one nvcc
+2. build the four CUDA sources from ``nthash_tpu_torch/csrc`` (one nvcc
    each, all at once) and print each kernel's registers and spills;
 3. golden ntHash2 vectors through the rolling-hash kernel;
 4. each kernel against its plain PyTorch version on the card, exact (the
@@ -30,7 +30,29 @@ imports nothing of JAX. Phases, each printing its own lines:
 10. timings at 2**20: each partition kernel, its plain version, its bound
    and ``torch.sort``; the sub-histograms; the direct histogram at full
    width as a yardstick the path does not use; the fused step,
-   ``count_file``, and one traced ``count_file`` for the idle share.
+   ``count_file``, and one traced ``count_file`` for the idle share;
+11. the long-read kernel B2 (``hash_kmers_tm_long``) and the spaced-seed
+   kernels B1 (``hash_seeds_tm``) and B3 (``hash_seeds_tm_long``) against
+   their plain versions at edge shapes (L = k, a time tile >= W or not
+   dividing W, R = 1, R not a multiple of 32, k = 1, one-care-position
+   seeds, fwd/rev and bucket modes), and A1 against B2 there;
+12. the SEED18 golden vectors through B1 and B3 and the BASELINE seeds'
+   goldens through ``hash_seeds_batch``;
+13. spaced seeds at the BASELINE configuration (seeds 10101 and 11011, 3
+   hashes each): ``hash_seeds_batch`` over the 1M reads (B1) against the
+   plain version in 65,536-read chunks and the direct engine, and
+   ``hash_seeds_tm_long`` at [10000, 16384] (B3); launches and timings;
+14. long reads: ``count_file`` at ``PipelineConfig()`` over 16,384 reads x
+   10,000 bp in batches of 4,096 (through B2) against the plain
+   hash->count on every batch, launches per kernel, reads/s, bases/s and
+   the traced idle share with device time by row; B2 against its plain
+   version and A1 at [10000, 16384], and their timings;
+15. the A1/B2 crossover grid (L in 150, 1,000, 10,000; R from 4,096 to
+   2**20) that sets ``kmer_kernel.long_read_threshold``;
+16. one long sequence on one device: ``sp.hash_long_sequence`` over 2**27
+   bases (A1) and ``sp.hash_long_sequence_seeds`` over 2**25 (B1) against
+   the plain route and a whole-sequence roll at pseudo-read boundaries,
+   and at a prime length for the padded tail; timings.
 
 A failed check raises, so the exit code is not 0. The line before the last
 is the kernels' JSON record; the last line is ``{"ok": true, "device": ...}``.
@@ -60,14 +82,16 @@ from nthash_tpu_torch.models.pipeline import (
     ReadHashingPipeline,
     fused_count_step,
 )
-from nthash_tpu_torch.ops import cuda_build, hist_kernel, kmer_kernel
+from nthash_tpu_torch.ops import cuda_build, hist_kernel, kmer_kernel, seed_torch
 from nthash_tpu_torch.ops import part_kernel as pk
+from nthash_tpu_torch.ops import seed_kernel as sk
 from nthash_tpu_torch.ops.hist_kernel import histogram_rows, histogram_rows_plain
 from nthash_tpu_torch.ops.kmer_kernel import (
     hash_kmers_tm,
     hash_kmers_tm_plain,
     prepare_codes,
 )
+from nthash_tpu_torch.parallel import sp
 from nthash_tpu_torch.u64 import to_numpy_u64
 from nthash_tpu_torch.utils.profiling import timeit, trace_device
 
@@ -135,7 +159,7 @@ def phase_env() -> tuple[str, str]:
     return smi, torch.cuda.get_device_name(0)
 
 
-SOURCES = ("kmer_hash", "histogram", "partition")
+SOURCES = ("kmer_hash", "histogram", "partition", "seed_hash")
 
 
 def phase_build() -> None:
@@ -179,9 +203,9 @@ def phase_golden(dev) -> None:
           f"and {len(GOLDEN_ACATG)} of ACATGCATGCA match through the kernel")
 
 
-def make_codes(rng, n: int) -> np.ndarray:
-    codes = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
-    codes[rng.random((n, L)) < N_RATE] = 4
+def make_codes(rng, n: int, length: int = L) -> np.ndarray:
+    codes = rng.integers(0, 4, size=(n, length), dtype=np.uint8)
+    codes[rng.random((n, length)) < N_RATE] = 4
     return codes
 
 
@@ -229,12 +253,12 @@ def phase_kernels_vs_plain(rng, codes: np.ndarray, dev) -> tuple[float, float]:
 
 
 def write_fastq(path: Path, codes: np.ndarray) -> None:
-    n = codes.shape[0]
-    rec = np.empty((n, 3 + L + 3 + L + 1), dtype=np.uint8)
+    n, length = codes.shape
+    rec = np.empty((n, 3 + length + 3 + length + 1), dtype=np.uint8)
     rec[:, 0:3] = np.frombuffer(b"@r\n", np.uint8)
-    rec[:, 3:3 + L] = np.frombuffer(b"ACGTN", np.uint8)[codes]
-    rec[:, 3 + L:6 + L] = np.frombuffer(b"\n+\n", np.uint8)
-    rec[:, 6 + L:6 + 2 * L] = ord("I")
+    rec[:, 3:3 + length] = np.frombuffer(b"ACGTN", np.uint8)[codes]
+    rec[:, 3 + length:6 + length] = np.frombuffer(b"\n+\n", np.uint8)
+    rec[:, 6 + length:6 + 2 * length] = ord("I")
     rec[:, -1] = ord("\n")
     path.write_bytes(rec.tobytes())
 
@@ -290,7 +314,13 @@ def phase_timings(codes: np.ndarray, path: Path, pipe, dev, card: str):
     times = {}
 
     def both(label, items, unit, kernel_fn, plain_fn, *args):
-        t_k = timeit(kernel_fn, *args).seconds_per_call
+        # one timing of these kernels can move by several percent between
+        # consecutive rounds on one card: the median of three rounds
+        rounds = []
+        for _ in range(3):
+            rounds.append(timeit(kernel_fn, *args).seconds_per_call)
+            torch.cuda.empty_cache()
+        t_k = statistics.median(rounds)
         t_p = timeit(plain_fn, *args).seconds_per_call
         torch.cuda.empty_cache()
         times[label] = (t_k, t_p)
@@ -713,6 +743,404 @@ def phase_wide_timings(codes, path, pipe, batches, dev, card: str) -> dict:
 
 
 
+# ---------------------------- long reads, spaced seeds, one long sequence ----
+
+LONG_L, LONG_READS, LONG_BATCH = 10_000, 16_384, 4096   # bench.py:52, :458
+SEEDS = ("10101", "11011")       # BASELINE.json's spaced seeds, 3 hashes each
+SEED_H = 3
+SEED_CHUNK = 65_536
+SP_LEN, SP_SEED_LEN = 1 << 27, 1 << 25                  # bench.py:53-54
+SP_PRIME = 1_000_003             # a length no tile divides: the padded tail
+#: (L, R) of the A1/B2 crossover grid.
+CROSSOVER = ((150, 4096), (150, 1 << 18),
+             *((length, reads) for length in (1000, 10_000)
+               for reads in (4096, 1 << 14, 1 << 15, 1 << 16, 1 << 17,
+                             1 << 18)),
+             (1000, 1 << 20))
+SLICE3_KERNELS = ("kmer_hash_long", "seed_hash", "seed_hash_long")
+
+# SeedNtHash(SEQ_N, SEEDS18, 2, 18) windows 0..3 (pos, s0h0, s0h1, s1h0,
+# s1h1), captured from a build of the reference library
+# (tests/test_golden_extended.py SEED18; an N hashes as the zero seed).
+SEQ_N = ("GATTACAGATTACACCTTGGAACCNGGTTCCAAGGTTCCAAGG"
+         "ACGTACGTACGTAGCTAGCTAGCTAGGCCATGCATGG")
+SEEDS18 = ("110100110011001011", "111111000000111111")
+SEED18 = [
+    (0, 0x598ABFC133B99142, 0xC1ABAFAF1EADE78F, 0xE895A7F010ED432F, 0xD20AF1F39F107A60),
+    (1, 0x08D30224F3A941EB, 0x63487068D9263251, 0xC8FC673BA0E04862, 0x431C2FA6A657F2D2),
+    (2, 0x6BDC168D8C6CC144, 0x4949B5354A2B6F18, 0x93CD153100CB51BD, 0x4FA225D16ED71112),
+    (3, 0xAA6F5971F0ED0F70, 0x9E0DEFC4409FB6C0, 0x26C49A263927408C, 0x5C8FE2172136F6EA),
+]
+# The BASELINE seeds over GOLDEN_SEQ, h=3 (SURVEY.md section 8): (window,
+# hash index, value).
+GOLDEN_SEEDS = [(0, 0, 0x9F8F9FBF890D6351), (0, 3, 0x7539D859409E5B0A),
+                (1, 5, 0xA2B26F83A7BF55DE), (2, 0, 0x9F8F9FBF890D6351)]
+
+
+def same_outputs(errs: dict, name: str, got, want, what: str) -> None:
+    """Kernel outputs against plain ones, exactly; the largest difference
+    (0 when equal) goes into ``errs[name]``."""
+    torch.cuda.synchronize()
+    require(len(got) == len(want), f"{what}: output count differs")
+    for g, w in zip(got, want):
+        require(g.shape == w.shape and g.dtype == w.dtype,
+                f"{what}: shape/dtype {tuple(g.shape)} {g.dtype}")
+        eq = torch.equal(g, w)
+        errs[name] = max(errs[name], 0.0 if eq else max_abs_err(g, w))
+        require(eq, f"{what}: kernel != plain")
+
+
+def rand_tm(gen: torch.Generator, length: int, reads: int, dev) -> torch.Tensor:
+    """[L, R] int32 codes made on the card: ACGT with ~1% N."""
+    tm = torch.randint(0, 4, (length, reads), dtype=torch.int32, device=dev,
+                       generator=gen)
+    n = torch.rand((length, reads), device=dev, generator=gen) < N_RATE
+    return tm.masked_fill_(n, 4)
+
+
+def phase_edges(gen, dev) -> dict:
+    """B2, B1 and B3 (and A1) against their plain versions at edge shapes:
+    L = k, time tile >= W, a tile that does not divide W, R = 1, R not a
+    multiple of 32, k = 1, one-care-position seeds, every output mode."""
+    errs = dict.fromkeys(SLICE3_KERNELS, 0.0)
+    modes = ({}, {"emit_fwd_rev": True}, {"emit_buckets": 11})
+    for b, length, k, tile in ((33, 40, 5, 10), (1, 300, 7, 14),
+                               (100, 32, 32, 32), (37, 1000, 32, 64),
+                               (5, 50, 1, 3), (64, 513, 32, None),
+                               (3, 70, 5, 5000)):
+        tm = rand_tm(gen, length, b, dev)
+        for kw in modes:
+            what = f"{b} reads x {length} bp, k={k}, tile {tile}, {kw}"
+            long = kmer_kernel.hash_kmers_tm_long(tm, k, 3, time_tile=tile,
+                                                  **kw)
+            same_outputs(errs, "kmer_hash_long", long,
+                         kmer_kernel.hash_kmers_tm_long_plain(
+                             tm, k, 3, time_tile=tile, **kw), f"B2 {what}")
+            same_outputs(errs, "kmer_hash_long", long,
+                         hash_kmers_tm_plain(tm, k, 3, **kw),
+                         f"B2 vs whole-read plain {what}")
+            require(all(torch.equal(x, y) for x, y in zip(
+                long, hash_kmers_tm(tm, k, 3, **kw))), f"A1 != B2 {what}")
+    for seeds in (SEEDS, ("1",), ("00100",), ("0110", "1001", "1111"),
+                  SEEDS18):
+        k = len(seeds[0])
+        for b, length, tile in ((33, k, None), (1, 3 * k + 7, k),
+                                (70, 150, 2 * k), (5, 41 + k, 3 * k),
+                                (129, 300, 1000 * k)):
+            tm = rand_tm(gen, length, b, dev)
+            for kw in modes:
+                what = f"{seeds} {b} reads x {length} bp, tile {tile}, {kw}"
+                want = sk.hash_seeds_tm_plain(tm, seeds, 2, **kw)
+                same_outputs(errs, "seed_hash",
+                             sk.hash_seeds_tm(tm, seeds, 2, **kw), want,
+                             f"B1 {what}")
+                same_outputs(errs, "seed_hash_long",
+                             sk.hash_seeds_tm_long(tm, seeds, 2,
+                                                   time_tile=tile, **kw),
+                             want, f"B3 {what}")
+    print("[check] B2, B1, B3 == plain at the edge shapes (L = k, tile >= W, "
+          "tile not dividing W, R = 1, R = 33, k = 1, one-care seeds '1' and "
+          "'00100', three seeds, SEEDS18) in hashes, fwd/rev and bucket "
+          "modes; A1 == B2 there")
+    return errs
+
+
+def phase_seed_goldens(dev) -> None:
+    codes = torch.from_numpy(np.tile(encode_ascii(SEQ_N), (3, 1))).to(dev)
+    tm = prepare_codes(codes)
+    k = len(SEEDS18[0])
+    for label, outs in (
+            ("B1", sk.hash_seeds_tm(tm, SEEDS18, 2)),
+            ("B3", sk.hash_seeds_tm_long(tm, SEEDS18, 2, time_tile=k))):
+        got = [to_numpy_u64(o) for o in outs]
+        for pos, *want in SEED18:
+            for g, w in zip(got, want):
+                require(bool((g[pos] == np.uint64(w)).all()),
+                        f"SEED18 golden mismatch through {label} at {pos}")
+    h, _ = sk.hash_seeds_batch(torch.from_numpy(
+        np.tile(encode_ascii(GOLDEN_SEQ), (4, 1))).to(dev), SEEDS, SEED_H)
+    h = to_numpy_u64(h)
+    for w, i, want in GOLDEN_SEEDS:
+        require(bool((h[:, w, i] == np.uint64(want)).all()),
+                f"BASELINE seed golden mismatch at window {w}, hash {i}")
+    print(f"[golden] SEED18 windows 0..3 ({len(SEED18)} x 4 values) through "
+          f"B1 and B3 (tile 18); the BASELINE seeds' {len(GOLDEN_SEEDS)} "
+          "golden values through hash_seeds_batch")
+
+
+def phase_seeds(codes: np.ndarray, gen, dev, card: str) -> tuple[dict, dict]:
+    """Path 2: hash_seeds_batch at the BASELINE seeds over the 1M reads
+    (B1) and hash_seeds_tm_long at [10000, 16384] (B3), each held against
+    its plain version on all of its output; timings."""
+    tag = f"[{card}]"
+    errs = dict.fromkeys(SLICE3_KERNELS, 0.0)
+    x = torch.from_numpy(codes).to(dev)
+    sk.LAUNCHES = sk.LONG_LAUNCHES = 0
+    t0 = time.perf_counter()
+    hashes, valid = sk.hash_seeds_batch(x, SEEDS, SEED_H)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"seed_hash": sk.LAUNCHES}
+    require(launches["seed_hash"] > 0, "hash_seeds_batch never launched B1")
+    nout = len(SEEDS) * SEED_H
+    require(tuple(hashes.shape) == (N_READS, L - 4, nout),
+            f"hash_seeds_batch shape {tuple(hashes.shape)}")
+    for s in range(0, N_READS, SEED_CHUNK):
+        tm = prepare_codes(x[s:s + SEED_CHUNK])
+        want = sk.hash_seeds_tm_plain(tm, SEEDS, SEED_H)
+        same_outputs(errs, "seed_hash",
+                     [hashes[s:s + SEED_CHUNK, :, i].T for i in range(nout)],
+                     want, f"hash_seeds_batch reads {s}..")
+        if s == 0:  # and the independent direct engine on one chunk
+            ref = seed_torch.hash_kmers_seeds(x[:SEED_CHUNK], SEEDS, SEED_H)
+            require(torch.equal(ref.hashes, hashes[:SEED_CHUNK])
+                    and torch.equal(ref.valid, valid[:SEED_CHUNK]),
+                    "hash_seeds_batch != seed_torch.hash_kmers_seeds")
+        del tm, want
+    print(f"[seeds] hash_seeds_batch {N_READS} reads x {L} bp, seeds "
+          f"{SEEDS}, h={SEED_H}: {nout} x [{N_READS}, {L - 4}] int64 == plain "
+          f"(in {SEED_CHUNK}-read chunks) and == the direct engine on the "
+          f"first chunk; launches {launches}; first run {seconds:.3f} s")
+    del hashes, valid
+    torch.cuda.empty_cache()
+
+    tm = prepare_codes(x)
+    del x
+    times = {}
+    times["seed_hash"] = (
+        timeit(lambda c: sk.hash_seeds_tm(c, SEEDS, SEED_H), tm)
+        .seconds_per_call,
+        timeit(lambda c: sk.hash_seeds_tm_plain(c, SEEDS, SEED_H), tm,
+               calls=3).seconds_per_call,
+        4 * L * N_READS + 8 * (L - 4) * N_READS * nout)
+    del tm
+    torch.cuda.empty_cache()
+
+    tm = rand_tm(gen, LONG_L, LONG_READS, dev)
+    w = LONG_L - 4
+    sk.LONG_LAUNCHES = 0
+    got = sk.hash_seeds_tm_long(tm, SEEDS, 1)
+    launches["seed_hash_long"] = sk.LONG_LAUNCHES
+    same_outputs(errs, "seed_hash_long", got,
+                 sk.hash_seeds_tm_long_plain(tm, SEEDS, 1),
+                 f"B3 [{LONG_L}, {LONG_READS}]")
+    del got
+    torch.cuda.empty_cache()
+    times["seed_hash_long"] = (
+        timeit(lambda c: sk.hash_seeds_tm_long(c, SEEDS, 1), tm)
+        .seconds_per_call,
+        timeit(lambda c: sk.hash_seeds_tm_long_plain(c, SEEDS, 1), tm,
+               calls=3).seconds_per_call,
+        4 * LONG_L * LONG_READS + 8 * w * LONG_READS * len(SEEDS))
+    del tm
+    torch.cuda.empty_cache()
+    print(f"[seeds] hash_seeds_tm_long [{LONG_L}, {LONG_READS}], h=1 per "
+          f"seed: == plain; launches {launches['seed_hash_long']}")
+    for name, (k_s, p_s, nbytes) in times.items():
+        print(f"[time] {name}: kernel {k_s * 1e3:.4f} ms, plain "
+              f"{p_s * 1e3:.4f} ms, bound {bound_ms(nbytes):.4f} ms "
+              f"({nbytes / 1e9:.4f} GB) {tag}")
+    return errs, {"launches": launches, "times": times}
+
+
+def phase_long_count(rng, tmp: Path, dev, card: str):
+    """Path 1: count_file at PipelineConfig() over 16,384 reads x 10,000 bp
+    (through B2), against the plain hash->count on every batch; B2 against
+    its plain version and A1 at [10000, 16384]; rates and the idle share."""
+    tag = f"[{card}]"
+    errs = dict.fromkeys(SLICE3_KERNELS, 0.0)
+    codes = make_codes(rng, LONG_READS, LONG_L)
+    path = tmp / "long.fq"
+    write_fastq(path, codes)
+    pipe = ReadHashingPipeline(PipelineConfig(), device=dev)
+    kmer_kernel.LAUNCHES = kmer_kernel.LONG_LAUNCHES = 0
+    hist_kernel.LAUNCHES = 0
+    for name in pk.LAUNCHES:
+        pk.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    reads = pipe.count_file(path, batch_size=LONG_BATCH, read_length=LONG_L)
+    seconds = time.perf_counter() - t0
+    launches = {"kmer_hash": kmer_kernel.LAUNCHES,
+                "kmer_hash_long": kmer_kernel.LONG_LAUNCHES,
+                "histogram": hist_kernel.LAUNCHES, **pk.LAUNCHES}
+    nbatch = LONG_READS // LONG_BATCH
+    require(reads == LONG_READS, f"count_file streamed {reads} reads")
+    require(launches["kmer_hash_long"] == nbatch and launches["kmer_hash"] == 0,
+            f"the long-read batches did not all go through B2: {launches}")
+    require(all(v > 0 for k, v in launches.items() if k != "kmer_hash"),
+            f"a kernel of the long-read path never launched: {launches}")
+    want = torch.zeros((H, 1 << WIDE), dtype=torch.int64, device=dev)
+    for s in range(0, LONG_READS, LONG_BATCH):
+        tm = prepare_codes(torch.from_numpy(codes[s:s + LONG_BATCH]).to(dev))
+        plain = kmer_kernel.hash_kmers_tm_long_plain(tm, K, H,
+                                                     emit_buckets=WIDE)
+        if s == 0:  # the segments' warm-up against whole-read rolls
+            require(all(torch.equal(a, b) for a, b in zip(
+                plain, hash_kmers_tm_plain(tm, K, H, emit_buckets=WIDE))),
+                "segmented plain != whole-read plain on batch 0")
+        for r, b in enumerate(plain):
+            want[r] += histogram_rows_plain(b.reshape(1, -1), None, WIDE)[0]
+        del tm, plain
+    require(torch.equal(pipe.sketch.rows.long(), want),
+            "long-read count_file sketch != plain hash->count")
+    nvalid = valid_windows(codes, K)
+    require(int(want[0].sum()) == nvalid, "plain row sum != valid windows")
+    print(f"[long] count_file at PipelineConfig(): {reads} reads x {LONG_L} "
+          f"bp in {nbatch} batches of {LONG_BATCH}, {nvalid} valid {K}-mers "
+          f"per row, sketch == plain hash->count on every batch (batch 0's "
+          f"segmented plain == its whole-read plain); launches {launches}; "
+          f"first run {seconds:.3f} s")
+    del want
+    torch.cuda.empty_cache()
+
+    def count():
+        pipe.sketch.rows.zero_()
+        pipe.count_file(path, batch_size=LONG_BATCH, read_length=LONG_L)
+
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        count()
+        runs.append(time.perf_counter() - t0)
+    t_file = statistics.median(runs)
+    print(f"[time] count_file {LONG_READS} reads x {LONG_L} bp, "
+          f"PipelineConfig(), batch {LONG_BATCH}: median of 3 {t_file:.4f} s, "
+          f"{LONG_READS / t_file:.6g} reads/s, "
+          f"{LONG_READS * LONG_L / t_file:.6g} bases/s (host clock, parse "
+          f"included) {tag}")
+    tr = trace_device(count, device=dev)
+    require(tr.busy_seconds > 0, "the trace recorded no device activity")
+    print(f"[trace] long-read count_file under torch.profiler: wall "
+          f"{tr.wall_seconds * 1e3:.3f} ms, device busy "
+          f"{tr.busy_seconds * 1e3:.3f} ms (union of device rows), idle share "
+          f"{tr.idle_share:.4f} {tag}")
+    for name, (t, n) in sorted(tr.by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"[trace]   {t * 1e3:9.3f} ms  x{n:<4d} {name[:90]}")
+    del pipe
+    torch.cuda.empty_cache()
+
+    # B2 at the hashes-mode shape of the slice: [10000, 16384], h=1
+    tm = prepare_codes(torch.from_numpy(codes).to(dev))
+    del codes
+    w = LONG_L - K + 1
+    got = kmer_kernel.hash_kmers_tm_long(tm, K, 1)
+    same_outputs(errs, "kmer_hash_long", got,
+                 kmer_kernel.hash_kmers_tm_long_plain(tm, K, 1),
+                 f"B2 [{LONG_L}, {LONG_READS}] h=1")
+    require(torch.equal(got[0], hash_kmers_tm(tm, K, 1)[0]),
+            "A1 != B2 at the long-read shape")
+    del got
+    torch.cuda.empty_cache()
+    t_b2 = timeit(lambda c: kmer_kernel.hash_kmers_tm_long(c, K, 1), tm)
+    t_a1 = timeit(lambda c: hash_kmers_tm(c, K, 1), tm, calls=3)
+    t_pl = timeit(lambda c: kmer_kernel.hash_kmers_tm_long_plain(c, K, 1), tm,
+                  calls=3)
+    nbytes = 4 * LONG_L * LONG_READS + 8 * w * LONG_READS
+    print(f"[time] kmer_hash_long [{LONG_L}, {LONG_READS}] h=1 hashes: B2 "
+          f"{t_b2.seconds_per_call * 1e3:.4f} ms, A1 (one thread per read) "
+          f"{t_a1.seconds_per_call * 1e3:.4f} ms, plain "
+          f"{t_pl.seconds_per_call * 1e3:.4f} ms, bound "
+          f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e9:.4f} GB) {tag}")
+    del tm
+    torch.cuda.empty_cache()
+    return errs, launches, (t_b2.seconds_per_call, t_pl.seconds_per_call,
+                            nbytes)
+
+
+def phase_crossover(gen, dev, card: str) -> None:
+    """A1 (one thread per read) against B2 (segments of 256 windows) at
+    k=32, one hash, buckets at 2**20: the grid that sets
+    ``kmer_kernel.long_read_threshold``. Timed A1, B2, B2, A1."""
+    for length, reads in CROSSOVER:
+        tm = rand_tm(gen, length, reads, dev)
+        a1 = hash_kmers_tm(tm, K, 1, emit_buckets=WIDE)
+        require(torch.equal(a1[0], kmer_kernel.hash_kmers_tm_long(
+            tm, K, 1, emit_buckets=WIDE)[0]), f"A1 != B2 at [{length}, {reads}]")
+        del a1
+        torch.cuda.empty_cache()
+        t = []
+        for fn in (hash_kmers_tm, kmer_kernel.hash_kmers_tm_long,
+                   kmer_kernel.hash_kmers_tm_long, hash_kmers_tm):
+            t.append(timeit(lambda c, f=fn: f(c, K, 1, emit_buckets=WIDE), tm)
+                     .seconds_per_call * 1e3)
+            torch.cuda.empty_cache()
+        route = "B2" if kmer_kernel.long_read_threshold(length, K, reads) \
+            else "A1"
+        print(f"[cross] L={length} R={reads} h=1 buckets 2**{WIDE}: A1 "
+              f"{t[0]:.4f} / {t[3]:.4f} ms, B2 {t[1]:.4f} / {t[2]:.4f} ms, "
+              f"outputs equal; the rule picks {route} [{card}]")
+        del tm
+        torch.cuda.empty_cache()
+
+
+def phase_sp(rng, dev, card: str) -> dict:
+    """Path 3: one 2**27-base sequence through pseudo-reads into A1, one
+    2**25-base one into B1, each against the plain route (the batch-major
+    engines) everywhere and against a whole-sequence plain roll at the
+    pseudo-read boundaries; a prime length for the padded tail."""
+    tag = f"[{card}]"
+    launches = {}
+    for label, n, seeds in (("hash_long_sequence", SP_LEN, None),
+                            ("hash_long_sequence_seeds", SP_SEED_LEN, SEEDS)):
+        k = K if seeds is None else len(seeds[0])
+        seq = torch.from_numpy(rng.integers(0, 4, size=n, dtype=np.uint8)).to(dev)
+
+        def run(x, engine="auto", seeds=seeds, k=k):
+            if seeds is None:
+                return sp.hash_long_sequence(x, k, 1, engine=engine)
+            return sp.hash_long_sequence_seeds(x, seeds, 1, engine=engine)
+
+        kmer_kernel.LAUNCHES = sk.LAUNCHES = 0
+        got, valid = run(sp.shard_sequence(seq, k=k))
+        launches[label] = kmer_kernel.LAUNCHES if seeds is None \
+            else sk.LAUNCHES
+        require(launches[label] == 1, f"{label} launches {launches[label]}")
+        want, pvalid = run(seq, "torch")
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, want))
+                and torch.equal(valid, pvalid), f"{label} != plain route")
+        t = sp.pick_tile(n, k, None if seeds is None else 128)
+        for start in (0, 5 * t - 64, n // 2 - 64, n - 128 - k + 1):
+            part = prepare_codes(seq[start:start + 128 + k - 1][None])
+            direct = (hash_kmers_tm_plain(part, k, 1) if seeds is None
+                      else sk.hash_seeds_tm_plain(part, seeds, 1))[0][:, 0]
+            require(torch.equal(got[0][start:start + 128], direct),
+                    f"{label} != whole-sequence roll at {start}")
+        require(bool(valid[:n - k + 1].all()) and not bool(valid[n - k + 1:].any()),
+                f"{label}: validity")
+        t_k = timeit(lambda x: run(x), seq, calls=3).seconds_per_call
+        t_p = timeit(lambda x: run(x, "torch"), seq, calls=3).seconds_per_call
+        print(f"[sp] {label} {n} bases, k={k}, h=1, pseudo-reads of {t} "
+              f"windows: == plain route, == a whole-sequence roll at windows "
+              f"0, {5 * t - 64}, {n // 2 - 64} and the tail; launches "
+              f"{launches[label]}; kernel route {t_k * 1e3:.4f} ms "
+              f"({(n - k + 1) / t_k:.6g} windows/s), plain route "
+              f"{t_p * 1e3:.4f} ms {tag}")
+        del seq, got, valid, want, pvalid
+        torch.cuda.empty_cache()
+        # a prime length: the padded tail
+        m = SP_PRIME
+        seq = torch.from_numpy(rng.integers(0, 5, size=m, dtype=np.uint8)).to(dev)
+        padded = sp.shard_sequence(seq, k=k)
+        got, valid = run(padded)
+        want, pvalid = run(padded, "torch")
+        tail = prepare_codes(seq[m - 300:][None])
+        direct = (hash_kmers_tm_plain(tail, k, 1) if seeds is None
+                  else sk.hash_seeds_tm_plain(tail, seeds, 1))[0][:, 0]
+        require(padded.shape[0] > m and all(torch.equal(a, b) for a, b in
+                                            zip(got, want))
+                and torch.equal(valid, pvalid)
+                and torch.equal(got[0][m - 300:m - k + 1], direct)
+                and not bool(valid[m - k + 1:].any()),
+                f"{label}: padded tail at length {m}")
+        print(f"[sp] {label} at prime length {m} (padded to "
+              f"{padded.shape[0]}): == plain route; the last windows == a "
+              "whole-sequence roll; every window past the end invalid")
+        del seq, padded, got, valid, want, pvalid
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -737,6 +1165,19 @@ def main() -> None:
         torch.cuda.empty_cache()
         pipe, launches, batches = phase_main_wide(codes, path, dev, part_errs)
         wide = phase_wide_timings(codes, path, pipe, batches, dev, smi)
+        del pipe, batches
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        errs = phase_edges(gen, dev)
+        phase_seed_goldens(dev)
+        seed_errs, seeds = phase_seeds(codes, gen, dev, smi)
+        long_errs, long_launches, t_long = phase_long_count(
+            rng, Path(tmp), dev, smi)
+    phase_crossover(gen, dev, smi)
+    sp_launches = phase_sp(rng, dev, smi)
+    for more in (seed_errs, long_errs):
+        for name, e in more.items():
+            errs[name] = max(errs[name], e)
 
     w = L - K + 1
     t_kmer = times[f"kmer_hash k={K} h={H} buckets 2**{WLOG} {N_READS}x{L}"]
@@ -773,6 +1214,27 @@ def main() -> None:
             "plain_ms": p_s * 1e3, "bound_ms": bound_ms(nbytes),
             "bound_by": "bytes",
             "library_ms": None if lib_s is None else lib_s * 1e3})
+    slice3 = {
+        "kmer_hash_long": ("nthash_tpu_torch/csrc/kmer_hash.cu",
+                           "nthash_tpu/ops/kmer_pallas.py:230",
+                           long_launches["kmer_hash_long"], t_long),
+        "seed_hash": ("nthash_tpu_torch/csrc/seed_hash.cu",
+                      "nthash_tpu/ops/seed_pallas.py:105",
+                      seeds["launches"]["seed_hash"],
+                      seeds["times"]["seed_hash"]),
+        "seed_hash_long": ("nthash_tpu_torch/csrc/seed_hash.cu",
+                           "nthash_tpu/ops/seed_pallas.py:264",
+                           seeds["launches"]["seed_hash_long"],
+                           seeds["times"]["seed_hash_long"]),
+    }
+    for name, (source, replaces, n, (k_s, p_s, nbytes)) in slice3.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n, "max_abs_err": errs[name],
+            "ms": k_s * 1e3, "plain_ms": p_s * 1e3,
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+            "library_ms": None})
+    print(f"[sp] launches on the one-sequence path: {sp_launches}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

@@ -1,9 +1,11 @@
-// Rolling ntHash2 over time-major reads: one thread per read.
+// Rolling ntHash2 over time-major reads: one thread per (read, segment).
 //
-// Replaces nthash_tpu/ops/kmer_pallas.py::_kernel (hash_kmers_tm) and computes
-// what it computes: for codes [L, R] int32 (0-3 = ACGT, 4 = invalid; larger
-// values count as 4) it rolls each read's forward and reverse hash one base per
-// step, and for every window w = t - k + 1 writes
+// Replaces nthash_tpu/ops/kmer_pallas.py::_kernel (hash_kmers_tm, one segment
+// per read) and ::_kernel_long (hash_kmers_tm_long, segments of `seg`
+// windows), and computes what they compute: for codes [L, R] int32 (0-3 =
+// ACGT, 4 = invalid; larger values count as 4) it rolls each read's forward
+// and reverse hash one base per step, and for every window w = t - k + 1
+// writes
 //   hashes mode: the canonical hash (fwd + rev) and its num_hashes - 1 nte64
 //                extensions, then fwd and rev if emit_fwd_rev, as uint64
 //                planes [nout, W, R];
@@ -16,114 +18,95 @@
 //   fwd = srol1(fwd) ^ fwd_in[c_in] ^ fwd_out[c_out]
 //   rev = sror1(rev) ^ rev_in[c_in] ^ rev_out_r[c_out]
 // where rev_out_r = sror1(SEED[comp(b)]) folds the sror of the roll-out into
-// the table, and the roll-out is skipped while t < k.
+// the table, and the roll-out is skipped during a segment's first k steps.
+//
+// Segments. Thread (r, j) owns windows [j*seg, min((j+1)*seg, W)) of read r:
+// it starts at base j*seg with zero state and a zero invalid count, rolls
+// seg + k - 1 bases, and writes from its k-th base on. A window's hash
+// depends only on its own k bases, so a segment's warm-up is exact for the
+// same reason the Pallas warm-up (kmer_pallas.py:243-247) and the
+// pseudo-reads of parallel/sp.py are. The TPU kernel instead carries the
+// state across a sequential grid axis of time tiles; CUDA blocks run in no
+// order, so that scheme has no counterpart here. seg >= W is one segment per
+// read, exactly A1, and compiles to its own instance (kSegmented = false)
+// without the segment arithmetic, which slowed bucket mode on the 150-bp
+// main path. The extra work is (k - 1) / seg of the roll (12% at
+// k = 32, seg = 256); in return a batch of 4,096 reads of 10,000 bp runs
+// 40 x 4,096 threads instead of 16 blocks of 256 on 132 SMs.
 //
 // What bounds it on the H100: output bytes. The work per window is a few
 // dozen integer ops; the writes are 8 * W * R * nout bytes in hashes mode
 // (3.8 GiB for 1M reads of 150 bp at k=32, h=4) and half that in bucket mode,
 // against 4 * L * R * 2 bytes of code reads. The design keeps every byte it
 // can out of device memory and makes the rest coalesced: fwd, rev and the
-// invalid count live in registers for the whole read; thread r reads
-// codes[t*R + r] and codes[(t-k)*R + r] (the second load hits L1/L2, it was
-// read k steps earlier) and writes out[i][w*R + r], so a warp moves 128-byte
-// (codes, buckets) or 256-byte (hashes) contiguous segments. The TPU kernel's
-// (8,128)-tile interleave, VMEM budget, 5-way select chains and 16-bit
-// multiply limbs have no counterpart: the tables are 20 + h - 1 uint64 in
-// shared memory, indexed by code, and the multiply is native 64-bit. Fusing
-// the histogram atomics into this kernel (no bucket array at all) is left to
-// a later change.
+// invalid count live in registers for the whole segment; the read index runs
+// fastest across threads, so thread r reads codes[t*R + r] and
+// codes[(t-k)*R + r] (the second load hits L1/L2, it was read k steps
+// earlier) and writes out[i][w*R + r], and a warp moves 128-byte (codes,
+// buckets) or 256-byte (hashes) contiguous segments. The grid is 1-D with
+// 64-bit thread indices (gridDim.y stops at 65,535; one 2^27-base read has
+// 524k segments). The TPU kernel's (8,128)-tile interleave, VMEM budget,
+// 5-way select chains and 16-bit multiply limbs have no counterpart: the
+// tables are 20 + h - 1 uint64 in shared memory, indexed by code, and the
+// multiply is native 64-bit. Fusing the histogram atomics into this kernel
+// (no bucket array at all) is left to a later change.
 
 #include <cuda_runtime.h>
 
+#include "roll.cuh"
+
 namespace {
 
-constexpr unsigned long long kMask33 = (1ULL << 33) - 1;
-constexpr unsigned long long kMask31 = (1ULL << 31) - 1;
-constexpr int kMultiShift = 27;  // nte64 MULTISHIFT
+using nthash::code_at;
+using nthash::srol1;
+using nthash::sror1;
+
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ unsigned long long srol1(unsigned long long x) {
-  unsigned long long lo = x & kMask33, hi = x >> 33;
-  lo = ((lo << 1) | (lo >> 32)) & kMask33;
-  hi = ((hi << 1) | (hi >> 30)) & kMask31;
-  return (hi << 33) | lo;
-}
-
-__device__ __forceinline__ unsigned long long sror1(unsigned long long x) {
-  unsigned long long lo = x & kMask33, hi = x >> 33;
-  lo = ((lo >> 1) | (lo << 32)) & kMask33;
-  hi = ((hi >> 1) | (hi << 30)) & kMask31;
-  return (hi << 33) | lo;
-}
-
-__device__ __forceinline__ unsigned code_at(const int* __restrict__ codes,
-                                            long long i) {
-  return min(static_cast<unsigned>(codes[i]), 4u);
-}
 
 // tables: [0,5) fwd_in, [5,10) fwd_out, [10,15) rev_in, [15,20) rev_out_r,
 // [20, 19 + num_hashes) nte64 multipliers for hashes 1..num_hashes-1.
-template <bool kBuckets>
+template <bool kBuckets, bool kSegmented>
 __global__ void __launch_bounds__(kThreads)
 kmer_hash_kernel(const int* __restrict__ codes, int L, long long R, int k,
-                 int num_hashes, int emit_fwd_rev, int bucket_bits,
-                 const unsigned long long* __restrict__ tables,
+                 int seg, long long nseg, int num_hashes, int emit_fwd_rev,
+                 int bucket_bits, const unsigned long long* __restrict__ tables,
                  void* __restrict__ out) {
   extern __shared__ unsigned long long tab[];
   const int ntab = 19 + num_hashes;
   for (int i = threadIdx.x; i < ntab; i += blockDim.x) tab[i] = tables[i];
   __syncthreads();
 
-  const long long r = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= R) return;
+  const long long gid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (gid >= nseg * R) return;
+  const long long r = kSegmented ? gid % R : gid;
+  const int t0 = kSegmented ? static_cast<int>(gid / R) * seg : 0;  // first base
   const unsigned long long* fwd_in = tab;
   const unsigned long long* fwd_out = tab + 5;
   const unsigned long long* rev_in = tab + 10;
   const unsigned long long* rev_out_r = tab + 15;
   const unsigned long long* mult = tab + 20;
 
-  const size_t plane = static_cast<size_t>(L - k + 1) * R;
-  const unsigned long long mask = (1ULL << bucket_bits) - 1;
-  const int sentinel = 1 << bucket_bits;
+  const int W = L - k + 1;
+  const size_t plane = static_cast<size_t>(W) * R;
+  const int t_end = kSegmented ? min(t0 + seg, W) + k - 1 : L;
 
   unsigned long long fwd = 0, rev = 0;
   int inv = 0;
-  for (int t = 0; t < L; ++t) {
+  for (int t = t0; t < t_end; ++t) {
     const unsigned c_in = code_at(codes, static_cast<long long>(t) * R + r);
     fwd = srol1(fwd) ^ fwd_in[c_in];
     rev = sror1(rev) ^ rev_in[c_in];
     inv += c_in >= 4;
-    if (t >= k) {
+    if (t - t0 >= k) {
       const unsigned c_out = code_at(codes, static_cast<long long>(t - k) * R + r);
       fwd ^= fwd_out[c_out];
       rev ^= rev_out_r[c_out];
       inv -= c_out >= 4;
     }
-    if (t < k - 1) continue;
-    const size_t at = static_cast<size_t>(t - k + 1) * R + r;
-    const unsigned long long canon = fwd + rev;
-    if (kBuckets) {
-      int* o = static_cast<int*>(out);
-      const bool valid = inv == 0;
-      o[at] = valid ? static_cast<int>(canon & mask) : sentinel;
-      for (int i = 1; i < num_hashes; ++i) {
-        unsigned long long e = canon * mult[i - 1];
-        e ^= e >> kMultiShift;
-        o[i * plane + at] = valid ? static_cast<int>(e & mask) : sentinel;
-      }
-    } else {
-      unsigned long long* o = static_cast<unsigned long long*>(out);
-      o[at] = canon;
-      for (int i = 1; i < num_hashes; ++i) {
-        unsigned long long e = canon * mult[i - 1];
-        e ^= e >> kMultiShift;
-        o[i * plane + at] = e;
-      }
-      if (emit_fwd_rev) {
-        o[num_hashes * plane + at] = fwd;
-        o[(num_hashes + 1) * plane + at] = rev;
-      }
-    }
+    if (t - t0 < k - 1) continue;
+    nthash::write_window<kBuckets>(
+        out, static_cast<size_t>(t - k + 1) * R + r, plane, fwd, rev, inv == 0,
+        num_hashes, emit_fwd_rev, bucket_bits, mult);
   }
 }
 
@@ -132,22 +115,35 @@ kmer_hash_kernel(const int* __restrict__ codes, int L, long long R, int k,
 extern "C" {
 
 // codes: [L, R] int32 device; tables: 19 + num_hashes uint64 device;
-// out: [nout, L - k + 1, R] uint64 (bucket_bits == 0) or int32 buckets.
+// out: [nout, L - k + 1, R] uint64 (bucket_bits == 0) or int32 buckets;
+// seg: windows per segment (>= 1; seg >= L - k + 1 is one segment per read).
 // Launches on `stream` of `device`; returns cudaGetLastError().
 int nthash_kmer_hash(int device, const int* codes, int L, long long R, int k,
-                     int num_hashes, int emit_fwd_rev, int bucket_bits,
+                     int seg, int num_hashes, int emit_fwd_rev, int bucket_bits,
                      const unsigned long long* tables, void* out,
                      cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (R + kThreads - 1) / kThreads;
+  if (seg < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long nseg = (static_cast<long long>(L - k + 1) + seg - 1) / seg;
+  const long long blocks = (nseg * R + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem = static_cast<size_t>(19 + num_hashes) * sizeof(unsigned long long);
-  if (bucket_bits > 0) {
-    kmer_hash_kernel<true><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-        codes, L, R, k, num_hashes, emit_fwd_rev, bucket_bits, tables, out);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (bucket_bits > 0 && nseg > 1) {
+    kmer_hash_kernel<true, true><<<grid, kThreads, smem, stream>>>(
+        codes, L, R, k, seg, nseg, num_hashes, 0, bucket_bits, tables,
+        out);
+  } else if (bucket_bits > 0) {
+    kmer_hash_kernel<true, false><<<grid, kThreads, smem, stream>>>(
+        codes, L, R, k, seg, nseg, num_hashes, 0, bucket_bits, tables,
+        out);
+  } else if (nseg > 1) {
+    kmer_hash_kernel<false, true><<<grid, kThreads, smem, stream>>>(
+        codes, L, R, k, seg, nseg, num_hashes, emit_fwd_rev, 0, tables, out);
   } else {
-    kmer_hash_kernel<false><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-        codes, L, R, k, num_hashes, emit_fwd_rev, 0, tables, out);
+    kmer_hash_kernel<false, false><<<grid, kThreads, smem, stream>>>(
+        codes, L, R, k, seg, nseg, num_hashes, emit_fwd_rev, 0, tables, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

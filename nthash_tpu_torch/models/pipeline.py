@@ -19,7 +19,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..ops.kmer_kernel import hash_kmers_tm, prepare_codes
+from ..ops.kmer_kernel import hash_kmers_tm_auto, prepare_codes
 from ..ops.kmer_torch import window_valid_tm
 from . import sketch as cms
 
@@ -47,7 +47,9 @@ class PipelineConfig:
 def fused_count_step(codes_tm: torch.Tensor, sketch: cms.CountMinSketch,
                      k: int) -> cms.CountMinSketch:
     """The fast hash->count step: bucket emission in the hash kernel feeding
-    the row histogram, no 64-bit hash ever written to device memory.
+    the row histogram, no 64-bit hash ever written to device memory. The
+    hash goes through ``hash_kmers_tm_auto``, as in the JAX package's
+    ``fused_count``: long reads in few numbers take the segmented kernel.
 
     codes_tm: [L, R] int32 time-major codes (``prepare_codes``); one sketch
     row per nte64 hash. Adds into ``sketch.rows`` in place and returns
@@ -56,7 +58,8 @@ def fused_count_step(codes_tm: torch.Tensor, sketch: cms.CountMinSketch,
     num_rows, width = sketch.rows.shape
     width_log2 = width.bit_length() - 1
     cms.check_width(width_log2)
-    buckets = hash_kmers_tm(codes_tm, k, num_rows, emit_buckets=width_log2)
+    buckets = hash_kmers_tm_auto(codes_tm, k, num_rows,
+                                 emit_buckets=width_log2)
     return cms.update_from_buckets(sketch, buckets,
                                    emitted_width_log2=width_log2)
 
@@ -102,7 +105,7 @@ class ReadHashingPipeline:
         codes = self._to_device(codes)
         wlog = cfg.sketch_width_log2
         tm = prepare_codes(codes)
-        hashes = hash_kmers_tm(tm, cfg.k, cfg.num_hashes)  # H x [W, B]
+        hashes = hash_kmers_tm_auto(tm, cfg.k, cfg.num_hashes)  # H x [W, B]
         valid = window_valid_tm(tm, cfg.k)
         sentinel = 1 << wlog
         cms.update_from_buckets(self.sketch, [

@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by nvcc
 into ``nthash_tpu_torch/_build/lib<name>.so`` (git-ignored) at first use, and
-again whenever the source is newer than the library; it is then loaded with
-ctypes. No PyTorch header is involved, so a build takes seconds. Every C
-entry point returns ``cudaGetLastError()`` after its launch, which
-:func:`check` turns into an exception.
+again whenever the source or a header of ``csrc/`` (``*.cuh``) is newer than
+the library; it is then loaded with ctypes. No PyTorch header is involved,
+so a build takes seconds. Every C entry point returns ``cudaGetLastError()``
+after its launch, which :func:`check` turns into an exception.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no nvcc and no GPU.
@@ -56,7 +56,8 @@ def build(name: str) -> Path:
     """
     src = CSRC_DIR / f"{name}.cu"
     lib = BUILD_DIR / f"lib{name}.so"
-    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in (src, *CSRC_DIR.glob("*.cuh")))
+    if lib.exists() and lib.stat().st_mtime >= newest:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".lib{name}.{os.getpid()}.so"

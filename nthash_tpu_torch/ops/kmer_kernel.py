@@ -1,15 +1,21 @@
-"""The rolling-hash kernel over time-major reads, and its plain version.
+"""The rolling-hash kernels over time-major reads, and their plain versions.
 
 Counterpart of ``nthash_tpu/ops/kmer_pallas.py`` (``hash_kmers_tm``,
-``hash_kmers_tm_auto``, ``prepare_codes``, ``hash_kmers_batch``). The kernel
-is ``csrc/kmer_hash.cu``, which replaces the Pallas ``_kernel``; its source
-note says what bounds it on the H100.
+``pick_time_tile``, ``hash_kmers_tm_long``, ``long_read_threshold``,
+``hash_kmers_tm_auto``, ``prepare_codes``, ``hash_kmers_batch``). Both
+routes launch ``csrc/kmer_hash.cu``: :func:`hash_kmers_tm` with one segment
+per read (A1, the Pallas ``_kernel``), :func:`hash_kmers_tm_long` with
+segments of ``time_tile`` windows, one thread each (B2, the Pallas
+``_kernel_long``). The source note says what bounds the kernel on the H100
+and why segments replace the TPU's sequential time tiles.
 
-:func:`hash_kmers_tm` launches the kernel for a CUDA tensor and runs
-:func:`hash_kmers_tm_plain` for a CPU tensor; there is no other route, and a
-failed launch raises. The TPU kernel's read padding (R a multiple of
-interleave * 1024) and its time-tiled long-read variant exist for VMEM and
-have no counterpart: any R and any L >= k go through the one kernel.
+Each wrapper launches the kernel for a CUDA tensor and runs its plain
+version (:func:`hash_kmers_tm_plain`, :func:`hash_kmers_tm_long_plain`) for
+a CPU tensor; there is no other route, and a failed launch raises. The TPU
+kernels' read padding (R a multiple of interleave * 1024) exists for the
+(8,128) tiling and has no counterpart: any R and any L >= k work.
+:func:`hash_kmers_tm_auto` picks the route by occupancy
+(:func:`long_read_threshold`), not by VMEM.
 """
 
 from __future__ import annotations
@@ -20,12 +26,21 @@ from functools import lru_cache
 import torch
 
 from .. import u64
-from ..constants import nte64_multiplier, to_i64
+from ..constants import nte64_multiplier
 from . import cuda_build
-from .kmer_torch import plane_tables, roll_tm, window_valid, window_valid_tm
+from .kmer_torch import (
+    plane_tables,
+    roll_tm,
+    segment_codes,
+    unsegment,
+    window_valid,
+    window_valid_tm,
+)
 
-#: Kernel launches made by :func:`hash_kmers_tm` in this process.
+#: Kernel launches made by :func:`hash_kmers_tm` (one segment per read).
 LAUNCHES = 0
+#: Kernel launches made by :func:`hash_kmers_tm_long` (segmented).
+LONG_LAUNCHES = 0
 
 
 def prepare_codes(codes: torch.Tensor) -> torch.Tensor:
@@ -35,7 +50,9 @@ def prepare_codes(codes: torch.Tensor) -> torch.Tensor:
     return torch.where(codes > 4, 4, codes).T.contiguous()
 
 
-def _check(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets):
+def check_args(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets) -> None:
+    """Raise on what the kernels do not take: the codes' layout, k, the
+    hash count and the output mode."""
     if codes_tm.dtype != torch.int32 or codes_tm.dim() != 2:
         raise TypeError(
             f"codes_tm must be a 2-D int32 [L, R] tensor, got "
@@ -56,21 +73,69 @@ def _check(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets):
             raise ValueError(f"emit_buckets ({emit_buckets}) must be in [1, 30]")
 
 
-def hash_kmers_tm_plain(codes_tm: torch.Tensor, k: int, num_hashes: int = 1, *,
-                        emit_fwd_rev: bool = False,
-                        emit_buckets: int | None = None) -> list[torch.Tensor]:
-    """Plain PyTorch version of :func:`hash_kmers_tm`, on any device: the
-    time-major roll of ``ops/kmer_torch.py`` (the recurrence of
-    ``kmer_jnp.py``), then the nte64 extensions and, in bucket mode, the
-    low bits with invalid windows set to the sentinel."""
-    _check(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets)
-    fwd, rev = roll_tm(codes_tm, k)
+def finish_planes(codes_tm, fwd, rev, k, num_hashes, emit_fwd_rev,
+                  emit_buckets):
+    """[W, R] fwd/rev -> the wrappers' outputs: the nte64 extensions (+ fwd,
+    rev) or, in bucket mode, their low bits with invalid windows set to the
+    sentinel. The spaced-seed wrappers use it once per seed."""
     ext = u64.extend_hashes(u64.add(fwd, rev), k, num_hashes)
     if emit_buckets is None:
         return ext + [fwd, rev] if emit_fwd_rev else ext
     valid = window_valid_tm(codes_tm, k)
     mask, width = (1 << emit_buckets) - 1, 1 << emit_buckets
     return [torch.where(valid, (e & mask).to(torch.int32), width) for e in ext]
+
+
+def hash_kmers_tm_plain(codes_tm: torch.Tensor, k: int, num_hashes: int = 1, *,
+                        emit_fwd_rev: bool = False,
+                        emit_buckets: int | None = None) -> list[torch.Tensor]:
+    """Plain PyTorch version of :func:`hash_kmers_tm`, on any device: the
+    time-major roll of ``ops/kmer_torch.py`` (the recurrence of
+    ``kmer_jnp.py``) over whole reads, then the nte64 extensions and, in
+    bucket mode, the low bits with invalid windows set to the sentinel."""
+    check_args(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets)
+    fwd, rev = roll_tm(codes_tm, k)
+    return finish_planes(codes_tm, fwd, rev, k, num_hashes, emit_fwd_rev,
+                         emit_buckets)
+
+
+def pick_time_tile(k: int, target: int = 256) -> int:
+    """Windows per segment of the long-read route: the multiple of k
+    closest to ``target`` (at least k), as the JAX package picks its time
+    tile."""
+    return k * max(1, round(target / k))
+
+
+def resolve_time_tile(k: int, time_tile: int | None) -> int:
+    """``time_tile``, or :func:`pick_time_tile` when None; raises unless it
+    is a multiple of k (the JAX package's contract)."""
+    if k <= 0:
+        raise ValueError("k must be greater than 0")
+    tile = time_tile or pick_time_tile(k)
+    if tile % k:
+        raise ValueError(f"time_tile ({tile}) must be a multiple of k ({k})")
+    return tile
+
+
+def hash_kmers_tm_long_plain(codes_tm: torch.Tensor, k: int,
+                             num_hashes: int = 1, *,
+                             time_tile: int | None = None,
+                             emit_fwd_rev: bool = False,
+                             emit_buckets: int | None = None
+                             ) -> list[torch.Tensor]:
+    """Plain PyTorch version of :func:`hash_kmers_tm_long`, on any device:
+    the kernel's segments, each rolled from zero state by ``roll_tm`` as a
+    read of its own (``time_tile + k - 1`` bases, the tail padded with the
+    invalid code), then put back in window order. Only the segments' warm-up
+    makes it differ from :func:`hash_kmers_tm_plain`, which the tests hold
+    it equal to."""
+    check_args(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets)
+    seg = min(resolve_time_tile(k, time_tile), codes_tm.shape[0] - k + 1)
+    fwd, rev = roll_tm(segment_codes(codes_tm, k, seg), k)
+    w, reads = codes_tm.shape[0] - k + 1, codes_tm.shape[1]
+    return finish_planes(codes_tm, unsegment(fwd, w, reads),
+                         unsegment(rev, w, reads), k, num_hashes,
+                         emit_fwd_rev, emit_buckets)
 
 
 @lru_cache(maxsize=32)
@@ -81,8 +146,7 @@ def _kernel_tables(k: int, num_hashes: int, device: torch.device) -> torch.Tenso
     vals = (list(tabs.fwd_in) + list(tabs.fwd_out) + list(tabs.rev_in)
             + list(tabs.rev_out_r)
             + [nte64_multiplier(i, k) for i in range(1, num_hashes)])
-    return torch.tensor([to_i64(v) for v in vals], dtype=torch.int64,
-                        device=device)
+    return u64.tensor(vals, device)
 
 
 def _lib() -> ctypes.CDLL:
@@ -93,13 +157,13 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
     return lib
 
 
-def _launch(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets):
-    global LAUNCHES
+def _launch(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets, seg):
+    """Launch ``kmer_hash.cu`` with ``seg`` windows per segment."""
     length, reads = codes_tm.shape
     dev = codes_tm.device
     nout = num_hashes + (2 if emit_fwd_rev else 0)
@@ -110,12 +174,11 @@ def _launch(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets):
     lib = _lib()
     tables = _kernel_tables(k, num_hashes, dev)
     status = lib.nthash_kmer_hash(
-        dev.index, codes_tm.data_ptr(), length, reads, k, num_hashes,
+        dev.index, codes_tm.data_ptr(), length, reads, k, seg, num_hashes,
         int(emit_fwd_rev), emit_buckets or 0, tables.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, status, "kmer_hash launch")
-    LAUNCHES += 1
     return list(out.unbind(0))
 
 
@@ -142,9 +205,13 @@ def hash_kmers_tm(codes_tm: torch.Tensor, k: int, num_hashes: int = 1, *,
     A CUDA tensor goes through the CUDA kernel (``csrc/kmer_hash.cu``), a
     CPU tensor through :func:`hash_kmers_tm_plain`.
     """
-    _check(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets)
+    global LAUNCHES
+    check_args(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets)
     if codes_tm.is_cuda:
-        return _launch(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets)
+        out = _launch(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets,
+                      codes_tm.shape[0] - k + 1)
+        LAUNCHES += codes_tm.shape[1] > 0  # an empty batch launches nothing
+        return out
     if codes_tm.device.type == "cpu":
         return hash_kmers_tm_plain(codes_tm, k, num_hashes,
                                    emit_fwd_rev=emit_fwd_rev,
@@ -152,14 +219,73 @@ def hash_kmers_tm(codes_tm: torch.Tensor, k: int, num_hashes: int = 1, *,
     raise ValueError(f"no kmer_hash route for device {codes_tm.device}")
 
 
-#: The JAX package picks a time-tiled kernel here when the whole read would
-#: not fit VMEM; the CUDA kernel has no such limit, so this is the one kernel.
-hash_kmers_tm_auto = hash_kmers_tm
+def hash_kmers_tm_long(codes_tm: torch.Tensor, k: int, num_hashes: int = 1, *,
+                       time_tile: int | None = None,
+                       emit_fwd_rev: bool = False,
+                       emit_buckets: int | None = None) -> list[torch.Tensor]:
+    """:func:`hash_kmers_tm` cut into segments: one thread per ``time_tile``
+    windows of a read (default :func:`pick_time_tile`, 256 at k=32), so
+    that a few long reads still fill the card. Same arguments and outputs
+    as :func:`hash_kmers_tm`; ``time_tile`` must be a multiple of k, as in
+    the JAX package (whose kernel needs it for its history ring).
+
+    A CUDA tensor goes through the CUDA kernel (``csrc/kmer_hash.cu``), a
+    CPU tensor through :func:`hash_kmers_tm_long_plain`.
+    """
+    global LONG_LAUNCHES
+    check_args(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets)
+    tile = resolve_time_tile(k, time_tile)
+    if codes_tm.is_cuda:
+        out = _launch(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets,
+                      min(tile, codes_tm.shape[0] - k + 1))
+        LONG_LAUNCHES += codes_tm.shape[1] > 0
+        return out
+    if codes_tm.device.type == "cpu":
+        return hash_kmers_tm_long_plain(codes_tm, k, num_hashes,
+                                        time_tile=tile,
+                                        emit_fwd_rev=emit_fwd_rev,
+                                        emit_buckets=emit_buckets)
+    raise ValueError(f"no kmer_hash route for device {codes_tm.device}")
+
+
+#: Reads from which one thread per read (A1) is faster than segments (B2)
+#: on the H100, for reads longer than one segment: 2**18 reads are 97% of
+#: one wave of resident threads (132 SMs x 2,048 at A1's 32 registers).
+#: Measured by ``chip_smoke.py``'s crossover grid (PERF.md section 6): B2
+#: wins from 4,096 to 2**17 reads at 1,000 and 10,000 bp, A1 from 2**18.
+SEGMENT_BELOW_READS = 1 << 18
+
+
+def long_read_threshold(length: int, k: int, reads: int,
+                        time_tile: int | None = None) -> bool:
+    """True when :func:`hash_kmers_tm_auto` takes the segmented route.
+
+    The rule is occupancy, not memory: segments pay when a read holds more
+    than one segment's windows and the reads alone, one thread each, do not
+    fill one wave of resident threads (``reads < SEGMENT_BELOW_READS``).
+    Then a few long reads roll on part of the card while the rest idles;
+    segments give ``W / time_tile`` times as many threads. From one full
+    wave on, every SM is busy either way and segments only add their
+    (k - 1) / time_tile warm-up.
+    """
+    return (length - k + 1 > resolve_time_tile(k, time_tile)
+            and reads < SEGMENT_BELOW_READS)
+
+
+def hash_kmers_tm_auto(codes_tm: torch.Tensor, k: int, num_hashes: int = 1,
+                       **kwargs) -> list[torch.Tensor]:
+    """:func:`hash_kmers_tm` or :func:`hash_kmers_tm_long`, by
+    :func:`long_read_threshold`; both give identical outputs."""
+    length, reads = codes_tm.shape
+    if long_read_threshold(length, k, reads, kwargs.get("time_tile")):
+        return hash_kmers_tm_long(codes_tm, k, num_hashes, **kwargs)
+    kwargs.pop("time_tile", None)
+    return hash_kmers_tm(codes_tm, k, num_hashes, **kwargs)
 
 
 def hash_kmers_batch(codes: torch.Tensor, k: int, num_hashes: int = 1):
     """[B, L] batch -> (hashes int64 [B, W, H], valid bool [B, W]), the
-    ``kmer_torch.hash_kmers`` layout, through :func:`hash_kmers_tm`."""
-    res = hash_kmers_tm(prepare_codes(codes), k, num_hashes)
+    ``kmer_torch.hash_kmers`` layout, through :func:`hash_kmers_tm_auto`."""
+    res = hash_kmers_tm_auto(prepare_codes(codes), k, num_hashes)
     hashes = torch.stack([r.T for r in res], dim=-1)
     return hashes, window_valid(codes.to(torch.int32), k)

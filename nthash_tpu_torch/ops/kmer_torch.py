@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from .. import u64
-from ..constants import COMP_CODE, SEEDS, sror1, srol_seed, to_i64
+from ..constants import COMP_CODE, SEEDS, sror1, srol_seed
 
 
 class PlaneTables(NamedTuple):
@@ -62,11 +62,6 @@ class KmerHashes(NamedTuple):
     valid: torch.Tensor   # [B, W] bool
 
 
-def _table(values, device) -> torch.Tensor:
-    return torch.tensor([to_i64(v) for v in values], dtype=torch.int64,
-                        device=device)
-
-
 def window_valid(codes: torch.Tensor, k: int) -> torch.Tensor:
     """[..., L] codes -> [..., W] bool: no invalid base in window."""
     p = torch.cumsum((codes >= 4).to(torch.int32), dim=-1)
@@ -90,7 +85,7 @@ def roll_tm(codes_tm: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]
     dev = codes_tm.device
     tabs = plane_tables(k)
     fwd_in, fwd_out, rev_in, rev_out = (
-        _table(t, dev)
+        u64.tensor(t, dev)
         for t in (tabs.fwd_in, tabs.fwd_out, tabs.rev_in, tabs.rev_out)
     )
     codes = codes_tm.to(torch.int64).clamp(max=4)
@@ -111,6 +106,28 @@ def roll_tm(codes_tm: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]
             fwd_seq[t - k + 1] = fwd
             rev_seq[t - k + 1] = rev
     return fwd_seq, rev_seq
+
+
+def segment_codes(codes_tm: torch.Tensor, k: int, seg: int) -> torch.Tensor:
+    """[L, R] codes -> [seg + k - 1, nseg * R]: the bases of each segment of
+    ``seg`` windows as a read of its own (column j * R + r holds read r's
+    bases [j * seg, (j + 1) * seg + k - 1), the tail padded with the
+    invalid code), nseg = ceil((L - k + 1) / seg). Rolled from zero state,
+    column j * R + r gives read r's windows [j * seg, (j + 1) * seg):
+    a window's hash depends only on its own k bases."""
+    length, reads = codes_tm.shape
+    nseg = -(-(length - k + 1) // seg)
+    pad = nseg * seg + k - 1 - length
+    padded = torch.nn.functional.pad(codes_tm, (0, 0, 0, pad), value=4)
+    rows = padded.unfold(0, seg + k - 1, seg)        # [nseg, R, seg + k - 1]
+    return rows.permute(2, 0, 1).reshape(seg + k - 1, nseg * reads)
+
+
+def unsegment(x: torch.Tensor, w: int, reads: int) -> torch.Tensor:
+    """Inverse of :func:`segment_codes` for per-window outputs:
+    [seg, nseg * R] -> [w, R] in window order."""
+    seg = x.shape[0]
+    return x.reshape(seg, -1, reads).transpose(0, 1).reshape(-1, reads)[:w]
 
 
 def hash_kmers(codes: torch.Tensor, k: int, num_hashes: int = 1) -> KmerHashes:

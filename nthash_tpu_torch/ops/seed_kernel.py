@@ -1,0 +1,346 @@
+"""The spaced-seed rolling kernels over time-major reads, and their plain
+versions.
+
+Counterpart of ``nthash_tpu/ops/seed_pallas.py`` (``care_runs``,
+``seed_taps``, ``hash_seeds_tm``, ``hash_seeds_tm_long``,
+``hash_seeds_tm_auto``, ``hash_seeds_batch``). Both routes launch
+``csrc/seed_hash.cu``: :func:`hash_seeds_tm` with one segment per read (B1,
+the Pallas ``_kernel``), :func:`hash_seeds_tm_long` with segments of
+``time_tile`` windows (B3, the Pallas ``_kernel_long``). The source note says
+what bounds the kernel on the H100.
+
+The rolling reformulation is the JAX package's: the spaced-seed hash is an
+XOR of independently rotated per-base seeds over the care positions, so for
+each maximal care run [s, e) rolling the window by one base is two edge
+updates (taps at offsets k - e and k - s behind the newest base). Each
+wrapper launches the kernel for a CUDA tensor and runs its plain version for
+a CPU tensor; there is no other route, and a failed launch raises. Any R
+works (no TPU read padding). ``ops/seed_torch.py`` is the independent
+direct reference the tests hold both routes to.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+from typing import NamedTuple, Sequence
+
+import torch
+
+from .. import u64
+from ..constants import COMP_CODE, SROL_PERIOD, nte64_multiplier, srol_seed
+from . import cuda_build
+from .kmer_kernel import (
+    check_args,
+    finish_planes,
+    long_read_threshold,
+    prepare_codes,
+    resolve_time_tile,
+)
+from .kmer_torch import segment_codes, unsegment, window_valid
+from .seed_torch import check_seeds
+
+#: Kernel launches made by :func:`hash_seeds_tm` (one segment per read).
+LAUNCHES = 0
+#: Kernel launches made by :func:`hash_seeds_tm_long` (segmented).
+LONG_LAUNCHES = 0
+
+#: Shared memory one block may use on the H100 (227 KB); the kernel holds
+#: every care run's tables there.
+MAX_SHARED_BYTES = 232448
+
+
+class BlockTaps(NamedTuple):
+    """Constants for one care run [s, e) of one seed (uint64 as Python ints)."""
+
+    off_in: int                 # tap offset from t for the entering edge: k - e
+    off_out: int                # tap offset for the leaving edge: k - s
+    fwd_in: tuple[int, ...]     # srol^(k-e)(SEED[b])
+    fwd_out: tuple[int, ...]    # srol^(k-s)(SEED[b])
+    rev_in: tuple[int, ...]     # srol^(e-1)(SEED[comp(b)])
+    rev_out: tuple[int, ...]    # srol^(s-1)(SEED[comp(b)])
+
+
+def care_runs(seed: str) -> list[tuple[int, int]]:
+    """Maximal runs of '1' (care) positions in a pattern string."""
+    runs, start = [], None
+    for i, ch in enumerate(seed):
+        if ch == "1" and start is None:
+            start = i
+        elif ch != "1" and start is not None:
+            runs.append((start, i))
+            start = None
+    if start is not None:
+        runs.append((start, len(seed)))
+    if not runs:
+        raise ValueError(f"seed pattern has no care positions: {seed!r}")
+    return runs
+
+
+def seed_taps(seed: str) -> list[BlockTaps]:
+    """The two taps of every care run of ``seed``. A run starting at 0 has
+    the exponent s - 1 = -1, i.e. srol^1022 in the order-1,023 group."""
+    k = len(seed)
+    taps = []
+    for s, e in care_runs(seed):
+        taps.append(BlockTaps(
+            off_in=k - e,
+            off_out=k - s,
+            fwd_in=tuple(srol_seed(c, k - e) for c in range(4)) + (0,),
+            fwd_out=tuple(srol_seed(c, k - s) for c in range(4)) + (0,),
+            rev_in=tuple(srol_seed(COMP_CODE[c], (e - 1) % SROL_PERIOD)
+                         for c in range(4)) + (0,),
+            rev_out=tuple(srol_seed(COMP_CODE[c], (s - 1) % SROL_PERIOD)
+                          for c in range(4)) + (0,),
+        ))
+    return taps
+
+
+@lru_cache(maxsize=64)
+def _all_taps(seeds: tuple[str, ...]) -> tuple[tuple[BlockTaps, ...], ...]:
+    return tuple(tuple(seed_taps(s)) for s in seeds)
+
+
+def _check(codes_tm, seeds, num_hashes, emit_fwd_rev, emit_buckets) -> int:
+    """Validate the arguments; returns k, the seeds' common length."""
+    k = check_seeds(seeds)
+    _all_taps(tuple(seeds))  # a pattern with no care position raises
+    check_args(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets)
+    return k
+
+
+def roll_seeds_tm(codes_tm: torch.Tensor, seeds: Sequence[str]):
+    """[L, R] codes -> (per seed fwd [W, R], per seed rev [W, R]) int64: the
+    two-tap roll of every seed, one Python step per base, each tap skipped
+    until the roll is ``off`` bases in (the Pallas kernel's static guards)."""
+    length, reads = codes_tm.shape
+    k = len(seeds[0])
+    dev = codes_tm.device
+    codes = codes_tm.to(torch.int64).clamp(max=4)
+    all_taps = [[(b.off_in, b.off_out, u64.tensor(b.fwd_in, dev),
+                  u64.tensor(b.fwd_out, dev), u64.tensor(b.rev_in, dev),
+                  u64.tensor(b.rev_out, dev)) for b in taps]
+                for taps in _all_taps(tuple(seeds))]
+    w = length - k + 1
+    fwd_seq = [torch.empty((w, reads), dtype=torch.int64, device=dev)
+               for _ in seeds]
+    rev_seq = [torch.empty((w, reads), dtype=torch.int64, device=dev)
+               for _ in seeds]
+    fwd = [torch.zeros(reads, dtype=torch.int64, device=dev) for _ in seeds]
+    rev = [torch.zeros(reads, dtype=torch.int64, device=dev) for _ in seeds]
+    for t in range(length):
+        for si, taps in enumerate(all_taps):
+            f, r = u64.srol1(fwd[si]), u64.sror1(rev[si])
+            for off_in, off_out, fwd_in, fwd_out, rev_in, rev_out in taps:
+                if t >= off_in:
+                    c = codes[t - off_in]
+                    f = f ^ fwd_in[c]
+                    r = r ^ rev_in[c]
+                if t >= off_out:
+                    c = codes[t - off_out]
+                    f = f ^ fwd_out[c]
+                    r = r ^ rev_out[c]
+            fwd[si], rev[si] = f, r
+            if t >= k - 1:
+                fwd_seq[si][t - k + 1] = f
+                rev_seq[si][t - k + 1] = r
+    return fwd_seq, rev_seq
+
+
+def _finish(codes_tm, fwds, revs, k, num_hashes, emit_fwd_rev, emit_buckets):
+    """Per-seed [W, R] fwd/rev -> the wrappers' outputs in hash_arr order."""
+    return [o for f, r in zip(fwds, revs)
+            for o in finish_planes(codes_tm, f, r, k, num_hashes,
+                                   emit_fwd_rev, emit_buckets)]
+
+
+def hash_seeds_tm_plain(codes_tm: torch.Tensor, seeds: Sequence[str],
+                        num_hashes_per_seed: int = 1, *,
+                        emit_fwd_rev: bool = False,
+                        emit_buckets: int | None = None) -> list[torch.Tensor]:
+    """Plain PyTorch version of :func:`hash_seeds_tm`, on any device: the
+    two-tap roll over whole reads (:func:`roll_seeds_tm`), then the nte64
+    extensions per seed and, in bucket mode, strict validity."""
+    k = _check(codes_tm, seeds, num_hashes_per_seed, emit_fwd_rev,
+               emit_buckets)
+    fwds, revs = roll_seeds_tm(codes_tm, seeds)
+    return _finish(codes_tm, fwds, revs, k, num_hashes_per_seed,
+                   emit_fwd_rev, emit_buckets)
+
+
+def hash_seeds_tm_long_plain(codes_tm: torch.Tensor, seeds: Sequence[str],
+                             num_hashes_per_seed: int = 1, *,
+                             time_tile: int | None = None,
+                             emit_fwd_rev: bool = False,
+                             emit_buckets: int | None = None
+                             ) -> list[torch.Tensor]:
+    """Plain PyTorch version of :func:`hash_seeds_tm_long`, on any device:
+    the kernel's segments rolled from zero state as reads of their own
+    (``kmer_torch.segment_codes``), then put back in window order."""
+    k = _check(codes_tm, seeds, num_hashes_per_seed, emit_fwd_rev,
+               emit_buckets)
+    w, reads = codes_tm.shape[0] - k + 1, codes_tm.shape[1]
+    seg = min(resolve_time_tile(k, time_tile), w)
+    fwds, revs = roll_seeds_tm(segment_codes(codes_tm, k, seg), seeds)
+    return _finish(codes_tm, [unsegment(f, w, reads) for f in fwds],
+                   [unsegment(r, w, reads) for r in revs], k,
+                   num_hashes_per_seed, emit_fwd_rev, emit_buckets)
+
+
+@lru_cache(maxsize=32)
+def _kernel_tables(seeds: tuple[str, ...], num_hashes: int,
+                   device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(tables int64, meta int32) on ``device`` in ``seed_hash.cu``'s layout:
+    per run its four 5-entry tables, then the nte64 multipliers for k =
+    the pattern length; per run (off_in, off_out), then the S + 1 run
+    offsets."""
+    k = len(seeds[0])
+    vals, offs, starts = [], [], [0]
+    for taps in _all_taps(seeds):
+        for b in taps:
+            vals += list(b.fwd_in) + list(b.fwd_out) + list(b.rev_in) \
+                + list(b.rev_out)
+            offs += [b.off_in, b.off_out]
+        starts.append(starts[-1] + len(taps))
+    vals += [nte64_multiplier(i, k) for i in range(1, num_hashes)]
+    tables = u64.tensor(vals, device)
+    meta = torch.tensor(offs + starts, dtype=torch.int32, device=device)
+    return tables, meta
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("seed_hash")
+    fn = lib.nthash_seed_hash
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+    return lib
+
+
+def _launch(codes_tm, seeds, k, num_hashes, emit_fwd_rev, emit_buckets, seg):
+    """Launch ``seed_hash.cu`` with ``seg`` windows per segment."""
+    length, reads = codes_tm.shape
+    dev = codes_tm.device
+    nruns = sum(len(t) for t in _all_taps(seeds))
+    smem = (20 * nruns + num_hashes - 1) * 8 + (2 * nruns + len(seeds) + 1) * 4
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"{nruns} care runs need {smem} bytes of tables, more than the "
+            f"{MAX_SHARED_BYTES} bytes of shared memory a block may use")
+    per_seed = num_hashes + (2 if emit_fwd_rev else 0)
+    dtype = torch.int64 if emit_buckets is None else torch.int32
+    out = torch.empty((len(seeds) * per_seed, length - k + 1, reads),
+                      dtype=dtype, device=dev)
+    if reads == 0:
+        return list(out.unbind(0))
+    lib = _lib()
+    tables, meta = _kernel_tables(seeds, num_hashes, dev)
+    status = lib.nthash_seed_hash(
+        dev.index, codes_tm.data_ptr(), length, reads, k, len(seeds), nruns,
+        seg, num_hashes, int(emit_fwd_rev), emit_buckets or 0,
+        tables.data_ptr(), meta.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check(lib, status, "seed_hash launch")
+    return list(out.unbind(0))
+
+
+def hash_seeds_tm(codes_tm: torch.Tensor, seeds: Sequence[str],
+                  num_hashes_per_seed: int = 1, *,
+                  emit_fwd_rev: bool = False,
+                  emit_buckets: int | None = None) -> list[torch.Tensor]:
+    """Spaced-seed hash of every window of time-major coded reads.
+
+    Args:
+      codes_tm: [L, R] contiguous int32 base codes (0-3 valid, 4 invalid),
+        e.g. from ``kmer_kernel.prepare_codes``. Any R; no padding.
+      seeds: '1'/'0' pattern strings, all of one length k.
+      num_hashes_per_seed: canonical + nte64 extensions per seed.
+      emit_fwd_rev: additionally emit each seed's forward/reverse hashes.
+      emit_buckets: if set (a width_log2 in [1, 30]), emit int32 bucket
+        indices with strict window validity (invalid -> sentinel
+        ``2**emit_buckets``), as ``kmer_kernel.hash_kmers_tm`` does.
+
+    Returns:
+      A list of [W, R] tensors in the reference hash_arr order (seed-major:
+      seeds[0]'s hashes, then seeds[1]'s, ...); with emit_fwd_rev each
+      seed's group is followed by its (fwd, rev). int64 hashes, or int32
+      buckets.
+
+    A CUDA tensor goes through the CUDA kernel (``csrc/seed_hash.cu``), a
+    CPU tensor through :func:`hash_seeds_tm_plain`.
+    """
+    global LAUNCHES
+    seeds = tuple(seeds)
+    k = _check(codes_tm, seeds, num_hashes_per_seed, emit_fwd_rev,
+               emit_buckets)
+    if codes_tm.is_cuda:
+        out = _launch(codes_tm, seeds, k, num_hashes_per_seed, emit_fwd_rev,
+                      emit_buckets, codes_tm.shape[0] - k + 1)
+        LAUNCHES += codes_tm.shape[1] > 0  # an empty batch launches nothing
+        return out
+    if codes_tm.device.type == "cpu":
+        return hash_seeds_tm_plain(codes_tm, seeds, num_hashes_per_seed,
+                                   emit_fwd_rev=emit_fwd_rev,
+                                   emit_buckets=emit_buckets)
+    raise ValueError(f"no seed_hash route for device {codes_tm.device}")
+
+
+def hash_seeds_tm_long(codes_tm: torch.Tensor, seeds: Sequence[str],
+                       num_hashes_per_seed: int = 1, *,
+                       time_tile: int | None = None,
+                       emit_fwd_rev: bool = False,
+                       emit_buckets: int | None = None) -> list[torch.Tensor]:
+    """:func:`hash_seeds_tm` cut into segments of ``time_tile`` windows (a
+    multiple of k; default ``kmer_kernel.pick_time_tile(k)``), one thread
+    each. Same arguments and outputs as :func:`hash_seeds_tm`.
+
+    A CUDA tensor goes through the CUDA kernel (``csrc/seed_hash.cu``), a
+    CPU tensor through :func:`hash_seeds_tm_long_plain`.
+    """
+    global LONG_LAUNCHES
+    seeds = tuple(seeds)
+    k = _check(codes_tm, seeds, num_hashes_per_seed, emit_fwd_rev,
+               emit_buckets)
+    tile = resolve_time_tile(k, time_tile)
+    if codes_tm.is_cuda:
+        out = _launch(codes_tm, seeds, k, num_hashes_per_seed, emit_fwd_rev,
+                      emit_buckets, min(tile, codes_tm.shape[0] - k + 1))
+        LONG_LAUNCHES += codes_tm.shape[1] > 0
+        return out
+    if codes_tm.device.type == "cpu":
+        return hash_seeds_tm_long_plain(codes_tm, seeds, num_hashes_per_seed,
+                                        time_tile=tile,
+                                        emit_fwd_rev=emit_fwd_rev,
+                                        emit_buckets=emit_buckets)
+    raise ValueError(f"no seed_hash route for device {codes_tm.device}")
+
+
+def hash_seeds_tm_auto(codes_tm: torch.Tensor, seeds: Sequence[str],
+                       num_hashes_per_seed: int = 1,
+                       **kwargs) -> list[torch.Tensor]:
+    """:func:`hash_seeds_tm` or :func:`hash_seeds_tm_long`, by
+    ``kmer_kernel.long_read_threshold`` (the occupancy rule); both give
+    identical outputs."""
+    length, reads = codes_tm.shape
+    k = check_seeds(seeds)
+    if long_read_threshold(length, k, reads, kwargs.get("time_tile")):
+        return hash_seeds_tm_long(codes_tm, seeds, num_hashes_per_seed,
+                                  **kwargs)
+    kwargs.pop("time_tile", None)
+    return hash_seeds_tm(codes_tm, seeds, num_hashes_per_seed, **kwargs)
+
+
+def hash_seeds_batch(codes: torch.Tensor, seeds: Sequence[str],
+                     num_hashes_per_seed: int = 1):
+    """[B, L] batch -> (hashes int64 [B, W, S*H], valid bool [B, W]), the
+    ``seed_torch.hash_kmers_seeds`` hash layout, through
+    :func:`hash_seeds_tm_auto`."""
+    res = hash_seeds_tm_auto(prepare_codes(codes), seeds, num_hashes_per_seed)
+    hashes = torch.stack([r.T for r in res], dim=-1)
+    return hashes, window_valid(codes.to(torch.int32), len(seeds[0]))

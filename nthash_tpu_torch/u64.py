@@ -66,6 +66,12 @@ def extend_hashes(canon: torch.Tensor, k: int, num_hashes: int) -> list[torch.Te
     return out
 
 
+def tensor(values, device="cpu") -> torch.Tensor:
+    """uint64 Python ints -> 1-D int64 tensor with the same bits on ``device``."""
+    return torch.tensor([to_i64(v) for v in values], dtype=torch.int64,
+                        device=device)
+
+
 def to_numpy_u64(t: torch.Tensor) -> np.ndarray:
     """int64 tensor (any device) -> numpy uint64 with the same bits."""
     return t.detach().cpu().numpy().view(np.uint64)

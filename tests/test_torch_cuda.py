@@ -19,7 +19,7 @@ from nthash_tpu_torch.models.pipeline import (
     ReadHashingPipeline,
     fused_count_step,
 )
-from nthash_tpu_torch.ops import hist_kernel, kmer_kernel
+from nthash_tpu_torch.ops import hist_kernel, kmer_kernel, seed_kernel
 from nthash_tpu_torch.ops import part_kernel as pk
 from nthash_tpu_torch.ops.hist_kernel import histogram_rows, histogram_rows_plain
 from nthash_tpu_torch.ops.kmer_kernel import (
@@ -27,6 +27,7 @@ from nthash_tpu_torch.ops.kmer_kernel import (
     hash_kmers_tm_plain,
     prepare_codes,
 )
+from nthash_tpu_torch.parallel import sp
 from nthash_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
@@ -67,6 +68,120 @@ def test_kmer_kernel_vs_plain(rng, cuda, k, h, mode):
     cpu = hash_kmers_tm(tm.cpu(), k, h, **mode)
     for g, c in zip(got, cpu):
         assert torch.equal(g.cpu(), c)
+
+
+def _same(got, want):
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mode", [{}, {"emit_fwd_rev": True},
+                                  {"emit_buckets": 14}])
+@pytest.mark.parametrize("reads,length,k,tile", [
+    (777, 1000, 32, None), (1, 3000, 32, 64), (33, 40, 5, 10),
+    (64, 32, 32, 32), (5, 300, 1, 7), (3, 70, 5, 5000)])
+def test_kmer_long_kernel_vs_plain(rng, cuda, reads, length, k, tile, mode):
+    tm = prepare_codes(_codes(rng, reads, length).to(cuda))
+    before = (kmer_kernel.LAUNCHES, kmer_kernel.LONG_LAUNCHES)
+    got = kmer_kernel.hash_kmers_tm_long(tm, k, 3, time_tile=tile, **mode)
+    assert (kmer_kernel.LAUNCHES, kmer_kernel.LONG_LAUNCHES) == \
+        (before[0], before[1] + 1)
+    _same(got, kmer_kernel.hash_kmers_tm_long_plain(tm, k, 3, time_tile=tile,
+                                                    **mode))
+    _same(got, hash_kmers_tm(tm, k, 3, **mode))
+
+
+@pytest.mark.parametrize("mode", [{}, {"emit_fwd_rev": True},
+                                  {"emit_buckets": 12}])
+@pytest.mark.parametrize("seeds", [("10101", "11011"), ("1",), ("00100",),
+                                   ("0110", "1001", "1111"),
+                                   ("110100110011001011",
+                                    "111111000000111111")])
+@pytest.mark.parametrize("reads,length", [(777, 150), (1, 400), (33, 18)])
+def test_seed_kernels_vs_plain(rng, cuda, seeds, reads, length, mode):
+    k = len(seeds[0])
+    tm = prepare_codes(_codes(rng, reads, length).to(cuda))
+    want = seed_kernel.hash_seeds_tm_plain(tm, seeds, 3, **mode)
+    before = (seed_kernel.LAUNCHES, seed_kernel.LONG_LAUNCHES)
+    _same(seed_kernel.hash_seeds_tm(tm, seeds, 3, **mode), want)
+    for tile in (k, 3 * k, 1000 * k):
+        _same(seed_kernel.hash_seeds_tm_long(tm, seeds, 3, time_tile=tile,
+                                             **mode), want)
+    assert (seed_kernel.LAUNCHES, seed_kernel.LONG_LAUNCHES) == \
+        (before[0] + 1, before[1] + 3)
+
+
+def test_auto_routes_on_card(rng, cuda):
+    short = prepare_codes(_codes(rng, 500, 150).to(cuda))
+    long = prepare_codes(_codes(rng, 500, 2000).to(cuda))
+    before = (kmer_kernel.LAUNCHES, kmer_kernel.LONG_LAUNCHES)
+    _same(kmer_kernel.hash_kmers_tm_auto(short, 32, 2),
+          hash_kmers_tm_plain(short, 32, 2))
+    _same(kmer_kernel.hash_kmers_tm_auto(long, 32, 2, emit_buckets=20),
+          kmer_kernel.hash_kmers_tm_long_plain(long, 32, 2, emit_buckets=20))
+    assert (kmer_kernel.LAUNCHES, kmer_kernel.LONG_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+
+
+def test_kernels_refuse_bad_inputs(cuda):
+    tm = torch.zeros((40, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        kmer_kernel.hash_kmers_tm_long(tm.long(), 5, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        seed_kernel.hash_seeds_tm(torch.zeros((3, 40), dtype=torch.int32,
+                                              device=cuda).T, ("101",))
+    with pytest.raises(ValueError, match="multiple of k"):
+        seed_kernel.hash_seeds_tm_long(tm, ("10101",), time_tile=7)
+    with pytest.raises(ValueError, match="no care positions"):
+        seed_kernel.hash_seeds_tm(tm, ("000",))
+    # tables beyond the 227 KB of shared memory a block may use
+    many = ("10" * 1500,)
+    with pytest.raises(ValueError, match="shared memory"):
+        seed_kernel.hash_seeds_tm(torch.zeros((3000, 3), dtype=torch.int32,
+                                              device=cuda), many)
+
+
+def test_seed18_goldens_on_card(cuda):
+    from nthash_tpu_torch.constants import encode_ascii
+    from nthash_tpu_torch.u64 import to_numpy_u64
+
+    seq = ("GATTACAGATTACACCTTGGAACCNGGTTCCAAGGTTCCAAGG"
+           "ACGTACGTACGTAGCTAGCTAGCTAGGCCATGCATGG")
+    seeds = ("110100110011001011", "111111000000111111")
+    codes = torch.from_numpy(np.tile(encode_ascii(seq), (2, 1))).to(cuda)
+    hashes, _ = seed_kernel.hash_seeds_batch(codes, seeds, 2)
+    assert list(to_numpy_u64(hashes)[1, 0]) == [
+        0x598ABFC133B99142, 0xC1ABAFAF1EADE78F, 0xE895A7F010ED432F,
+        0xD20AF1F39F107A60]
+
+
+def test_sp_on_card_vs_cpu(rng, cuda):
+    seq = torch.from_numpy(rng.integers(0, 5, size=100_003, dtype=np.uint8))
+    for run in (lambda x: sp.hash_long_sequence(sp.shard_sequence(x, k=32),
+                                                32, 2),
+                lambda x: sp.hash_long_sequence_seeds(
+                    sp.shard_sequence(x, k=5), ("10101", "11011"), 1)):
+        got, valid = run(seq.to(cuda))
+        want, wvalid = run(seq)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        assert torch.equal(valid.cpu(), wvalid)
+
+
+def test_count_file_long_reads_cuda_vs_cpu(tmp_path, rng, cuda):
+    path = tmp_path / "long.fq"
+    seqs = np.frombuffer(b"ACGTN", np.uint8)[rng.integers(0, 5, size=(40, 3000))]
+    with open(path, "wb") as f:
+        for s in seqs:
+            f.write(b"@r\n" + s.tobytes() + b"\n+\n" + b"I" * 3000 + b"\n")
+    gpu = ReadHashingPipeline(PipelineConfig(), device=cuda)
+    cpu = ReadHashingPipeline(PipelineConfig(), device="cpu")
+    before = kmer_kernel.LONG_LAUNCHES
+    assert gpu.count_file(path, batch_size=16, read_length=3000) == 40
+    assert kmer_kernel.LONG_LAUNCHES == before + 3
+    assert cpu.count_file(path, batch_size=16, read_length=3000) == 40
+    assert torch.equal(gpu.sketch.rows.cpu(), cpu.sketch.rows)
 
 
 @pytest.mark.parametrize("weights", ["per_row", "shared", "none"])

@@ -169,11 +169,49 @@ def test_cpu_route_launches_no_kernel(rng):
     assert kmer_kernel.LAUNCHES == before
 
 
-def test_auto_is_the_one_kernel(rng):
-    tm = _tm(_codes(rng))
-    assert hash_kmers_tm_auto is hash_kmers_tm
-    for a, b in zip(hash_kmers_tm(tm, 9, 2), hash_kmers_tm_plain(tm, 9, 2)):
-        assert torch.equal(a, b)
+def test_auto_is_the_one_kernel(rng, monkeypatch):
+    """Both routes of hash_kmers_tm_auto are the one kernel (kmer_hash.cu,
+    one segment per read or segments of time_tile windows), picked by the
+    occupancy rule, and give identical outputs."""
+    calls = []
+    for name in ("hash_kmers_tm", "hash_kmers_tm_long"):
+        fn = getattr(kmer_kernel, name)
+        monkeypatch.setattr(kmer_kernel, name,
+                            lambda *a, _f=fn, _n=name, **kw:
+                            calls.append(_n) or _f(*a, **kw))
+    short = _tm(_codes(rng))                      # W = 102 <= the tile
+    long = _tm(_codes(rng, length=700))           # W = 692 > 256
+    for tm, route in ((short, "hash_kmers_tm"), (long, "hash_kmers_tm_long")):
+        for mode in ({}, {"emit_fwd_rev": True}, {"emit_buckets": 10}):
+            calls.clear()
+            got = hash_kmers_tm_auto(tm, 9, 2, **mode)
+            assert calls == [route]
+            want = hash_kmers_tm_plain(tm, 9, 2, **mode)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    calls.clear()
+    hash_kmers_tm_auto(long, 9, 2, time_tile=900)  # one tile holds the read
+    assert calls == ["hash_kmers_tm"]
+
+
+@pytest.mark.parametrize("length,k,reads,tile,segmented", [
+    (150, 32, 4096, None, False),           # W = 119 <= 256: one segment
+    (150, 32, 1 << 18, None, False),        # the main path's batch
+    (288, 32, 4096, None, True),            # W = 257 > 256
+    (287, 32, 4096, None, False),           # W = 256: exactly one tile
+    (10_000, 32, 4096, None, True),         # the long-read batch
+    (10_000, 32, (1 << 18) - 1, None, True),
+    (10_000, 32, 1 << 18, None, False),     # one full wave of reads
+    (1000, 5, 16, 1000, False),             # a tile >= W
+    (1000, 5, 16, 995, True),
+])
+def test_long_read_threshold_rule(length, k, reads, tile, segmented):
+    assert kmer_kernel.long_read_threshold(length, k, reads, tile) is segmented
+    assert kmer_kernel.SEGMENT_BELOW_READS == 1 << 18
+
+
+def test_long_read_threshold_rejects_bad_tile():
+    with pytest.raises(ValueError, match="multiple of k"):
+        kmer_kernel.long_read_threshold(1000, 32, 16, 100)
 
 
 @pytest.mark.parametrize("bad,err", [

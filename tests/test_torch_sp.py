@@ -1,0 +1,163 @@
+"""The port's one-device sequence hashing against the JAX package, exactly.
+
+``nthash_tpu_torch.parallel.sp`` is ``nthash_tpu/parallel/sp.py`` without
+its mesh: the JAX functions run here on a 1-device "seq" mesh with the jnp
+engine, the port's with both of its engines ("kernel": the wrappers, whose
+CPU route is the plain roll; "torch": the batch-major reference engines).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nthash_tpu import oracle
+from nthash_tpu.parallel import sp as jsp
+from nthash_tpu.parallel.mesh import SEQ_AXIS, device_mesh
+from nthash_tpu_torch.ops import kmer_kernel, seed_kernel
+from nthash_tpu_torch.parallel import sp
+from nthash_tpu_torch.u64 import to_numpy_u64
+
+ENGINES = ["kernel", "torch"]
+SEEDS = ("110011", "101101")
+
+
+@pytest.fixture(scope="module")
+def mesh1():
+    return device_mesh(1, SEQ_AXIS)
+
+
+def _jax_kmers(seq, k, h, mesh, tile=None):
+    codes = jsp.shard_sequence(jnp.asarray(seq), mesh, k=k, tile=tile)
+    res, valid = jsp.hash_long_sequence(codes, k, h, mesh, engine="jnp",
+                                        tile=tile)
+    return [r.to_np() for r in res], np.asarray(valid)
+
+
+def _jax_seeds(seq, seeds, h, mesh, tile=None):
+    k = len(seeds[0])
+    codes = jsp.shard_sequence(jnp.asarray(seq), mesh, k=k, tile=tile)
+    res, valid = jsp.hash_long_sequence_seeds(codes, seeds, h, mesh,
+                                              engine="jnp", tile=tile)
+    return [r.to_np() for r in res], np.asarray(valid)
+
+
+def test_pick_tile_vs_jax():
+    for c in (1, 2, 8, 9, 64, 96, 127, 128, 256, 300, 1009, 1024, 4096,
+              65_536, 1 << 20):
+        for k in (1, 2, 5, 9, 32, 33, 64, 100):
+            for tile in (None, 8, 16, 128, 256, 1000):
+                try:
+                    want = jsp.pick_tile(c, k, tile)
+                except ValueError:
+                    with pytest.raises(ValueError, match="smaller than k-1"):
+                        sp.pick_tile(c, k, tile)
+                    continue
+                assert sp.pick_tile(c, k, tile) == want, (c, k, tile)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("length,k,h,tile", [
+    (512, 9, 2, None), (128, 4, 1, None), (1024, 32, 3, 64),
+    (2048, 1, 1, 100), (1009, 9, 2, 16), (997, 32, 2, 40)])
+def test_hash_long_sequence_vs_jax(rng, mesh1, engine, length, k, h, tile):
+    """Prime lengths are padded to the tile as shard_sequence(k=) does."""
+    seq = rng.integers(0, 5, size=(length,), dtype=np.uint8)
+    want, wvalid = _jax_kmers(seq, k, h, mesh1, tile)
+    codes = sp.shard_sequence(torch.from_numpy(seq), k=k, tile=tile)
+    got, valid = sp.hash_long_sequence(codes, k, h, engine=engine, tile=tile)
+    assert len(got) == h
+    for g, w in zip(got, want):
+        assert np.array_equal(to_numpy_u64(g), w)
+    assert np.array_equal(valid.numpy(), wvalid)
+    # and the oracle on the unpadded windows
+    _, _, expect, v = oracle.hash_all_windows(seq, k, h)
+    w = length - k + 1
+    assert np.array_equal(np.stack([to_numpy_u64(g) for g in got], -1)[:w],
+                          expect)
+    assert np.array_equal(valid.numpy()[:w], v)
+    assert not valid.numpy()[w:].any()
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("length,h,tile", [(128, 2, None), (131, 2, 8),
+                                           (600, 1, 32), (257, 3, None)])
+def test_hash_long_sequence_seeds_vs_jax(rng, mesh1, engine, length, h, tile):
+    seq = rng.integers(0, 5, size=(length,), dtype=np.uint8)
+    want, wvalid = _jax_seeds(seq, SEEDS, h, mesh1, tile)
+    codes = sp.shard_sequence(torch.from_numpy(seq), k=6, tile=tile)
+    got, valid = sp.hash_long_sequence_seeds(codes, SEEDS, h, engine=engine,
+                                             tile=tile)
+    assert len(got) == len(SEEDS) * h
+    for g, w in zip(got, want):
+        assert np.array_equal(to_numpy_u64(g), w)
+    assert np.array_equal(valid.numpy(), wvalid)
+    _, _, expect = oracle.hash_all_windows_seeds(seq, SEEDS, h)
+    w = length - 6 + 1
+    assert np.array_equal(np.stack([to_numpy_u64(g) for g in got], -1)[:w],
+                          expect)
+    assert not valid.numpy()[w:].any()
+
+
+def test_baseline_seeds_vs_jax(rng, mesh1):
+    seq = rng.integers(0, 5, size=(1000,), dtype=np.uint8)
+    want, wvalid = _jax_seeds(seq, ("10101", "11011"), 1, mesh1)
+    got, valid = sp.hash_long_sequence_seeds(
+        sp.shard_sequence(torch.from_numpy(seq), k=5), ("10101", "11011"), 1)
+    for g, w in zip(got, want):
+        assert np.array_equal(to_numpy_u64(g), w)
+    assert np.array_equal(valid.numpy(), wvalid)
+
+
+@pytest.mark.parametrize("length,k,tile", [(1009, 9, 16), (1009, 9, None),
+                                           (131, 6, 8), (100, 40, None),
+                                           (512, 9, None)])
+def test_shard_sequence_vs_jax(rng, mesh1, length, k, tile):
+    seq = rng.integers(0, 5, size=(length,), dtype=np.uint8)
+    want = np.asarray(jsp.shard_sequence(jnp.asarray(seq), mesh1, k=k,
+                                         tile=tile))
+    got = sp.shard_sequence(torch.from_numpy(seq), k=k, tile=tile)
+    assert np.array_equal(got.numpy(), want)
+    assert sp.shard_sequence(torch.from_numpy(seq)).shape == (length,)
+
+
+def test_pseudo_reads_vs_jax(rng):
+    for c, k, t in ((64, 5, 16), (96, 9, 8), (256, 32, 256), (30, 1, 3)):
+        ext = rng.integers(0, 5, size=(c + k - 1,), dtype=np.uint8)
+        want = np.asarray(jsp.pseudo_reads(jnp.asarray(ext), k, t))
+        assert np.array_equal(
+            sp.pseudo_reads(torch.from_numpy(ext), k, t).numpy(), want)
+
+
+def test_resolve_engine():
+    assert sp.resolve_engine("auto", "cpu") == "torch"
+    assert sp.resolve_engine("auto", torch.device("cpu")) == "torch"
+    assert sp.resolve_engine("auto", torch.device("cuda", 0)) == "kernel"
+    assert sp.resolve_engine("kernel") == "kernel"
+    assert sp.resolve_engine("torch") == "torch"
+    for bad in ("jnp", "pallas", "cuda"):
+        with pytest.raises(ValueError, match="unknown engine"):
+            sp.resolve_engine(bad)
+
+
+def test_more_than_one_device_raises(rng):
+    seq = torch.from_numpy(rng.integers(0, 4, size=(256,), dtype=np.uint8))
+    with pytest.raises(NotImplementedError):
+        sp.shard_sequence(seq, k=9, n_devices=2)
+    with pytest.raises(NotImplementedError):
+        sp.hash_long_sequence(seq, 9, 1, n_devices=4)
+    with pytest.raises(NotImplementedError):
+        sp.hash_long_sequence_seeds(seq, SEEDS, 1, n_devices=8)
+
+
+def test_cpu_routes_launch_no_kernel(rng):
+    seq = torch.from_numpy(rng.integers(0, 4, size=(512,), dtype=np.uint8))
+    before = (kmer_kernel.LAUNCHES, seed_kernel.LAUNCHES)
+    sp.hash_long_sequence(seq, 9, 1, engine="kernel")
+    sp.hash_long_sequence_seeds(seq, SEEDS, 1, engine="kernel")
+    assert (kmer_kernel.LAUNCHES, seed_kernel.LAUNCHES) == before
+
+
+def test_short_sequence_raises():
+    with pytest.raises(ValueError, match="smaller than k-1"):
+        sp.hash_long_sequence(torch.zeros(16, dtype=torch.uint8), 66, 1)
