@@ -6,7 +6,7 @@ Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and nvcc; it
 imports nothing of JAX. Phases, each printing its own lines:
 
 1. environment: card name and power limit, torch / CUDA / nvcc versions;
-2. build the four CUDA sources from ``nthash_tpu_torch/csrc`` (one nvcc
+2. build the five CUDA sources from ``nthash_tpu_torch/csrc`` (one nvcc
    each, all at once) and print each kernel's registers and spills;
 3. golden ntHash2 vectors through the rolling-hash kernel;
 4. each kernel against its plain PyTorch version on the card, exact (the
@@ -52,7 +52,26 @@ imports nothing of JAX. Phases, each printing its own lines:
 16. one long sequence on one device: ``sp.hash_long_sequence`` over 2**27
    bases (A1) and ``sp.hash_long_sequence_seeds`` over 2**25 (B1) against
    the plain route and a whole-sequence roll at pseudo-read boundaries,
-   and at a prime length for the padded tail; timings.
+   and at a prime length for the padded tail; timings;
+17. the Bloom kernels C1 (``bloom_words``) and C2 (``bloom_words_rows``)
+   against their plain versions at edge shapes (widths 2**12, 2**13, 2**18,
+   2**26 and, for C1, 2**31; R = 1, 3, 5; weights, gate, ``out``; at 2**26
+   and 2**31 more updates than the grid has threads, into sparse words),
+   with the fill ratio of the words compared;
+18. the Bloom path over the same 1M reads in batches of 2**18:
+   ``hash_kmers_tm_auto(..., emit_buckets=wl)`` -> ``insert_from_buckets``
+   at 2**17 (C1), 2**20 and 2**30 (the partition kernels and C2, the gated
+   C1 fallback), each filter against the plain hash -> plain insert, with
+   ``contains`` true on every valid window, a merge of two half-filters
+   equal to the whole, C1 and C2 against plain at batch 0's launch shapes
+   (sparse as well as saturated: the fallback's full-width C1 at 2**30,
+   the 2**17 tensors emitted at 2**30), the launches per kernel and
+   whether the overflow flag fired;
+19. Bloom timings: C1 at 2**17, C2 at the 2**20 and 2**30 sub-widths,
+   ``partitioned_bloom_words`` whole and direct C1 at full width there, the
+   scatter yardstick (``index_fill_`` into a uint8 presence, then a pack),
+   the plain versions, the byte bounds, the Bloom step's k-mers/s at each
+   width and one traced step at 2**20.
 
 A failed check raises, so the exit code is not 0. The line before the last
 is the kernels' JSON record; the last line is ``{"ok": true, "device": ...}``.
@@ -76,13 +95,20 @@ import torch
 from nthash_tpu_torch.io import native_loader
 from nthash_tpu_torch.io.stream import Prefetcher, stream_code_batches
 from nthash_tpu_torch.constants import encode_ascii, extend_hashes
+from nthash_tpu_torch.models import bloom
 from nthash_tpu_torch.models import sketch as cms
 from nthash_tpu_torch.models.pipeline import (
     PipelineConfig,
     ReadHashingPipeline,
     fused_count_step,
 )
-from nthash_tpu_torch.ops import cuda_build, hist_kernel, kmer_kernel, seed_torch
+from nthash_tpu_torch.ops import (
+    cuda_build,
+    hist_kernel,
+    kmer_kernel,
+    kmer_torch,
+    seed_torch,
+)
 from nthash_tpu_torch.ops import part_kernel as pk
 from nthash_tpu_torch.ops import seed_kernel as sk
 from nthash_tpu_torch.ops.hist_kernel import histogram_rows, histogram_rows_plain
@@ -159,7 +185,9 @@ def phase_env() -> tuple[str, str]:
     return smi, torch.cuda.get_device_name(0)
 
 
-SOURCES = ("kmer_hash", "histogram", "partition", "seed_hash")
+SOURCES = ("kmer_hash", "histogram", "partition", "seed_hash", "bloom")
+#: Updates in phase 17's widest checks: five per thread of the largest grid
+GRID_STRIDE_N = 5 * (1 << 20) + 3
 
 
 def phase_build() -> None:
@@ -1141,40 +1169,431 @@ def phase_sp(rng, dev, card: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------- the Bloom filter ----
+
+#: The JAX bench's three Bloom widths: BLOOM_WIDTH_LOG2 (bench.py:51, direct),
+#: WIDE_WIDTH_LOG2 (:43, partitioned) and BLOOM_HUGE_WIDTH_LOG2 (:47, 128 MB
+#: of words, 8,192 partitions).
+BLOOM_WIDTHS = (17, 20, 30)
+BLOOM_KERNELS = ("bloom_words", "bloom_words_rows")
+
+
+def bloom_stream(gen, n: int, wl: int, rows=None) -> torch.Tensor:
+    """int32 indices made on the card with -1, the sentinel and values past
+    it among them (at 2**31, where no int32 is past the width, negatives)."""
+    shape = (n,) if rows is None else (rows, n)
+    width = 1 << wl
+    idx = torch.randint(0, width, shape, device=gen.device, generator=gen,
+                        dtype=torch.int64)
+    for value in ((-1, width, width + 10) if wl < 31 else (-1, -(1 << 31), -7)):
+        idx[torch.rand(shape, device=gen.device, generator=gen) < 0.01] = value
+    return idx.to(torch.int32)
+
+
+def phase_bloom_edges(gen, dev) -> dict:
+    """Phase 17: C1 (``bloom_words``) and C2 (``bloom_words_rows``) against
+    their plain versions at the edge shapes: widths 2**12, 2**13, 2**18,
+    2**26 (and 2**31 for C1), R = 1 and R not a power of two, with and
+    without a weight, gated on and off, OR-ed into random words."""
+    errs = dict.fromkeys(BLOOM_KERNELS, 0.0)
+    fills = {}   # width -> fill ratios of the plain results compared
+
+    def same(name, got, want, what):
+        torch.cuda.synchronize()
+        errs[name] = max(errs[name], max_abs_err(got, want))
+        require(torch.equal(got, want), f"{name} != plain: {what}")
+        fills.setdefault(wl, []).append(fill_of(want))
+
+    # 2**20 updates is one update per thread of the largest grid (4,096
+    # blocks x 256); at 2**26 and 2**31 every thread loops, into filters
+    # that stay sparse
+    for wl, n in ((12, 1 << 20), (13, 1 << 20), (18, 1 << 20),
+                  (26, GRID_STRIDE_N), (31, GRID_STRIDE_N)):
+        idx = bloom_stream(gen, n, wl)
+        w = torch.randint(-1, 2, (n,), device=dev, generator=gen,
+                          dtype=torch.int32)
+        for weight in (None, w):
+            same("bloom_words", hist_kernel.bloom_words(idx, weight, wl),
+                 hist_kernel.bloom_words_plain(idx, weight, wl),
+                 f"2**{wl}, weight {weight is not None}")
+        base = torch.randint(-(1 << 31), 1 << 31, (1 << (wl - 5),),
+                             device=dev, generator=gen, dtype=torch.int32)
+        for g in (0, 1):
+            gate = torch.full((1,), g, dtype=torch.int32, device=dev)
+            same("bloom_words",
+                 hist_kernel.bloom_words(idx, w, wl, gate=gate,
+                                         out=base.clone()),
+                 hist_kernel.bloom_words_plain(idx, w, wl, gate=gate,
+                                               out=base.clone()),
+                 f"2**{wl}, gate {g}, out")
+        if wl == 31:
+            continue
+        for rows in (1, 3, 5):
+            idx = bloom_stream(gen, n // rows, wl, rows)
+            base = torch.randint(-(1 << 31), 1 << 31, (rows, 1 << (wl - 5)),
+                                 device=dev, generator=gen, dtype=torch.int32)
+            for g in (0, 1):
+                gate = torch.full((1,), g, dtype=torch.int32, device=dev)
+                same("bloom_words_rows",
+                     hist_kernel.bloom_words_rows(idx, wl, gate=gate,
+                                                  out=base.clone()),
+                     hist_kernel.bloom_words_rows_plain(idx, wl, gate=gate,
+                                                        out=base.clone()),
+                     f"2**{wl}, {rows} rows, gate {g}")
+            same("bloom_words_rows", hist_kernel.bloom_words_rows(idx, wl),
+                 hist_kernel.bloom_words_rows_plain(idx, wl),
+                 f"2**{wl}, {rows} rows")
+        torch.cuda.empty_cache()
+    require(all(min(fills[wl]) < 0.5 for wl in (26, 31)),
+            f"the grid-stride checks filled their filters: {fills}")
+    print("[check] bloom_words == plain at 2**12, 2**13, 2**18 (2**20 "
+          f"updates) and 2**26, 2**31 ({GRID_STRIDE_N} updates), with -1, "
+          "the sentinel and past it; weights -1/0/1 and none; gate 0/1 into "
+          "random words; bloom_words_rows == plain at 2**12..2**26 with 1, 3 "
+          "and 5 rows, gated and not; fill ratio of the compared words, min "
+          "/ max by width: " + ", ".join(
+              f"2**{wl} {min(f):.6f} / {max(f):.6f}"
+              for wl, f in fills.items()))
+    # C3 under skew: one bucket 2**20 times overflows every window and
+    # must go through the gated C1; a mostly-sentinel stream must not
+    wl = 20
+    p_log2, sub_log2, rows, cap = pk.plan(wl)
+    skew = torch.full((1 << 20,), 77, dtype=torch.int32, device=dev)
+    sent = torch.full((1 << 20,), 1 << wl, dtype=torch.int32, device=dev)
+    sent[:130] = torch.randint(0, 1 << wl, (130,), device=dev, generator=gen,
+                               dtype=torch.int32)
+    for label, x, over in (("skewed", skew, 1), ("mostly-sentinel", sent, 0)):
+        _, flags = pk._partition(x[None], wl, p_log2, sub_log2, rows, cap)
+        require(flags.tolist() == [over, 1 - over],
+                f"{label} stream: overflow flags {flags.tolist()}")
+        require(torch.equal(pk.partitioned_bloom_words(x, wl),
+                            hist_kernel.bloom_words_plain(x, None, wl)),
+                f"partitioned_bloom_words != plain on the {label} stream")
+    print("[check] 2**20: the all-identical stream sets the overflow flag "
+          "and packs exactly through the gated bloom_words; a "
+          "mostly-sentinel stream does not set it and packs exactly")
+    return errs
+
+
+def fill_of(words: torch.Tensor) -> float:
+    """Fraction of set bits in words of any shape."""
+    return int(bloom.count_set_bits(bloom.BloomFilter(words.reshape(-1)))) \
+        / (words.numel() * 32)
+
+
+def bloom_tms(codes: np.ndarray, dev) -> list:
+    """The 1M reads' time-major codes on the card, one tensor per batch."""
+    return [prepare_codes(torch.from_numpy(codes[s:s + BATCH]).to(dev))
+            for s in range(0, codes.shape[0], BATCH)]
+
+
+def bloom_build(tms, wl: int, dev):
+    """The Bloom path as a user calls it: per batch, the fused hash kernel
+    emits buckets at the filter's width and ``insert_from_buckets`` ORs
+    them in."""
+    bf = bloom.BloomFilter.zeros(wl, device=dev)
+    for tm in tms:
+        bloom.insert_from_buckets(
+            bf, kmer_kernel.hash_kmers_tm_auto(tm, K, H, emit_buckets=wl),
+            emitted_width_log2=wl)
+    return bf
+
+
+def reset_launches() -> None:
+    kmer_kernel.LAUNCHES = kmer_kernel.LONG_LAUNCHES = 0
+    for counts in (pk.LAUNCHES, hist_kernel.BLOOM_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def phase_bloom_path(codes: np.ndarray, dev, errs: dict) -> dict:
+    """Phase 18: the Bloom path over the 1M reads at 2**17, 2**20 and 2**30
+    against the plain hash -> plain insert, contains on every valid window,
+    the merge of two half-filters, C1/C2 against plain on the path's own
+    batch-0 launch shapes (and, where the path's data saturates the words,
+    on the same shapes into words that stay sparse, each compare with its
+    fill ratio); launches per kernel and whether the overflow flag fired.
+    Returns the launches, by kernel, summed over the three widths."""
+    tms = bloom_tms(codes, dev)
+    total = dict.fromkeys(BLOOM_KERNELS, 0)
+    for wl in BLOOM_WIDTHS:
+        reset_launches()
+        t0 = time.perf_counter()
+        bf = bloom_build(tms, wl, dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"kmer_hash": kmer_kernel.LAUNCHES,
+                    "kmer_hash_long": kmer_kernel.LONG_LAUNCHES,
+                    **hist_kernel.BLOOM_LAUNCHES}
+        need = ["kmer_hash", "bloom_words"]
+        if wl > bloom.DIRECT_MAX_WIDTH_LOG2:
+            launches.update(pk.LAUNCHES)
+            need += ["bloom_words_rows", *PART_KERNELS]
+        require(all(launches[k] > 0 for k in need),
+                f"a kernel of the 2**{wl} Bloom path never launched: "
+                f"{launches}")
+        for k in BLOOM_KERNELS:
+            total[k] += launches[k]
+        want = torch.zeros_like(bf.words)
+        for tm in tms:
+            for b in hash_kmers_tm_plain(tm, K, H, emit_buckets=wl):
+                hist_kernel.bloom_words_plain(b, None, wl, out=want)
+        require(torch.equal(bf.words, want),
+                f"Bloom filter at 2**{wl} != plain hash -> plain insert")
+        bits = int(bloom.count_set_bits(bf))
+        require(bits == int(bloom.count_set_bits(bloom.BloomFilter(want))),
+                "popcount != plain")
+        del want
+        for tm in tms:
+            hashes = torch.stack(kmer_kernel.hash_kmers_tm_auto(tm, K, H), -1)
+            valid = kmer_torch.window_valid_tm(tm, K)
+            require(bool(bloom.contains(bf, hashes, wl)[valid].all()),
+                    f"a false negative at 2**{wl}")
+            del hashes, valid
+        half = bloom.merge(bloom_build(tms[:2], wl, dev),
+                           bloom_build(tms[2:], wl, dev))
+        require(torch.equal(half.words, bf.words),
+                f"merge of two half-filters != the whole at 2**{wl}")
+        del half
+        fired = []
+        compared = []   # (what was compared, fill ratio of the plain words)
+
+        def same(name, got, want, what, n):
+            torch.cuda.synchronize()
+            errs[name] = max(errs[name], max_abs_err(got, want))
+            require(torch.equal(got, want),
+                    f"{name} != plain on batch 0: {what}")
+            fill = fill_of(want)
+            compared.append((f"{what}: {n} updates, fill {fill:.6f}", fill))
+            return fill
+
+        if wl > bloom.DIRECT_MAX_WIDTH_LOG2:
+            p_log2, sub_log2, rows, cap = pk.plan(wl)
+            for i, tm in enumerate(tms):
+                stream = torch.cat([b.reshape(-1) for b in hash_kmers_tm(
+                    tm, K, H, emit_buckets=wl)])[None]
+                wins, flags = pk._partition(stream, wl, p_log2, sub_log2,
+                                            rows, cap)
+                fired.append(int(flags[0]))
+                if i == 0:  # C2 on the path's own shape, and the fallback's
+                    flat = wins.reshape(1 << p_log2, -1)
+                    if same("bloom_words_rows",
+                            hist_kernel.bloom_words_rows(flat, sub_log2),
+                            hist_kernel.bloom_words_rows_plain(flat, sub_log2),
+                            f"bloom_words_rows, {1 << p_log2} rows at "
+                            f"2**{sub_log2}", flat.numel()) >= 0.5:
+                        # saturated: the same launch shape again, on random
+                        # buckets into rows wide enough to stay sparse
+                        sparse = torch.randint(
+                            0, 1 << 23, flat.shape, device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(wl), dtype=torch.int32)
+                        same("bloom_words_rows",
+                             hist_kernel.bloom_words_rows(sparse, 23),
+                             hist_kernel.bloom_words_rows_plain(sparse, 23),
+                             f"bloom_words_rows, the same [{flat.shape[0]}, "
+                             f"{flat.shape[1]}] shape, random buckets at "
+                             f"2**23", sparse.numel())
+                        del sparse
+                    del flat
+                    same("bloom_words",
+                         hist_kernel.bloom_words(stream[0], None, wl),
+                         hist_kernel.bloom_words_plain(stream[0], None, wl),
+                         f"the fallback's full-width bloom_words at 2**{wl}",
+                         stream.numel())
+                del stream, wins
+        else:  # C1 on the path's own shape: batch 0's four bucket tensors,
+            # at the path's width and, at the same launch shape, emitted at
+            # 2**30 into a filter that stays sparse
+            for ewl in (wl, 30):
+                for j, b in enumerate(hash_kmers_tm(tms[0], K, H,
+                                                    emit_buckets=ewl)):
+                    same("bloom_words", hist_kernel.bloom_words(b, None, ewl),
+                         hist_kernel.bloom_words_plain(b, None, ewl),
+                         f"bloom_words, tensor {j} at 2**{ewl}", b.numel())
+        require(min(f for _, f in compared) < 0.5,
+                f"every batch-0 check at 2**{wl} was saturated: {compared}")
+        print(f"[check] 2**{wl}, batch 0, kernel == plain: " +
+              "; ".join(t for t, _ in compared))
+        print(f"[bloom] 2**{wl}: {N_READS} reads in {len(tms)} batches, k={K} "
+              f"h={H}: filter == plain hash -> plain insert (whole, "
+              f"{bits} bits set, fill ratio {bits / (1 << wl):.6f}); contains "
+              f"true on every valid window; merge of two halves == the whole; "
+              f"launches {launches}; overflow flag per batch {fired} (fired: "
+              f"{any(fired)}); first run {seconds:.3f} s")
+        del bf
+        torch.cuda.empty_cache()
+    return total
+
+
+def scatter_pack(flat: torch.Tensor, wl: int) -> torch.Tensor:
+    """The library yardstick: ``index_fill_`` into a uint8 presence (the
+    sentinel lands in a spare last slot), then a dense pack to words."""
+    presence = torch.zeros((1 << wl) + 1, dtype=torch.uint8, device=flat.device)
+    presence.index_fill_(0, flat, 1)
+    return bloom.pack_presence(presence[:-1])
+
+
+def phase_bloom_timings(codes: np.ndarray, dev, card: str) -> dict:
+    """Phase 19: per 2**18-read batch and over the 1M reads (the sum of the
+    four batches' medians of 5 CUDA-event timings after warm-up): C1 at
+    2**17 over each batch's 4 bucket tensors, C2 at the 2**20 and 2**30
+    sub-widths, C3 whole at 2**20 and 2**30, direct C1 at full width there
+    (a yardstick the path does not use), the scatter yardstick, the plain
+    versions and the byte bounds; the Bloom step's k-mers/s at each width,
+    and one traced step at 2**20."""
+    tag = f"[{card}]"
+    tms = bloom_tms(codes, dev)
+    w = L - K + 1
+    tot = {}   # name -> [kernel, plain or None, scatter or None, bytes]
+
+    def add(name, k_s, p_s, lib_s, nbytes):
+        row = tot.setdefault(name, [0.0, None if p_s is None else 0.0,
+                                    None if lib_s is None else 0.0, 0.0])
+        row[0] += k_s
+        if p_s is not None:
+            row[1] += p_s
+        if lib_s is not None:
+            row[2] += lib_s
+        row[3] += nbytes
+
+    def t(fn, *args):
+        # CUDA events on the card even where the argument is a list
+        return timeit(fn, *args, device=dev).seconds_per_call
+
+    for wl in BLOOM_WIDTHS:
+        width = 1 << wl
+        nwords = width >> 5
+        words = torch.zeros(nwords, dtype=torch.int32, device=dev)
+        for tm in tms:
+            bucks = hash_kmers_tm(tm, K, H, emit_buckets=wl)
+            stream = torch.cat([b.reshape(-1) for b in bucks])
+            n = stream.numel()
+            flat = stream.long()
+            lib_s = t(lambda x: scatter_pack(x, wl), flat)
+            del flat
+            if wl <= bloom.DIRECT_MAX_WIDTH_LOG2:
+                add(f"bloom_words at 2**{wl} (4 launches a batch)",
+                    t(lambda bs: [hist_kernel.bloom_words(b, None, wl, out=words)
+                                  for b in bs], bucks),
+                    t(lambda bs: [hist_kernel.bloom_words_plain(
+                        b, None, wl, out=words) for b in bs], bucks),
+                    lib_s, 4 * n + 4 * nwords)
+            else:
+                p_log2, sub_log2, rows, cap = pk.plan(wl)
+                p = 1 << p_log2
+                wins, _ = pk._partition(stream[None], wl, p_log2, sub_log2,
+                                        rows, cap)
+                flat = wins.reshape(p, -1)
+                del wins
+                out2 = words.view(p, -1)
+                add(f"bloom_words_rows at 2**{wl} ({p} rows at 2**{sub_log2})",
+                    t(lambda x: hist_kernel.bloom_words_rows(
+                        x, sub_log2, out=out2), flat),
+                    t(lambda x: hist_kernel.bloom_words_rows_plain(
+                        x, sub_log2, out=out2), flat),
+                    None, 4 * flat.numel() + 4 * nwords)
+                del flat
+                add(f"partitioned_bloom_words at 2**{wl} (whole)",
+                    t(lambda x: pk.partitioned_bloom_words(x, wl, out=words),
+                      stream), None, lib_s, 4 * n + 4 * nwords)
+                add(f"bloom_words direct at full width 2**{wl} (yardstick)",
+                    t(lambda x: hist_kernel.bloom_words(x, None, wl,
+                                                        out=words), stream),
+                    None, None, 4 * n + 4 * nwords)
+            del bucks, stream
+            torch.cuda.empty_cache()
+        del words
+
+        def step(wl=wl):
+            bf = bloom.BloomFilter.zeros(wl, device=dev)
+            for tm in tms:
+                bloom.insert_from_buckets(
+                    bf, kmer_kernel.hash_kmers_tm_auto(tm, K, H,
+                                                       emit_buckets=wl),
+                    emitted_width_log2=wl)
+            return bf
+
+        t_step = timeit(step, device=dev).seconds_per_call
+        print(f"[time] Bloom step (hash_kmers_tm_auto buckets + "
+              f"insert_from_buckets) at 2**{wl}, {N_READS} reads x {L} bp "
+              f"in {len(tms)} batches: {t_step * 1e3:.4f} ms, "
+              f"{N_READS * w / t_step:.6g} k-mers/s (all windows) {tag}")
+        if wl == 20:
+            tr = trace_device(step, device=dev)
+            require(tr.busy_seconds > 0, "the trace recorded no device activity")
+            print(f"[trace] Bloom step at 2**{wl} under torch.profiler: wall "
+                  f"{tr.wall_seconds * 1e3:.3f} ms, device busy "
+                  f"{tr.busy_seconds * 1e3:.3f} ms (union of device rows), "
+                  f"idle share {tr.idle_share:.4f} {tag}")
+            for name, (s, c) in sorted(tr.by_name.items(),
+                                       key=lambda kv: -kv[1][0])[:12]:
+                print(f"[trace]   {s * 1e3:9.3f} ms  x{c:<4d} {name[:90]}")
+        torch.cuda.empty_cache()
+    for name, (k_s, p_s, lib_s, nbytes) in tot.items():
+        plain = "" if p_s is None else f", plain {p_s * 1e3:.4f} ms"
+        lib = "" if lib_s is None else \
+            f", scatter yardstick {lib_s * 1e3:.4f} ms"
+        print(f"[time] {name} over {N_READS} reads: kernel {k_s * 1e3:.4f} ms"
+              f"{plain}{lib}, bound {bound_ms(nbytes):.4f} ms "
+              f"({nbytes / 1e9:.4f} GB) {tag}")
+    return tot
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     rng = np.random.default_rng(args.seed)
 
-    smi, card = phase_env()
+    t_start = time.perf_counter()
+
+    def run(label, fn, *a):
+        """Run one phase and print its wall time, so a slower run shows
+        which phase grew."""
+        t0 = time.perf_counter()
+        out = fn(*a)
+        print(f"[phase] {label}: {time.perf_counter() - t0:.3f} s")
+        return out
+
+    smi, card = run("1 environment", phase_env)
     dev = torch.device("cuda", 0)
-    phase_build()
-    phase_golden(dev)
+    run("2 build", phase_build)
+    run("3 goldens", phase_golden, dev)
     codes = make_codes(rng, N_READS)
-    k_err, h_err = phase_kernels_vs_plain(rng, codes, dev)
-    part_errs = phase_partition_widths(rng, dev)
+    k_err, h_err = run("4 kernels vs plain", phase_kernels_vs_plain, rng,
+                       codes, dev)
+    part_errs = run("8 partition widths", phase_partition_widths, rng, dev)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "reads.fq"
         write_fastq(path, codes)
-        pipe, _ = phase_main_path(codes, path, dev)
-        times = phase_timings(codes, path, pipe, dev, smi)
-        phase_trace(path, pipe, dev, smi)
+        pipe, _ = run("5 path at 2**14", phase_main_path, codes, path, dev)
+        times = run("6 timings at 2**14", phase_timings, codes, path, pipe,
+                    dev, smi)
+        run("7 trace at 2**14", phase_trace, path, pipe, dev, smi)
         del pipe
         torch.cuda.empty_cache()
-        pipe, launches, batches = phase_main_wide(codes, path, dev, part_errs)
-        wide = phase_wide_timings(codes, path, pipe, batches, dev, smi)
+        pipe, launches, batches = run("9 path at 2**20", phase_main_wide,
+                                      codes, path, dev, part_errs)
+        wide = run("10 timings at 2**20", phase_wide_timings, codes, path,
+                   pipe, batches, dev, smi)
         del pipe, batches
         torch.cuda.empty_cache()
         gen = torch.Generator(device=dev).manual_seed(args.seed)
-        errs = phase_edges(gen, dev)
-        phase_seed_goldens(dev)
-        seed_errs, seeds = phase_seeds(codes, gen, dev, smi)
-        long_errs, long_launches, t_long = phase_long_count(
-            rng, Path(tmp), dev, smi)
-    phase_crossover(gen, dev, smi)
-    sp_launches = phase_sp(rng, dev, smi)
+        errs = run("11 edge shapes", phase_edges, gen, dev)
+        run("12 seed goldens", phase_seed_goldens, dev)
+        seed_errs, seeds = run("13 seeds", phase_seeds, codes, gen, dev, smi)
+        long_errs, long_launches, t_long = run(
+            "14 long reads", phase_long_count, rng, Path(tmp), dev, smi)
+    run("15 crossover", phase_crossover, gen, dev, smi)
+    sp_launches = run("16 sequences", phase_sp, rng, dev, smi)
+    bloom_errs = run("17 Bloom edge shapes", phase_bloom_edges, gen, dev)
+    bloom_launches = run("18 Bloom path", phase_bloom_path, codes, dev,
+                         bloom_errs)
+    bloom_times = run("19 Bloom timings", phase_bloom_timings, codes, dev,
+                      smi)
+    print(f"[phase] all: {time.perf_counter() - t_start:.3f} s")
     for more in (seed_errs, long_errs):
         for name, e in more.items():
             errs[name] = max(errs[name], e)
@@ -1231,6 +1650,21 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n, "max_abs_err": errs[name],
+            "ms": k_s * 1e3, "plain_ms": p_s * 1e3,
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+            "library_ms": None})
+    slice4 = {
+        "bloom_words": ("nthash_tpu/ops/hist_pallas.py:157",
+                        "bloom_words at 2**17 (4 launches a batch)"),
+        "bloom_words_rows": ("nthash_tpu/ops/hist_pallas.py:296",
+                             "bloom_words_rows at 2**20 (128 rows at 2**13)"),
+    }
+    for name, (replaces, row) in slice4.items():
+        k_s, p_s, _, nbytes = bloom_times[row]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "nthash_tpu_torch/csrc/bloom.cu", "replaces": replaces,
+            "launches": bloom_launches[name], "max_abs_err": bloom_errs[name],
             "ms": k_s * 1e3, "plain_ms": p_s * 1e3,
             "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
             "library_ms": None})

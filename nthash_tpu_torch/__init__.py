@@ -3,7 +3,8 @@
 A second package beside the JAX one, importing torch and numpy only. The
 layout mirrors ``nthash_tpu``: host constants and 64-bit primitives at top
 level, the engines and hand-written CUDA kernels under ops/ (sources in
-csrc/), the count-min sketch and streaming pipeline under models/,
+csrc/), the count-min sketch, the packed Bloom filter and the streaming
+pipeline under models/,
 one-device long-sequence hashing under parallel/, FASTX streaming under
 io/, checkpoint/profiling under utils/.
 """

@@ -1,0 +1,213 @@
+"""Packed Bloom filter over k-mer hashes: 1 bit per bucket, 32 per word.
+
+Counterpart of ``nthash_tpu/models/bloom.py``. ntHash exists to feed Bloom
+filters (reference ``include/nthash/nthash.hpp:56-58``); the filter here is
+byte for byte the JAX package's: the same words in the same bucket -> (word,
+bit) layout (``ops/hist_kernel.word_index`` / ``bit_index``). The words are
+an int32 tensor holding the uint32 bit patterns, because PyTorch's CPU
+uint32 has neither ``>>`` nor ``index_put_``; :meth:`BloomFilter.from_numpy`
+and :meth:`BloomFilter.to_numpy` carry them to and from the JAX package's
+``np.asarray(bf.words)``.
+
+Insertion is a scatter-OR, routed by width as the JAX package routes it on
+its TPU, with one kernel per route on this card:
+
+- 2**12..2**18: ``bloom_words`` (``csrc/bloom.cu``), one atomic OR per
+  update into the filter's words (the JAX "mxu" route);
+- 2**19..2**30: ``partitioned_bloom_words`` (``ops/part_kernel.py``): the
+  sort-partitioning kernels, then ``bloom_words_rows`` per partition (the
+  JAX "partitioned" route);
+- 2**31 (:func:`insert` only): ``bloom_words`` at full width, in place of
+  the JAX "scatter" route's int8 presence: an atomic OR needs no transient.
+
+``insert`` and ``insert_from_buckets`` OR into ``bf.words`` in place and
+return the same filter; ``merge`` returns a new one. Queries are a gather
+and a bit test in plain PyTorch. The cross-device union (``union_across``)
+waits for the multi-GPU port.
+
+False-positive tuning: m = 2**width_log2 bits, optimal h ~= (m/n) ln 2.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops.hist_kernel import (
+    BLOOM_MAX_WIDTH_LOG2,
+    BLOOM_MIN_WIDTH_LOG2,
+    PACK,
+    bit_index,
+    bloom_words,
+    word_index,
+)
+from ..ops.part_kernel import (
+    PART_MAX_WIDTH_LOG2,
+    PART_MIN_WIDTH_LOG2,
+    partitioned_bloom_words,
+)
+
+#: Widest filter filled by one direct ``bloom_words`` launch below the
+#: partitioned range (the JAX package's MXU range); 2**19..2**30 go through
+#: the partitions.
+DIRECT_MAX_WIDTH_LOG2 = PART_MIN_WIDTH_LOG2 - 1
+
+
+def check_width(width_log2: int) -> None:
+    """Raise ValueError for a width outside [2**12, 2**31]."""
+    if not BLOOM_MIN_WIDTH_LOG2 <= width_log2 <= BLOOM_MAX_WIDTH_LOG2:
+        raise ValueError(
+            f"width_log2 ({width_log2}) must be in "
+            f"[{BLOOM_MIN_WIDTH_LOG2}, {BLOOM_MAX_WIDTH_LOG2}]")
+
+
+class BloomFilter(NamedTuple):
+    """words[w]: 32 bucket-presence bits per word (1 bit per bucket)."""
+
+    words: torch.Tensor  # [width / 32] int32, the bits of uint32 words
+
+    @staticmethod
+    def zeros(width_log2: int, device="cuda") -> "BloomFilter":
+        """An empty filter of 2**width_log2 bits (12..31), on the card
+        unless the caller names another device."""
+        check_width(width_log2)
+        return BloomFilter(torch.zeros((1 << width_log2) // PACK,
+                                       dtype=torch.int32, device=device))
+
+    @staticmethod
+    def from_numpy(words, device) -> "BloomFilter":
+        """A filter from uint32 words [width / 32], e.g. the JAX package's
+        ``np.asarray(bf.words)``."""
+        arr = np.asarray(words)
+        if arr.dtype != np.uint32 or arr.ndim != 1:
+            raise TypeError(
+                f"words must be 1-D uint32, got {arr.dtype} {arr.shape}")
+        check_width((arr.size * PACK).bit_length() - 1)
+        if arr.size & (arr.size - 1):
+            raise ValueError(f"{arr.size} words is not a power-of-two width")
+        return BloomFilter(torch.from_numpy(arr.view(np.int32).copy())
+                           .to(device))
+
+    def to_numpy(self) -> np.ndarray:
+        """The words as host uint32 (the JAX package's layout)."""
+        return self.words.cpu().numpy().view(np.uint32)
+
+    @property
+    def width(self) -> int:
+        return self.words.shape[0] * PACK
+
+
+def _indices(hashes: torch.Tensor, width_log2: int) -> torch.Tensor:
+    """Bucket per int64 hash: the low ``width_log2`` bits, int32."""
+    return (hashes & ((1 << width_log2) - 1)).to(torch.int32)
+
+
+def pack_presence(presence: torch.Tensor) -> torch.Tensor:
+    """[width] {0, 1} -> int32 words [width / 32] in the word_index /
+    bit_index layout: bucket b = q * 4096 + s * 128 + j -> bit s of word
+    q * 128 + j. Dense, for tests and references: it reads every bucket,
+    one bit plane at a time, so its transients are word-sized."""
+    width = presence.shape[0]
+    p = (presence != 0).reshape(width // 4096, 32, 128)
+    words = torch.zeros((width // 4096, 128), dtype=torch.int32,
+                        device=presence.device)
+    for s in range(32):  # int32 << 31 is bit 31, the sign bit
+        words |= p[:, s].to(torch.int32) << s
+    return words.reshape(-1)
+
+
+def insert(bf: BloomFilter, hashes: torch.Tensor, valid: torch.Tensor,
+           width_log2: int) -> BloomFilter:
+    """Set the bit of every valid window's every hash, in place.
+
+    hashes: int64 [..., H] (H = hash functions per k-mer); valid: bool of
+    ``hashes.shape[:-1]``. The width alone picks the route: one direct
+    ``bloom_words`` launch up to 2**18 and at 2**31, the partitioned path
+    at 2**19..2**30. The JAX package's ``ingestion`` choice (MXU tiles or an
+    int8 scatter transient) works around the TPU's lack of a scatter-OR;
+    this card has one, an atomic OR, so there is nothing to choose. Returns
+    ``bf``, its words updated.
+    """
+    check_width(width_log2)
+    if bf.width != 1 << width_log2:
+        raise ValueError(
+            f"filter width {bf.width} != 2**{width_log2}")
+    idx = _indices(hashes, width_log2).reshape(-1)
+    keep = valid.reshape(-1, 1).expand(-1, hashes.shape[-1]).reshape(-1)
+    if PART_MIN_WIDTH_LOG2 <= width_log2 <= PART_MAX_WIDTH_LOG2:
+        # validity folded into the index: invalid -> the dropped sentinel
+        partitioned_bloom_words(torch.where(keep, idx, 1 << width_log2),
+                                width_log2, out=bf.words)
+    else:
+        bloom_words(idx, keep.to(torch.int32), width_log2, out=bf.words)
+    return bf
+
+
+def insert_from_buckets(bf: BloomFilter, buckets, *,
+                        emitted_width_log2: int | None = None) -> BloomFilter:
+    """Ingest pre-bucketed indices from the fused hash kernels, in place.
+
+    buckets: int32 tensors (any shapes) from ``hash_kmers_tm(...,
+    emit_buckets=width_log2)`` at the filter's width (2**12..2**30: the hash
+    kernels emit at most 2**30). Invalid windows carry the out-of-range
+    sentinel and are dropped. Pass ``emitted_width_log2`` (the
+    ``emit_buckets`` value used) to guard against width drift: buckets
+    emitted at a smaller width would insert their sentinel as a real bit of
+    the wider filter.
+
+    At direct widths each tensor goes through its own ``bloom_words``
+    launch into the words, so no concatenated copy of the stream is made; at
+    2**19..2**30 the tensors are joined into one stream for the partitioned
+    path, which copies the updates into padded chunks anyway. Returns
+    ``bf``, its words updated.
+    """
+    width_log2 = bf.width.bit_length() - 1
+    if emitted_width_log2 is not None and emitted_width_log2 != width_log2:
+        raise ValueError(
+            f"buckets were emitted at width 2**{emitted_width_log2} but the "
+            f"filter width is 2**{width_log2}")
+    if width_log2 > PART_MAX_WIDTH_LOG2:
+        raise ValueError(
+            f"buckets are emitted at widths up to 2**{PART_MAX_WIDTH_LOG2}; "
+            f"the filter is 2**{width_log2}")
+    if width_log2 <= DIRECT_MAX_WIDTH_LOG2:
+        for b in buckets:
+            bloom_words(b, None, width_log2, out=bf.words)
+        return bf
+    partitioned_bloom_words(torch.cat([b.reshape(-1) for b in buckets]),
+                            width_log2, out=bf.words)
+    return bf
+
+
+def contains(bf: BloomFilter, hashes: torch.Tensor,
+             width_log2: int) -> torch.Tensor:
+    """Membership: all H bits set. hashes: int64 [..., H]; returns bool of
+    ``hashes.shape[:-1]``."""
+    b = _indices(hashes, width_log2)
+    got = bf.words[word_index(b).to(torch.int64)]
+    # int32 ``>>`` is arithmetic: a word with bit 31 set shifts in ones,
+    # so the bit is masked after the shift
+    return (((got >> bit_index(b)) & 1) != 0).all(dim=-1)
+
+
+def merge(a: BloomFilter, b: BloomFilter) -> BloomFilter:
+    """Union (bitwise OR), as a new filter."""
+    return BloomFilter(a.words | b.words)
+
+
+def count_set_bits(bf: BloomFilter) -> torch.Tensor:
+    """Total set bits, a 0-d int64 tensor. PyTorch has no popcount: a SWAR
+    popcount of each word, widened to int64 so bit 31 counts once."""
+    x = bf.words.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).sum()
+
+
+def fill_ratio(bf: BloomFilter) -> torch.Tensor:
+    """Fraction of set bits, a 0-d float64 tensor (false-positive rate ~=
+    ratio**H)."""
+    return count_set_bits(bf).to(torch.float64) / bf.width

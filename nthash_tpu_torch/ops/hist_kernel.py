@@ -1,10 +1,18 @@
-"""Exact int32 row histograms: the CUDA kernel and its plain version.
+"""Exact int32 row histograms and packed presence words: the CUDA kernels
+and their plain versions.
 
-Counterpart of ``nthash_tpu/ops/hist_pallas.py``: :func:`histogram_rows` is
-``mxu_histogram_rows`` and :func:`histogram` is ``mxu_histogram``, named for
-what they compute rather than for the TPU's matrix unit. The kernel is
-``csrc/histogram.cu``, which replaces the Pallas ``_hist_kernel``; its source
-note says what bounds it on the H100.
+Counterpart of ``nthash_tpu/ops/hist_pallas.py``, with each function named
+for what it computes rather than for the TPU's matrix unit:
+
+- :func:`histogram_rows` is ``mxu_histogram_rows`` and :func:`histogram` is
+  ``mxu_histogram``; the kernel is ``csrc/histogram.cu`` (replaces the
+  Pallas ``_hist_kernel``);
+- :func:`bloom_words` is ``mxu_bloom_words`` and :func:`bloom_words_rows` is
+  ``mxu_bloom_words_rows``; the kernel is ``csrc/bloom.cu`` (replaces
+  ``_bloom_kernel`` and ``_bloom_rows_kernel``), in the same
+  :func:`word_index` / :func:`bit_index` layout.
+
+Each source note says what bounds its kernel on the H100.
 
 The TPU version builds one-hot operands and counts on the MXU, splitting
 weights into 8-bit digit planes so bf16 products stay exact; its
@@ -15,7 +23,12 @@ The range reaches 2**30, past the TPU kernel's 2**26: the sort-partitioned
 path (``ops/part_kernel.py``) falls back to one full-width histogram under
 skew. Two arguments serve that path: ``out`` accumulates into an existing
 tensor (the sketch's rows), and ``gate`` (one device int32) lets the device,
-not the host, decide whether a launch counts anything.
+not the host, decide whether a launch counts anything. The presence words
+take the same two arguments, ``out`` OR-ing into the filter's words; their
+direct range reaches 2**31 for the same reason and for the widest filter.
+
+Packed words are int32 tensors holding the JAX package's uint32 bit
+patterns: PyTorch's CPU uint32 has neither ``>>`` nor ``index_put_``.
 """
 
 from __future__ import annotations
@@ -32,13 +45,19 @@ MAX_WIDTH_LOG2 = 30
 #: Kernel launches made by :func:`histogram_rows` in this process.
 LAUNCHES = 0
 
+PACK = 32  # buckets per packed word
+BLOOM_MIN_WIDTH_LOG2 = 12  # the layout tiles the width in 4,096-bucket blocks
+BLOOM_ROWS_MAX_WIDTH_LOG2 = 26
+BLOOM_MAX_WIDTH_LOG2 = 31
+#: Kernel launches of ``csrc/bloom.cu`` in this process, by entry point.
+BLOOM_LAUNCHES = {"bloom_words": 0, "bloom_words_rows": 0}
 
-def _rows_and_weight(idx, weight, width_log2):
+
+def _rows_and_weight(idx, weight, width_log2, lo=MIN_WIDTH_LOG2,
+                     hi=MAX_WIDTH_LOG2):
     """Validate; return (idx [R, N], weight None | [N] | [R, N])."""
-    if not MIN_WIDTH_LOG2 <= width_log2 <= MAX_WIDTH_LOG2:
-        raise ValueError(
-            f"width_log2 ({width_log2}) must be in "
-            f"[{MIN_WIDTH_LOG2}, {MAX_WIDTH_LOG2}]")
+    if not lo <= width_log2 <= hi:
+        raise ValueError(f"width_log2 ({width_log2}) must be in [{lo}, {hi}]")
     if idx.dtype != torch.int32 or idx.dim() < 1:
         raise TypeError(f"idx must be an int32 [R, ...] tensor, got {idx.dtype}")
     rows = idx.shape[0]
@@ -59,18 +78,18 @@ def _rows_and_weight(idx, weight, width_log2):
         f"{rows * n} (per row)")
 
 
-def _check_extras(idx, width_log2, gate, out):
-    """Validate ``gate`` and ``out`` against idx [R, N]."""
+def _check_extras(idx, cols, gate, out):
+    """Validate ``gate`` and ``out`` (int32 [R, cols]) against idx [R, N]."""
     if gate is not None and (gate.dtype != torch.int32 or gate.numel() != 1
                              or gate.device != idx.device):
         raise ValueError("gate must be one int32 element on the idx's device")
     if out is not None and (
             out.dtype != torch.int32 or out.device != idx.device
-            or tuple(out.shape) != (idx.shape[0], 1 << width_log2)
+            or tuple(out.shape) != (idx.shape[0], cols)
             or not out.is_contiguous()):
         raise ValueError(
-            f"out must be a contiguous int32 [{idx.shape[0]}, "
-            f"{1 << width_log2}] tensor on the idx's device")
+            f"out must be a contiguous int32 [{idx.shape[0]}, {cols}] tensor "
+            "on the idx's device")
 
 
 def histogram_rows_plain(idx: torch.Tensor, weight: torch.Tensor | None,
@@ -81,7 +100,7 @@ def histogram_rows_plain(idx: torch.Tensor, weight: torch.Tensor | None,
     then wrapped to int32 mod 2**32; in int32 without, where a count cannot
     wrap), the gate applied as a 0/1 factor so nothing waits on it."""
     idx, weight = _rows_and_weight(idx, weight, width_log2)
-    _check_extras(idx, width_log2, gate, out)
+    _check_extras(idx, 1 << width_log2, gate, out)
     rows, n = idx.shape
     width = 1 << width_log2
     dev = idx.device
@@ -176,7 +195,7 @@ def histogram_rows(idx: torch.Tensor, weight: torch.Tensor | None,
     CPU tensor through :func:`histogram_rows_plain`.
     """
     idx2, w = _rows_and_weight(idx, weight, width_log2)
-    _check_extras(idx2, width_log2, gate, out)
+    _check_extras(idx2, 1 << width_log2, gate, out)
     if idx2.is_cuda:
         return _launch(idx2, w, width_log2, gate, out)
     if idx2.device.type == "cpu":
@@ -196,3 +215,186 @@ def histogram(idx: torch.Tensor, weight: torch.Tensor | None,
         None if weight is None else weight.reshape(1, -1),
         width_log2,
     )[0]
+
+
+# ------------------------------------------------------ presence words ----
+
+
+def word_index(bucket):
+    """Packed-word bijection of the JAX package (``hist_pallas.py``): bucket
+    b lives in word ``((b >> 12) << 7) | (b & 127)`` at bit
+    :func:`bit_index` ``(b)``; ints, numpy arrays or tensors."""
+    return ((bucket >> 12) << 7) | (bucket & 127)
+
+
+def bit_index(bucket):
+    """The bit of bucket b inside its word: ``(b >> 7) & 31``."""
+    return (bucket >> 7) & 31
+
+
+def _words_args(idx, weight, width_log2, hi, gate, out):
+    """Validate; return (idx [R, N], weight None | [N])."""
+    idx, weight = _rows_and_weight(idx, weight, width_log2,
+                                   BLOOM_MIN_WIDTH_LOG2, hi)
+    if weight is not None and idx.shape[0] != 1:
+        raise ValueError("a weight needs a single row of indices")
+    _check_extras(idx, (1 << width_log2) // PACK, gate, out)
+    return idx, weight
+
+
+def _as_int32(words: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> the int32 tensor of the same bits."""
+    return (words - ((words >> 31) << 32)).to(torch.int32)
+
+
+def _words_plain(idx, weight, width_log2, gate, out):
+    """The plain presence words of validated idx [R, N], OR-ed into ``out``.
+    Sparse: it holds the distinct in-range updates and their words, never a
+    full-width presence (4 GiB as int32 at 2**30)."""
+    rows = idx.shape[0]
+    dev = idx.device
+    nwords = (1 << width_log2) // PACK
+    if out is None:
+        out = torch.zeros((rows, nwords), dtype=torch.int32, device=dev)
+    keep = idx >= 0
+    if width_log2 < 31:  # every non-negative int32 is in range at 2**31
+        keep &= idx < (1 << width_log2)
+    if weight is not None:
+        keep &= weight.reshape(1, -1) != 0
+    row = torch.arange(rows, device=dev)[:, None] << 31
+    key = torch.unique((idx.to(torch.int64) + row)[keep])
+    b = key & ((1 << 31) - 1)
+    word, inv = torch.unique((key >> 31) * nwords + word_index(b),
+                             return_inverse=True)
+    # the distinct bits of one word sum to their OR
+    bits = torch.zeros(word.shape, dtype=torch.int64, device=dev).index_add_(
+        0, inv, torch.ones_like(b) << bit_index(b))
+    if gate is not None:
+        bits = bits * (gate.reshape(()) != 0)
+    flat = out.view(-1)
+    flat.index_put_((word,), flat[word] | _as_int32(bits))
+    return out
+
+
+def _bloom_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("bloom")
+    fn = lib.nthash_bloom_words_rows
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p,
+        ]
+    return lib
+
+
+def _words_launch(idx, weight, width_log2, gate, out, name):
+    rows, n = idx.shape
+    dev = idx.device
+    if out is None:
+        out = torch.zeros((rows, (1 << width_log2) // PACK), dtype=torch.int32,
+                          device=dev)
+    if rows == 0 or n == 0:
+        return out
+    idx = idx.contiguous()
+    if weight is not None:
+        weight = weight.contiguous()
+    lib = _bloom_lib()
+    status = lib.nthash_bloom_words_rows(
+        dev.index, idx.data_ptr(), rows, n,
+        None if weight is None else weight.data_ptr(), width_log2,
+        out.data_ptr(), None if gate is None else gate.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check(lib, status, f"{name} launch")
+    BLOOM_LAUNCHES[name] += 1
+    return out
+
+
+def _words_route(idx, weight, width_log2, gate, out, name):
+    if idx.is_cuda:
+        return _words_launch(idx, weight, width_log2, gate, out, name)
+    if idx.device.type == "cpu":
+        return _words_plain(idx, weight, width_log2, gate, out)
+    raise ValueError(f"no presence-word route for device {idx.device}")
+
+
+def _one_row(idx, weight, out):
+    """idx, weight and out of the single-row entry points as rows of one."""
+    if out is not None and out.dim() != 1:
+        raise ValueError(f"out must be 1-D, got {tuple(out.shape)}")
+    return (idx.reshape(1, -1), None if weight is None else weight.reshape(-1),
+            None if out is None else out.unsqueeze(0))
+
+
+def bloom_words_rows_plain(idx: torch.Tensor, width_log2: int, *,
+                           gate: torch.Tensor | None = None,
+                           out: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bloom_words_rows`, on any device: the
+    distinct in-range buckets by ``torch.unique``, their bits summed per
+    word (distinct bits add up to their OR), OR-ed into ``out``; the gate is
+    a 0/1 factor so nothing waits on it."""
+    idx, _ = _words_args(idx, None, width_log2, BLOOM_ROWS_MAX_WIDTH_LOG2,
+                         gate, out)
+    return _words_plain(idx, None, width_log2, gate, out)
+
+
+def bloom_words_rows(idx: torch.Tensor, width_log2: int, *,
+                     gate: torch.Tensor | None = None,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """R independent bit-packed presence maps in one kernel launch.
+
+    Args:
+      idx: [R, ...] int32 bucket indices; entries outside
+        [0, 2**width_log2) are dropped.
+      width_log2: in [12, 26], as the JAX package's ``mxu_bloom_words_rows``.
+      gate: optional int32 tensor of one element on the same device; where
+        it holds 0 nothing is set.
+      out: optional contiguous int32 [R, 2**width_log2 / 32] to OR the bits
+        into, in place, instead of a new zeroed tensor.
+
+    Returns:
+      int32 [R, 2**width_log2 / 32]: per row, the uint32 bit patterns of the
+      JAX package's words in the :func:`word_index` / :func:`bit_index`
+      layout (``out`` itself when given).
+
+    A CUDA tensor goes through the CUDA kernel (``csrc/bloom.cu``), a CPU
+    tensor through :func:`bloom_words_rows_plain`.
+    """
+    idx, _ = _words_args(idx, None, width_log2, BLOOM_ROWS_MAX_WIDTH_LOG2,
+                         gate, out)
+    return _words_route(idx, None, width_log2, gate, out, "bloom_words_rows")
+
+
+def bloom_words_plain(idx: torch.Tensor, weight: torch.Tensor | None,
+                      width_log2: int, *, gate: torch.Tensor | None = None,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bloom_words`, on any device."""
+    idx, weight, out2 = _one_row(idx, weight, out)
+    idx, weight = _words_args(idx, weight, width_log2, BLOOM_MAX_WIDTH_LOG2,
+                              gate, out2)
+    return _words_plain(idx, weight, width_log2, gate, out2)[0]
+
+
+def bloom_words(idx: torch.Tensor, weight: torch.Tensor | None,
+                width_log2: int, *, gate: torch.Tensor | None = None,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """Bit-packed presence of ``idx`` (any shape) -> int32 [2**width_log2 / 32].
+
+    The scatter-OR a Bloom filter needs. Entries outside [0, 2**width_log2)
+    and, with a ``weight`` (int32, one per entry), entries whose weight is 0
+    are dropped. ``width_log2`` is in [12, 31]: past the JAX kernel's 2**26,
+    because on this card one atomic OR per update serves every width, the
+    partitioned path's skew fallback at 2**19..2**30 and the widest filter
+    at 2**31 included. ``gate`` and ``out`` (contiguous int32
+    [2**width_log2 / 32], OR-ed into in place) are as in
+    :func:`bloom_words_rows`.
+
+    A CUDA tensor goes through the CUDA kernel (``csrc/bloom.cu``), a CPU
+    tensor through :func:`bloom_words_plain`.
+    """
+    idx, weight, out2 = _one_row(idx, weight, out)
+    idx, weight = _words_args(idx, weight, width_log2, BLOOM_MAX_WIDTH_LOG2,
+                              gate, out2)
+    return _words_route(idx, weight, width_log2, gate, out2, "bloom_words")[0]

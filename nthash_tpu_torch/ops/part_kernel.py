@@ -1,22 +1,26 @@
-"""Sort-partitioned exact histograms at widths 2**19..2**30.
+"""Sort-partitioned exact histograms and presence words at widths
+2**19..2**30.
 
-Counterpart of ``nthash_tpu/ops/part_pallas.py`` (all of it except
-``partitioned_bloom_words``, which waits for the Bloom filters). The update
-stream is cut into chunks; each chunk is sorted, so the updates of each of its
-P partitions (the top ``log2(P)`` bits of the bucket) form one run; a table
-gives each partition's first row; a fixed ``cap``-row window per partition is
-copied out and rebased to [0, width / P); and the row histogram counts every
-window at the narrow sub-width. A window that cannot hold its partition (heavy
-skew) sets a flag on the device, and then one full-width histogram of the raw
-indices counts instead. Both are exact; the flag only picks which one counts.
+Counterpart of ``nthash_tpu/ops/part_pallas.py``, all of it:
+``partitioned_histogram_rows`` for the count-min sketch and
+``partitioned_bloom_words`` for the Bloom filter. The update stream is cut
+into chunks; each chunk is sorted, so the updates of each of its P partitions
+(the top ``log2(P)`` bits of the bucket) form one run; a table gives each
+partition's first row; a fixed ``cap``-row window per partition is copied out
+and rebased to [0, width / P); and every window is counted (row histogram) or
+packed (presence-word rows) at the narrow sub-width. A window that cannot hold
+its partition (heavy skew) sets a flag on the device, and then one full-width
+launch over the raw indices counts or packs instead. Both are exact; the flag
+only picks which one writes.
 
 The kernels are ``csrc/partition.cu``: ``sort_tiles`` (A3a/A3b),
 ``merge_phase`` (A3c), ``partition_bounds`` (the partition table plus the
-window check) and ``windows`` (A3d); the sub-histograms and the fallback are
-``ops/hist_kernel.py``'s kernel. Each function that routes does so by device:
+window check) and ``windows`` (A3d); the per-partition step and the fallback
+are ``ops/hist_kernel.py``'s kernels (``csrc/histogram.cu``,
+``csrc/bloom.cu``). Each function that routes does so by device:
 a CUDA tensor goes through the kernels, a CPU tensor through the plain
 versions beside them (``*_plain``), anything else raises. Nothing waits on the
-host: the overflow flag gates the two histogram launches on the device.
+host: the overflow flag gates the two last launches on the device.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import ctypes
 import torch
 
 from . import cuda_build
-from .hist_kernel import histogram_rows
+from .hist_kernel import bloom_words, bloom_words_rows, histogram_rows
 
 LANES = 128
 CAP_ROWS = 3  # window rows when a test overrides chunk_rows below the plan
@@ -348,6 +352,48 @@ def partition_windows(sorted_idx: torch.Tensor, fb: torch.Tensor,
                                    cap_rows=cap_rows)
 
 
+def _plan_for(width_log2: int, chunk_rows: int | None,
+              cap_rows: int | None) -> tuple[int, int, int, int]:
+    """(p_log2, sub_log2, chunk_rows, cap_rows): the plan with the tests'
+    overrides applied."""
+    p_log2, sub_log2, rows, cap = plan(width_log2)
+    if sub_log2 > MAX_SUB_LOG2:
+        raise ValueError(
+            f"plan for width 2**{width_log2} gives sub-width 2**{sub_log2} "
+            f"above 2**{MAX_SUB_LOG2}; the port does not recurse")
+    if chunk_rows is not None:
+        rows, cap = chunk_rows, min(3, chunk_rows)
+    if cap_rows is not None:
+        cap = cap_rows
+    return p_log2, sub_log2, rows, cap
+
+
+def _check_idx(idx: torch.Tensor) -> None:
+    if idx.dtype != torch.int32 or idx.dim() < 1:
+        raise TypeError(f"idx must be an int32 [R, ...] tensor, got {idx.dtype}")
+
+
+def _check_out(out: torch.Tensor, shape: tuple, idx: torch.Tensor) -> None:
+    if (out.dtype != torch.int32 or out.device != idx.device
+            or tuple(out.shape) != shape or not out.is_contiguous()):
+        raise ValueError(
+            f"out must be a contiguous int32 {list(shape)} tensor on the "
+            "idx's device")
+
+
+def _partition(idx: torch.Tensor, width_log2: int, p_log2: int, sub_log2: int,
+               rows: int, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """idx [R, N] -> (windows [R, P, G, cap, 128], flags int32 [2] =
+    (overflow, no overflow)) by the kernels on a CUDA tensor, by the plain
+    versions on a CPU one."""
+    on_card = _route(idx)
+    chunks = _pad_chunks(idx, 1 << width_log2, rows * LANES)
+    srt = _sorted(chunks) if on_card else _sort_plain(chunks)
+    fb, flags = (partition_bounds if on_card else partition_bounds_plain)(
+        srt, sub_log2, p_log2, cap)
+    return partition_windows(srt, fb, p_log2, sub_log2, cap_rows=cap), flags
+
+
 def partitioned_histogram_rows(
     idx: torch.Tensor,
     width_log2: int,
@@ -372,33 +418,16 @@ def partitioned_histogram_rows(
       skew: where a window overflows, the full-width histogram of ``idx``
       counts instead of the windows, chosen on the device.
     """
-    p_log2, sub_log2, rows, cap = plan(width_log2)
-    if sub_log2 > MAX_SUB_LOG2:
-        raise ValueError(
-            f"plan for width 2**{width_log2} gives sub-width 2**{sub_log2} "
-            f"above 2**{MAX_SUB_LOG2}; the port does not recurse")
-    if chunk_rows is not None:
-        rows, cap = chunk_rows, min(3, chunk_rows)
-    if cap_rows is not None:
-        cap = cap_rows
-    if idx.dtype != torch.int32 or idx.dim() < 1:
-        raise TypeError(f"idx must be an int32 [R, ...] tensor, got {idx.dtype}")
-    on_card = _route(idx)
+    p_log2, sub_log2, rows, cap = _plan_for(width_log2, chunk_rows, cap_rows)
+    _check_idx(idx)
     r = idx.shape[0]
     idx = idx.reshape(r, -1)
     width = 1 << width_log2
     if out is None:
         out = torch.zeros((r, width), dtype=torch.int32, device=idx.device)
-    elif (out.dtype != torch.int32 or out.device != idx.device
-          or tuple(out.shape) != (r, width) or not out.is_contiguous()):
-        raise ValueError(
-            f"out must be a contiguous int32 [{r}, {width}] tensor on the "
-            "idx's device")
-    chunks = _pad_chunks(idx, width, rows * LANES)
-    srt = _sorted(chunks) if on_card else _sort_plain(chunks)
-    fb, flags = (partition_bounds if on_card else partition_bounds_plain)(
-        srt, sub_log2, p_log2, cap)
-    wins = partition_windows(srt, fb, p_log2, sub_log2, cap_rows=cap)
+    else:
+        _check_out(out, (r, width), idx)
+    wins, flags = _partition(idx, width_log2, p_log2, sub_log2, rows, cap)
     # the windows count where every window held its partition (flags[1]),
     # the raw indices at full width where one did not (flags[0])
     histogram_rows(wins.reshape(r << p_log2, -1), None, sub_log2,
@@ -410,3 +439,49 @@ def partitioned_histogram_rows(
 def partitioned_histogram(idx: torch.Tensor, width_log2: int) -> torch.Tensor:
     """Single-row convenience wrapper over partitioned_histogram_rows."""
     return partitioned_histogram_rows(idx.reshape(1, -1), width_log2)[0]
+
+
+def partitioned_bloom_words(
+    idx: torch.Tensor,
+    width_log2: int,
+    *,
+    chunk_rows: int | None = None,
+    cap_rows: int | None = None,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Bit-packed presence at widths 2**19..2**30 by sort-partitioning.
+
+    The updates are partitioned as in :func:`partitioned_histogram_rows`;
+    then one presence-word row per partition is packed at the sub-width
+    (``bloom_words_rows``, gated on "no window overflowed"), straight into
+    its slice of the full-width words: each 4,096-bucket block packs on its
+    own and every sub-width is at least 2**13, so the per-partition words
+    concatenate into the full-width layout. Where a window overflowed, one
+    full-width ``bloom_words`` over the raw indices sets the bits instead,
+    chosen on the device.
+
+    Args:
+      idx: int32 bucket indices, any shape; entries outside
+        [0, 2**width_log2) are dropped.
+      width_log2: in [19, 30].
+      chunk_rows, cap_rows: test overrides, as in
+        :func:`partitioned_histogram_rows`.
+      out: optional contiguous int32 [2**width_log2 / 32] to OR into.
+
+    Returns:
+      int32 [2**width_log2 / 32], the JAX package's uint32 words bit for bit
+      (``out`` itself when given).
+    """
+    p_log2, sub_log2, rows, cap = _plan_for(width_log2, chunk_rows, cap_rows)
+    _check_idx(idx)
+    idx = idx.reshape(1, -1)
+    nwords = 1 << (width_log2 - 5)
+    if out is None:
+        out = torch.zeros(nwords, dtype=torch.int32, device=idx.device)
+    else:
+        _check_out(out, (nwords,), idx)
+    wins, flags = _partition(idx, width_log2, p_log2, sub_log2, rows, cap)
+    bloom_words_rows(wins.reshape(1 << p_log2, -1), sub_log2, gate=flags[1:],
+                     out=out.view(1 << p_log2, -1))
+    bloom_words(idx, None, width_log2, gate=flags[:1], out=out)
+    return out

@@ -1,0 +1,406 @@
+"""The port's packed Bloom filter and presence words against the JAX package.
+
+Inputs are made with numpy from a seed and go through both packages; every
+comparison is of integers (the words' bit patterns), with tolerance 0. The
+JAX Pallas kernels run in interpret mode, as ``tests/test_hist.py`` runs
+them, at widths 2**12..2**13; the port's functions run their plain versions
+on the CPU, which ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the
+CUDA kernels to on the card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nthash_tpu.models import bloom as jbloom
+from nthash_tpu.ops import hist_pallas as hp
+from nthash_tpu.ops import kmer_jnp
+from nthash_tpu.ops import kmer_pallas
+from nthash_tpu_torch.models import bloom
+from nthash_tpu_torch.ops import hist_kernel as hk
+from nthash_tpu_torch.ops.kmer_kernel import hash_kmers_tm, prepare_codes
+from nthash_tpu_torch.ops.kmer_torch import hash_kmers
+
+K, H = 9, 3
+CPU = torch.device("cpu")
+
+
+def _words(t: torch.Tensor) -> np.ndarray:
+    """int32 words -> the uint32 bit patterns the JAX package holds."""
+    return t.numpy().view(np.uint32)
+
+
+def _stream(rng, n, width):
+    """int32 indices with -1, width and width + 10 among them."""
+    idx = rng.integers(0, width, size=n).astype(np.int32)
+    idx[rng.random(n) < 0.05] = -1
+    idx[rng.random(n) < 0.05] = width
+    idx[rng.random(n) < 0.05] = width + 10
+    return idx
+
+
+def _both_hashes(codes):
+    """(port hashes int64 [B, W, H], valid; JAX U64 hashes, valid)."""
+    t = hash_kmers(torch.from_numpy(codes), K, H)
+    j = kmer_jnp.hash_kmers(jnp.asarray(codes), K, H)
+    return t.hashes, t.valid, j.hashes, j.valid
+
+
+def _jax_scatter(codes, wl):
+    _, _, jh, jv = _both_hashes(codes)
+    return np.asarray(jbloom.insert(jbloom.BloomFilter.zeros(wl), jh, jv, wl,
+                                    ingestion="scatter").words)
+
+
+# ------------------------------------------------------------- layout ----
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_word_and_bit_index_match_jax(rng, dtype):
+    b = np.concatenate([
+        [0, 1, 127, 128, 4095, 4096, 4097, (1 << 30) - 1, 1 << 30,
+         (1 << 31) - 1],
+        rng.integers(0, 1 << 31, size=5000)]).astype(np.int64)
+    t = torch.from_numpy(b).to(dtype)
+    assert np.array_equal(hk.word_index(t).numpy(), hp.word_index(b))
+    assert np.array_equal(hk.bit_index(t).numpy(), hp.bit_index(b))
+    assert hk.word_index(int(b[-1])) == int(hp.word_index(b[-1]))
+    assert hk.word_index(t).max() < (1 << 26)  # 2**31 bits = 2**26 words
+
+
+@pytest.mark.parametrize("wl", [12, 13, 15])
+def test_pack_presence_matches_jax(rng, wl):
+    presence = rng.random(1 << wl) < 0.3
+    got = bloom.pack_presence(torch.from_numpy(presence))
+    want = np.asarray(jbloom.pack_presence(jnp.asarray(presence)))
+    assert got.dtype == torch.int32 and np.array_equal(_words(got), want)
+    # and the presence words of the set buckets are the same words
+    idx = np.flatnonzero(presence).astype(np.int32)
+    assert torch.equal(hk.bloom_words_plain(torch.from_numpy(idx), None, wl),
+                       got)
+
+
+# ------------------------------------------------------ kernels' plain ----
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("wl", [12, 13])
+def test_bloom_words_vs_pallas_interpret(rng, wl, weighted):
+    width = 1 << wl
+    idx = _stream(rng, 2 * hp.CHUNK, width)
+    w = rng.integers(-3, 3, size=idx.size).astype(np.int32) if weighted \
+        else None
+    want = np.asarray(hp.mxu_bloom_words(
+        jnp.asarray(idx), None if w is None else jnp.asarray(w), wl,
+        interpret=True))
+    tw = None if w is None else torch.from_numpy(w)
+    for fn in (hk.bloom_words, hk.bloom_words_plain):
+        got = fn(torch.from_numpy(idx), tw, wl)
+        assert got.dtype == torch.int32 and got.shape == (width // 32,)
+        assert np.array_equal(_words(got), want)
+
+
+def test_bloom_words_all_invalid(rng):
+    wl = 12
+    width = 1 << wl
+    idx = np.array([-1, width, width + 10, -(1 << 31), (1 << 31) - 1] * 40,
+                   np.int32)
+    w = np.ones(idx.size, np.int32)
+    want = np.asarray(hp.mxu_bloom_words(jnp.asarray(idx), jnp.asarray(w), wl,
+                                         interpret=True))
+    got = hk.bloom_words(torch.from_numpy(idx), torch.from_numpy(w), wl)
+    assert not want.any() and np.array_equal(_words(got), want)
+    # a zero weight drops an in-range index
+    some = torch.tensor([5, 6, 7], dtype=torch.int32)
+    got = hk.bloom_words(some, torch.tensor([0, 1, 0], dtype=torch.int32), wl)
+    assert int(bloom.count_set_bits(bloom.BloomFilter(got))) == 1
+
+
+@pytest.mark.parametrize("wl", [12, 13])
+def test_bloom_words_rows_vs_pallas_interpret(rng, wl):
+    width = 1 << wl
+    idx = np.stack([_stream(rng, 5000, width) for _ in range(3)])
+    idx[2] = -1  # an empty row
+    want = np.asarray(hp.mxu_bloom_words_rows(jnp.asarray(idx), wl,
+                                              interpret=True))
+    for fn in (hk.bloom_words_rows, hk.bloom_words_rows_plain):
+        got = fn(torch.from_numpy(idx), wl)
+        assert got.shape == (3, width // 32)
+        assert np.array_equal(_words(got), want)
+
+
+def test_gate_and_out(rng):
+    wl = 12
+    idx = torch.from_numpy(_stream(rng, 3000, 1 << wl))
+    rows = torch.from_numpy(np.stack([_stream(rng, 3000, 1 << wl)
+                                      for _ in range(3)]))
+    base = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(3, 128))
+                            .astype(np.int32))
+    one = hk.bloom_words(idx, None, wl)
+    many = hk.bloom_words_rows(rows, wl)
+    for g in (0, 1):
+        gate = torch.full((1,), g, dtype=torch.int32)
+        out = base[0].clone()
+        res = hk.bloom_words(idx, None, wl, gate=gate, out=out)
+        assert res.data_ptr() == out.data_ptr()
+        assert torch.equal(out, base[0] | one if g else base[0])
+        out = base.clone()
+        res = hk.bloom_words_rows(rows, wl, gate=gate, out=out)
+        assert res is out
+        assert torch.equal(out, base | many if g else base)
+
+
+def test_cpu_route_launches_no_kernel(rng):
+    before = dict(hk.BLOOM_LAUNCHES)
+    hk.bloom_words(torch.zeros(8, dtype=torch.int32), None, 12)
+    hk.bloom_words_rows(torch.zeros((2, 8), dtype=torch.int32), 12)
+    assert hk.BLOOM_LAUNCHES == before
+
+
+@pytest.mark.parametrize("bad,err", [
+    (dict(wl=11), ValueError),
+    (dict(wl=32), ValueError),
+    (dict(rows_wl=27), ValueError),
+    (dict(idx=torch.zeros(8, dtype=torch.int64)), TypeError),
+    (dict(weight=torch.ones(8, dtype=torch.int64)), TypeError),
+    (dict(weight=torch.ones(5, dtype=torch.int32)), ValueError),
+    (dict(out=torch.zeros(129, dtype=torch.int32)), ValueError),
+    (dict(out=torch.zeros((1, 128), dtype=torch.int32)), ValueError),
+    (dict(out=torch.zeros(128, dtype=torch.int64)), ValueError),
+    (dict(gate=torch.ones(2, dtype=torch.int32)), ValueError),
+    (dict(idx=torch.zeros(8, dtype=torch.int32, device="meta")), ValueError),
+])
+def test_rejects(bad, err):
+    idx = bad.get("idx", torch.zeros(8, dtype=torch.int32))
+    with pytest.raises(err):
+        if "rows_wl" in bad:
+            hk.bloom_words_rows(idx.reshape(1, -1), bad["rows_wl"])
+        else:
+            hk.bloom_words(idx, bad.get("weight"), bad.get("wl", 12),
+                           gate=bad.get("gate"), out=bad.get("out"))
+
+
+# ------------------------------------------------------------ the model ----
+
+
+def test_zeros_layout_and_range():
+    bf = bloom.BloomFilter.zeros(14, device=CPU)
+    assert bf.words.dtype == torch.int32 and bf.words.shape == (512,)
+    assert bf.width == 1 << 14
+    for wl in (11, 32):
+        with pytest.raises(ValueError):
+            bloom.BloomFilter.zeros(wl, device=CPU)
+
+
+def test_zeros_defaults_to_the_card():
+    """No device named: the filter is made on the card, never on the CPU;
+    where there is none, making it raises."""
+    if torch.cuda.is_available():
+        assert bloom.BloomFilter.zeros(12).words.is_cuda
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            bloom.BloomFilter.zeros(12)
+
+
+def test_jax_filter_carried_across(rng):
+    """A filter built by the JAX package loads with ``from_numpy``, answers
+    ``contains`` as JAX does (hits, misses, and words with bit 31 set) and
+    comes back byte for byte."""
+    wl = 14
+    codes = rng.integers(0, 5, size=(6, 60), dtype=np.uint8)
+    other = rng.integers(0, 4, size=(6, 60), dtype=np.uint8)
+    th, _, jh, jv = _both_hashes(codes)
+    jbf = jbloom.insert(jbloom.BloomFilter.zeros(wl), jh, jv, wl,
+                        ingestion="scatter")
+    words = np.asarray(jbf.words)
+    assert (words >= 1 << 31).any()
+    bf = bloom.BloomFilter.from_numpy(words, CPU)
+    assert np.array_equal(bf.to_numpy(), words)
+    assert bf.to_numpy().dtype == np.uint32
+    oh, _, ojh, _ = _both_hashes(other)
+    for t, j in ((th, jh), (oh, ojh)):
+        assert np.array_equal(bloom.contains(bf, t, wl).numpy(),
+                              np.asarray(jbloom.contains(jbf, j, wl)))
+    with pytest.raises(TypeError):
+        bloom.BloomFilter.from_numpy(words.view(np.int32), CPU)
+    with pytest.raises(ValueError):
+        bloom.BloomFilter.from_numpy(words[:100], CPU)
+
+
+def test_contains_bit_31():
+    """int32 ``>>`` is arithmetic: bit 31 set must not read as set bits
+    below it."""
+    words = np.zeros(128, np.uint32)
+    words[0] = 1 << 31                     # bucket 31 * 128 = 3968
+    bf = bloom.BloomFilter.from_numpy(words, CPU)
+    h = torch.tensor([[3968], [3840], [0]], dtype=torch.int64)
+    assert bloom.contains(bf, h, 12).tolist() == [True, False, False]
+
+
+@pytest.mark.parametrize("wl", [12, 13, 14, 17, 18, 19, 20, 21])
+def test_insert_vs_jax_scatter(rng, wl):
+    """Direct widths (up to 2**18) and partitioned ones (2**19 up) against
+    the JAX package's scatter route."""
+    codes = rng.integers(0, 5, size=(5, 50), dtype=np.uint8)   # with N
+    th, tv, _, _ = _both_hashes(codes)
+    bf = bloom.BloomFilter.zeros(wl, device=CPU)
+    res = bloom.insert(bf, th, tv, wl)
+    assert res is bf
+    assert np.array_equal(bf.to_numpy(), _jax_scatter(codes, wl))
+
+
+def test_insert_routes_by_width(monkeypatch, rng):
+    import nthash_tpu_torch.models.bloom as mod
+
+    seen = []
+    monkeypatch.setattr(mod, "bloom_words",
+                        lambda *a, **k: seen.append(("direct", a[2])))
+    monkeypatch.setattr(mod, "partitioned_bloom_words",
+                        lambda *a, **k: seen.append(("partitioned", a[1])))
+    h = torch.zeros((2, 3), dtype=torch.int64)
+    v = torch.ones(2, dtype=torch.bool)
+    for wl in (12, 18, 19, 30, 31):  # stand-in words: only the width counts
+        words = torch.zeros(1, dtype=torch.int32).expand(1 << (wl - 5))
+        mod.insert(mod.BloomFilter(words), h, v, wl)
+    assert seen == [("direct", 12), ("direct", 18), ("partitioned", 19),
+                    ("partitioned", 30), ("direct", 31)]
+
+
+def test_insert_rejects():
+    bf = bloom.BloomFilter.zeros(14, device=CPU)
+    h = torch.zeros((2, 3), dtype=torch.int64)
+    v = torch.ones(2, dtype=torch.bool)
+    for wl in (11, 32):
+        with pytest.raises(ValueError, match="width_log2"):
+            bloom.insert(bf, h, v, wl)
+    with pytest.raises(ValueError, match="width"):
+        bloom.insert(bf, h, v, 15)
+
+
+def test_insert_2_31_sparse(rng):
+    """The widest filter: 2**31 bits through one direct launch, where the
+    sentinel 2**31 does not fit an int32; checked at the set words and by
+    the total popcount."""
+    wl = 31
+    h = torch.from_numpy(rng.integers(0, 1 << 62, size=(300, 2),
+                                      dtype=np.int64))
+    h[:5] |= 1 << 30                   # buckets in the top half
+    v = torch.from_numpy(rng.random(300) < 0.8)
+    bf = bloom.insert(bloom.BloomFilter.zeros(wl, device=CPU), h, v, wl)
+    b = (h.numpy() & ((1 << wl) - 1))[v.numpy()].reshape(-1)
+    want = {}
+    for wi, bi in zip(hp.word_index(b), hp.bit_index(b)):
+        want[int(wi)] = want.get(int(wi), 0) | (1 << int(bi))
+    pos = np.fromiter(want, np.int64)
+    got = bf.to_numpy()[pos]
+    assert np.array_equal(got, np.fromiter(want.values(), np.uint32))
+    assert int(bloom.count_set_bits(bf)) == len(set(b.tolist()))
+    assert bool(bloom.contains(bf, h, wl)[v].all())
+
+
+@pytest.mark.parametrize("wl", [14, 20])
+def test_insert_from_buckets_vs_jax(rng, wl):
+    codes = rng.integers(0, 5, size=(6, 40), dtype=np.uint8)
+    bucks = hash_kmers_tm(prepare_codes(torch.from_numpy(codes)), K, H,
+                          emit_buckets=wl)
+    bf = bloom.BloomFilter.zeros(wl, device=CPU)
+    assert bloom.insert_from_buckets(bf, bucks, emitted_width_log2=wl) is bf
+    assert np.array_equal(bf.to_numpy(), _jax_scatter(codes, wl))
+    if wl <= 18:  # and the JAX package's own bucket route (interpret mode)
+        jb = jbloom.insert_from_buckets(
+            jbloom.BloomFilter.zeros(wl), [jnp.asarray(b.numpy()) for b in bucks],
+            emitted_width_log2=wl, interpret=True)
+        assert np.array_equal(bf.to_numpy(), np.asarray(jb.words))
+
+
+def test_insert_from_buckets_matches_pallas_hash_buckets(rng):
+    """Buckets from the JAX package's own Pallas hash kernel (interpret
+    mode) fill the same filter in both packages."""
+    wl = 12
+    codes = rng.integers(0, 5, size=(4, 21), dtype=np.uint8)
+    jtm = kmer_pallas.prepare_codes(jnp.asarray(codes))
+    import jax
+
+    with jax.disable_jit():
+        jbucks = kmer_pallas.hash_kmers_tm(jtm, 5, 2, emit_buckets=wl,
+                                           interpret=True)
+    bf = bloom.insert_from_buckets(
+        bloom.BloomFilter.zeros(wl, device=CPU),
+        [torch.from_numpy(np.array(b)) for b in jbucks])
+    jbf = jbloom.insert_from_buckets(jbloom.BloomFilter.zeros(wl), jbucks,
+                                     interpret=True)
+    assert np.array_equal(bf.to_numpy(), np.asarray(jbf.words))
+
+
+def test_insert_from_buckets_guards():
+    bf = bloom.BloomFilter.zeros(14, device=CPU)
+    b = torch.zeros((3, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="emitted at width"):
+        bloom.insert_from_buckets(bf, [b], emitted_width_log2=13)
+    # the sentinel of the filter's own width is dropped
+    bloom.insert_from_buckets(bf, [b, b + (1 << 14)], emitted_width_log2=14)
+    assert int(bloom.count_set_bits(bf)) == 1
+    wide = bloom.BloomFilter(torch.zeros(1, dtype=torch.int32).expand(1 << 26))
+    with pytest.raises(ValueError, match="2\\*\\*30"):
+        bloom.insert_from_buckets(wide, [b])
+
+
+# ------------------------------------------- tests/test_bloom.py's cases ----
+
+
+WL = 14
+
+
+def _insert(codes):
+    th, tv, _, _ = _both_hashes(codes)
+    return bloom.insert(bloom.BloomFilter.zeros(WL, device=CPU), th, tv, WL), th
+
+
+def test_insert_then_contains(rng):
+    bf, th = _insert(rng.integers(0, 4, size=(8, 60), dtype=np.uint8))
+    assert bool(bloom.contains(bf, th, WL).all())
+
+
+def test_invalid_windows_not_inserted():
+    bf, _ = _insert(np.full((1, 30), 4, dtype=np.uint8))  # an all-N read
+    assert int(bloom.count_set_bits(bf)) == 0
+
+
+def test_absent_kmers_mostly_miss(rng):
+    bf, _ = _insert(rng.integers(0, 4, size=(4, 60), dtype=np.uint8))
+    _, other = _insert(rng.integers(0, 4, size=(4, 60), dtype=np.uint8))
+    # fill ratio ~ 208 * 3 / 16384: P(false positive) = ratio**3 << 1%
+    assert bloom.contains(bf, other, WL).double().mean() < 0.05
+
+
+def test_merge_is_union(rng):
+    a = rng.integers(0, 4, size=(2, 40), dtype=np.uint8)
+    b = rng.integers(0, 4, size=(2, 40), dtype=np.uint8)
+    (bfa, ha), (bfb, hb) = _insert(a), _insert(b)
+    merged = bloom.merge(bfa, bfb)
+    assert merged.words.data_ptr() not in (bfa.words.data_ptr(),
+                                           bfb.words.data_ptr())
+    assert bool(bloom.contains(merged, ha, WL).all())
+    assert bool(bloom.contains(merged, hb, WL).all())
+    both, _ = _insert(np.concatenate([a, b]))
+    assert torch.equal(merged.words, both.words)
+    assert int(bloom.count_set_bits(merged)) <= int(
+        bloom.count_set_bits(bfa)) + int(bloom.count_set_bits(bfb))
+
+
+def test_count_set_bits_and_fill_ratio(rng):
+    words = np.zeros((1 << WL) // 32, dtype=np.uint32)
+    words[0] = 0b111
+    bf = bloom.BloomFilter.from_numpy(words, CPU)
+    assert float(bloom.fill_ratio(bf)) == pytest.approx(3 / (1 << WL))
+    assert int(bloom.count_set_bits(bf)) == 3
+    words = rng.integers(0, 1 << 32, size=(1 << WL) // 32, dtype=np.uint64) \
+        .astype(np.uint32)
+    words[:4] = [0xFFFFFFFF, 1 << 31, 0x80000001, 0]
+    jbf = jbloom.BloomFilter(jnp.asarray(words))
+    bf = bloom.BloomFilter.from_numpy(words, CPU)
+    assert int(bloom.count_set_bits(bf)) == int(jbloom.count_set_bits(jbf)) \
+        == int(np.unpackbits(words.view(np.uint8)).sum())
+    assert float(bloom.fill_ratio(bf)) == pytest.approx(
+        float(jbloom.fill_ratio(jbf)))

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from nthash_tpu_torch.models import bloom
 from nthash_tpu_torch.models import sketch as cms
 from nthash_tpu_torch.models.pipeline import (
     PipelineConfig,
@@ -331,3 +332,172 @@ def test_timeit_cuda_events(cuda):
     x = torch.ones(1 << 20, device=cuda)
     t = profiling.timeit(lambda y: y * 2, x, calls=5)
     assert len(t.samples) == 5 and t.seconds_per_call > 0
+
+
+def _bloom_idx(rng, n, wl, rows=None):
+    """int32 indices with -1, width and width + 10 among them (width
+    2**31: -1 and the most negative int32)."""
+    width = 1 << wl
+    shape = (n,) if rows is None else (rows, n)
+    idx = rng.integers(0, width, size=shape, dtype=np.int64)
+    idx[rng.random(shape) < 0.02] = -1
+    idx[rng.random(shape) < 0.02] = width if wl < 31 else -(1 << 31)
+    idx[rng.random(shape) < 0.02] = width + 10 if wl < 31 else -7
+    return torch.from_numpy(idx.astype(np.int32))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("wl", [12, 13, 18, 26, 31])
+def test_bloom_words_kernel_vs_plain(rng, cuda, wl, weighted):
+    idx = _bloom_idx(rng, 300_001, wl).to(cuda)
+    w = (torch.from_numpy(rng.integers(-2, 3, size=300_001, dtype=np.int32))
+         .to(cuda) if weighted else None)
+    before = dict(hist_kernel.BLOOM_LAUNCHES)
+    got = hist_kernel.bloom_words(idx, w, wl)
+    assert hist_kernel.BLOOM_LAUNCHES == {
+        **before, "bloom_words": before["bloom_words"] + 1}
+    want = hist_kernel.bloom_words_plain(idx, w, wl)
+    torch.cuda.synchronize()
+    assert got.is_cuda and torch.equal(got, want)
+    assert torch.equal(got.cpu(), hist_kernel.bloom_words(idx.cpu(), None if
+                                                          w is None else
+                                                          w.cpu(), wl))
+
+
+@pytest.mark.parametrize("rows", [1, 3, 5, 64])
+@pytest.mark.parametrize("wl", [12, 13, 18, 26])
+def test_bloom_words_rows_kernel_vs_plain(rng, cuda, wl, rows):
+    n = 600_000 // rows if wl < 26 else 50_000
+    idx = _bloom_idx(rng, n, wl, rows).to(cuda)
+    before = dict(hist_kernel.BLOOM_LAUNCHES)
+    got = hist_kernel.bloom_words_rows(idx, wl)
+    assert hist_kernel.BLOOM_LAUNCHES == {
+        **before, "bloom_words_rows": before["bloom_words_rows"] + 1}
+    want = hist_kernel.bloom_words_rows_plain(idx, wl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("wl,rows", [(26, None), (31, None), (26, 3)])
+def test_bloom_grid_stride_sparse(cuda, wl, rows):
+    """More updates than one grid holds (4,096 blocks x 256 threads =
+    2**20), so every thread loops, into a filter that stays sparse: a
+    dropped or misplaced update shows in the words."""
+    n = 5 * (1 << 20) + 3
+    gen = torch.Generator(device=cuda).manual_seed(wl)
+    shape = (n,) if rows is None else (rows, n)
+    idx = torch.randint(0, 1 << wl, shape, device=cuda, generator=gen,
+                        dtype=torch.int64).to(torch.int32)
+    if rows is None:
+        got = hist_kernel.bloom_words(idx, None, wl)
+        want = hist_kernel.bloom_words_plain(idx, None, wl)
+    else:
+        got = hist_kernel.bloom_words_rows(idx, wl)
+        want = hist_kernel.bloom_words_rows_plain(idx, wl)
+    torch.cuda.synchronize()
+    fill = int(bloom.count_set_bits(bloom.BloomFilter(want.reshape(-1))))
+    assert 0 < fill < 0.5 * want.numel() * 32
+    assert torch.equal(got, want)
+
+
+def test_bloom_gate_and_out(rng, cuda):
+    wl = 13
+    idx = _bloom_idx(rng, 5000, wl).to(cuda)
+    rows = _bloom_idx(rng, 5000, wl, 3).to(cuda)
+    base = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(3, 256))
+                            .astype(np.int32)).to(cuda)
+    one = hist_kernel.bloom_words_plain(idx, None, wl)
+    many = hist_kernel.bloom_words_rows_plain(rows, wl)
+    for g in (0, 1):
+        gate = torch.full((1,), g, dtype=torch.int32, device=cuda)
+        out = base[0].clone()
+        hist_kernel.bloom_words(idx, None, wl, gate=gate, out=out)
+        out_rows = base.clone()
+        hist_kernel.bloom_words_rows(rows, wl, gate=gate, out=out_rows)
+        torch.cuda.synchronize()
+        assert torch.equal(out, base[0] | one if g else base[0])
+        assert torch.equal(out_rows, base | many if g else base)
+
+
+@pytest.mark.parametrize("wl", [19, 20, 30])
+def test_partitioned_bloom_words_vs_plain(rng, cuda, wl):
+    idx = _bloom_idx(rng, 1 << 21, wl).to(cuda)
+    before = (dict(pk.LAUNCHES), dict(hist_kernel.BLOOM_LAUNCHES))
+    got = pk.partitioned_bloom_words(idx, wl)
+    # the sort, the table, the windows and both gated word launches
+    assert pk.LAUNCHES["windows"] == before[0]["windows"] + 1
+    assert all(hist_kernel.BLOOM_LAUNCHES[k] == before[1][k] + 1
+               for k in before[1])
+    want = hist_kernel.bloom_words_plain(idx, None, wl)
+    torch.cuda.synchronize()
+    if wl < 30:
+        assert torch.equal(got, want)
+    else:  # sparse: the set words, then the total popcount
+        b = idx[(idx >= 0) & (idx < (1 << wl))].long()
+        pos = torch.unique(hist_kernel.word_index(b))
+        assert torch.equal(got[pos], want[pos])
+        assert int(bloom.count_set_bits(bloom.BloomFilter(got))) == \
+            torch.unique(b).numel()
+
+
+@pytest.mark.parametrize("kind", ["identical", "sentinel"])
+def test_partitioned_bloom_skew_and_sentinel(rng, cuda, kind):
+    wl = 20
+    if kind == "identical":  # every window overflows: the gated fallback
+        idx = torch.full((1 << 20,), 12345, dtype=torch.int32)
+    else:  # mostly sentinel: must not trip the flag
+        idx = torch.full((1 << 20,), 1 << wl, dtype=torch.int32)
+        idx[:130] = torch.from_numpy(rng.integers(0, 1 << wl, size=130,
+                                                  dtype=np.int32))
+    idx = idx.to(cuda)
+    p_log2, sub_log2, rows, cap = pk.plan(wl)
+    _, flags = pk._partition(idx.reshape(1, -1), wl, p_log2, sub_log2, rows,
+                             cap)
+    assert flags.tolist() == ([1, 0] if kind == "identical" else [0, 1])
+    got = pk.partitioned_bloom_words(idx, wl)
+    assert torch.equal(got, hist_kernel.bloom_words_plain(idx, None, wl))
+
+
+def test_bloom_insert_2_31_sparse(rng, cuda):
+    wl = 31
+    h = torch.from_numpy(rng.integers(0, 1 << 62, size=(200_000, 4),
+                                      dtype=np.int64)).to(cuda)
+    v = torch.from_numpy(rng.random(200_000) < 0.9).to(cuda)
+    bf = bloom.insert(bloom.BloomFilter.zeros(wl, device=cuda), h, v, wl)
+    b = (h & ((1 << wl) - 1))[v].reshape(-1)
+    pos = torch.unique(hist_kernel.word_index(b))
+    want = hist_kernel.bloom_words_plain(b.int(), None, wl)
+    torch.cuda.synchronize()
+    assert torch.equal(bf.words[pos], want[pos])
+    assert int(bloom.count_set_bits(bf)) == torch.unique(b).numel()
+    assert bool(bloom.contains(bf, h, wl)[v].all())
+
+
+@pytest.mark.parametrize("wl", [14, 18, 19, 20, 22])
+def test_bloom_insert_cuda_vs_cpu(rng, cuda, wl):
+    from nthash_tpu_torch.ops.kmer_torch import hash_kmers
+
+    res = hash_kmers(_codes(rng, 3000), 32, 4)
+    gpu = bloom.insert(bloom.BloomFilter.zeros(wl), res.hashes.to(cuda),
+                       res.valid.to(cuda), wl)
+    cpu = bloom.insert(bloom.BloomFilter.zeros(wl, device="cpu"), res.hashes,
+                       res.valid, wl)
+    assert gpu.words.is_cuda and torch.equal(gpu.words.cpu(), cpu.words)
+    assert bool(bloom.contains(gpu, res.hashes.to(cuda), wl)[
+        res.valid.to(cuda)].all())
+
+
+@pytest.mark.parametrize("wl", [17, 20])
+def test_bloom_insert_from_buckets_cuda_vs_cpu(rng, cuda, wl):
+    tm = prepare_codes(_codes(rng, 3000))
+    bf_gpu = bloom.BloomFilter.zeros(wl)
+    bf_cpu = bloom.BloomFilter.zeros(wl, device="cpu")
+    before = dict(hist_kernel.BLOOM_LAUNCHES)
+    bloom.insert_from_buckets(bf_gpu, hash_kmers_tm(tm.to(cuda), 32, 4,
+                                                    emit_buckets=wl))
+    bloom.insert_from_buckets(bf_cpu, hash_kmers_tm(tm, 32, 4,
+                                                    emit_buckets=wl))
+    assert torch.equal(bf_gpu.words.cpu(), bf_cpu.words)
+    got = {k: hist_kernel.BLOOM_LAUNCHES[k] - before[k] for k in before}
+    assert got == ({"bloom_words": 4, "bloom_words_rows": 0} if wl <= 18 else
+                   {"bloom_words": 1, "bloom_words_rows": 1})

@@ -109,3 +109,33 @@ def test_rejects(bad, err):
     with pytest.raises(err):
         histogram_rows(bad.get("idx", torch.zeros((2, 8), dtype=torch.int32)),
                        bad.get("weight"), bad.get("wl", 10))
+
+
+def _words_np(idx, width):
+    """Reference presence words: a dense bool presence packed with numpy in
+    the JAX package's word_index / bit_index layout, as uint32."""
+    present = np.zeros(width, bool)
+    present[idx[(idx >= 0) & (idx < width)]] = True
+    p = present.reshape(width // 4096, 32, 128).astype(np.uint64)
+    return (p << np.arange(32, dtype=np.uint64)[None, :, None]).sum(
+        axis=1).astype(np.uint32).reshape(-1)
+
+
+@pytest.mark.parametrize("wl", [12, 18, 20, 26])
+def test_bloom_words_vs_numpy(rng, wl):
+    """Past the JAX kernel's range too: the direct words serve every width
+    up to 2**31 on the card."""
+    width = 1 << wl
+    idx = rng.integers(-5, width + 5, size=20_000).astype(np.int32)
+    got = hist_kernel.bloom_words(torch.from_numpy(idx), None, wl)
+    assert np.array_equal(got.numpy().view(np.uint32), _words_np(idx, width))
+
+
+@pytest.mark.parametrize("rows", [1, 5])
+def test_bloom_words_rows_vs_numpy(rng, rows):
+    wl = 14
+    idx = rng.integers(-5, (1 << wl) + 5, size=(rows, 3000)).astype(np.int32)
+    got = hist_kernel.bloom_words_rows(torch.from_numpy(idx), wl)
+    for r in range(rows):
+        assert np.array_equal(got[r].numpy().view(np.uint32),
+                              _words_np(idx[r], 1 << wl))

@@ -221,3 +221,114 @@ def test_partition_bounds_plain_matches_jax_table_and_flag(rng):
     fb, flags = pk.partition_bounds_plain(srt, sub_log2, p_log2, pk.CAP_ROWS)
     assert np.array_equal(fb.numpy(), np.asarray(jfb)[:, :, 0, :1 << p_log2])
     assert flags.tolist() == [1, 0]
+
+
+def _words_want(idx, width):
+    """The JAX package's words for a stream: its pack_presence of the
+    presence, as its scatter route and skew fallback build them."""
+    from nthash_tpu.models import bloom as jbloom
+
+    present = np.zeros(width, np.int8)
+    flat = idx.reshape(-1)
+    present[flat[(flat >= 0) & (flat < width)]] = 1
+    return np.asarray(jbloom.pack_presence(jnp.asarray(present)))
+
+
+def _bloom_stream(rng, kind, wl, n=5000):
+    width = 1 << wl
+    if kind == "uniform":
+        return rng.integers(-3, width + 3, size=n).astype(np.int32)
+    if kind == "identical":  # overflows every plan's window
+        return np.full(4 * 4096, 77, np.int32)
+    idx = np.full(n, width, np.int32)  # mostly sentinel: must not overflow
+    idx[:130] = rng.integers(0, width, size=130)
+    return idx
+
+
+@pytest.mark.parametrize("kind", ["uniform", "identical", "sentinel"])
+@pytest.mark.parametrize("chunk_rows", [8, None])
+@pytest.mark.parametrize("wl", [19, 20])
+def test_partitioned_bloom_words_vs_jax_scatter(rng, wl, chunk_rows, kind):
+    idx = _bloom_stream(rng, kind, wl)
+    got = pk.partitioned_bloom_words(torch.from_numpy(idx), wl,
+                                     chunk_rows=chunk_rows)
+    assert got.dtype == torch.int32 and got.shape == ((1 << wl) // 32,)
+    assert np.array_equal(got.numpy().view(np.uint32),
+                          _words_want(idx, 1 << wl))
+    p_log2, sub_log2, rows, cap = pk._plan_for(wl, chunk_rows, None)
+    _, flags = pk._partition(torch.from_numpy(idx).reshape(1, -1), wl,
+                             p_log2, sub_log2, rows, cap)
+    assert flags.tolist() == ([1, 0] if kind == "identical" else [0, 1])
+
+
+@pytest.mark.parametrize("wl", [19, 20])
+def test_partitioned_bloom_rows_step_matches_pallas(rng, wl):
+    """The per-partition step: JAX's rows kernel (interpret mode) on the
+    port's windows, which test_partition_windows_matches_jax pins equal to
+    JAX's, gives the port's words."""
+    from nthash_tpu.ops.hist_pallas import mxu_bloom_words_rows
+
+    idx = rng.integers(0, (1 << wl) + 1, size=3000).astype(np.int32)
+    p_log2, sub_log2, rows, cap = pk._plan_for(wl, 8, None)
+    wins, flags = pk._partition(torch.from_numpy(idx).reshape(1, -1), wl,
+                                p_log2, sub_log2, rows, cap)
+    assert flags.tolist() == [0, 1]
+    want = np.asarray(mxu_bloom_words_rows(
+        jnp.asarray(wins.reshape(1 << p_log2, -1).numpy()), sub_log2,
+        interpret=True)).reshape(-1)
+    got = pk.partitioned_bloom_words(torch.from_numpy(idx), wl, chunk_rows=8)
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+
+
+def test_partitioned_bloom_words_2_30_sparse(rng):
+    """The widest partitioned filter (8,192 partitions), checked at the set
+    words and by the total popcount, as bench.py gates it."""
+    from nthash_tpu.ops.hist_pallas import bit_index, word_index
+
+    wl = 30
+    idx = rng.integers(-3, (1 << wl) + 3, size=5000).astype(np.int32)
+    got = pk.partitioned_bloom_words(torch.from_numpy(idx), wl, chunk_rows=8)
+    b = idx[(idx >= 0) & (idx < (1 << wl))].astype(np.int64)
+    want = {}
+    for w, bit in zip(word_index(b), bit_index(b)):
+        want[int(w)] = want.get(int(w), 0) | (1 << int(bit))
+    words = got.numpy().view(np.uint32)
+    pos = np.fromiter(want, np.int64)
+    assert np.array_equal(words[pos], np.fromiter(want.values(), np.uint32))
+    assert int(np.unpackbits(words.view(np.uint8)).sum()) == len(set(b.tolist()))
+
+
+def test_partitioned_bloom_words_ors_into_out(rng):
+    wl = 19
+    idx = rng.integers(0, 1 << wl, size=3000).astype(np.int32)
+    base = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31,
+                                         size=(1 << wl) // 32).astype(np.int32))
+    out = base.clone()
+    res = pk.partitioned_bloom_words(torch.from_numpy(idx), wl, chunk_rows=8,
+                                     out=out)
+    assert res is out
+    fresh = pk.partitioned_bloom_words(torch.from_numpy(idx), wl)
+    assert torch.equal(out, base | fresh)
+
+
+def test_partitioned_bloom_cpu_route_launches_no_kernel(rng):
+    from nthash_tpu_torch.ops import hist_kernel
+
+    before = (dict(pk.LAUNCHES), dict(hist_kernel.BLOOM_LAUNCHES))
+    pk.partitioned_bloom_words(torch.from_numpy(
+        rng.integers(0, 1 << 19, size=500, dtype=np.int32)), 19, chunk_rows=8)
+    assert (pk.LAUNCHES, hist_kernel.BLOOM_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("bad", [
+    dict(wl=18), dict(wl=31),
+    dict(idx=torch.zeros(8, dtype=torch.int64)),
+    dict(out=torch.zeros((1 << 19) // 32 + 1, dtype=torch.int32)),
+    dict(out=torch.zeros((1, (1 << 19) // 32), dtype=torch.int32)),
+    dict(idx=torch.zeros(8, dtype=torch.int32, device="meta")),
+])
+def test_partitioned_bloom_rejects(bad):
+    with pytest.raises((TypeError, ValueError)):
+        pk.partitioned_bloom_words(
+            bad.get("idx", torch.zeros(8, dtype=torch.int32)),
+            bad.get("wl", 19), out=bad.get("out"))
