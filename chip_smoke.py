@@ -68,10 +68,30 @@ imports nothing of JAX. Phases, each printing its own lines:
    the 2**17 tensors emitted at 2**30), the launches per kernel and
    whether the overflow flag fired;
 19. Bloom timings: C1 at 2**17, C2 at the 2**20 and 2**30 sub-widths,
-   ``partitioned_bloom_words`` whole and direct C1 at full width there, the
+   ``partitioned_bloom_words`` whole and one unpartitioned C1 launch at
+   full width there, the
    scatter yardstick (``index_fill_`` into a uint8 presence, then a pack),
    the plain versions, the byte bounds, the Bloom step's k-mers/s at each
    width and one traced step at 2**20.
+
+20. the two redesigned kernels against their plain versions: both routes of
+   the presence-word kernel (private words in shared memory, direct
+   atomics), each forced, with weights, a closed and an open gate and an
+   ``out`` that already holds bits, at widths 2**12..2**20, on the hot-row
+   shape [128, N] at 2**13, on the 2**30 plan's [8192, 32768] rows at 2**17
+   and on sparse words at 2**18; the route the shapes select; ``sort_tiles``
+   against ``sort_tiles_plain`` at tiles of 128 ints up to 2**15, in chunks
+   of one, two and 64 tiles, on random 21- and 31-bit keys, all-equal keys,
+   all-sentinel tiles, sorted and reversed input, and the merge rounds up
+   to a sorted chunk;
+21. their timings in one call with their yardsticks: per batch at 2**20,
+   the presence words of the windows by private words, by direct atomics,
+   and the sub-histograms (A2) of the same windows; the direct route on the
+   same windows shuffled inside each row and interleaved across rows (what
+   makes the direct route slow there); C1 at 2**17 and the 2**30 plan's rows
+   by both routes; one unpartitioned C1 launch at full width 2**20 by both;
+   both routes on fresh sparse words at 1 to 64 entries per word (what the
+   route rule's constant rests on).
 
 A failed check raises, so the exit code is not 0. The line before the last
 is the kernels' JSON record; the last line is ``{"ok": true, "device": ...}``.
@@ -201,9 +221,9 @@ def phase_build() -> None:
     for name in SOURCES:
         kernel = "?"
         for ln in cuda_build.BUILD_LOGS.get(name, "").splitlines():
-            m = re.search(r"([a-z][a-z_]*_kernel)[EI]", ln)
+            m = re.search(r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?E", ln)
             if m:
-                kernel = m.group(1)
+                kernel = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
             elif "spill" in ln or "registers" in ln:
                 print(f"[build] {name} {kernel}: "
                       f"{ln.replace('ptxas info    :', '').strip()}")
@@ -1438,10 +1458,10 @@ def phase_bloom_timings(codes: np.ndarray, dev, card: str) -> dict:
     """Phase 19: per 2**18-read batch and over the 1M reads (the sum of the
     four batches' medians of 5 CUDA-event timings after warm-up): C1 at
     2**17 over each batch's 4 bucket tensors, C2 at the 2**20 and 2**30
-    sub-widths, C3 whole at 2**20 and 2**30, direct C1 at full width there
-    (a yardstick the path does not use), the scatter yardstick, the plain
-    versions and the byte bounds; the Bloom step's k-mers/s at each width,
-    and one traced step at 2**20."""
+    sub-widths, C3 whole at 2**20 and 2**30, one unpartitioned C1 launch at
+    full width there (a yardstick the path does not use), the scatter
+    yardstick, the plain versions and the byte bounds; the Bloom step's
+    k-mers/s at each width, and one traced step at 2**20."""
     tag = f"[{card}]"
     tms = bloom_tms(codes, dev)
     w = L - K + 1
@@ -1497,7 +1517,7 @@ def phase_bloom_timings(codes: np.ndarray, dev, card: str) -> dict:
                 add(f"partitioned_bloom_words at 2**{wl} (whole)",
                     t(lambda x: pk.partitioned_bloom_words(x, wl, out=words),
                       stream), None, lib_s, 4 * n + 4 * nwords)
-                add(f"bloom_words direct at full width 2**{wl} (yardstick)",
+                add(f"bloom_words unpartitioned at full width 2**{wl} (yardstick)",
                     t(lambda x: hist_kernel.bloom_words(x, None, wl,
                                                         out=words), stream),
                     None, None, 4 * n + 4 * nwords)
@@ -1538,6 +1558,260 @@ def phase_bloom_timings(codes: np.ndarray, dev, card: str) -> dict:
               f"{plain}{lib}, bound {bound_ms(nbytes):.4f} ms "
               f"({nbytes / 1e9:.4f} GB) {tag}")
     return tot
+
+
+# ------------------------------------------ the two redesigned kernels ----
+
+WORD_ROUTES = ("private", "direct")
+
+
+def words_by(route, idx, weight, wl, gate=None, out=None):
+    """The presence-word kernel over idx [R, N] with its route forced."""
+    return hist_kernel._words_launch(idx, weight, wl, gate, out,
+                                     "bloom_words_rows", route=route)
+
+
+def phase_redesign_checks(codes: np.ndarray, gen, dev) -> dict:
+    """Phase 20: both routes of the presence-word kernel and the tile sort
+    against their plain versions, exact."""
+    errs = {"bloom_words_rows": 0.0, "sort_tiles": 0.0, "merge_phase": 0.0}
+
+    def same(name, got, want, what):
+        torch.cuda.synchronize()
+        errs[name] = max(errs[name], max_abs_err(got, want))
+        require(torch.equal(got, want), f"{name} != plain: {what}")
+
+    for wl, rows, n in ((12, 1, 1 << 20), (13, 5, 300_001), (17, 1, 3_000_003),
+                        (18, 3, 1_000_001), (20, 1, 2_000_001),
+                        (13, 7, 1000), (12, 1, 5)):
+        idx = bloom_stream(gen, n, wl, rows)
+        w = torch.randint(-1, 2, (n,), device=dev, generator=gen,
+                          dtype=torch.int32) if rows == 1 else None
+        base = torch.randint(-(1 << 31), 1 << 31, (rows, 1 << (wl - 5)),
+                             device=dev, generator=gen, dtype=torch.int32)
+        for g in (0, 1):
+            gate = torch.full((1,), g, dtype=torch.int32, device=dev)
+            want = hist_kernel._words_plain(idx, w, wl, gate, base.clone())
+            for route in WORD_ROUTES:
+                same("bloom_words_rows",
+                     words_by(route, idx, w, wl, gate, base.clone()), want,
+                     f"{route} route, 2**{wl}, {rows} x {n}, gate {g}, "
+                     "weights, out holding bits")
+        # rows that start off a 16-byte boundary (one row: the view itself;
+        # more: an odd row length)
+        want = hist_kernel._words_plain(idx[:, 1:], None, wl, None, None)
+        for route in WORD_ROUTES:
+            same("bloom_words_rows", words_by(route, idx[:, 1:], None, wl),
+                 want, f"{route} route, 2**{wl}, unaligned")
+    print("[check] presence words, private and direct route forced == plain "
+          "at 2**12, 2**13, 2**17, 2**18, 2**20 (rows 1, 3, 5, 7; weights "
+          "-1/0/1; gate 0/1; out holding random bits; short rows)")
+    # the hot-row shape (the 2**20 plan's windows), the 2**30 plan's rows and
+    # sparse words at 2**18, on random buckets so that the words stay sparse
+    fills = []
+    for what, wl, rows, n, top in (
+            ("hot rows [128, 1462272] at 2**13, buckets below 2**11", 13, 128,
+             1_462_272, 1 << 11),
+            ("the 2**30 plan's rows [8192, 32768] at 2**17", 17, 8192, 32_768,
+             1 << 17),
+            ("sparse words [3, 100000] at 2**18", 18, 3, 100_000, 1 << 18)):
+        idx = torch.randint(0, top, (rows, n), device=dev, generator=gen,
+                            dtype=torch.int32)
+        want = hist_kernel.bloom_words_rows_plain(idx, wl)
+        fills.append(fill_of(want))
+        grid = hist_kernel.private_words_grid(rows, n, wl)
+        for route in WORD_ROUTES:
+            same("bloom_words_rows", words_by(route, idx, None, wl), want,
+                 f"{route} route, {what}")
+        same("bloom_words_rows", hist_kernel.bloom_words_rows(idx, wl), want,
+             f"the selected route, {what}")
+        print(f"[check] presence words == plain by both routes and by the "
+              f"selected one (blocks per row, threads: {grid}): {what}, fill "
+              f"{fills[-1]:.6f}")
+        del idx, want
+    require(max(fills) < 0.5, f"a sparse check filled its words: {fills}")
+    for rows, n, wl in ((128, 1_462_272, 13), (8192, 32_768, 17),
+                        (1, 31_195_136, 17), (1, 124_780_544, 20),
+                        (1, 31_195_136, 26), (1, 1 << 20, 31), (4, 100, 13)):
+        print(f"[route] idx [{rows}, {n}] at 2**{wl}: (blocks per row, "
+              f"threads) = {hist_kernel.private_words_grid(rows, n, wl)} "
+              "((0, 0): direct atomics)")
+    torch.cuda.empty_cache()
+
+    # the tile sort
+    kinds = ("random 21-bit", "random 31-bit", "all equal", "all sentinel",
+             "sorted", "reversed")
+    for rows, g in ((1, 5), (2, 8), (8, 3), (16, 4), (64, 8), (128, 8),
+                    (256, 8), (512, 8), (16384, 2)):
+        shape = (2, g, rows, pk.LANES)
+        for kind in kinds:
+            if kind == "random 31-bit":
+                x = torch.randint(0, (1 << 31) - 1, shape, device=dev,
+                                  generator=gen, dtype=torch.int64).int()
+            elif kind == "all equal":
+                x = torch.full(shape, 77, dtype=torch.int32, device=dev)
+            elif kind == "all sentinel":
+                x = torch.full(shape, 1 << WIDE, dtype=torch.int32, device=dev)
+            else:
+                x = torch.randint(0, (1 << WIDE) + 1, shape, device=dev,
+                                  generator=gen, dtype=torch.int32)
+                if kind != "random 21-bit":
+                    x = x.reshape(-1).sort(descending=kind == "reversed") \
+                        .values.reshape(shape)
+            got, tile = pk.sort_tiles(x)
+            same("sort_tiles", got, pk.sort_tiles_plain(x, tile),
+                 f"{kind}, chunks of {rows} x 128, tile {tile}")
+            k = 2 * tile
+            while k <= rows * pk.LANES:
+                want = pk.merge_phase_plain(got, k)
+                pk.merge_phase(got, tile, k)
+                same("merge_phase", got, want,
+                     f"{kind}, chunks of {rows} x 128, round {k}")
+                k *= 2
+            require(torch.equal(got, pk._sort_plain(x)),
+                    f"tile sorts + merges != torch.sort: {kind}, {rows} rows")
+            del x, got
+        print(f"[check] sort_tiles == plain and merges == plain on {kinds} "
+              f"in {shape[0] * g} chunks of {rows} x 128 (tile {tile}, "
+              f"{rows * pk.LANES // tile} to a chunk)")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_redesign_timings(codes: np.ndarray, gen, dev, card: str) -> None:
+    """Phase 21: the presence-word kernel's two routes and their yardsticks,
+    timed in one call (median of 5 CUDA-event timings after warm-up)."""
+    tag = f"[{card}]"
+
+    def t(fn, *args):
+        return timeit(fn, *args, device=dev).seconds_per_call * 1e3
+
+    tms = bloom_tms(codes, dev)
+    p_log2, sub_log2, rows, cap = pk.plan(WIDE)
+    p = 1 << p_log2
+    tot = dict.fromkeys(("private", "direct", "A2"), 0.0)
+    for i, tm in enumerate(tms):
+        stream = torch.cat([b.reshape(-1) for b in hash_kmers_tm(
+            tm, K, H, emit_buckets=WIDE)])[None]
+        wins, _ = pk._partition(stream, WIDE, p_log2, sub_log2, rows, cap)
+        flat = wins.reshape(p, -1)
+        del wins, stream
+        out = torch.zeros((p, 1 << (sub_log2 - 5)), dtype=torch.int32,
+                          device=dev)
+        for route in WORD_ROUTES:
+            tot[route] += t(lambda x: words_by(route, x, None, sub_log2,
+                                               out=out), flat)
+        tot["A2"] += t(lambda x: histogram_rows(x, None, sub_log2), flat)
+        if i == 0:
+            # why the direct route is slow on these windows: (a) as they
+            # are, (b) each row's entries shuffled (no two neighbours of a
+            # warp stay neighbours; one row is still hot at a time), (c) the
+            # rows interleaved in runs of 256 entries, as one row at 2**20
+            # (neighbours kept, the blocks resident at one moment spread
+            # over all 128 rows), (d) the same one row, not interleaved
+            n = flat.shape[1]
+            t_a = t(lambda x: words_by("direct", x, None, sub_log2, out=out),
+                    flat)
+            t_p = t(lambda x: words_by("private", x, None, sub_log2, out=out),
+                    flat)
+            shuf = flat[:, torch.randperm(n, device=dev, generator=gen)] \
+                .contiguous()
+            t_b = t(lambda x: words_by("direct", x, None, sub_log2, out=out),
+                    shuf)
+            del shuf
+            valid = (flat >= 0) & (flat < (1 << sub_log2))
+            full = torch.where(valid, flat + (torch.arange(
+                p, device=dev, dtype=torch.int32) << sub_log2)[:, None], -1)
+            del valid
+            inter = full.view(p, n // 256, 256).transpose(0, 1).contiguous() \
+                .view(1, -1)
+            one = torch.zeros((1, 1 << (WIDE - 5)), dtype=torch.int32,
+                              device=dev)
+            t_c = t(lambda x: words_by("direct", x, None, WIDE, out=one),
+                    inter)
+            require(torch.equal(one.view(p, -1), words_by(
+                "private", flat, None, sub_log2)),
+                "the interleaved rows pack other words than the windows")
+            t_d = t(lambda x: words_by("direct", x, None, WIDE, out=one),
+                    full.view(1, -1))
+            print(f"[time] direct atomics on batch 0's windows [{p}, {n}] at "
+                  f"2**{sub_log2}: (a) as they are {t_a:.4f} ms, (b) each "
+                  f"row shuffled {t_b:.4f} ms, (c) rows interleaved in runs "
+                  f"of 256, one row at 2**{WIDE} {t_c:.4f} ms, (d) that one "
+                  f"row not interleaved {t_d:.4f} ms; private words on (a) "
+                  f"{t_p:.4f} ms, bound "
+                  f"{bound_ms(4 * flat.numel() + 4 * out.numel()):.4f} ms "
+                  f"{tag}")
+            del full, inter, one
+        del flat, out
+        torch.cuda.empty_cache()
+    print(f"[time] presence words of the 2**{WIDE} windows ({p} rows at "
+          f"2**{sub_log2}) over {N_READS} reads: private words "
+          f"{tot['private']:.4f} ms, direct atomics {tot['direct']:.4f} ms, "
+          f"sub-histograms (A2) of the same windows {tot['A2']:.4f} ms {tag}")
+
+    # C1 at 2**17 (4 tensors a batch) and the 2**30 plan's rows, both routes
+    tot = {}
+    for i, tm in enumerate(tms):
+        bucks = hash_kmers_tm(tm, K, H, emit_buckets=17)
+        words = torch.zeros((1, 1 << 12), dtype=torch.int32, device=dev)
+        for route in WORD_ROUTES:
+            tot[("C1 at 2**17", route)] = tot.get(("C1 at 2**17", route), 0) \
+                + t(lambda bs: [words_by(route, b.reshape(1, -1), None, 17,
+                                         out=words) for b in bs], bucks)
+        del bucks
+        stream = torch.cat([b.reshape(-1) for b in hash_kmers_tm(
+            tm, K, H, emit_buckets=30)])[None]
+        pl, sl, rw, cp = pk.plan(30)
+        wins, _ = pk._partition(stream, 30, pl, sl, rw, cp)
+        flat = wins.reshape(1 << pl, -1)
+        del wins, stream
+        out = torch.zeros((1 << pl, 1 << (sl - 5)), dtype=torch.int32,
+                          device=dev)
+        for route in WORD_ROUTES:
+            key = (f"C2 at 2**30 ({1 << pl} rows at 2**{sl})", route)
+            tot[key] = tot.get(key, 0) + t(
+                lambda x: words_by(route, x, None, sl, out=out), flat)
+        del flat, out
+        stream = torch.cat([b.reshape(-1) for b in hash_kmers_tm(
+            tm, K, H, emit_buckets=WIDE)])[None]
+        one = torch.zeros((1, 1 << (WIDE - 5)), dtype=torch.int32, device=dev)
+        for route in WORD_ROUTES:
+            key = (f"C1 at full width 2**{WIDE} (yardstick)", route)
+            tot[key] = tot.get(key, 0) + t(
+                lambda x: words_by(route, x, None, WIDE, out=one), stream)
+        del stream, one
+        torch.cuda.empty_cache()
+    for (name, route), v in tot.items():
+        print(f"[time] {name} over {N_READS} reads, {route} route: "
+              f"{v:.4f} ms {tag}")
+
+
+    # the rule's constant: how many entries per word a row needs before
+    # private words pay. Random buckets into fresh words (zeroed inside the
+    # timing, on both routes), so every update sets a bit and every private
+    # word is merged: the worst case for the private route.
+    for wl, rows in ((17, 8192), (13, 128), (17, 1), (20, 1)):
+        nwords = 1 << (wl - 5)
+        cells = []
+        for per_word in (1, 2, 4, 8, 16, 64):
+            n = per_word * nwords
+            if rows * n > 1 << 28:
+                continue
+            idx = torch.randint(0, 1 << wl, (rows, n), device=dev,
+                                generator=gen, dtype=torch.int32)
+            out = torch.zeros((rows, nwords), dtype=torch.int32, device=dev)
+
+            def fresh(x, route):
+                out.zero_()
+                words_by(route, x, None, wl, out=out)
+
+            cells.append(f"{per_word}: "
+                         + " / ".join(f"{t(lambda x: fresh(x, r), idx):.4f}"
+                                      for r in WORD_ROUTES))
+            del idx, out
+        print(f"[time] fresh sparse words, [{rows}, n] at 2**{wl}, entries "
+              f"per word: private / direct ms: {'; '.join(cells)} {tag}")
 
 
 def main() -> None:
@@ -1593,6 +1867,14 @@ def main() -> None:
                          bloom_errs)
     bloom_times = run("19 Bloom timings", phase_bloom_timings, codes, dev,
                       smi)
+    new_errs = run("20 redesigned kernels vs plain", phase_redesign_checks,
+                   codes, gen, dev)
+    run("21 redesigned kernels' timings", phase_redesign_timings, codes, gen,
+        dev, smi)
+    bloom_errs["bloom_words_rows"] = max(bloom_errs["bloom_words_rows"],
+                                         new_errs["bloom_words_rows"])
+    for name in ("sort_tiles", "merge_phase"):
+        part_errs[name] = max(part_errs[name], new_errs[name])
     print(f"[phase] all: {time.perf_counter() - t_start:.3f} s")
     for more in (seed_errs, long_errs):
         for name, e in more.items():

@@ -1,4 +1,5 @@
-// Bit-packed presence (Bloom filter words) by global atomic ORs.
+// Bit-packed presence (Bloom filter words): private words in shared memory
+// merged once per block, or one global atomic OR per update.
 //
 // Replaces nthash_tpu/ops/hist_pallas.py::_bloom_kernel (mxu_bloom_words)
 // and ::_bloom_rows_kernel (mxu_bloom_words_rows) and computes what they
@@ -18,30 +19,55 @@
 // filter, 256 MB of words), where the sentinel no longer fits an int32 and
 // callers fold invalid updates to -1.
 //
-// What bounds it on the H100: L2 atomic throughput. Each update is one
-// coalesced 4-byte read of its index and one fire-and-forget reduction (RED)
-// into the words; at width 2^17 the 16 KB of words sit in L2 and every
-// update of the whole stream lands on one of 4,096 words, so collisions
-// serialise there. OR is idempotent and commutative, so the result is exact
-// whatever order the atomics land in. The design is the simplest exact one:
-// a grid-stride loop per row, rows on the grid's y axis (one row for
-// mxu_bloom_words, one per partition under the sort-partitioned path), no
-// one-hot matmuls, VMEM count tiles or 32-sublane pack. A private word array
-// in shared memory for widths up to 2^18 (32 KB), or a test of the bit
-// before the atomic, is left to a later change.
+// Two routes, chosen by the caller from the shapes alone (blocks_x > 0 or 0):
 //
-// The optional `gate` (one device int) works as in histogram.cu: where
-// *gate == 0 every block returns at once. The partitioned path gates its
-// per-partition launch and its full-width skew fallback on the overflow
-// flags from partition.cu, so the host never waits on them.
+// Private words (bloom_rows_private_kernel). A block owns one row and one
+// long contiguous slice of its entries; it zeroes width / 32 words of dynamic
+// shared memory, reads its slice with 16-byte loads where the slice is
+// aligned, sets bits in shared memory (testing the bit first: a filter that
+// fills up stops issuing atomics at all), and then merges: one global atomic
+// OR per non-zero private word, skipped where a read of the global word
+// (from L2, past the L1) already shows all of its bits. The skip is exact:
+// bits are only ever set during a launch, so a read that shows them is
+// final, and a stale read costs one atomic. The merge costs up to width / 32
+// atomics a block, so the caller gives every block several times more
+// entries than the row has words (few, fat blocks). What bounds it: the
+// bytes of its indices, each read once.
+//
+// Direct atomics (bloom_rows_kernel): a grid-stride loop, one global atomic
+// OR (a fire-and-forget RED) per valid update. For rows whose words do not
+// fit a block's shared memory (a filter of 2^21 bits and more) or whose
+// entries are too few to pay for a merge. What bounds it: the L2's atomic
+// unit, and badly so where the addresses are few. Blocks are scheduled x
+// first, so all threads resident at one moment work on one row; with 128
+// rows of 256 words (the 2^20 plan's windows, 187M entries a batch) they
+// hit 1 KB of words. Measured by chip_smoke.py (phase 21) on an NVIDIA H100
+// 80GB HBM3 at 700.00 W, one batch: direct 15.7602 ms as the windows are,
+// 25.0571 ms with each row's entries shuffled (no two neighbours of a warp
+// stay neighbours, the row is as hot), 0.9217 ms with the rows interleaved
+// in runs of 256 entries (the same neighbours, all 128 rows in flight at
+// once); private words 0.2542 ms, against 0.2235 ms for its bytes at 3.35
+// TB/s. So it is the few hot addresses, not collisions inside a warp, that
+// the private words remove.
+//
+// OR is idempotent and commutative, so either route is exact whatever order
+// the atomics land in. The optional `gate` (one device int) works as in
+// histogram.cu: where *gate == 0 every block returns at once. The
+// partitioned path gates its per-partition launch and its full-width skew
+// fallback on the overflow flags from partition.cu, so the host never waits
+// on them.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocksX = 4096;
 constexpr long long kMaxBlocksY = 65535;
+constexpr int kPrivateMaxThreads = 1024;
+constexpr int kMaxSharedBytes = 227 * 1024;
 
 __global__ void __launch_bounds__(kThreads)
 bloom_rows_kernel(const int* __restrict__ idx, long long R, long long N,
@@ -64,6 +90,88 @@ bloom_rows_kernel(const int* __restrict__ idx, long long R, long long N,
   }
 }
 
+// Set bucket b's bit in the block's private words, unless it shows already.
+__device__ __forceinline__ void set_private(unsigned* sw, unsigned b,
+                                            unsigned width) {
+  if (b < width) {
+    const unsigned w = ((b >> 12) << 7) | (b & 127u);
+    const unsigned bit = 1u << ((b >> 7) & 31u);
+    if (!(reinterpret_cast<volatile unsigned*>(sw)[w] & bit)) atomicOr(sw + w, bit);
+  }
+}
+
+// Block (x, y) packs entries [x * per_block, (x + 1) * per_block) of row y
+// (and of rows y + gridDim.y, ...) into width / 32 private words, then merges
+// them into the row's global words.
+__global__ void __launch_bounds__(kPrivateMaxThreads)
+bloom_rows_private_kernel(const int* __restrict__ idx, long long R,
+                          long long N, const int* __restrict__ weight,
+                          unsigned width, unsigned* __restrict__ words,
+                          const int* __restrict__ gate, long long per_block) {
+  if (gate && *gate == 0) return;
+  extern __shared__ unsigned sw[];
+  const int nwords = static_cast<int>(width >> 5);
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const long long lo = static_cast<long long>(blockIdx.x) * per_block;
+  if (lo >= N) return;
+  const long long len = (lo + per_block < N ? lo + per_block : N) - lo;
+  for (long long r = blockIdx.y; r < R; r += gridDim.y) {
+    for (int w = tid; w < nwords; w += nt) sw[w] = 0;
+    __syncthreads();
+    const int* p = idx + r * N + lo;
+    const int* wp = weight ? weight + lo : nullptr;
+    // scalars up to the first 16-byte boundary, int4s, then the scalar tail
+    long long head = ((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) >> 2;
+    if (head > len) head = len;
+    const long long nvec = (len - head) >> 2;
+    const long long tail = head + (nvec << 2);
+    for (long long i = tid; i < head; i += nt) {
+      if (!wp || wp[i] != 0) set_private(sw, static_cast<unsigned>(p[i]), width);
+    }
+    for (long long i = tail + tid; i < len; i += nt) {
+      if (!wp || wp[i] != 0) set_private(sw, static_cast<unsigned>(p[i]), width);
+    }
+    const int4* v = reinterpret_cast<const int4*>(p + head);
+    // four loads in flight per thread before their bits are set
+    for (long long i = tid; i < nvec; i += 4LL * nt) {
+      int4 q[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const long long j = i + static_cast<long long>(u) * nt;
+        q[u] = j < nvec ? v[j] : make_int4(-1, -1, -1, -1);
+      }
+      if (wp) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const long long j = i + static_cast<long long>(u) * nt;
+          if (j < nvec) {
+            const int* ww = wp + head + (j << 2);
+            if (ww[0] == 0) q[u].x = -1;
+            if (ww[1] == 0) q[u].y = -1;
+            if (ww[2] == 0) q[u].z = -1;
+            if (ww[3] == 0) q[u].w = -1;
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        set_private(sw, static_cast<unsigned>(q[u].x), width);
+        set_private(sw, static_cast<unsigned>(q[u].y), width);
+        set_private(sw, static_cast<unsigned>(q[u].z), width);
+        set_private(sw, static_cast<unsigned>(q[u].w), width);
+      }
+    }
+    __syncthreads();
+    unsigned* wrow = words + r * static_cast<long long>(nwords);
+    for (int w = tid; w < nwords; w += nt) {
+      const unsigned m = sw[w];
+      if (m != 0 && (__ldcg(wrow + w) & m) != m) atomicOr(wrow + w, m);
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -71,19 +179,41 @@ extern "C" {
 // idx: [R, N] int32 device; weight: nullptr or [N] int32 device (R must be 1);
 // words: [R, 2^width_log2 / 32] 32-bit device words, OR-ed into; width_log2
 // in [12, 31]; gate: nullptr, or one device int that must be non-zero for
-// anything to be set. Launches on `stream` of `device`; returns
+// anything to be set. blocks_x == 0: direct atomics. blocks_x > 0: private
+// words, blocks_x blocks of `threads` threads (a multiple of 32, at most
+// 1,024) per row, 2^width_log2 / 8 bytes of shared memory each (at most 227
+// KB, so width_log2 <= 20). Launches on `stream` of `device`; returns
 // cudaGetLastError().
 int nthash_bloom_words_rows(int device, const int* idx, long long R, long long N,
                             const int* weight, int width_log2, unsigned* words,
-                            const int* gate, cudaStream_t stream) {
+                            const int* gate, long long blocks_x, int threads,
+                            cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  long long bx = (N + kThreads - 1) / kThreads;
-  if (bx > kMaxBlocksX) bx = kMaxBlocksX;
-  const dim3 grid(static_cast<unsigned>(bx),
-                  static_cast<unsigned>(R < kMaxBlocksY ? R : kMaxBlocksY));
-  bloom_rows_kernel<<<grid, kThreads, 0, stream>>>(
-      idx, R, N, weight, 1u << width_log2, words, gate);
+  const unsigned by = static_cast<unsigned>(R < kMaxBlocksY ? R : kMaxBlocksY);
+  if (blocks_x == 0) {
+    long long bx = (N + kThreads - 1) / kThreads;
+    if (bx > kMaxBlocksX) bx = kMaxBlocksX;
+    bloom_rows_kernel<<<dim3(static_cast<unsigned>(bx), by), kThreads, 0,
+                        stream>>>(idx, R, N, weight, 1u << width_log2, words,
+                                  gate);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const long long bytes = (1LL << width_log2) >> 3;
+  if (bytes > kMaxSharedBytes || threads < 32 || threads > kPrivateMaxThreads ||
+      threads % 32 != 0 || blocks_x > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  err = cudaFuncSetAttribute(bloom_rows_private_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSharedBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // slices of whole int4s, so an aligned row keeps every slice aligned
+  long long per = (N + blocks_x - 1) / blocks_x;
+  per = (per + 3) & ~3LL;
+  bloom_rows_private_kernel<<<dim3(static_cast<unsigned>(blocks_x), by),
+                              threads, static_cast<size_t>(bytes), stream>>>(
+      idx, R, N, weight, 1u << width_log2, words, gate, per);
   return static_cast<int>(cudaGetLastError());
 }
 

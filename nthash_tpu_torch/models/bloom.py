@@ -12,8 +12,9 @@ and :meth:`BloomFilter.to_numpy` carry them to and from the JAX package's
 Insertion is a scatter-OR, routed by width as the JAX package routes it on
 its TPU, with one kernel per route on this card:
 
-- 2**12..2**18: ``bloom_words`` (``csrc/bloom.cu``), one atomic OR per
-  update into the filter's words (the JAX "mxu" route);
+- 2**12..2**18: ``bloom_words`` (``csrc/bloom.cu``): each block ORs its
+  share of the updates into private words in shared memory and merges them
+  into the filter's words once (the JAX "mxu" route);
 - 2**19..2**30: ``partitioned_bloom_words`` (``ops/part_kernel.py``): the
   sort-partitioning kernels, then ``bloom_words_rows`` per partition (the
   JAX "partitioned" route);
@@ -127,7 +128,8 @@ def insert(bf: BloomFilter, hashes: torch.Tensor, valid: torch.Tensor,
     ``bloom_words`` launch up to 2**18 and at 2**31, the partitioned path
     at 2**19..2**30. The JAX package's ``ingestion`` choice (MXU tiles or an
     int8 scatter transient) works around the TPU's lack of a scatter-OR;
-    this card has one, an atomic OR, so there is nothing to choose. Returns
+    this card has one (atomic ORs, in shared or device memory as the shapes
+    decide), so there is nothing to choose. Returns
     ``bf``, its words updated.
     """
     check_width(width_log2)

@@ -10,7 +10,9 @@ for what it computes rather than for the TPU's matrix unit:
 - :func:`bloom_words` is ``mxu_bloom_words`` and :func:`bloom_words_rows` is
   ``mxu_bloom_words_rows``; the kernel is ``csrc/bloom.cu`` (replaces
   ``_bloom_kernel`` and ``_bloom_rows_kernel``), in the same
-  :func:`word_index` / :func:`bit_index` layout.
+  :func:`word_index` / :func:`bit_index` layout. It has two routes, private
+  words in shared memory or direct atomics, and
+  :func:`private_words_grid` picks one from the shapes alone.
 
 Each source note says what bounds its kernel on the H100.
 
@@ -51,6 +53,17 @@ BLOOM_ROWS_MAX_WIDTH_LOG2 = 26
 BLOOM_MAX_WIDTH_LOG2 = 31
 #: Kernel launches of ``csrc/bloom.cu`` in this process, by entry point.
 BLOOM_LAUNCHES = {"bloom_words": 0, "bloom_words_rows": 0}
+#: Widest row whose words a block keeps in shared memory: 2**20 / 32 words
+#: are 128 KB of the 227 KB a block may use.
+PRIVATE_MAX_WIDTH_LOG2 = 20
+#: A block of the private route covers at least this many entries per word
+#: of its row, so that its merge (up to one atomic a word) stays a small
+#: part. On the card private words tie with direct atomics at 1 to 4 entries
+#: a word and win from there (``chip_smoke.py`` phase 21 prints the sweep).
+PRIVATE_MIN_ENTRIES_PER_WORD = 4
+#: Threads the private route spreads over all rows: 1,024 on each of the
+#: H100's 132 multiprocessors.
+PRIVATE_TARGET_THREADS = 132 * 1024
 
 
 def _rows_and_weight(idx, weight, width_log2, lo=MIN_WIDTH_LOG2,
@@ -284,12 +297,49 @@ def _bloom_lib() -> ctypes.CDLL:
         fn.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
         ]
     return lib
 
 
-def _words_launch(idx, weight, width_log2, gate, out, name):
+def _private_threads(width_log2: int) -> int:
+    return 1024 if width_log2 >= 19 else 512
+
+
+def private_words_grid(
+        rows: int, n: int, width_log2: int,
+        min_entries_per_word: int = PRIVATE_MIN_ENTRIES_PER_WORD,
+) -> tuple[int, int]:
+    """The presence-word kernel's route for idx [rows, n], from the shapes
+    alone: (blocks per row, threads per block) for private words in shared
+    memory merged once per block, or (0, 0) for one global atomic OR per
+    update.
+
+    Private words pay where a row's words fit a block's shared memory (up to
+    2**20 buckets) and a block can be given at least
+    ``PRIVATE_MIN_ENTRIES_PER_WORD`` entries per word. The rows then share
+    about ``PRIVATE_TARGET_THREADS`` threads, in blocks of 512 (1,024 from
+    2**19 up, where the words leave room for one block per multiprocessor).
+    Otherwise (rows too short to pay for a merge, filters wider than 2**20)
+    the updates go to the words directly. ``min_entries_per_word`` is the
+    rule's own constant except where the smoke run measures it.
+    """
+    if rows < 1 or n < 1 or width_log2 > PRIVATE_MAX_WIDTH_LOG2:
+        return 0, 0
+    nwords = (1 << width_log2) // PACK
+    most = n // (min_entries_per_word * nwords)
+    if most < 1:
+        return 0, 0
+    threads = _private_threads(width_log2)
+    return max(1, min(most, -(-PRIVATE_TARGET_THREADS // (threads * rows)))), \
+        threads
+
+
+def _words_launch(idx, weight, width_log2, gate, out, name, route=None):
+    """Launch ``csrc/bloom.cu``. ``route`` ("direct" or "private") overrides
+    :func:`private_words_grid`'s choice (a forced private route takes the
+    rule's grid at one entry per word, and one block a row below that), for
+    the tests and the smoke run."""
     rows, n = idx.shape
     dev = idx.device
     if out is None:
@@ -300,12 +350,25 @@ def _words_launch(idx, weight, width_log2, gate, out, name):
     idx = idx.contiguous()
     if weight is not None:
         weight = weight.contiguous()
+    blocks, threads = private_words_grid(rows, n, width_log2)
+    if route == "direct":
+        blocks = threads = 0
+    elif route == "private":
+        if width_log2 > PRIVATE_MAX_WIDTH_LOG2:
+            raise ValueError(
+                f"no private route at width 2**{width_log2}: the words do "
+                "not fit a block's shared memory")
+        blocks, threads = private_words_grid(rows, n, width_log2, 1)
+        if not blocks:
+            blocks, threads = 1, _private_threads(width_log2)
+    elif route is not None:
+        raise ValueError(f"route must be 'direct' or 'private', got {route!r}")
     lib = _bloom_lib()
     status = lib.nthash_bloom_words_rows(
         dev.index, idx.data_ptr(), rows, n,
         None if weight is None else weight.data_ptr(), width_log2,
         out.data_ptr(), None if gate is None else gate.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        blocks, threads, torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, status, f"{name} launch")
     BLOOM_LAUNCHES[name] += 1
@@ -385,11 +448,12 @@ def bloom_words(idx: torch.Tensor, weight: torch.Tensor | None,
     The scatter-OR a Bloom filter needs. Entries outside [0, 2**width_log2)
     and, with a ``weight`` (int32, one per entry), entries whose weight is 0
     are dropped. ``width_log2`` is in [12, 31]: past the JAX kernel's 2**26,
-    because on this card one atomic OR per update serves every width, the
-    partitioned path's skew fallback at 2**19..2**30 and the widest filter
-    at 2**31 included. ``gate`` and ``out`` (contiguous int32
-    [2**width_log2 / 32], OR-ed into in place) are as in
-    :func:`bloom_words_rows`.
+    because on this card atomic ORs serve every width (into private words in
+    shared memory up to 2**20, straight into the words above that:
+    :func:`private_words_grid`), the partitioned path's skew fallback at
+    2**19..2**30 and the widest filter at 2**31 included. ``gate`` and
+    ``out`` (contiguous int32 [2**width_log2 / 32], OR-ed into in place) are
+    as in :func:`bloom_words_rows`.
 
     A CUDA tensor goes through the CUDA kernel (``csrc/bloom.cu``), a CPU
     tensor through :func:`bloom_words_plain`.

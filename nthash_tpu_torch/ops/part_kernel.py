@@ -229,7 +229,9 @@ def _stream(dev) -> int:
 def sort_tiles(chunks: torch.Tensor) -> tuple[torch.Tensor, int]:
     """Kernel A3a/A3b: a new tensor holding ``chunks`` with every tile of
     ``min(chunk, max tile)`` ints sorted (in its parity's direction when the
-    chunk spans several tiles). Returns (tiles, tile size)."""
+    chunk spans several tiles), by a bitonic network held in registers (64
+    ints a thread, warp shuffles, shared memory only to transpose). Returns
+    (tiles, tile size)."""
     lib = _lib()
     dev = chunks.device
     chunk = chunks.shape[2] * LANES
@@ -245,7 +247,8 @@ def sort_tiles(chunks: torch.Tensor) -> tuple[torch.Tensor, int]:
 
 def merge_phase(x: torch.Tensor, tile: int, k: int) -> None:
     """Kernel A3c: bitonic merge round ``k`` of every chunk of ``x`` in
-    place (``2 * tile <= k <= chunk``)."""
+    place (``2 * tile <= k <= chunk``): strides of a tile and more through
+    device memory, the rest by one launch of the tile network."""
     lib = _lib()
     dev = x.device
     cuda_build.check(lib, lib.nthash_merge_phase(

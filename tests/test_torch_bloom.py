@@ -151,6 +151,63 @@ def test_gate_and_out(rng):
         assert torch.equal(out, base | many if g else base)
 
 
+@pytest.mark.parametrize("rows,n,wl,want", [
+    # the 2**20 plan's windows: 128 hot rows of 256 words
+    (128, 1_462_272, 13, (3, 512)),
+    # the 2**30 plan's windows: 8 entries per word, one block a row
+    (8192, 32_768, 17, (1, 512)),
+    # one batch's bucket tensor into a 2**17 filter, and into 2**18
+    (1, 31_195_136, 17, (264, 512)),
+    (1, 31_195_136, 18, (264, 512)),
+    # 128 KB of words: one block of 1,024 threads per multiprocessor
+    (1, 124_780_544, 20, (132, 1024)),
+    (1, 124_780_544, 19, (132, 1024)),
+    # words past a block's shared memory: direct atomics
+    (1, 124_780_544, 21, (0, 0)),
+    (1, 31_195_136, 26, (0, 0)),
+    (1, 1 << 20, 31, (0, 0)),
+    # a row with fewer entries than words, and one just long enough
+    (4, 100, 13, (0, 0)),
+    (4, 4 * 256 - 1, 13, (0, 0)),
+    (4, 4 * 256, 13, (1, 512)),
+    # empty rows
+    (0, 100, 13, (0, 0)),
+    (3, 0, 13, (0, 0)),
+])
+def test_private_words_grid(rows, n, wl, want):
+    """The presence-word kernel's route is a pure function of the shapes."""
+    assert hk.private_words_grid(rows, n, wl) == want
+
+
+@pytest.mark.parametrize("wl", [12, 13, 17, 18, 20])
+@pytest.mark.parametrize("rows", [1, 128, 8192])
+@pytest.mark.parametrize("n", [255, 4096, 100_000, 31_195_136])
+def test_private_words_grid_gives_every_block_enough(rows, n, wl):
+    blocks, threads = hk.private_words_grid(rows, n, wl)
+    nwords = (1 << wl) // hk.PACK
+    if blocks == 0:
+        assert threads == 0 and n < hk.PRIVATE_MIN_ENTRIES_PER_WORD * nwords
+    else:
+        assert threads in (512, 1024) and 4 * nwords <= 227 * 1024
+        assert n // blocks >= hk.PRIVATE_MIN_ENTRIES_PER_WORD * nwords
+        assert (blocks - 1) * rows * threads < hk.PRIVATE_TARGET_THREADS
+
+
+def test_forced_route_is_checked():
+    idx = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="route"):
+        hk._words_launch(idx, None, 12, None, None, "bloom_words",
+                         route="shared")
+    with pytest.raises(ValueError, match="shared memory"):
+        hk._words_launch(idx, None, 21, None, None, "bloom_words",
+                         route="private")
+    # a forced private route lowers the rule to one entry per word
+    assert hk.private_words_grid(4, 1000, 13) == (0, 0)
+    assert hk.private_words_grid(4, 1000, 13, 1) == (3, 512)
+    assert hk.private_words_grid(4, 100, 13, 1) == (0, 0)
+    assert hk.private_words_grid(4, 1 << 20, 21, 1) == (0, 0)
+
+
 def test_cpu_route_launches_no_kernel(rng):
     before = dict(hk.BLOOM_LAUNCHES)
     hk.bloom_words(torch.zeros(8, dtype=torch.int32), None, 12)

@@ -501,3 +501,119 @@ def test_bloom_insert_from_buckets_cuda_vs_cpu(rng, cuda, wl):
     got = {k: hist_kernel.BLOOM_LAUNCHES[k] - before[k] for k in before}
     assert got == ({"bloom_words": 4, "bloom_words_rows": 0} if wl <= 18 else
                    {"bloom_words": 1, "bloom_words_rows": 1})
+
+
+# ------------- the presence-word kernel's two routes and the tile sort ----
+
+
+def _by_route(route, idx, weight, wl, gate=None, out=None):
+    """The presence-word kernel with its route forced (None: by shape)."""
+    return hist_kernel._words_launch(idx, weight, wl, gate, out,
+                                     "bloom_words_rows", route=route)
+
+
+@pytest.mark.parametrize("route", ["private", "direct", None])
+@pytest.mark.parametrize("wl,rows,n", [(12, 1, 300_001), (13, 5, 100_003),
+                                       (17, 1, 1_000_003), (18, 3, 300_001),
+                                       (20, 1, 600_001), (13, 7, 999)])
+def test_bloom_routes_vs_plain(rng, cuda, wl, rows, n, route):
+    """Each route with weights, a closed and an open gate, and an ``out``
+    that already holds bits: the merge's skip must lose none."""
+    idx = _bloom_idx(rng, n, wl, rows).to(cuda)
+    w = (torch.from_numpy(rng.integers(-1, 2, size=n, dtype=np.int32))
+         .to(cuda) if rows == 1 else None)
+    base = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31,
+                                         size=(rows, 1 << (wl - 5)))
+                            .astype(np.int32)).to(cuda)
+    fresh = hist_kernel._words_plain(idx, w, wl, None, None)
+    for g in (0, 1):
+        gate = torch.full((1,), g, dtype=torch.int32, device=cuda)
+        got = _by_route(route, idx, w, wl, gate, base.clone())
+        torch.cuda.synchronize()
+        assert torch.equal(got, base | fresh if g else base)
+    # onto words that already hold every bit it sets, and onto none
+    assert torch.equal(_by_route(route, idx, w, wl, None, fresh.clone()),
+                       fresh)
+    assert torch.equal(_by_route(route, idx, w, wl), fresh)
+    # a row that starts off a 16-byte boundary
+    assert torch.equal(_by_route(route, idx[:, 1:], None, wl),
+                       hist_kernel._words_plain(idx[:, 1:], None, wl, None,
+                                                None))
+
+
+@pytest.mark.parametrize("route", ["private", "direct", None])
+@pytest.mark.parametrize("what,wl,rows,n,top", [
+    ("hot rows", 13, 128, 200_000, 1 << 11),
+    ("sparse words", 18, 3, 100_000, 1 << 18),
+    ("one block a row", 17, 512, 32_768, 1 << 17)])
+def test_bloom_routes_sparse_words(cuda, what, wl, rows, n, top, route):
+    """Words that stay sparse (fill below 0.5), so a dropped update shows:
+    the [128, N] hot-row shape at 2**13, 2**18, and rows of 8 entries a
+    word."""
+    gen = torch.Generator(device=cuda).manual_seed(wl)
+    idx = torch.randint(0, top, (rows, n), device=cuda, generator=gen,
+                        dtype=torch.int32)
+    want = hist_kernel.bloom_words_rows_plain(idx, wl)
+    fill = int(bloom.count_set_bits(bloom.BloomFilter(want.reshape(-1))))
+    assert 0 < fill < 0.5 * want.numel() * 32
+    before = hist_kernel.BLOOM_LAUNCHES["bloom_words_rows"]
+    got = _by_route(route, idx, None, wl)
+    assert hist_kernel.BLOOM_LAUNCHES["bloom_words_rows"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_bloom_private_route_refuses_wide_rows(cuda):
+    idx = torch.zeros((1, 1 << 20), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        _by_route("private", idx, None, 21)
+
+
+@pytest.mark.parametrize("kind", ["random21", "random31", "equal",
+                                  "sentinel", "sorted", "reversed"])
+@pytest.mark.parametrize("rows", [1, 2, 8, 16, 64, 128, 256, 512, 2048])
+def test_sort_tiles_kinds(cuda, rows, kind):
+    """The tile sort at every tile size (128 ints up to 2**15, one to 8
+    tiles a chunk, so odd and even tiles) on the inputs a network gets
+    wrong first; then the merge rounds up to a sorted chunk."""
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    shape = (2, 3, rows, 128)
+    if kind == "random31":
+        x = torch.randint(0, (1 << 31) - 1, shape, device=cuda, generator=gen,
+                          dtype=torch.int64).int()
+    elif kind == "equal":
+        x = torch.full(shape, 77, dtype=torch.int32, device=cuda)
+    elif kind == "sentinel":
+        x = torch.full(shape, 1 << 20, dtype=torch.int32, device=cuda)
+    else:
+        x = torch.randint(0, (1 << 20) + 1, shape, device=cuda, generator=gen,
+                          dtype=torch.int32)
+        if kind != "random21":
+            x = x.reshape(-1).sort(descending=kind == "reversed").values \
+                .reshape(shape)
+    before = pk.LAUNCHES["sort_tiles"]
+    got, tile = pk.sort_tiles(x)
+    assert pk.LAUNCHES["sort_tiles"] == before + 1
+    assert tile == min(rows * 128, 1 << 15)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pk.sort_tiles_plain(x, tile))
+    k = 2 * tile
+    while k <= rows * 128:
+        want = pk.merge_phase_plain(got, k)
+        pk.merge_phase(got, tile, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        k *= 2
+    assert torch.equal(got, pk._sort_plain(x))
+
+
+def test_sort_64_tile_chunks(cuda):
+    """The 2**30 plan's chunks: 16,384 rows, 64 tiles each."""
+    gen = torch.Generator(device=cuda).manual_seed(30)
+    x = torch.randint(0, (1 << 30) + 1, (1, 3, 16384, 128), device=cuda,
+                      generator=gen, dtype=torch.int64).int()
+    before = pk.LAUNCHES["merge_phase"]
+    got = pk._sorted(x)
+    assert pk.LAUNCHES["merge_phase"] == before + 6
+    torch.cuda.synchronize()
+    assert torch.equal(got, pk._sort_plain(x))

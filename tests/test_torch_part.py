@@ -214,6 +214,40 @@ def test_tile_sort_and_merge_rounds_compose_to_a_sort(rng, rows, tile):
     assert torch.equal(y, want)
 
 
+@pytest.mark.parametrize("kind", ["random21", "random31", "equal",
+                                  "sentinel", "sorted", "reversed"])
+@pytest.mark.parametrize("rows,tile", [(64, 8192), (128, 16384),
+                                       (256, 32768), (512, 32768),
+                                       (4, 128)])
+def test_sort_tiles_plain_contract(rng, rows, tile, kind):
+    """What the card's tile sort must return, at its tile sizes: every tile
+    holds its own keys in ascending order, odd tiles of a multi-tile chunk
+    in descending order; and the merge rounds finish the sort."""
+    shape = (1, 2, rows, 128)
+    n = int(np.prod(shape))
+    x = {"random21": lambda: rng.integers(0, (1 << 20) + 1, size=n),
+         "random31": lambda: rng.integers(0, (1 << 31) - 1, size=n),
+         "equal": lambda: np.full(n, 77),
+         "sentinel": lambda: np.full(n, 1 << 20),
+         "sorted": lambda: np.sort(rng.integers(0, 1 << 20, size=n)),
+         "reversed": lambda: np.sort(rng.integers(0, 1 << 20, size=n))[::-1],
+         }[kind]().astype(np.int32).reshape(shape)
+    y = pk.sort_tiles_plain(torch.from_numpy(x.copy()), tile)
+    per_chunk = rows * 128 // tile
+    got = y.numpy().reshape(-1, per_chunk, tile)
+    want = np.sort(x.reshape(-1, per_chunk, tile), axis=-1)
+    for j in range(per_chunk):
+        desc = per_chunk > 1 and j % 2 == 1
+        assert np.array_equal(got[:, j], want[:, j, ::-1] if desc
+                              else want[:, j])
+    k = 2 * tile
+    while k <= rows * 128:
+        y = pk.merge_phase_plain(y, k)
+        k *= 2
+    assert np.array_equal(y.numpy().reshape(2, -1),
+                          np.sort(x.reshape(2, -1), axis=-1))
+
+
 def test_partition_bounds_plain_matches_jax_table_and_flag(rng):
     wl = 19
     idx = np.full((1, 4 * 1024), 7, np.int32)
