@@ -13,10 +13,12 @@ imports nothing of JAX. Phases, each printing its own lines:
    hash kernel also on one full main-path batch of 2**18 reads);
 5. the width-2**14 path: ``ReadHashingPipeline.count_file`` over a 1M-read,
    150-bp FASTQ at k=32, 4 hashes, checked against the plain hash->count,
-   with both kernels' launch counts;
+   with both kernels' launch counts (every histogram launch by private
+   counters);
 6. timings (median of 5 CUDA-event timings after warm-up) of each kernel
-   and its plain version at that path's shapes, the fused step and
-   ``count_file``;
+   and its plain version at that path's shapes (the histogram by private
+   counters beside direct atomics forced, in turns, with its bound and
+   ``torch.bincount``), the fused step and ``count_file``;
 7. one warm ``count_file`` at 2**14 under ``torch.profiler``: device busy
    time, the device's idle share, device time per kernel and copy;
 8. the partition kernels against their plain versions at every planned
@@ -24,13 +26,17 @@ imports nothing of JAX. Phases, each printing its own lines:
    (sparsely at 2**30), a skewed stream through the gated fallback and a
    mostly-sentinel stream that must not trip it;
 9. the main path at ``PipelineConfig()`` (width 2**20): ``count_file`` over
-   the same FASTQ against the plain hash->count, every kernel's launch
-   count, each partition kernel against its plain version on the main
-   path's own batches, and whether the overflow flag fired;
+   the same FASTQ against the plain hash->count, the hash and histogram
+   kernels' launch counts and no partition kernel's; off the path,
+   ``partitioned_histogram_rows`` over the same reads' buckets against the
+   direct sketch, each partition kernel against its plain version on the
+   main path's own batches, and whether the overflow flag fired;
 10. timings at 2**20: each partition kernel, its plain version, its bound
-   and ``torch.sort``; the sub-histograms; the direct histogram at full
-   width as a yardstick the path does not use; the fused step,
-   ``count_file``, and one traced ``count_file`` for the idle share;
+   and ``torch.sort``; the sub-histograms by both routes; the partitioned
+   against the direct histogram per batch at 2**20..2**30; the direct
+   histogram at full width; the fused step beside the old partitioned
+   route, in turns; ``count_file``, and one traced ``count_file`` for the
+   idle share;
 11. the long-read kernel B2 (``hash_kmers_tm_long``) and the spaced-seed
    kernels B1 (``hash_seeds_tm``) and B3 (``hash_seeds_tm_long``) against
    their plain versions at edge shapes (L = k, a time tile >= W or not
@@ -44,7 +50,7 @@ imports nothing of JAX. Phases, each printing its own lines:
    ``hash_seeds_tm_long`` at [10000, 16384] (B3); launches and timings;
 14. long reads: ``count_file`` at ``PipelineConfig()`` over 16,384 reads x
    10,000 bp in batches of 4,096 (through B2) against the plain
-   hash->count on every batch, launches per kernel, reads/s, bases/s and
+   hash->count on every batch, launches per kernel (no partition kernel), reads/s, bases/s and
    the traced idle share with device time by row; B2 against its plain
    version and A1 at [10000, 16384], and their timings;
 15. the A1/B2 crossover grid (L in 150, 1,000, 10,000; R from 4,096 to
@@ -60,19 +66,20 @@ imports nothing of JAX. Phases, each printing its own lines:
    with the fill ratio of the words compared;
 18. the Bloom path over the same 1M reads in batches of 2**18:
    ``hash_kmers_tm_auto(..., emit_buckets=wl)`` -> ``insert_from_buckets``
-   at 2**17 (C1), 2**20 and 2**30 (the partition kernels and C2, the gated
-   C1 fallback), each filter against the plain hash -> plain insert, with
-   ``contains`` true on every valid window, a merge of two half-filters
-   equal to the whole, C1 and C2 against plain at batch 0's launch shapes
-   (sparse as well as saturated: the fallback's full-width C1 at 2**30,
-   the 2**17 tensors emitted at 2**30), the launches per kernel and
-   whether the overflow flag fired;
-19. Bloom timings: C1 at 2**17, C2 at the 2**20 and 2**30 sub-widths,
-   ``partitioned_bloom_words`` whole and one unpartitioned C1 launch at
-   full width there, the
+   at 2**17, 2**20 and 2**30 (one C1 launch a batch, no partition kernel),
+   each filter against the plain hash -> plain insert, with ``contains``
+   true on every valid window, a merge of two half-filters equal to the
+   whole, C1 against plain at batch 0's launch shape (sparse as well as
+   saturated: the stream emitted at 2**30); off the path, the partitioned
+   words (C3, through C2) over the same reads at 2**20 and 2**30 against
+   the filter, C2 on batch 0's windows, and whether the overflow flag
+   fired;
+19. Bloom timings: C1 as the path launches it at each width, C2 at the
+   2**20 and 2**30 sub-widths and ``partitioned_bloom_words`` whole, the
    scatter yardstick (``index_fill_`` into a uint8 presence, then a pack),
    the plain versions, the byte bounds, the Bloom step's k-mers/s at each
-   width and one traced step at 2**20.
+   width beside the old route forced, in turns, and one traced step at
+   2**20.
 
 20. the two redesigned kernels against their plain versions: both routes of
    the presence-word kernel (private words in shared memory, direct
@@ -91,7 +98,17 @@ imports nothing of JAX. Phases, each printing its own lines:
    makes the direct route slow there); C1 at 2**17 and the 2**30 plan's rows
    by both routes; one unpartitioned C1 launch at full width 2**20 by both;
    both routes on fresh sparse words at 1 to 64 entries per word (what the
-   route rule's constant rests on).
+   route rule's constant rests on);
+22. the row histogram (A2) by route: private counters, direct atomics
+   (each forced) and plain against each other, exactly, at 2**10..2**15
+   with weights per row, shared and absent, gate 0 and 1, an accumulating
+   ``out``, odd N, an unaligned view and out-of-range indices; the same on
+   the partitioned path's sub-histograms of batch 0 at 2**20 and 2**30
+   (run right after phase 4);
+23. its timings in one call: two skewed streams at 2**20 (every entry one
+   value; one eighth one value), the direct histogram beside the
+   partitioned one; private against direct counters at 1 to 64 entries per
+   counter a block (what the route rule's constant rests on).
 
 A failed check raises, so the exit code is not 0. The line before the last
 is the kernels' JSON record; the last line is ``{"ok": true, "device": ...}``.
@@ -328,19 +345,34 @@ def plain_count(codes: np.ndarray, dev) -> torch.Tensor:
     return rows
 
 
+def reset_part_launches() -> None:
+    for name in pk.LAUNCHES:
+        pk.LAUNCHES[name] = 0
+
+
+def reset_hist_launches() -> None:
+    hist_kernel.LAUNCHES = 0
+    for route in hist_kernel.ROUTE_LAUNCHES:
+        hist_kernel.ROUTE_LAUNCHES[route] = 0
+
+
 def phase_main_path(codes: np.ndarray, path: Path, dev):
     cfg = PipelineConfig(k=K, num_hashes=H, sketch_width_log2=WLOG)
     pipe = ReadHashingPipeline(cfg, device=dev)
     kmer_kernel.LAUNCHES = 0
-    hist_kernel.LAUNCHES = 0
+    reset_hist_launches()
     t0 = time.perf_counter()
     reads = pipe.count_file(path, batch_size=BATCH)
     seconds = time.perf_counter() - t0
     launches = {"kmer_hash": kmer_kernel.LAUNCHES,
                 "histogram": hist_kernel.LAUNCHES}
+    routes = dict(hist_kernel.ROUTE_LAUNCHES)
     require(reads == N_READS, f"count_file streamed {reads} reads")
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the main path never launched: {launches}")
+    require(routes["private"] == launches["histogram"] and not routes["direct"],
+            f"the 2**{WLOG} path's histogram did not go through private "
+            f"counters: {routes}")
     nvalid = valid_windows(codes, K)
     sums = pipe.sketch.rows.sum(dim=1, dtype=torch.int64).tolist()
     require(all(s == nvalid for s in sums),
@@ -350,8 +382,9 @@ def phase_main_path(codes: np.ndarray, path: Path, dev):
             "count_file sketch != plain hash->count")
     print(f"[main] count_file: {reads} reads in {-(-N_READS // BATCH)} batches "
           f"of {BATCH}, {nvalid} valid {K}-mers per row, sketch == plain "
-          f"hash->count; launches {launches}; native parser "
-          f"{native_loader.available()}; first run {seconds:.3f} s")
+          f"hash->count; launches {launches}, histogram by route {routes}; "
+          f"native parser {native_loader.available()}; first run "
+          f"{seconds:.3f} s")
     return pipe, launches
 
 
@@ -383,22 +416,7 @@ def phase_timings(codes: np.ndarray, path: Path, pipe, dev, card: str):
     both(f"kmer_hash k={K} h={H} buckets 2**{WLOG} {reads}x{L}", reads * w,
          "windows", lambda x: hash_kmers_tm(x, K, H, emit_buckets=WLOG),
          lambda x: hash_kmers_tm_plain(x, K, H, emit_buckets=WLOG), tm)
-    idx = torch.stack(hash_kmers_tm(tm, K, H, emit_buckets=WLOG)).reshape(H, -1)
-    both(f"histogram {H} rows x {idx.shape[1]} at 2**{WLOG}", idx.numel(),
-         "updates", lambda x: histogram_rows(x, None, WLOG),
-         lambda x: histogram_rows_plain(x, None, WLOG), idx)
-    # the library call: one bincount over row * (width + 1) + idx, invalid
-    # windows in each row's spare bin (preparation untimed)
-    spare = (idx.long() + torch.arange(H, device=dev)[:, None]
-             * ((1 << WLOG) + 1)).reshape(-1)
-    times["library histogram"] = timeit(
-        lambda x: torch.bincount(x, minlength=H * ((1 << WLOG) + 1)),
-        spare).seconds_per_call
-    print(f"[time] library torch.bincount for the histogram above: "
-          f"{times['library histogram'] * 1e3:.4f} ms {tag}")
-    del idx, spare
-    torch.cuda.empty_cache()
-
+    times.update(time_path_histogram(codes, dev, card))
     sk = cms.CountMinSketch.zeros(H, WLOG, dev)
     t_step = timeit(lambda x: fused_count_step(x, sk, K), tm).seconds_per_call
     print(f"[time] fused_count_step k={K} h={H} 2**{WLOG} {reads}x{L}: "
@@ -432,6 +450,75 @@ def phase_timings(codes: np.ndarray, path: Path, pipe, dev, card: str):
     print(f"[time] parse only (same file, batches, prefetch thread): median "
           f"of 3 {t_parse:.4f} s, {N_READS / t_parse:.6g} reads/s {tag}")
     return times
+
+
+def in_turns(fns: dict, *args, rounds: int = 2, device=None) -> dict:
+    """Seconds per call of each function on the same arguments, timed in
+    turns (A B B A ...), so that a drift of the card's clock falls on every
+    one alike: the mean over the rounds of each timing's median of 5 CUDA
+    events after warm-up."""
+    names = list(fns)
+    got = {name: [] for name in names}
+    for i in range(rounds):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            got[name].append(timeit(fns[name], *args,
+                                    device=device).seconds_per_call)
+            torch.cuda.empty_cache()
+    return {name: statistics.mean(v) for name, v in got.items()}
+
+
+def path_buckets(codes: np.ndarray, wl: int, dev) -> list:
+    """Per main-path batch, the hash kernel's buckets at 2**wl as the one
+    [H, n] view that the sketch's histogram counts."""
+    out = []
+    for s in range(0, codes.shape[0], BATCH):
+        tm = prepare_codes(torch.from_numpy(codes[s:s + BATCH]).to(dev))
+        view = hist_kernel.rows_view(hash_kmers_tm(tm, K, H, emit_buckets=wl))
+        require(view is not None, "the hash kernel's buckets are not views "
+                "of one output")
+        out.append(view)
+    return out
+
+
+def time_path_histogram(codes: np.ndarray, dev, card: str) -> dict:
+    """A2 as the 2**14 path launches it (one [H, n] launch a batch), summed
+    over the 1M reads' batches: the private counters the rule picks beside
+    the old design (direct atomics, forced), timed in turns; the plain
+    version, the byte bound and ``torch.bincount``."""
+    tag = f"[{card}]"
+    tot = dict.fromkeys(("private", "direct", "plain", "library"), 0.0)
+    nbytes = 0
+    grid = None
+    for idx in path_buckets(codes, WLOG, dev):
+        grid = hist_kernel.private_counts_grid(*idx.shape, WLOG)
+        got = in_turns({
+            "private": lambda x: histogram_rows(x, None, WLOG),
+            "direct": lambda x: hist_kernel._launch(x, None, WLOG, None, None,
+                                                    route="direct")}, idx)
+        for route, v in got.items():
+            tot[route] += v
+        tot["plain"] += timeit(lambda x: histogram_rows_plain(x, None, WLOG),
+                               idx).seconds_per_call
+        # the library call: one bincount over row * (width + 1) + idx,
+        # invalid windows in each row's spare bin (preparation untimed)
+        spare = (idx.long() + torch.arange(H, device=dev)[:, None]
+                 * ((1 << WLOG) + 1)).reshape(-1)
+        tot["library"] += timeit(
+            lambda x: torch.bincount(x, minlength=H * ((1 << WLOG) + 1)),
+            spare).seconds_per_call
+        nbytes += idx.numel() * 4 + H * (1 << WLOG) * 4
+        del idx, spare
+        torch.cuda.empty_cache()
+    print(f"[time] histogram (A2) on the 2**{WLOG} path, one [{H}, n] launch "
+          f"a batch, over {N_READS} reads: private counters (the rule's "
+          f"grid {grid}) {tot['private'] * 1e3:.4f} ms, direct atomics "
+          f"forced (the old design) {tot['direct'] * 1e3:.4f} ms, in turns; "
+          f"plain {tot['plain'] * 1e3:.4f} ms, torch.bincount "
+          f"{tot['library'] * 1e3:.4f} ms, bound {bound_ms(nbytes):.4f} ms "
+          f"({nbytes / 1e9:.4f} GB) {tag}")
+    return {"histogram": (tot["private"], tot["plain"]),
+            "histogram direct": tot["direct"],
+            "library histogram": tot["library"], "histogram bytes": nbytes}
 
 
 def phase_trace(path: Path, pipe, dev, card: str) -> None:
@@ -588,17 +675,21 @@ def phase_main_wide(codes: np.ndarray, path: Path, dev, errs: dict):
             f"PipelineConfig() is {cfg}")
     pipe = ReadHashingPipeline(cfg, device=dev)
     kmer_kernel.LAUNCHES = 0
-    hist_kernel.LAUNCHES = 0
-    for name in pk.LAUNCHES:
-        pk.LAUNCHES[name] = 0
+    reset_hist_launches()
+    reset_part_launches()
     t0 = time.perf_counter()
     reads = pipe.count_file(path, batch_size=BATCH)
     seconds = time.perf_counter() - t0
     launches = {"kmer_hash": kmer_kernel.LAUNCHES,
-                "histogram": hist_kernel.LAUNCHES, **pk.LAUNCHES}
+                "histogram": hist_kernel.LAUNCHES}
+    routes = dict(hist_kernel.ROUTE_LAUNCHES)
+    parts = dict(pk.LAUNCHES)
     require(reads == N_READS, f"count_file streamed {reads} reads")
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the 2**20 main path never launched: {launches}")
+    require(not any(parts.values()) and routes["direct"] == launches["histogram"],
+            f"the 2**20 path must count directly, with no partition kernel: "
+            f"partition launches {parts}, histogram by route {routes}")
     want = torch.zeros((H, 1 << WIDE), dtype=torch.int64, device=dev)
     for s in range(0, codes.shape[0], BATCH):
         tm = prepare_codes(torch.from_numpy(codes[s:s + BATCH]).to(dev))
@@ -610,8 +701,23 @@ def phase_main_wide(codes: np.ndarray, path: Path, dev, errs: dict):
     require(int(want[0].sum()) == nvalid, "plain row sum != valid windows")
     print(f"[main] count_file at PipelineConfig() (k={K}, h={H}, 2**{WIDE}): "
           f"{reads} reads, {nvalid} valid {K}-mers per row, sketch == plain "
-          f"hash->count (int64); launches {launches}; first run "
-          f"{seconds:.3f} s")
+          f"hash->count (int64); launches {launches}, histogram by route "
+          f"{routes}, partition kernels {parts}; first run {seconds:.3f} s")
+    del want
+    # the partitioned histogram (off the path) over the same reads' buckets
+    # builds the same sketch; its launches are the partition kernels' count
+    reset_part_launches()
+    part = torch.zeros_like(pipe.sketch.rows)
+    for idx in path_buckets(codes, WIDE, dev):
+        pk.partitioned_histogram_rows(idx, WIDE, out=part)
+        del idx
+    require(torch.equal(part, pipe.sketch.rows),
+            "partitioned_histogram_rows over the 1M reads != the direct sketch")
+    part_launches = dict(pk.LAUNCHES)
+    print(f"[main] partitioned_histogram_rows over the same {N_READS} reads' "
+          f"buckets == the direct sketch; launches {part_launches}")
+    del part
+    torch.cuda.empty_cache()
     # the partition kernels on the main path's own batches, against plain,
     # and the overflow flag of every batch (read once, at the end)
     p_log2, sub_log2, _, cap = pk.plan(WIDE)
@@ -628,7 +734,7 @@ def phase_main_wide(codes: np.ndarray, path: Path, dev, errs: dict):
     fired = [int(f) for f in fired]
     print(f"[main] partition kernels == plain on batch 0 ({tuple(batches[0].shape)}); "
           f"overflow flag per batch {fired} (fired: {any(fired)})")
-    return pipe, launches, batches
+    return pipe, part_launches, batches
 
 
 def time_prepared(prepare, fn, calls: int = 5) -> float:
@@ -718,14 +824,23 @@ def phase_wide_timings(codes, path, pipe, batches, dev, card: str) -> dict:
                              flat.long(), 1 << sub_log2)
                  + torch.arange(r * p, device=dev)[:, None]
                  * ((1 << sub_log2) + 1)).reshape(-1)
-        add(f"histogram (sub-histograms at 2**{sub_log2}, {r * p} rows)", i,
-            timeit(lambda x: histogram_rows(x, None, sub_log2), flat)
-            .seconds_per_call,
-            timeit(lambda x: histogram_rows_plain(x, None, sub_log2), flat)
-            .seconds_per_call,
+        sub = in_turns({
+            "private": lambda x: histogram_rows(x, None, sub_log2),
+            "direct": lambda x: hist_kernel._launch(x, None, sub_log2, None,
+                                                    None, route="direct")},
+            flat)
+        t_plain = timeit(lambda x: histogram_rows_plain(x, None, sub_log2),
+                         flat).seconds_per_call
+        sub_bytes = flat.numel() * 4 + r * (1 << WIDE) * 4
+        grid = hist_kernel.private_counts_grid(*flat.shape, sub_log2)
+        add(f"histogram (sub-histograms at 2**{sub_log2}, {r * p} rows, "
+            f"private counters {grid})", i, sub["private"], t_plain,
             timeit(lambda x: torch.bincount(
                 x, minlength=r * p * ((1 << sub_log2) + 1)), spare)
-            .seconds_per_call, flat.numel() * 4 + r * (1 << WIDE) * 4)
+            .seconds_per_call, sub_bytes)
+        add(f"histogram (sub-histograms at 2**{sub_log2}, {r * p} rows, "
+            "direct atomics forced)", i, sub["direct"], t_plain, None,
+            sub_bytes)
         del tiles, srt, fb, wins, flat, spare
         torch.cuda.empty_cache()
     for name, (k_s, p_s, lib_s, nbytes) in tot.items():
@@ -752,17 +867,29 @@ def phase_wide_timings(codes, path, pipe, batches, dev, card: str) -> dict:
     reads, w = tm.shape[1], L - K + 1
     idx = torch.stack(hash_kmers_tm(tm, K, H, emit_buckets=WIDE)).reshape(H, -1)
     t_direct = timeit(lambda x: histogram_rows(x, None, WIDE), idx)
-    print(f"[time] yardstick, not on the path: histogram (A2) alone at full "
-          f"width 2**{WIDE}, {H} rows x {idx.shape[1]}: "
+    print(f"[time] histogram (A2, direct atomics: the path's route) alone at "
+          f"full width 2**{WIDE}, {H} rows x {idx.shape[1]}: "
           f"{t_direct.seconds_per_call * 1e3:.4f} ms, bound "
           f"{bound_ms(idx.numel() * 4 + H * (1 << WIDE) * 4):.4f} ms {tag}")
     del idx
     torch.cuda.empty_cache()
+    # the step on the path's route beside the old one: the hash kernel's
+    # buckets stacked into the partitioned histogram, as before this port
+    # counted directly
     sk = cms.CountMinSketch.zeros(H, WIDE, dev)
-    t_step = timeit(lambda x: fused_count_step(x, sk, K), tm).seconds_per_call
+
+    def old_step(x):
+        b = kmer_kernel.hash_kmers_tm_auto(x, K, H, emit_buckets=WIDE)
+        pk.partitioned_histogram_rows(
+            torch.stack([t.reshape(-1) for t in b]), WIDE, out=sk.rows)
+
+    steps = in_turns({"direct": lambda x: fused_count_step(x, sk, K),
+                      "partitioned": old_step}, tm)
     print(f"[time] fused_count_step k={K} h={H} 2**{WIDE} {reads}x{L}: "
-          f"{t_step * 1e3:.4f} ms, {reads * w / t_step:.6g} k-mers/s "
-          f"(all windows) {tag}")
+          f"{steps['direct'] * 1e3:.4f} ms, "
+          f"{reads * w / steps['direct']:.6g} k-mers/s (all windows); the old "
+          f"route (partitioned_histogram_rows) {steps['partitioned'] * 1e3:.4f}"
+          f" ms, in turns {tag}")
     del tm, sk
     torch.cuda.empty_cache()
 
@@ -1002,9 +1129,8 @@ def phase_long_count(rng, tmp: Path, dev, card: str):
     write_fastq(path, codes)
     pipe = ReadHashingPipeline(PipelineConfig(), device=dev)
     kmer_kernel.LAUNCHES = kmer_kernel.LONG_LAUNCHES = 0
-    hist_kernel.LAUNCHES = 0
-    for name in pk.LAUNCHES:
-        pk.LAUNCHES[name] = 0
+    reset_hist_launches()
+    reset_part_launches()
     t0 = time.perf_counter()
     reads = pipe.count_file(path, batch_size=LONG_BATCH, read_length=LONG_L)
     seconds = time.perf_counter() - t0
@@ -1015,8 +1141,10 @@ def phase_long_count(rng, tmp: Path, dev, card: str):
     require(reads == LONG_READS, f"count_file streamed {reads} reads")
     require(launches["kmer_hash_long"] == nbatch and launches["kmer_hash"] == 0,
             f"the long-read batches did not all go through B2: {launches}")
-    require(all(v > 0 for k, v in launches.items() if k != "kmer_hash"),
-            f"a kernel of the long-read path never launched: {launches}")
+    require(launches["histogram"] == nbatch
+            and not any(launches[k] for k in PART_KERNELS),
+            f"the long-read path must count directly, one histogram a batch "
+            f"and no partition kernel: {launches}")
     want = torch.zeros((H, 1 << WIDE), dtype=torch.int64, device=dev)
     for s in range(0, LONG_READS, LONG_BATCH):
         tm = prepare_codes(torch.from_numpy(codes[s:s + LONG_BATCH]).to(dev))
@@ -1195,6 +1323,9 @@ def phase_sp(rng, dev, card: str) -> dict:
 #: WIDE_WIDTH_LOG2 (:43, partitioned) and BLOOM_HUGE_WIDTH_LOG2 (:47, 128 MB
 #: of words, 8,192 partitions).
 BLOOM_WIDTHS = (17, 20, 30)
+#: The widths at which the Bloom phases also run the partitioned words (C3,
+#: through C2), off the default path.
+PART_BLOOM_WIDTHS = (20, 30)
 BLOOM_KERNELS = ("bloom_words", "bloom_words_rows")
 
 
@@ -1329,11 +1460,14 @@ def reset_launches() -> None:
 def phase_bloom_path(codes: np.ndarray, dev, errs: dict) -> dict:
     """Phase 18: the Bloom path over the 1M reads at 2**17, 2**20 and 2**30
     against the plain hash -> plain insert, contains on every valid window,
-    the merge of two half-filters, C1/C2 against plain on the path's own
-    batch-0 launch shapes (and, where the path's data saturates the words,
-    on the same shapes into words that stay sparse, each compare with its
-    fill ratio); launches per kernel and whether the overflow flag fired.
-    Returns the launches, by kernel, summed over the three widths."""
+    the merge of two half-filters, C1 against plain on the path's own
+    batch-0 launch shape (and, where the path's data saturates the words,
+    on the same shape into words that stay sparse, each compare with its
+    fill ratio); launches per kernel. Then, off the path, the partitioned
+    words (C3, through C2) over the same reads at 2**20 and 2**30 against
+    the same filter, C2 on batch 0's windows, and whether the overflow flag
+    fired. Returns the launches by kernel: C1's on the default path, C2's
+    in the partitioned runs."""
     tms = bloom_tms(codes, dev)
     total = dict.fromkeys(BLOOM_KERNELS, 0)
     for wl in BLOOM_WIDTHS:
@@ -1344,16 +1478,14 @@ def phase_bloom_path(codes: np.ndarray, dev, errs: dict) -> dict:
         seconds = time.perf_counter() - t0
         launches = {"kmer_hash": kmer_kernel.LAUNCHES,
                     "kmer_hash_long": kmer_kernel.LONG_LAUNCHES,
-                    **hist_kernel.BLOOM_LAUNCHES}
-        need = ["kmer_hash", "bloom_words"]
-        if wl > bloom.DIRECT_MAX_WIDTH_LOG2:
-            launches.update(pk.LAUNCHES)
-            need += ["bloom_words_rows", *PART_KERNELS]
-        require(all(launches[k] > 0 for k in need),
-                f"a kernel of the 2**{wl} Bloom path never launched: "
-                f"{launches}")
-        for k in BLOOM_KERNELS:
-            total[k] += launches[k]
+                    **hist_kernel.BLOOM_LAUNCHES, **pk.LAUNCHES}
+        require(launches["kmer_hash"] > 0
+                and launches["bloom_words"] == len(tms)
+                and not launches["bloom_words_rows"]
+                and not any(launches[k] for k in PART_KERNELS),
+                f"the 2**{wl} Bloom path must take one bloom_words launch a "
+                f"batch and no partition kernel: {launches}")
+        total["bloom_words"] += launches["bloom_words"]
         want = torch.zeros_like(bf.words)
         for tm in tms:
             for b in hash_kmers_tm_plain(tm, K, H, emit_buckets=wl):
@@ -1387,15 +1519,37 @@ def phase_bloom_path(codes: np.ndarray, dev, errs: dict) -> dict:
             compared.append((f"{what}: {n} updates, fill {fill:.6f}", fill))
             return fill
 
-        if wl > bloom.DIRECT_MAX_WIDTH_LOG2:
+        # C1 on the path's own shape: batch 0's [H, n] view as one stream,
+        # at the path's width and, at the same launch shape, emitted at
+        # 2**30 into a filter that stays sparse
+        for ewl in sorted({wl, 30}):
+            stream = hist_kernel.rows_view(hash_kmers_tm(
+                tms[0], K, H, emit_buckets=ewl)).reshape(-1)
+            grid = hist_kernel.private_words_grid(1, stream.numel(), ewl)
+            same("bloom_words", hist_kernel.bloom_words(stream, None, ewl),
+                 hist_kernel.bloom_words_plain(stream, None, ewl),
+                 f"bloom_words, batch 0's stream at 2**{ewl} (grid {grid})",
+                 stream.numel())
+            del stream
+        if wl in PART_BLOOM_WIDTHS:
+            # off the path: the partitioned words over the same reads
             p_log2, sub_log2, rows, cap = pk.plan(wl)
+            part = torch.zeros_like(bf.words)
+            part_launches = dict.fromkeys(("bloom_words", "bloom_words_rows",
+                                           *PART_KERNELS), 0)
             for i, tm in enumerate(tms):
                 stream = torch.cat([b.reshape(-1) for b in hash_kmers_tm(
-                    tm, K, H, emit_buckets=wl)])[None]
-                wins, flags = pk._partition(stream, wl, p_log2, sub_log2,
+                    tm, K, H, emit_buckets=wl)])
+                # the launches of the function's own run, not of the checks
+                reset_launches()
+                pk.partitioned_bloom_words(stream, wl, out=part)
+                for k, v in {**hist_kernel.BLOOM_LAUNCHES,
+                             **pk.LAUNCHES}.items():
+                    part_launches[k] += v
+                wins, flags = pk._partition(stream[None], wl, p_log2, sub_log2,
                                             rows, cap)
                 fired.append(int(flags[0]))
-                if i == 0:  # C2 on the path's own shape, and the fallback's
+                if i == 0:  # C2 on its own launch shape, and the fallback's
                     flat = wins.reshape(1 << p_log2, -1)
                     if same("bloom_words_rows",
                             hist_kernel.bloom_words_rows(flat, sub_log2),
@@ -1416,21 +1570,19 @@ def phase_bloom_path(codes: np.ndarray, dev, errs: dict) -> dict:
                              f"2**23", sparse.numel())
                         del sparse
                     del flat
-                    same("bloom_words",
-                         hist_kernel.bloom_words(stream[0], None, wl),
-                         hist_kernel.bloom_words_plain(stream[0], None, wl),
-                         f"the fallback's full-width bloom_words at 2**{wl}",
-                         stream.numel())
                 del stream, wins
-        else:  # C1 on the path's own shape: batch 0's four bucket tensors,
-            # at the path's width and, at the same launch shape, emitted at
-            # 2**30 into a filter that stays sparse
-            for ewl in (wl, 30):
-                for j, b in enumerate(hash_kmers_tm(tms[0], K, H,
-                                                    emit_buckets=ewl)):
-                    same("bloom_words", hist_kernel.bloom_words(b, None, ewl),
-                         hist_kernel.bloom_words_plain(b, None, ewl),
-                         f"bloom_words, tensor {j} at 2**{ewl}", b.numel())
+            require(torch.equal(part, bf.words),
+                    f"partitioned_bloom_words at 2**{wl} != the filter")
+            require(all(part_launches[k] > 0 for k in
+                        ("bloom_words_rows", *PART_KERNELS)),
+                    f"a kernel of the partitioned words never launched: "
+                    f"{part_launches}")
+            total["bloom_words_rows"] += part_launches["bloom_words_rows"]
+            del part
+            print(f"[bloom] 2**{wl}, off the path: partitioned_bloom_words "
+                  f"over the same {N_READS} reads == the filter; launches "
+                  f"{part_launches}; overflow flag per batch {fired} (fired: "
+                  f"{any(fired)})")
         require(min(f for _, f in compared) < 0.5,
                 f"every batch-0 check at 2**{wl} was saturated: {compared}")
         print(f"[check] 2**{wl}, batch 0, kernel == plain: " +
@@ -1439,8 +1591,7 @@ def phase_bloom_path(codes: np.ndarray, dev, errs: dict) -> dict:
               f"h={H}: filter == plain hash -> plain insert (whole, "
               f"{bits} bits set, fill ratio {bits / (1 << wl):.6f}); contains "
               f"true on every valid window; merge of two halves == the whole; "
-              f"launches {launches}; overflow flag per batch {fired} (fired: "
-              f"{any(fired)}); first run {seconds:.3f} s")
+              f"launches {launches}; first run {seconds:.3f} s")
         del bf
         torch.cuda.empty_cache()
     return total
@@ -1456,12 +1607,13 @@ def scatter_pack(flat: torch.Tensor, wl: int) -> torch.Tensor:
 
 def phase_bloom_timings(codes: np.ndarray, dev, card: str) -> dict:
     """Phase 19: per 2**18-read batch and over the 1M reads (the sum of the
-    four batches' medians of 5 CUDA-event timings after warm-up): C1 at
-    2**17 over each batch's 4 bucket tensors, C2 at the 2**20 and 2**30
-    sub-widths, C3 whole at 2**20 and 2**30, one unpartitioned C1 launch at
-    full width there (a yardstick the path does not use), the scatter
-    yardstick, the plain versions and the byte bounds; the Bloom step's
-    k-mers/s at each width, and one traced step at 2**20."""
+    four batches' medians of 5 CUDA-event timings after warm-up): C1 as the
+    path launches it (one launch a batch over the hash kernel's [H, n]
+    view) at 2**17, 2**20 and 2**30; off the path, C2 at the 2**20 and 2**30
+    sub-widths and C3 whole; the scatter yardstick, the plain versions and
+    the byte bounds; the Bloom step's k-mers/s at each width beside the old
+    route forced (one C1 launch a tensor at 2**17, the partitioned words at
+    2**20 and 2**30) in turns, and one traced step at 2**20."""
     tag = f"[{card}]"
     tms = bloom_tms(codes, dev)
     w = L - K + 1
@@ -1486,20 +1638,21 @@ def phase_bloom_timings(codes: np.ndarray, dev, card: str) -> dict:
         nwords = width >> 5
         words = torch.zeros(nwords, dtype=torch.int32, device=dev)
         for tm in tms:
-            bucks = hash_kmers_tm(tm, K, H, emit_buckets=wl)
-            stream = torch.cat([b.reshape(-1) for b in bucks])
+            stream = hist_kernel.rows_view(hash_kmers_tm(
+                tm, K, H, emit_buckets=wl)).reshape(-1)
             n = stream.numel()
             flat = stream.long()
             lib_s = t(lambda x: scatter_pack(x, wl), flat)
             del flat
-            if wl <= bloom.DIRECT_MAX_WIDTH_LOG2:
-                add(f"bloom_words at 2**{wl} (4 launches a batch)",
-                    t(lambda bs: [hist_kernel.bloom_words(b, None, wl, out=words)
-                                  for b in bs], bucks),
-                    t(lambda bs: [hist_kernel.bloom_words_plain(
-                        b, None, wl, out=words) for b in bs], bucks),
-                    lib_s, 4 * n + 4 * nwords)
-            else:
+            grid = hist_kernel.private_words_grid(1, n, wl)
+            add(f"bloom_words at 2**{wl} (one launch a batch, the path; "
+                f"grid {grid})",
+                t(lambda x: hist_kernel.bloom_words(x, None, wl, out=words),
+                  stream),
+                t(lambda x: hist_kernel.bloom_words_plain(x, None, wl,
+                                                          out=words), stream),
+                lib_s, 4 * n + 4 * nwords)
+            if wl in PART_BLOOM_WIDTHS:
                 p_log2, sub_log2, rows, cap = pk.plan(wl)
                 p = 1 << p_log2
                 wins, _ = pk._partition(stream[None], wl, p_log2, sub_log2,
@@ -1514,14 +1667,10 @@ def phase_bloom_timings(codes: np.ndarray, dev, card: str) -> dict:
                         x, sub_log2, out=out2), flat),
                     None, 4 * flat.numel() + 4 * nwords)
                 del flat
-                add(f"partitioned_bloom_words at 2**{wl} (whole)",
+                add(f"partitioned_bloom_words at 2**{wl} (whole, off the path)",
                     t(lambda x: pk.partitioned_bloom_words(x, wl, out=words),
                       stream), None, lib_s, 4 * n + 4 * nwords)
-                add(f"bloom_words unpartitioned at full width 2**{wl} (yardstick)",
-                    t(lambda x: hist_kernel.bloom_words(x, None, wl,
-                                                        out=words), stream),
-                    None, None, 4 * n + 4 * nwords)
-            del bucks, stream
+            del stream
             torch.cuda.empty_cache()
         del words
 
@@ -1534,11 +1683,29 @@ def phase_bloom_timings(codes: np.ndarray, dev, card: str) -> dict:
                     emitted_width_log2=wl)
             return bf
 
-        t_step = timeit(step, device=dev).seconds_per_call
+        def old_step(wl=wl):
+            # the route before this port filled every width directly
+            bf = bloom.BloomFilter.zeros(wl, device=dev)
+            for tm in tms:
+                bucks = kmer_kernel.hash_kmers_tm_auto(tm, K, H,
+                                                       emit_buckets=wl)
+                if wl in PART_BLOOM_WIDTHS:
+                    pk.partitioned_bloom_words(
+                        torch.cat([b.reshape(-1) for b in bucks]), wl,
+                        out=bf.words)
+                else:
+                    for b in bucks:
+                        hist_kernel.bloom_words(b, None, wl, out=bf.words)
+            return bf
+
+        steps = in_turns({"new": step, "old": old_step}, device=dev)
+        old = ("the partitioned words" if wl in PART_BLOOM_WIDTHS
+               else "one bloom_words launch a tensor")
         print(f"[time] Bloom step (hash_kmers_tm_auto buckets + "
               f"insert_from_buckets) at 2**{wl}, {N_READS} reads x {L} bp "
-              f"in {len(tms)} batches: {t_step * 1e3:.4f} ms, "
-              f"{N_READS * w / t_step:.6g} k-mers/s (all windows) {tag}")
+              f"in {len(tms)} batches: {steps['new'] * 1e3:.4f} ms, "
+              f"{N_READS * w / steps['new']:.6g} k-mers/s (all windows); the "
+              f"old route ({old}) {steps['old'] * 1e3:.4f} ms, in turns {tag}")
         if wl == 20:
             tr = trace_device(step, device=dev)
             require(tr.busy_seconds > 0, "the trace recorded no device activity")
@@ -1546,9 +1713,9 @@ def phase_bloom_timings(codes: np.ndarray, dev, card: str) -> dict:
                   f"{tr.wall_seconds * 1e3:.3f} ms, device busy "
                   f"{tr.busy_seconds * 1e3:.3f} ms (union of device rows), "
                   f"idle share {tr.idle_share:.4f} {tag}")
-            for name, (s, c) in sorted(tr.by_name.items(),
-                                       key=lambda kv: -kv[1][0])[:12]:
-                print(f"[trace]   {s * 1e3:9.3f} ms  x{c:<4d} {name[:90]}")
+            for name, (sec, c) in sorted(tr.by_name.items(),
+                                         key=lambda kv: -kv[1][0])[:12]:
+                print(f"[trace]   {sec * 1e3:9.3f} ms  x{c:<4d} {name[:90]}")
         torch.cuda.empty_cache()
     for name, (k_s, p_s, lib_s, nbytes) in tot.items():
         plain = "" if p_s is None else f", plain {p_s * 1e3:.4f} ms"
@@ -1814,6 +1981,174 @@ def phase_redesign_timings(codes: np.ndarray, gen, dev, card: str) -> None:
               f"per word: private / direct ms: {'; '.join(cells)} {tag}")
 
 
+# ----------------------------------- the row histogram (A2) by route ----
+
+HIST_ROUTES = ("private", "direct")
+#: (width_log2, rows) of the entries-per-counter sweep: the 2**14 path's one
+#: launch a batch and one row, the 2**20 plan's sub-histograms, both ends.
+HIST_SWEEP = ((10, 4), (12, 4), (13, 512), (14, 4), (14, 1), (15, 1))
+
+
+def hist_by(route, idx, weight, wl, gate=None, out=None):
+    """The histogram kernel over idx [R, N] with its route forced."""
+    return hist_kernel._launch(idx, weight, wl, gate, out, route=route)
+
+
+def sub_histogram_rows(idx: torch.Tensor, wl: int) -> tuple[torch.Tensor, int]:
+    """The partitioned path's sub-histogram input for buckets idx [R, N] at
+    2**wl: its windows as [R * P, n] rows, and their width's log2."""
+    p_log2, sub_log2, rows, cap = pk.plan(wl)
+    wins, _ = pk._partition(idx, wl, p_log2, sub_log2, rows, cap)
+    return wins.reshape(idx.shape[0] << p_log2, -1), sub_log2
+
+
+def phase_hist_route_checks(codes: np.ndarray, gen, dev) -> float:
+    """Phase 22: private counters, direct atomics (each forced) and the
+    plain version against each other, exactly, at widths 2**10..2**15:
+    full-range weights per row, shared and absent; gate 0 and 1 into an
+    ``out`` that accumulates; odd N, so rows start off a 16-byte boundary,
+    and a view whose first row does; indices -1..-3 and past the width.
+    Then the partitioned path's own sub-histogram shapes: batch 0's windows
+    at 2**20 and at 2**30. Returns the largest difference (0 when equal)."""
+    err = 0.0
+
+    def same(got, want, what):
+        # the difference only where they differ: at 2**30 the rows are
+        # 16 GiB, and widening them would not fit the card
+        nonlocal err
+        torch.cuda.synchronize()
+        eq = torch.equal(got, want)
+        err = max(err, 0.0 if eq else max_abs_err(got, want))
+        require(eq, f"histogram != plain: {what}")
+
+    def full_range(shape):
+        return torch.randint(-(1 << 31), 1 << 31, shape, device=dev,
+                             generator=gen, dtype=torch.int64).to(torch.int32)
+
+    for wl in range(10, hist_kernel.PRIVATE_COUNTS_MAX_WIDTH_LOG2 + 1):
+        width = 1 << wl
+        for rows, n in ((3, 1_000_003), (5, 4099)):
+            idx = torch.randint(-3, width + 3, (rows, n), device=dev,
+                                generator=gen, dtype=torch.int32)
+            w = full_range((rows, n))
+            base = full_range((rows, width))
+            for weight, label in ((w, "per row"), (w[1], "shared"),
+                                  (None, "none")):
+                what = f"2**{wl}, [{rows}, {n}], weights {label}"
+                for g in (0, 1):
+                    gate = torch.full((1,), g, dtype=torch.int32, device=dev)
+                    want = histogram_rows_plain(idx, weight, wl, gate=gate,
+                                                out=base.clone())
+                    for route in HIST_ROUTES:
+                        same(hist_by(route, idx, weight, wl, gate,
+                                     base.clone()), want,
+                             f"{route} route, {what}, gate {g}, out")
+                # a view whose first row starts 4 bytes past a boundary
+                flat = idx.reshape(-1)[1:1 + rows * (n - 1)].view(rows, n - 1)
+                sub_w = None if weight is None else \
+                    weight[..., 1:].contiguous()
+                want = histogram_rows_plain(flat, sub_w, wl)
+                for route in HIST_ROUTES:
+                    same(hist_by(route, flat, sub_w, wl), want,
+                         f"{route} route, {what}, unaligned view")
+            del idx, w, base
+    print("[check] histogram: private counters == direct atomics == plain at "
+          "2**10..2**15, [3, 1000003] and [5, 4099], full-range int32 "
+          "weights per row / shared / none, gate 0/1 into an accumulating "
+          "out, an unaligned view, indices -3..-1 and past the width")
+    for wl in (WIDE, 30):
+        flat, sub_log2 = sub_histogram_rows(
+            path_buckets(codes[:BATCH], wl, dev)[0], wl)
+        grid = hist_kernel.private_counts_grid(*flat.shape, sub_log2)
+        want = histogram_rows_plain(flat, None, sub_log2)
+        same(histogram_rows(flat, None, sub_log2), want,
+             f"the rule's route {grid}, batch 0's windows at 2**{wl}")
+        routes = [r for r in HIST_ROUTES if r == "direct"
+                  or sub_log2 <= hist_kernel.PRIVATE_COUNTS_MAX_WIDTH_LOG2]
+        for route in routes:
+            same(hist_by(route, flat, None, sub_log2), want,
+                 f"{route} route, batch 0's windows at 2**{wl}")
+        print(f"[check] histogram on batch 0's sub-histograms at 2**{wl} "
+              f"({flat.shape[0]} rows x {flat.shape[1]} at 2**{sub_log2}): "
+              f"the rule's route (grid {grid}) and {routes} forced == plain")
+        del flat, want
+        torch.cuda.empty_cache()
+    for rows, n, wl in ((H, 31_195_136, WLOG), (1, 31_195_136, WLOG),
+                        (512, 368_640, 13), (H, 31_195_136, WIDE),
+                        (32768, 8192, 17), (3, 300_001, 15), (4, 4095, 10)):
+        print(f"[route] histogram idx [{rows}, {n}] at 2**{wl}: (blocks per "
+              f"row, threads) = {hist_kernel.private_counts_grid(rows, n, wl)}"
+              " ((0, 0): direct atomics)")
+    return err
+
+
+def phase_hist_route_timings(codes: np.ndarray, gen, dev, card: str) -> None:
+    """Phase 23: the histogram's routes timed in one call, in turns:
+    two skewed streams at 2**20 on batch 0's buckets (direct atomics, the
+    path's route, beside the partitioned histogram); and fresh counters at
+    1 to 64 entries per counter a block, private against direct (what the
+    rule's constant rests on)."""
+    tag = f"[{card}]"
+    bucks = path_buckets(codes[:BATCH], WIDE, dev)[0]
+    n = bucks.shape[1]
+    value = 12345
+    for label, idx in (("(a) every entry one value",
+                        torch.full_like(bucks, value)),
+                       ("(b) one eighth of the entries one value",
+                        bucks.clone().index_fill_(
+                            1, torch.arange(0, n, 8, device=dev), value))):
+        direct = histogram_rows(idx, None, WIDE)
+        require(torch.equal(direct, pk.partitioned_histogram_rows(idx, WIDE))
+                and torch.equal(direct, histogram_rows_plain(idx, None, WIDE)),
+                f"skewed stream {label}: direct != partitioned != plain")
+        del direct
+        got = in_turns({
+            "direct": lambda x: histogram_rows(x, None, WIDE),
+            "partitioned": lambda x: pk.partitioned_histogram_rows(x, WIDE)},
+            idx)
+        print(f"[time] skewed stream at 2**{WIDE}, batch 0's [{H}, {n}] "
+              f"buckets, {label}: direct histogram {got['direct'] * 1e3:.4f} "
+              f"ms, partitioned_histogram_rows {got['partitioned'] * 1e3:.4f} "
+              f"ms, in turns (results equal, and equal to plain) {tag}")
+        del idx
+        torch.cuda.empty_cache()
+    del bucks
+    torch.cuda.empty_cache()
+
+    # the rule's constant: entries per counter that a block must cover
+    # before private counters pay. Each row gets as many blocks as the rule
+    # gives a full-size row, each block `per` entries per counter; random
+    # buckets into fresh counters (zeroed inside the timing, on both
+    # routes), so every block merges nearly every counter.
+    for wl, rows in HIST_SWEEP:
+        width = 1 << wl
+        threads = 1024 if wl >= 14 else 512
+        blocks = -(-hist_kernel.PRIVATE_TARGET_THREADS // (threads * rows))
+        cells = []
+        for per in (1, 2, 4, 8, 16, 64):
+            m = per * width * blocks
+            if rows * m > 1 << 28:
+                continue
+            idx = torch.randint(0, width, (rows, m), device=dev,
+                                generator=gen, dtype=torch.int32)
+            out = torch.zeros((rows, width), dtype=torch.int32, device=dev)
+            require(hist_kernel._counts_grid(rows, m, wl, "private")
+                    == (blocks, threads), "the sweep's grid")
+
+            def fresh(x, route):
+                out.zero_()
+                hist_by(route, x, None, wl, out=out)
+
+            got = in_turns({r: (lambda x, r=r: fresh(x, r))
+                            for r in HIST_ROUTES}, idx)
+            cells.append(f"{per}: {got['private'] * 1e3:.4f} / "
+                         f"{got['direct'] * 1e3:.4f}")
+            del idx, out
+        print(f"[time] fresh counters, [{rows}, n] at 2**{wl}, {blocks} "
+              f"blocks of {threads} a row, entries per counter a block: "
+              f"private / direct ms: {'; '.join(cells)} {tag}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1837,24 +2172,28 @@ def main() -> None:
     codes = make_codes(rng, N_READS)
     k_err, h_err = run("4 kernels vs plain", phase_kernels_vs_plain, rng,
                        codes, dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    h_err = max(h_err, run("22 histogram routes vs plain",
+                           phase_hist_route_checks, codes, gen, dev))
     part_errs = run("8 partition widths", phase_partition_widths, rng, dev)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "reads.fq"
         write_fastq(path, codes)
-        pipe, _ = run("5 path at 2**14", phase_main_path, codes, path, dev)
+        pipe, launches = run("5 path at 2**14", phase_main_path, codes,
+                             path, dev)
         times = run("6 timings at 2**14", phase_timings, codes, path, pipe,
                     dev, smi)
         run("7 trace at 2**14", phase_trace, path, pipe, dev, smi)
         del pipe
         torch.cuda.empty_cache()
-        pipe, launches, batches = run("9 path at 2**20", phase_main_wide,
-                                      codes, path, dev, part_errs)
+        pipe, part_launches, batches = run("9 path at 2**20",
+                                           phase_main_wide, codes, path, dev,
+                                           part_errs)
         wide = run("10 timings at 2**20", phase_wide_timings, codes, path,
                    pipe, batches, dev, smi)
         del pipe, batches
         torch.cuda.empty_cache()
-        gen = torch.Generator(device=dev).manual_seed(args.seed)
         errs = run("11 edge shapes", phase_edges, gen, dev)
         run("12 seed goldens", phase_seed_goldens, dev)
         seed_errs, seeds = run("13 seeds", phase_seeds, codes, gen, dev, smi)
@@ -1871,6 +2210,8 @@ def main() -> None:
                    codes, gen, dev)
     run("21 redesigned kernels' timings", phase_redesign_timings, codes, gen,
         dev, smi)
+    run("23 histogram routes' timings", phase_hist_route_timings, codes, gen,
+        dev, smi)
     bloom_errs["bloom_words_rows"] = max(bloom_errs["bloom_words_rows"],
                                          new_errs["bloom_words_rows"])
     for name in ("sort_tiles", "merge_phase"):
@@ -1882,9 +2223,9 @@ def main() -> None:
 
     w = L - K + 1
     t_kmer = times[f"kmer_hash k={K} h={H} buckets 2**{WLOG} {N_READS}x{L}"]
-    t_hist = next(v for key, v in times.items() if key.startswith("histogram"))
+    t_hist = times["histogram"]
     kmer_bytes = (L + H * w) * N_READS * 4
-    hist_bytes = H * w * N_READS * 4 + H * (1 << WLOG) * 4
+    hist_bytes = times["histogram bytes"]
     kernels = [
         {"name": "kmer_hash", "route": "cuda",
          "source": "nthash_tpu_torch/csrc/kmer_hash.cu",
@@ -1910,7 +2251,7 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "nthash_tpu_torch/csrc/partition.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name], "launches": part_launches[name],
             "max_abs_err": part_errs[name], "ms": k_s * 1e3,
             "plain_ms": p_s * 1e3, "bound_ms": bound_ms(nbytes),
             "bound_by": "bytes",
@@ -1937,12 +2278,13 @@ def main() -> None:
             "library_ms": None})
     slice4 = {
         "bloom_words": ("nthash_tpu/ops/hist_pallas.py:157",
-                        "bloom_words at 2**17 (4 launches a batch)"),
+                        "bloom_words at 2**17 (one launch a batch"),
         "bloom_words_rows": ("nthash_tpu/ops/hist_pallas.py:296",
                              "bloom_words_rows at 2**20 (128 rows at 2**13)"),
     }
     for name, (replaces, row) in slice4.items():
-        k_s, p_s, _, nbytes = bloom_times[row]
+        k_s, p_s, _, nbytes = next(v for key, v in bloom_times.items()
+                                   if key.startswith(row))
         kernels.append({
             "name": name, "route": "cuda",
             "source": "nthash_tpu_torch/csrc/bloom.cu", "replaces": replaces,
@@ -1951,6 +2293,9 @@ def main() -> None:
             "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
             "library_ms": None})
     print(f"[sp] launches on the one-sequence path: {sp_launches}")
+    require(all(k["launches"] > 0 for k in kernels),
+            "a kernel of the kernels line never launched: "
+            f"{[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

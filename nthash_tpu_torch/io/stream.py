@@ -61,6 +61,7 @@ def stream_code_batches(
     read_length: int | None = None,
     *,
     use_native: str = "auto",
+    on_long: str = "error",
     start_offset: int = 0,
     with_offsets: bool = False,
 ) -> Iterator[tuple]:
@@ -70,8 +71,9 @@ def stream_code_batches(
     invalid-code rows). ``use_native``: "auto" | "native" | "numpy".
 
     A read longer than the row length (``read_length`` or the sniffed max of
-    the first 1024 records) raises: no read is truncated, so no k-mer is
-    silently dropped.
+    the first 1024 records) raises by default: fixed-shape batching would
+    silently drop its tail windows. ``on_long="truncate"`` accepts that
+    undercount explicitly and keeps each read's first ``L`` bases.
 
     ``with_offsets`` yields (codes, n, offset) instead, where ``offset`` is
     the file position just past the batch's last record; a later run passing
@@ -80,6 +82,8 @@ def stream_code_batches(
     """
     if use_native not in ("auto", "native", "numpy"):
         raise ValueError(f"unknown use_native {use_native!r}")
+    if on_long not in ("error", "truncate"):
+        raise ValueError(f"unknown on_long {on_long!r}")
     length = read_length or sniff_read_length(path)
     native = use_native == "native" or (
         use_native == "auto" and _native_ok(path)
@@ -105,7 +109,7 @@ def stream_code_batches(
         with NativeFastxParser(path, start_offset, None, fmt) as p:
             while True:
                 n, longest = p.next_batch_into(buf[fill:])
-                if longest > length:
+                if longest > length and on_long == "error":
                     raise _too_long(path, longest, length)
                 fill += n
                 if fill == batch_size:
@@ -119,9 +123,9 @@ def stream_code_batches(
     from .fasta import ASCII_TO_CODE, read_fastx
 
     for _, seq in read_fastx(path):
-        if len(seq) > length:
+        if len(seq) > length and on_long == "error":
             raise _too_long(path, len(seq), length)
-        arr = ASCII_TO_CODE[np.frombuffer(seq, dtype=np.uint8)]
+        arr = ASCII_TO_CODE[np.frombuffer(seq[:length], dtype=np.uint8)]
         buf[fill, : len(arr)] = arr
         buf[fill, len(arr):] = CODE_N
         fill += 1

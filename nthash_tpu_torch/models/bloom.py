@@ -9,17 +9,16 @@ uint32 has neither ``>>`` nor ``index_put_``; :meth:`BloomFilter.from_numpy`
 and :meth:`BloomFilter.to_numpy` carry them to and from the JAX package's
 ``np.asarray(bf.words)``.
 
-Insertion is a scatter-OR, routed by width as the JAX package routes it on
-its TPU, with one kernel per route on this card:
-
-- 2**12..2**18: ``bloom_words`` (``csrc/bloom.cu``): each block ORs its
-  share of the updates into private words in shared memory and merges them
-  into the filter's words once (the JAX "mxu" route);
-- 2**19..2**30: ``partitioned_bloom_words`` (``ops/part_kernel.py``): the
-  sort-partitioning kernels, then ``bloom_words_rows`` per partition (the
-  JAX "partitioned" route);
-- 2**31 (:func:`insert` only): ``bloom_words`` at full width, in place of
-  the JAX "scatter" route's int8 presence: an atomic OR needs no transient.
+Insertion is a scatter-OR: one ``bloom_words`` launch (``csrc/bloom.cu``)
+at every width, 2**12..2**31. Each block ORs its share of the updates into
+private words in shared memory and merges them into the filter once, up to
+2**20; above that the updates go to the filter's words directly, atomic ORs
+needing no transient (``ops/hist_kernel.private_words_grid`` picks). The
+JAX package routes 2**19..2**30 through the sort-partitioned words and
+2**31 through an int8 scatter presence, because a TPU core can neither hold
+a wide filter in VMEM nor scatter; ``ops/part_kernel.py``'s
+``partitioned_bloom_words`` stays as that contract's counterpart, off this
+path.
 
 ``insert`` and ``insert_from_buckets`` OR into ``bf.words`` in place and
 return the same filter; ``merge`` returns a new one. Queries are a gather
@@ -39,21 +38,13 @@ import torch
 from ..ops.hist_kernel import (
     BLOOM_MAX_WIDTH_LOG2,
     BLOOM_MIN_WIDTH_LOG2,
+    MAX_WIDTH_LOG2,
     PACK,
     bit_index,
     bloom_words,
+    rows_view,
     word_index,
 )
-from ..ops.part_kernel import (
-    PART_MAX_WIDTH_LOG2,
-    PART_MIN_WIDTH_LOG2,
-    partitioned_bloom_words,
-)
-
-#: Widest filter filled by one direct ``bloom_words`` launch below the
-#: partitioned range (the JAX package's MXU range); 2**19..2**30 go through
-#: the partitions.
-DIRECT_MAX_WIDTH_LOG2 = PART_MIN_WIDTH_LOG2 - 1
 
 
 def check_width(width_log2: int) -> None:
@@ -124,12 +115,11 @@ def insert(bf: BloomFilter, hashes: torch.Tensor, valid: torch.Tensor,
     """Set the bit of every valid window's every hash, in place.
 
     hashes: int64 [..., H] (H = hash functions per k-mer); valid: bool of
-    ``hashes.shape[:-1]``. The width alone picks the route: one direct
-    ``bloom_words`` launch up to 2**18 and at 2**31, the partitioned path
-    at 2**19..2**30. The JAX package's ``ingestion`` choice (MXU tiles or an
-    int8 scatter transient) works around the TPU's lack of a scatter-OR;
-    this card has one (atomic ORs, in shared or device memory as the shapes
-    decide), so there is nothing to choose. Returns
+    ``hashes.shape[:-1]``. One ``bloom_words`` launch at every width, the
+    validity as its weight. The JAX package's ``ingestion`` choice (MXU
+    tiles, partitions or an int8 scatter transient) works around the TPU's
+    lack of a scatter-OR; this card has one (atomic ORs, in shared or device
+    memory as the shapes decide), so there is nothing to choose. Returns
     ``bf``, its words updated.
     """
     check_width(width_log2)
@@ -138,12 +128,7 @@ def insert(bf: BloomFilter, hashes: torch.Tensor, valid: torch.Tensor,
             f"filter width {bf.width} != 2**{width_log2}")
     idx = _indices(hashes, width_log2).reshape(-1)
     keep = valid.reshape(-1, 1).expand(-1, hashes.shape[-1]).reshape(-1)
-    if PART_MIN_WIDTH_LOG2 <= width_log2 <= PART_MAX_WIDTH_LOG2:
-        # validity folded into the index: invalid -> the dropped sentinel
-        partitioned_bloom_words(torch.where(keep, idx, 1 << width_log2),
-                                width_log2, out=bf.words)
-    else:
-        bloom_words(idx, keep.to(torch.int32), width_log2, out=bf.words)
+    bloom_words(idx, keep.to(torch.int32), width_log2, out=bf.words)
     return bf
 
 
@@ -159,27 +144,23 @@ def insert_from_buckets(bf: BloomFilter, buckets, *,
     emitted at a smaller width would insert their sentinel as a real bit of
     the wider filter.
 
-    At direct widths each tensor goes through its own ``bloom_words``
-    launch into the words, so no concatenated copy of the stream is made; at
-    2**19..2**30 the tensors are joined into one stream for the partitioned
-    path, which copies the updates into padded chunks anyway. Returns
-    ``bf``, its words updated.
+    The hash kernel's tensors are consecutive views of one output, and then
+    one ``bloom_words`` launch takes them all through a view of it
+    (``ops.hist_kernel.rows_view``); other tensors take one launch each.
+    Neither copies the buckets. Returns ``bf``, its words updated.
     """
     width_log2 = bf.width.bit_length() - 1
     if emitted_width_log2 is not None and emitted_width_log2 != width_log2:
         raise ValueError(
             f"buckets were emitted at width 2**{emitted_width_log2} but the "
             f"filter width is 2**{width_log2}")
-    if width_log2 > PART_MAX_WIDTH_LOG2:
+    if width_log2 > MAX_WIDTH_LOG2:
         raise ValueError(
-            f"buckets are emitted at widths up to 2**{PART_MAX_WIDTH_LOG2}; "
+            f"buckets are emitted at widths up to 2**{MAX_WIDTH_LOG2}; "
             f"the filter is 2**{width_log2}")
-    if width_log2 <= DIRECT_MAX_WIDTH_LOG2:
-        for b in buckets:
-            bloom_words(b, None, width_log2, out=bf.words)
-        return bf
-    partitioned_bloom_words(torch.cat([b.reshape(-1) for b in buckets]),
-                            width_log2, out=bf.words)
+    stream = rows_view(buckets)
+    for b in (buckets if stream is None else (stream,)):
+        bloom_words(b, None, width_log2, out=bf.words)
     return bf
 
 

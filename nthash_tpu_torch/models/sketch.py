@@ -2,13 +2,16 @@
 
 Counterpart of ``nthash_tpu/models/sketch.py``. Row r of the sketch counts
 the low ``width_log2`` bits of the r-th nte64 hash of every valid window, at
-widths 2**10..2**30, routed as the JAX package routes its fused path: at
-2**10..2**18 through the exact row histogram of ``ops/hist_kernel.py``, at
-2**19..2**30 through the sort-partitioned histogram of
-``ops/part_kernel.py`` (the CUDA kernels on a CUDA sketch, their plain
-versions on a CPU one). Other widths raise :class:`ValueError`. The JAX
-``resolve_ingestion`` choice of MXU, partitioned or scatter has no
-counterpart: the width alone picks the route.
+widths 2**10..2**30, through the exact row histogram of
+``ops/hist_kernel.py`` at every width (the CUDA kernel on a CUDA sketch:
+private counters in shared memory up to 2**15, direct atomics into the rows
+above; its plain version on a CPU one). Other widths raise
+:class:`ValueError`. The JAX package routes its wide sketches through the
+sort-partitioned histogram because a TPU core can neither hold a wide row
+in VMEM nor scatter; this card can, and ``ops/part_kernel.py``'s
+``partitioned_histogram_rows`` stays beside it as that contract's
+counterpart, off this path. The JAX ``resolve_ingestion`` choice of MXU,
+partitioned or scatter has no counterpart.
 
 ``update`` and ``update_from_buckets`` add into ``sketch.rows`` in place and
 return the same sketch; ``merge`` returns a new one.
@@ -21,17 +24,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.hist_kernel import MIN_WIDTH_LOG2, histogram_rows
-from ..ops.part_kernel import (
-    PART_MAX_WIDTH_LOG2,
-    PART_MIN_WIDTH_LOG2,
-    partitioned_histogram_rows,
+from ..ops.hist_kernel import (
+    MAX_WIDTH_LOG2,
+    MIN_WIDTH_LOG2,
+    histogram_rows,
+    rows_view,
 )
-
-#: Widest sketch counted by the direct row histogram (the JAX package's MXU
-#: range); wider ones, up to 2**30, go through the partitioned histogram.
-DIRECT_MAX_WIDTH_LOG2 = PART_MIN_WIDTH_LOG2 - 1
-MAX_WIDTH_LOG2 = PART_MAX_WIDTH_LOG2
 
 
 def check_width(width_log2: int) -> None:
@@ -82,16 +80,11 @@ def update(sketch: CountMinSketch, hashes: torch.Tensor, valid: torch.Tensor,
     """Count every valid window's hashes into the sketch, in place.
 
     hashes: int64 [..., num_rows] (last axis = hash index); valid: bool of
-    ``hashes.shape[:-1]``.
+    ``hashes.shape[:-1]``, counted as a 0/1 weight shared by the rows.
     """
     check_width(width_log2)
     num_rows = sketch.rows.shape[0]
     idx = buckets(hashes, width_log2).reshape(-1, num_rows).T
-    if width_log2 > DIRECT_MAX_WIDTH_LOG2:
-        # fold validity into the index: invalid -> the dropped sentinel
-        folded = torch.where(valid.reshape(1, -1), idx, 1 << width_log2)
-        partitioned_histogram_rows(folded, width_log2, out=sketch.rows)
-        return sketch
     w = valid.reshape(-1).to(torch.int32)
     histogram_rows(idx.contiguous(), w, width_log2, out=sketch.rows)
     return sketch
@@ -109,6 +102,11 @@ def update_from_buckets(sketch: CountMinSketch, buckets, *,
     Pass ``emitted_width_log2`` (the ``emit_buckets`` value used at the hash
     kernel) to guard against width drift: buckets emitted at a smaller width
     would count their sentinel as a real bucket of the wider sketch.
+
+    The hash kernel's tensors are consecutive views of one output, and then
+    one histogram launch counts all rows through a view of it
+    (``ops.hist_kernel.rows_view``); other tensors take one launch each.
+    Neither copies the buckets.
     """
     num_rows, width = sketch.rows.shape
     if len(buckets) != num_rows:
@@ -120,14 +118,10 @@ def update_from_buckets(sketch: CountMinSketch, buckets, *,
             f"buckets were emitted at width 2**{emitted_width_log2} but the "
             f"sketch width is 2**{width_log2}")
     check_width(width_log2)
-    if width_log2 > DIRECT_MAX_WIDTH_LOG2:
-        # the partitioned path copies the updates into padded chunks anyway
-        partitioned_histogram_rows(
-            torch.stack([b.reshape(-1) for b in buckets]), width_log2,
-            out=sketch.rows)
+    rows = rows_view(buckets)
+    if rows is not None:
+        histogram_rows(rows, None, width_log2, out=sketch.rows)
         return sketch
-    # one histogram per row: the rows stay separate views of the hash
-    # kernel's output, and stacking them would copy every bucket once more
     for r, b in enumerate(buckets):
         histogram_rows(b.reshape(1, -1), None, width_log2,
                        out=sketch.rows[r:r + 1])

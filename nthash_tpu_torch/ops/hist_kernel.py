@@ -6,7 +6,9 @@ for what it computes rather than for the TPU's matrix unit:
 
 - :func:`histogram_rows` is ``mxu_histogram_rows`` and :func:`histogram` is
   ``mxu_histogram``; the kernel is ``csrc/histogram.cu`` (replaces the
-  Pallas ``_hist_kernel``);
+  Pallas ``_hist_kernel``). It has two routes, private counters in shared
+  memory or direct atomics, and :func:`private_counts_grid` picks one from
+  the shapes alone;
 - :func:`bloom_words` is ``mxu_bloom_words`` and :func:`bloom_words_rows` is
   ``mxu_bloom_words_rows``; the kernel is ``csrc/bloom.cu`` (replaces
   ``_bloom_kernel`` and ``_bloom_rows_kernel``), in the same
@@ -19,15 +21,18 @@ Each source note says what bounds its kernel on the H100.
 The TPU version builds one-hot operands and counts on the MXU, splitting
 weights into 8-bit digit planes so bf16 products stay exact; its
 ``weight_bits`` chose how many planes to pay for. Here every update is one
-integer atomic add, exact for any int32 weight, so ``weight_bits`` is gone.
+integer atomic add (in shared or device memory), exact for any int32
+weight, so ``weight_bits`` is gone.
 
-The range reaches 2**30, past the TPU kernel's 2**26: the sort-partitioned
-path (``ops/part_kernel.py``) falls back to one full-width histogram under
-skew. Two arguments serve that path: ``out`` accumulates into an existing
-tensor (the sketch's rows), and ``gate`` (one device int32) lets the device,
-not the host, decide whether a launch counts anything. The presence words
-take the same two arguments, ``out`` OR-ing into the filter's words; their
-direct range reaches 2**31 for the same reason and for the widest filter.
+The range reaches 2**30, past the TPU kernel's 2**26: on this card the
+count-min sketch counts straight into its rows at every width, and the
+sort-partitioned path (``ops/part_kernel.py``) falls back to one full-width
+histogram under skew. Two arguments serve that path: ``out`` accumulates
+into an existing tensor (the sketch's rows), and ``gate`` (one device int32)
+lets the device, not the host, decide whether a launch counts anything. The
+presence words take the same two arguments, ``out`` OR-ing into the
+filter's words; their direct range reaches 2**31 for the same reason and
+for the widest filter.
 
 Packed words are int32 tensors holding the JAX package's uint32 bit
 patterns: PyTorch's CPU uint32 has neither ``>>`` nor ``index_put_``.
@@ -44,8 +49,22 @@ from . import cuda_build
 MIN_WIDTH_LOG2 = 10
 MAX_WIDTH_LOG2 = 30
 
-#: Kernel launches made by :func:`histogram_rows` in this process.
+#: Kernel launches made by :func:`histogram_rows` in this process, and the
+#: same launches by route.
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"private": 0, "direct": 0}
+#: Widest row whose counters a block keeps in shared memory: 2**15 int32
+#: counters are 128 KB of the 227 KB a block may use.
+PRIVATE_COUNTS_MAX_WIDTH_LOG2 = 15
+#: A block of the private-counter route covers at least this many entries
+#: per counter of its row, so that its merge (up to one atomic a counter)
+#: stays a small part. On the card private counters tie with direct atomics
+#: at 1 entry a counter a block and win at every swept width from 2
+#: (``chip_smoke.py`` phase 23 prints the sweep).
+PRIVATE_MIN_ENTRIES_PER_COUNTER = 2
+#: Threads either kernel's private route spreads over all rows: 1,024 on
+#: each of the H100's 132 multiprocessors.
+PRIVATE_TARGET_THREADS = 132 * 1024
 
 PACK = 32  # buckets per packed word
 BLOOM_MIN_WIDTH_LOG2 = 12  # the layout tiles the width in 4,096-bucket blocks
@@ -61,9 +80,6 @@ PRIVATE_MAX_WIDTH_LOG2 = 20
 #: part. On the card private words tie with direct atomics at 1 to 4 entries
 #: a word and win from there (``chip_smoke.py`` phase 21 prints the sweep).
 PRIVATE_MIN_ENTRIES_PER_WORD = 4
-#: Threads the private route spreads over all rows: 1,024 on each of the
-#: H100's 132 multiprocessors.
-PRIVATE_TARGET_THREADS = 132 * 1024
 
 
 def _rows_and_weight(idx, weight, width_log2, lo=MIN_WIDTH_LOG2,
@@ -103,6 +119,22 @@ def _check_extras(idx, cols, gate, out):
         raise ValueError(
             f"out must be a contiguous int32 [{idx.shape[0]}, {cols}] tensor "
             "on the idx's device")
+
+
+def rows_view(tensors) -> torch.Tensor | None:
+    """The tensors as one [R, N] view where they are consecutive, equally
+    sized, contiguous pieces of one storage (the hash kernel's single
+    output, unbound), else None. A view, never a copy."""
+    first = tensors[0]
+    n = first.numel()
+    for r, t in enumerate(tensors):
+        if (t.dtype != first.dtype or t.device != first.device
+                or t.numel() != n or not t.is_contiguous()
+                or t.untyped_storage().data_ptr()
+                != first.untyped_storage().data_ptr()
+                or t.storage_offset() != first.storage_offset() + r * n):
+            return None
+    return first.as_strided((len(tensors), n), (n, 1))
 
 
 def histogram_rows_plain(idx: torch.Tensor, weight: torch.Tensor | None,
@@ -150,14 +182,72 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
         ]
     return lib
 
 
-def _launch(idx, weight, width_log2, gate, out):
+def _private_count_threads(width_log2: int) -> int:
+    return 1024 if width_log2 >= 14 else 512
+
+
+def private_counts_grid(
+        rows: int, n: int, width_log2: int,
+        min_entries_per_counter: int = PRIVATE_MIN_ENTRIES_PER_COUNTER,
+) -> tuple[int, int]:
+    """The histogram kernel's route for idx [rows, n], from the shapes
+    alone: (blocks per row, threads per block) for private counters in
+    shared memory merged once per block, or (0, 0) for one global atomic add
+    per update.
+
+    Private counters pay where a row's counters fit a block's shared memory
+    (up to 2**15) and a block can be given at least
+    ``PRIVATE_MIN_ENTRIES_PER_COUNTER`` entries per counter. The rows then
+    share about ``PRIVATE_TARGET_THREADS`` threads, in blocks of 512 (1,024
+    from 2**14 up, where the counters leave room for one or two blocks per
+    multiprocessor); the kernel deals the blocks out to the rows in turn, so
+    the blocks in flight spread over all of them. Otherwise (rows too short
+    to pay for a merge, sketches wider than 2**15) the updates go to the
+    counters directly. ``min_entries_per_counter`` is the rule's own
+    constant except where the smoke run measures it.
+    """
+    if rows < 1 or n < 1 or width_log2 > PRIVATE_COUNTS_MAX_WIDTH_LOG2:
+        return 0, 0
+    most = n // (min_entries_per_counter << width_log2)
+    if most < 1:
+        return 0, 0
+    threads = _private_count_threads(width_log2)
+    return max(1, min(most, -(-PRIVATE_TARGET_THREADS // (threads * rows)))), \
+        threads
+
+
+def _counts_grid(rows, n, width_log2, route):
+    """(blocks per row, threads) of :func:`_launch`: the rule's, or the
+    ``route`` forced ("direct" or "private"; a forced private route takes
+    the rule's grid at one entry per counter, and one block a row below
+    that)."""
+    if route is None:
+        return private_counts_grid(rows, n, width_log2)
+    if route == "direct":
+        return 0, 0
+    if route != "private":
+        raise ValueError(f"route must be 'direct' or 'private', got {route!r}")
+    if width_log2 > PRIVATE_COUNTS_MAX_WIDTH_LOG2:
+        raise ValueError(
+            f"no private route at width 2**{width_log2}: the counters do "
+            "not fit a block's shared memory")
+    blocks, threads = private_counts_grid(rows, n, width_log2, 1)
+    return (blocks, threads) if blocks else (1, _private_count_threads(
+        width_log2))
+
+
+def _launch(idx, weight, width_log2, gate, out, route=None):
+    """Launch ``csrc/histogram.cu`` on validated idx [R, N]. ``route``
+    ("direct" or "private") overrides :func:`private_counts_grid`'s choice,
+    for the tests and the smoke run."""
     global LAUNCHES
     rows, n = idx.shape
+    blocks, threads = _counts_grid(rows, n, width_log2, route)
     dev = idx.device
     if out is None:
         out = torch.zeros((rows, 1 << width_log2), dtype=torch.int32,
@@ -173,10 +263,11 @@ def _launch(idx, weight, width_log2, gate, out):
         None if weight is None else weight.data_ptr(),
         n if weight is not None and weight.dim() == 2 else 0,
         width_log2, out.data_ptr(), None if gate is None else gate.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        blocks, threads, torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, status, "histogram launch")
     LAUNCHES += 1
+    ROUTE_LAUNCHES["private" if blocks else "direct"] += 1
     return out
 
 
@@ -204,8 +295,9 @@ def histogram_rows(idx: torch.Tensor, weight: torch.Tensor | None,
 
     There is no ``weight_bits``: every int32 weight is exact.
 
-    A CUDA tensor goes through the CUDA kernel (``csrc/histogram.cu``), a
-    CPU tensor through :func:`histogram_rows_plain`.
+    A CUDA tensor goes through the CUDA kernel (``csrc/histogram.cu``), by
+    private counters or direct atomics as :func:`private_counts_grid`
+    picks; a CPU tensor through :func:`histogram_rows_plain`.
     """
     idx2, w = _rows_and_weight(idx, weight, width_log2)
     _check_extras(idx2, 1 << width_log2, gate, out)
@@ -450,10 +542,10 @@ def bloom_words(idx: torch.Tensor, weight: torch.Tensor | None,
     are dropped. ``width_log2`` is in [12, 31]: past the JAX kernel's 2**26,
     because on this card atomic ORs serve every width (into private words in
     shared memory up to 2**20, straight into the words above that:
-    :func:`private_words_grid`), the partitioned path's skew fallback at
-    2**19..2**30 and the widest filter at 2**31 included. ``gate`` and
-    ``out`` (contiguous int32 [2**width_log2 / 32], OR-ed into in place) are
-    as in :func:`bloom_words_rows`.
+    :func:`private_words_grid`): the Bloom filter's every width, the
+    partitioned path's skew fallback and the widest filter at 2**31.
+    ``gate`` and ``out`` (contiguous int32 [2**width_log2 / 32], OR-ed into
+    in place) are as in :func:`bloom_words_rows`.
 
     A CUDA tensor goes through the CUDA kernel (``csrc/bloom.cu``), a CPU
     tensor through :func:`bloom_words_plain`.

@@ -21,6 +21,11 @@ are ``ops/hist_kernel.py``'s kernels (``csrc/histogram.cu``,
 a CUDA tensor goes through the kernels, a CPU tensor through the plain
 versions beside them (``*_plain``), anything else raises. Nothing waits on the
 host: the overflow flag gates the two last launches on the device.
+
+On this card no default path partitions: the sketch and the Bloom filter
+count straight into their rows at every width, which wins at every width
+(``PERF.md``). These functions stay as the counterparts of the JAX
+package's partitioned contract, tested and driven on the card.
 """
 
 from __future__ import annotations

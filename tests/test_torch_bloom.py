@@ -297,8 +297,8 @@ def test_contains_bit_31():
 
 @pytest.mark.parametrize("wl", [12, 13, 14, 17, 18, 19, 20, 21])
 def test_insert_vs_jax_scatter(rng, wl):
-    """Direct widths (up to 2**18) and partitioned ones (2**19 up) against
-    the JAX package's scatter route."""
+    """Every width, those the JAX package partitions (2**19 up) included,
+    against the JAX package's scatter route."""
     codes = rng.integers(0, 5, size=(5, 50), dtype=np.uint8)   # with N
     th, tv, _, _ = _both_hashes(codes)
     bf = bloom.BloomFilter.zeros(wl, device=CPU)
@@ -308,20 +308,20 @@ def test_insert_vs_jax_scatter(rng, wl):
 
 
 def test_insert_routes_by_width(monkeypatch, rng):
+    """One direct ``bloom_words`` launch at every width: no partitioned
+    route on the filter's path."""
     import nthash_tpu_torch.models.bloom as mod
 
     seen = []
     monkeypatch.setattr(mod, "bloom_words",
                         lambda *a, **k: seen.append(("direct", a[2])))
-    monkeypatch.setattr(mod, "partitioned_bloom_words",
-                        lambda *a, **k: seen.append(("partitioned", a[1])))
     h = torch.zeros((2, 3), dtype=torch.int64)
     v = torch.ones(2, dtype=torch.bool)
-    for wl in (12, 18, 19, 30, 31):  # stand-in words: only the width counts
+    widths = (12, 18, 19, 20, 30, 31)
+    for wl in widths:  # stand-in words: only the width counts
         words = torch.zeros(1, dtype=torch.int32).expand(1 << (wl - 5))
         mod.insert(mod.BloomFilter(words), h, v, wl)
-    assert seen == [("direct", 12), ("direct", 18), ("partitioned", 19),
-                    ("partitioned", 30), ("direct", 31)]
+    assert seen == [("direct", wl) for wl in widths]
 
 
 def test_insert_rejects():
@@ -369,6 +369,45 @@ def test_insert_from_buckets_vs_jax(rng, wl):
             jbloom.BloomFilter.zeros(wl), [jnp.asarray(b.numpy()) for b in bucks],
             emitted_width_log2=wl, interpret=True)
         assert np.array_equal(bf.to_numpy(), np.asarray(jb.words))
+
+
+@pytest.mark.parametrize("wl", [19, 20, 21])
+def test_insert_from_buckets_wide_vs_jax_scatter(rng, wl):
+    """The widths the JAX package partitions: the port fills them directly,
+    bit for bit as the JAX scatter ingestion does."""
+    codes = rng.integers(0, 5, size=(7, 45), dtype=np.uint8)
+    bucks = hash_kmers_tm(prepare_codes(torch.from_numpy(codes)), K, H,
+                          emit_buckets=wl)
+    bf = bloom.insert_from_buckets(bloom.BloomFilter.zeros(wl, device=CPU),
+                                   bucks, emitted_width_log2=wl)
+    assert np.array_equal(bf.to_numpy(), _jax_scatter(codes, wl))
+
+
+def test_insert_from_buckets_one_launch_over_views(monkeypatch, rng):
+    """The hash kernel's tensors (views of one output) take one
+    ``bloom_words`` launch through a view of it; separate tensors one
+    each; either way no concatenated copy."""
+    import nthash_tpu_torch.models.bloom as mod
+
+    seen = []
+    real = mod.bloom_words
+
+    def record(idx, weight, wl, **kw):
+        seen.append((tuple(idx.shape), idx.data_ptr()))
+        return real(idx, weight, wl, **kw)
+
+    monkeypatch.setattr(mod, "bloom_words", record)
+    wl = 20
+    out = torch.from_numpy(rng.integers(-1, (1 << wl) + 2, size=(H, 6, 9))
+                           .astype(np.int32))
+    one = mod.insert_from_buckets(mod.BloomFilter.zeros(wl, device=CPU),
+                                  list(out.unbind(0)))
+    assert seen == [((H, 54), out.data_ptr())]
+    each = mod.insert_from_buckets(mod.BloomFilter.zeros(wl, device=CPU),
+                                   [b.clone() for b in out.unbind(0)])
+    assert [shape for shape, _ in seen[1:]] == [(6, 9)] * H
+    assert torch.equal(one.words, each.words)
+    assert torch.equal(one.words, hk.bloom_words_plain(out, None, wl))
 
 
 def test_insert_from_buckets_matches_pallas_hash_buckets(rng):

@@ -226,6 +226,85 @@ def test_histogram_gate_and_out(rng, cuda):
         assert torch.equal(plain, got)
 
 
+def _hist_by_route(route, idx, weight, wl, gate=None, out=None):
+    """The histogram kernel on validated idx [R, N] with its route forced
+    (None: by shape)."""
+    return hist_kernel._launch(idx, weight, wl, gate, out, route=route)
+
+
+@pytest.mark.parametrize("route", ["private", "direct", None])
+@pytest.mark.parametrize("weights", ["per_row", "shared", "none"])
+@pytest.mark.parametrize("wl", [10, 11, 12, 13, 14, 15])
+def test_histogram_routes_vs_plain(rng, cuda, wl, weights, route):
+    """Each route with full-range weights (per row, shared, none), -1 and
+    out-of-range indices, a closed and an open gate, an ``out`` that
+    accumulates, odd N and rows that start off a 16-byte boundary."""
+    n, width = 300_001, 1 << wl
+    idx = torch.from_numpy(rng.integers(-2, width + 2, size=(3, n))
+                           .astype(np.int32)).to(cuda)
+    w = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(3, n),
+                                      dtype=np.int64).astype(np.int32)).to(cuda)
+    weight = {"per_row": w, "shared": w[1], "none": None}[weights]
+    base = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(3, width),
+                                         dtype=np.int64).astype(np.int32)).to(cuda)
+    before = dict(hist_kernel.ROUTE_LAUNCHES)
+    for g in (0, 1):
+        gate = torch.full((1,), g, dtype=torch.int32, device=cuda)
+        got = _hist_by_route(route, idx, weight, wl, gate, base.clone())
+        want = histogram_rows_plain(idx, weight, wl, gate=gate,
+                                    out=base.clone())
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    taken = "private" if route == "private" or (
+        route is None and hist_kernel.private_counts_grid(3, n, wl)[0]) \
+        else "direct"
+    assert hist_kernel.ROUTE_LAUNCHES[taken] == before[taken] + 2
+    # unaligned rows: row r starts at r * (n - 1) ints, the weights too
+    sub = idx[:, 1:]
+    wsub = None if weight is None else weight[..., 1:]
+    got = _hist_by_route(route, sub.contiguous(), wsub if wsub is None
+                         else wsub.contiguous(), wl)
+    assert torch.equal(got, histogram_rows_plain(sub, wsub, wl))
+
+
+def test_histogram_private_route_refuses_wide_rows(cuda):
+    idx = torch.zeros((1, 1 << 20), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        _hist_by_route("private", idx, None, 16)
+
+
+def test_no_partition_launch_on_default_paths(tmp_path, rng, cuda):
+    """count_file at PipelineConfig() (2**20) and the Bloom step at 2**20
+    launch the hash and histogram / presence-word kernels, and no partition
+    kernel and no ``bloom_words_rows``."""
+    path = tmp_path / "reads.fq"
+    seqs = np.frombuffer(b"ACGTN", np.uint8)[rng.integers(0, 5, size=(900, 80))]
+    with open(path, "wb") as f:
+        for s in seqs:
+            f.write(b"@r\n" + s.tobytes() + b"\n+\n" + b"I" * 80 + b"\n")
+    parts = dict(pk.LAUNCHES)
+    hist = hist_kernel.LAUNCHES
+    bloom_before = dict(hist_kernel.BLOOM_LAUNCHES)
+    pipe = ReadHashingPipeline(PipelineConfig(), device=cuda)
+    assert pipe.count_file(path, batch_size=256) == 900
+    assert hist_kernel.LAUNCHES == hist + 4  # one a batch
+    tm = prepare_codes(_codes(rng, 3000).to(cuda))
+    bf = bloom.insert_from_buckets(
+        bloom.BloomFilter.zeros(20),
+        kmer_kernel.hash_kmers_tm_auto(tm, 32, 4, emit_buckets=20),
+        emitted_width_log2=20)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES == parts
+    assert hist_kernel.BLOOM_LAUNCHES["bloom_words_rows"] == \
+        bloom_before["bloom_words_rows"]
+    assert hist_kernel.BLOOM_LAUNCHES["bloom_words"] == \
+        bloom_before["bloom_words"] + 1
+    cpu = bloom.insert_from_buckets(
+        bloom.BloomFilter.zeros(20, device="cpu"),
+        hash_kmers_tm(tm.cpu(), 32, 4, emit_buckets=20))
+    assert torch.equal(bf.words.cpu(), cpu.words)
+
+
 def _chunks(rng, wl, rows=2, g=8, skew=False):
     p_log2, sub_log2, chunk_rows, cap = pk.plan(wl)
     n = rows * g * chunk_rows * 128
@@ -499,8 +578,8 @@ def test_bloom_insert_from_buckets_cuda_vs_cpu(rng, cuda, wl):
                                                     emit_buckets=wl))
     assert torch.equal(bf_gpu.words.cpu(), bf_cpu.words)
     got = {k: hist_kernel.BLOOM_LAUNCHES[k] - before[k] for k in before}
-    assert got == ({"bloom_words": 4, "bloom_words_rows": 0} if wl <= 18 else
-                   {"bloom_words": 1, "bloom_words_rows": 1})
+    # the four tensors are views of the kernel's one output: one launch
+    assert got == {"bloom_words": 1, "bloom_words_rows": 0}
 
 
 # ------------- the presence-word kernel's two routes and the tile sort ----

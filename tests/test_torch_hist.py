@@ -83,9 +83,96 @@ def test_counts_once_and_drops_out_of_range():
 
 
 def test_cpu_route_launches_no_kernel(rng):
-    before = hist_kernel.LAUNCHES
+    before = hist_kernel.LAUNCHES, dict(hist_kernel.ROUTE_LAUNCHES)
     histogram_rows(torch.zeros((2, 8), dtype=torch.int32), None, 10)
-    assert hist_kernel.LAUNCHES == before
+    assert (hist_kernel.LAUNCHES, hist_kernel.ROUTE_LAUNCHES) == before
+
+
+# ------------------------------------------- the route of the histogram ----
+
+
+@pytest.mark.parametrize("rows,n,wl,want", [
+    # one main-path batch at 2**14: 4 rows of 2**18 reads x 119 windows,
+    # as one launch and as one launch a row
+    (4, 31_195_136, 14, (33, 1024)),
+    (1, 31_195_136, 14, (132, 1024)),
+    # the 2**20 plan's sub-histograms: 512 rows at 2**13, one block a row
+    (512, 368_640, 13, (1, 512)),
+    # every width up to 2**15 where the rows are long enough
+    (4, 1 << 20, 10, (66, 512)),
+    (4, 1 << 20, 11, (66, 512)),
+    (4, 1 << 20, 12, (66, 512)),
+    (3, 300_001, 14, (9, 1024)),
+    (4, 1 << 20, 15, (16, 1024)),
+    # counters past a block's shared memory: direct atomics
+    (4, 1 << 20, 16, (0, 0)),
+    (4, 31_195_136, 18, (0, 0)),
+    (4, 31_195_136, 20, (0, 0)),
+    (1, 1 << 20, 30, (0, 0)),
+    # a row with fewer entries than 2 a counter, and one just long enough
+    (4, 2 * 1024 - 1, 10, (0, 0)),
+    (4, 2 * 1024, 10, (1, 512)),
+    (2, 2 * 32768 - 1, 15, (0, 0)),
+    (2, 2 * 32768, 15, (1, 1024)),
+    # empty rows
+    (0, 100, 12, (0, 0)),
+    (3, 0, 12, (0, 0)),
+])
+def test_private_counts_grid(rows, n, wl, want):
+    """The histogram kernel's route is a pure function of the shapes."""
+    assert hist_kernel.private_counts_grid(rows, n, wl) == want
+
+
+@pytest.mark.parametrize("wl", [10, 12, 13, 14, 15, 16, 20])
+@pytest.mark.parametrize("rows", [1, 4, 512])
+@pytest.mark.parametrize("n", [1000, 100_000, 31_195_136])
+def test_private_counts_grid_gives_every_block_enough(rows, n, wl):
+    blocks, threads = hist_kernel.private_counts_grid(rows, n, wl)
+    if blocks == 0:
+        assert threads == 0
+        assert (wl > hist_kernel.PRIVATE_COUNTS_MAX_WIDTH_LOG2
+                or n < hist_kernel.PRIVATE_MIN_ENTRIES_PER_COUNTER << wl)
+    else:
+        assert wl <= 15 and 4 << wl <= 227 * 1024
+        assert threads == (1024 if wl >= 14 else 512)
+        assert n // blocks >= hist_kernel.PRIVATE_MIN_ENTRIES_PER_COUNTER << wl
+        assert (blocks - 1) * rows * threads < hist_kernel.PRIVATE_TARGET_THREADS
+        assert blocks * rows < 2 ** 31  # one grid axis
+
+
+def test_forced_route_is_checked():
+    """``route=`` takes "private" or "direct" (or None: the rule's); a
+    forced private route needs the counters to fit shared memory. Checked
+    before anything reaches the card."""
+    idx = torch.zeros((1, 8), dtype=torch.int32)
+    for bad in ("shared", "Private", ""):
+        with pytest.raises(ValueError, match="route"):
+            hist_kernel._launch(idx, None, 12, None, None, route=bad)
+    for wl in (16, 20, 30):
+        with pytest.raises(ValueError, match="shared memory"):
+            hist_kernel._launch(idx, None, wl, None, None, route="private")
+    # a forced private route lowers the rule to one entry per counter, and
+    # to one block a row below that
+    assert hist_kernel._counts_grid(4, 1000, 12, None) == (0, 0)
+    assert hist_kernel._counts_grid(4, 1000, 12, "private") == (1, 512)
+    assert hist_kernel._counts_grid(4, 40_000, 12, "private") == (9, 512)
+    assert hist_kernel._counts_grid(4, 40_000, 12, "direct") == (0, 0)
+    assert hist_kernel._counts_grid(4, 1 << 20, 12, None) == (66, 512)
+
+
+def test_rows_view_is_a_view_or_none():
+    out = torch.arange(3 * 5 * 7, dtype=torch.int32).reshape(3, 5, 7)
+    parts = list(out.unbind(0))
+    view = hist_kernel.rows_view(parts)
+    assert view.shape == (3, 35) and view.data_ptr() == out.data_ptr()
+    assert torch.equal(view, out.reshape(3, 35))
+    # a later view of the same storage
+    tail = hist_kernel.rows_view(parts[1:])
+    assert tail.data_ptr() == parts[1].data_ptr()
+    assert torch.equal(tail, out[1:].reshape(2, 35))
+    for other in ([p.clone() for p in parts], parts[::-1], [parts[0], parts[2]],
+                  [out[0, :, :6], out[1, :, :6]], [out[0], out[1].long()]):
+        assert hist_kernel.rows_view(other) is None
 
 
 def test_any_index_shape(rng):

@@ -94,8 +94,9 @@ def test_native_parser_builds_outside_jax_package():
 
 
 def test_long_reads_error_or_truncate(fastq):
-    """A read longer than the row raises, with either parser; none is
-    truncated. A row long enough takes every read whole."""
+    """A read longer than the row raises by default, with either parser;
+    none is truncated unless asked (below). A row long enough takes every
+    read whole."""
     path, n, L = fastq
     assert sniff_read_length(path) == L
     parsers = ["numpy"] + (["native"] if native_loader.available() else [])
@@ -106,6 +107,29 @@ def test_long_reads_error_or_truncate(fastq):
                                            use_native=use_native))
         assert sum(m for _, m in batches) == n
         assert all((b[:, L:] == 4).all() for b, _ in batches)
+
+
+@pytest.mark.parametrize("use_native", [
+    "numpy", pytest.param("native", marks=needs_native)])
+def test_on_long_truncate_matches_jax(tmp_path, use_native):
+    """One 11-base read into rows of 10: ``on_long="truncate"`` keeps its
+    first 10 bases, as the JAX package's stream does; "error" (the default)
+    raises and any other value is refused."""
+    path = tmp_path / "long.fq"
+    path.write_bytes(b"@a\nACGTNACGTAC\n+\nIIIIIIIIIII\n@b\nGATTA\n+\nIIIII\n")
+    got = list(stream_code_batches(path, 4, 10, use_native=use_native,
+                                   on_long="truncate"))
+    want = list(jstream.stream_code_batches(path, 4, 10, use_native=use_native,
+                                            on_long="truncate"))
+    assert [m for _, m in got] == [m for _, m in want] == [2]
+    assert np.array_equal(got[0][0], want[0][0])
+    assert got[0][0][0].tolist() == [0, 1, 2, 3, 4, 0, 1, 2, 3, 0]
+    for kw in ({}, {"on_long": "error"}):
+        with pytest.raises(ValueError, match="exceeds"):
+            list(stream_code_batches(path, 4, 10, use_native=use_native, **kw))
+    with pytest.raises(ValueError, match="on_long"):
+        list(stream_code_batches(path, 4, 10, use_native=use_native,
+                                 on_long="drop"))
 
 
 def test_offsets_need_native(fastq):

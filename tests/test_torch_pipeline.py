@@ -23,6 +23,7 @@ from nthash_tpu_torch.models.pipeline import (
     ReadHashingPipeline,
     fused_count_step,
 )
+from nthash_tpu_torch.ops.hist_kernel import histogram_rows_plain
 from nthash_tpu_torch.ops.kmer_kernel import prepare_codes
 from nthash_tpu_torch.ops.kmer_torch import hash_kmers
 from nthash_tpu_torch.u64 import to_numpy_u64
@@ -285,7 +286,7 @@ def test_from_numpy_roundtrip(rng):
 
 
 def test_wide_widths_raise(rng):
-    """Widths 2**19..2**30 are counted (the partitioned route); a width
+    """Widths 2**19..2**30 are counted (directly, at every width); a width
     outside [2**10, 2**30] raises ValueError everywhere."""
     pipe = ReadHashingPipeline(PipelineConfig(), device=CPU)  # default 2**20
     assert pipe.sketch.width == 1 << 20
@@ -307,8 +308,8 @@ def test_wide_widths_raise(rng):
 
 @pytest.mark.parametrize("wl", range(19, 31))
 def test_wide_widths_count(rng, wl):
-    """fused_count_step at every partitioned width, one row (4 GiB at
-    2**30), against the JAX engine's buckets, compared sparsely."""
+    """fused_count_step at every width the JAX package partitions, one row
+    (4 GiB at 2**30), against the JAX engine's buckets, compared sparsely."""
     codes = rng.integers(0, 5, size=(6, 60), dtype=np.uint8)
     sk = cms.CountMinSketch.zeros(1, wl, CPU)
     fused_count_step(prepare_codes(torch.from_numpy(codes)), sk, 7)
@@ -324,8 +325,8 @@ def test_wide_widths_count(rng, wl):
 
 @pytest.mark.parametrize("wl", [20, 22])
 def test_partitioned_update_vs_jax_scatter(rng, wl):
-    """update and update_from_buckets at partitioned widths equal the JAX
-    package's scatter ingestion (its partitioned route in interpret mode is
+    """update and update_from_buckets at widths the JAX package partitions
+    equal its scatter ingestion (its partitioned route in interpret mode is
     far too slow at the planned chunk size)."""
     codes = rng.integers(0, 5, size=(6, 60), dtype=np.uint8)
     want = _jax_reference_rows(codes, K, H, wl)
@@ -340,6 +341,67 @@ def test_partitioned_update_vs_jax_scatter(rng, wl):
         [torch.where(valid, cms.buckets(h, wl), 1 << wl) for h in hashes],
         emitted_width_log2=wl)
     assert np.array_equal(sk2.to_numpy(), want)
+
+
+@pytest.mark.parametrize("wl", [19, 20])
+def test_wide_sketch_vs_jax(rng, wl):
+    """fused_count_step and update at the widths the JAX package partitions
+    (2**19 up): the port counts them directly, into the same sketch."""
+    codes = rng.integers(0, 5, size=(6, 60), dtype=np.uint8)
+    want = _jax_reference_rows(codes, K, H, wl)
+    sk = cms.CountMinSketch.zeros(H, wl, CPU)
+    fused_count_step(prepare_codes(torch.from_numpy(codes)), sk, K)
+    assert np.array_equal(sk.to_numpy(), want)
+    res = hash_kmers(torch.from_numpy(codes), K, H)
+    sk2 = cms.update(cms.CountMinSketch.zeros(H, wl, CPU), res.hashes,
+                     res.valid, wl)
+    assert np.array_equal(sk2.to_numpy(), want)
+
+
+def test_sketch_routes_by_width(monkeypatch):
+    """Both entry points count through the row histogram at every width:
+    no partitioned route on the sketch's path."""
+    seen = []
+
+    def record(idx, weight, wl, **kw):
+        seen.append((tuple(idx.shape), weight is not None, wl))
+
+    monkeypatch.setattr(cms, "histogram_rows", record)
+    hashes = torch.zeros((5, 2), dtype=torch.int64)
+    valid = torch.ones(5, dtype=torch.bool)
+    buckets = list(torch.zeros((2, 3, 4), dtype=torch.int32).unbind(0))
+    widths = (10, 14, 18, 19, 20, 30)
+    for wl in widths:  # stand-in rows: only the shape counts
+        rows = torch.zeros(1, dtype=torch.int32).expand(2, 1 << wl)
+        cms.update(cms.CountMinSketch(rows), hashes, valid, wl)
+        cms.update_from_buckets(cms.CountMinSketch(rows), buckets,
+                                emitted_width_log2=wl)
+    assert seen == [x for wl in widths
+                    for x in (((2, 5), True, wl), ((2, 12), False, wl))]
+
+
+def test_update_from_buckets_one_launch_over_views(monkeypatch):
+    """The hash kernel's rows (views of one output) take one histogram
+    launch through a view of it; separate tensors one launch each."""
+    seen = []
+    real = cms.histogram_rows
+
+    def record(idx, weight, wl, **kw):
+        seen.append((tuple(idx.shape), idx.data_ptr()))
+        return real(idx, weight, wl, **kw)
+
+    monkeypatch.setattr(cms, "histogram_rows", record)
+    out = torch.randint(0, (1 << WL) + 1, (H, 5, 7), dtype=torch.int32)
+    sk = cms.update_from_buckets(cms.CountMinSketch.zeros(H, WL, CPU),
+                                 list(out.unbind(0)))
+    assert seen == [((H, 35), out.data_ptr())]
+    sk2 = cms.update_from_buckets(cms.CountMinSketch.zeros(H, WL, CPU),
+                                  [b.clone() for b in out.unbind(0)])
+    assert [shape for shape, _ in seen[1:]] == [(1, 35)] * H
+    assert torch.equal(sk.rows, sk2.rows)
+    for r in range(H):
+        assert torch.equal(sk.rows[r], histogram_rows_plain(
+            out[r].reshape(1, -1), None, WL)[0])
 
 
 def test_count_file_2_20_vs_jax_run_file(fastq):
