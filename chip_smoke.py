@@ -7,7 +7,9 @@ imports nothing of JAX. Phases, each printing its own lines:
 
 1. environment: card name and power limit, torch / CUDA / nvcc versions;
 2. build the five CUDA sources from ``nthash_tpu_torch/csrc`` (one nvcc
-   each, all at once) and print each kernel's registers and spills;
+   each, all at once) and print each kernel instance's registers and
+   spills (template arguments demangled); no ``seed_hash`` instance may
+   spill;
 3. golden ntHash2 vectors through the rolling-hash kernel;
 4. each kernel against its plain PyTorch version on the card, exact (the
    hash kernel also on one full main-path batch of 2**18 reads);
@@ -40,14 +42,18 @@ imports nothing of JAX. Phases, each printing its own lines:
 11. the long-read kernel B2 (``hash_kmers_tm_long``) and the spaced-seed
    kernels B1 (``hash_seeds_tm``) and B3 (``hash_seeds_tm_long``) against
    their plain versions at edge shapes (L = k, a time tile >= W or not
-   dividing W, R = 1, R not a multiple of 32, k = 1, one-care-position
-   seeds, fwd/rev and bucket modes), and A1 against B2 there;
+   dividing W, R = 1, R not a multiple of 32, k = 1 to 64, one-care-position
+   seeds, one to four seeds, 41 care runs, a 3,002-base seed, fwd/rev and
+   bucket modes), the staged seed kernel as the wrappers pick it and the
+   global one forced, and A1 against B2 there;
 12. the SEED18 golden vectors through B1 and B3 and the BASELINE seeds'
    goldens through ``hash_seeds_batch``;
 13. spaced seeds at the BASELINE configuration (seeds 10101 and 11011, 3
-   hashes each): ``hash_seeds_batch`` over the 1M reads (B1) against the
-   plain version in 65,536-read chunks and the direct engine, and
-   ``hash_seeds_tm_long`` at [10000, 16384] (B3); launches and timings;
+   hashes each): ``hash_seeds_batch`` over the 1M reads (B1, the staged
+   kernel) against the plain version in 65,536-read chunks and the direct
+   engine, and ``hash_seeds_tm_long`` at [10000, 16384] (B3); launches;
+   timings, the staged kernel beside the global one (the old design) in
+   turns;
 14. long reads: ``count_file`` at ``PipelineConfig()`` over 16,384 reads x
    10,000 bp in batches of 4,096 (through B2) against the plain
    hash->count on every batch, launches per kernel (no partition kernel), reads/s, bases/s and
@@ -56,9 +62,14 @@ imports nothing of JAX. Phases, each printing its own lines:
 15. the A1/B2 crossover grid (L in 150, 1,000, 10,000; R from 4,096 to
    2**20) that sets ``kmer_kernel.long_read_threshold``;
 16. one long sequence on one device: ``sp.hash_long_sequence`` over 2**27
-   bases (A1) and ``sp.hash_long_sequence_seeds`` over 2**25 (B1) against
-   the plain route and a whole-sequence roll at pseudo-read boundaries,
-   and at a prime length for the padded tail; timings;
+   bases and ``sp.hash_long_sequence_seeds`` over 2**25, each one launch of
+   its one-pass entry (kmer_hash.cu's, seed_hash.cu's) and no read kernel,
+   against its plain version, the old pseudo-read route (rebuilt here from
+   ``pseudo_reads``, ``prepare_codes``, the read kernel and the transpose)
+   and a whole-sequence roll at segment boundaries, and at a prime length,
+   padded and not, for the tail; each timed beside the old route and the
+   segmented read kernel over the sequence as one read [C, 1], with its
+   bound and windows/s;
 17. the Bloom kernels C1 (``bloom_words``) and C2 (``bloom_words_rows``)
    against their plain versions at edge shapes (widths 2**12, 2**13, 2**18,
    2**26 and, for C1, 2**31; R = 1, 3, 5; weights, gate, ``out``; at 2**26
@@ -229,21 +240,40 @@ GRID_STRIDE_N = 5 * (1 << 20) + 3
 
 def phase_build() -> None:
     t0 = time.perf_counter()
+    for name in SOURCES:  # build anew, so ptxas reports every instance
+        (cuda_build.BUILD_DIR / f"lib{name}.so").unlink(missing_ok=True)
     with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source
         list(pool.map(cuda_build.build, SOURCES))
     for name in SOURCES:
         cuda_build.load(name)
     print(f"[build] {len(SOURCES)} sources built and loaded in "
           f"{time.perf_counter() - t0:.3f} s")
+    spills = []
     for name in SOURCES:
         kernel = "?"
         for ln in cuda_build.BUILD_LOGS.get(name, "").splitlines():
-            m = re.search(r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?E", ln)
-            if m:
-                kernel = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            instance = kernel_instance(ln)
+            if instance:
+                kernel = instance
             elif "spill" in ln or "registers" in ln:
                 print(f"[build] {name} {kernel}: "
                       f"{ln.replace('ptxas info    :', '').strip()}")
+                if name == "seed_hash" and re.search(r"[1-9]\d* bytes spill", ln):
+                    spills.append(kernel)
+    require(all(cuda_build.BUILD_LOGS.get(name) for name in SOURCES),
+            "a source was not built in this run: no ptxas report")
+    require(not spills, f"seed_hash instances spill: {spills}")
+
+
+def kernel_instance(line: str) -> str | None:
+    """The kernel a ptxas line names, with its template arguments (ints and
+    bools) demangled: ``seed_staged_kernel<true>``, ``sort_span_kernel<4>``."""
+    m = re.search(r"([a-z][a-z_]*_kernel)(?:I((?:L[a-z]+\d+E)+)E)?E", line)
+    if not m:
+        return None
+    args = [("true" if v == "1" else "false") if t == "b" else v
+            for t, v in re.findall(r"L([a-z]+?)(\d+)E", m.group(2) or "")]
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
 def phase_golden(dev) -> None:
@@ -933,6 +963,8 @@ CROSSOVER = ((150, 4096), (150, 1 << 18),
                              1 << 18)),
              (1000, 1 << 20))
 SLICE3_KERNELS = ("kmer_hash_long", "seed_hash", "seed_hash_long")
+MANY_RUNS = "10" * 40 + "1"             # 41 care runs of one base, k = 81
+LONG_SEED = "1" + "0" * 3000 + "1"      # two runs, a ring of 4,096 rows
 
 # SeedNtHash(SEQ_N, SEEDS18, 2, 18) windows 0..3 (pos, s0h0, s0h1, s1h0,
 # s1h1), captured from a build of the reference library
@@ -997,11 +1029,13 @@ def phase_edges(gen, dev) -> dict:
             require(all(torch.equal(x, y) for x, y in zip(
                 long, hash_kmers_tm(tm, k, 3, **kw))), f"A1 != B2 {what}")
     for seeds in (SEEDS, ("1",), ("00100",), ("0110", "1001", "1111"),
-                  SEEDS18):
+                  SEEDS18, ("11", "01", "10", "11"), ("1" * 64,),
+                  (MANY_RUNS,), ("1" * 33, "1" + "0" * 31 + "1")):
         k = len(seeds[0])
         for b, length, tile in ((33, k, None), (1, 3 * k + 7, k),
-                                (70, 150, 2 * k), (5, 41 + k, 3 * k),
+                                (70, 150 + k, 2 * k), (5, 41 + k, 3 * k),
                                 (129, 300, 1000 * k)):
+            length = max(length, k)
             tm = rand_tm(gen, length, b, dev)
             for kw in modes:
                 what = f"{seeds} {b} reads x {length} bp, tile {tile}, {kw}"
@@ -1013,11 +1047,30 @@ def phase_edges(gen, dev) -> dict:
                              sk.hash_seeds_tm_long(tm, seeds, 2,
                                                    time_tile=tile, **kw),
                              want, f"B3 {what}")
+                seg = min(sk.resolve_time_tile(k, tile), length - k + 1)
+                same_outputs(errs, "seed_hash_long", old_seed_kernel(
+                    tm, seeds, 2, seg, **kw), want, f"B3, global {what}")
+    k = len(LONG_SEED)
+    tm = rand_tm(gen, k + 300, 40, dev)
+    want = sk.hash_seeds_tm_plain(tm, (LONG_SEED,), 1)
+    same_outputs(errs, "seed_hash_long",
+                 sk.hash_seeds_tm_long(tm, (LONG_SEED,), 1, time_tile=k),
+                 want, "B3, a seed of 3,002 bases (one warp a block)")
     print("[check] B2, B1, B3 == plain at the edge shapes (L = k, tile >= W, "
           "tile not dividing W, R = 1, R = 33, k = 1, one-care seeds '1' and "
-          "'00100', three seeds, SEEDS18) in hashes, fwd/rev and bucket "
-          "modes; A1 == B2 there")
+          "'00100', three and four seeds, SEEDS18, k = 33 and 64, 41 care "
+          "runs, a 3,002-base seed) in hashes, fwd/rev and bucket modes; the "
+          "global seed kernel forced there too; A1 == B2 there; seed routes "
+          f"launched {dict(sk.ROUTE_LAUNCHES)}")
     return errs
+
+
+def old_seed_kernel(tm, seeds, h, seg, **kw):
+    """The global seed kernel (one thread per read, seed and segment), forced:
+    the design the staged kernel replaced on every default shape."""
+    return sk._launch(tm, tuple(seeds), len(seeds[0]), h,
+                      kw.get("emit_fwd_rev", False), kw.get("emit_buckets"),
+                      seg, "global")
 
 
 def phase_seed_goldens(dev) -> None:
@@ -1051,12 +1104,17 @@ def phase_seeds(codes: np.ndarray, gen, dev, card: str) -> tuple[dict, dict]:
     errs = dict.fromkeys(SLICE3_KERNELS, 0.0)
     x = torch.from_numpy(codes).to(dev)
     sk.LAUNCHES = sk.LONG_LAUNCHES = 0
+    sk.ROUTE_LAUNCHES.update({"staged": 0, "global": 0})
     t0 = time.perf_counter()
     hashes, valid = sk.hash_seeds_batch(x, SEEDS, SEED_H)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {"seed_hash": sk.LAUNCHES}
     require(launches["seed_hash"] > 0, "hash_seeds_batch never launched B1")
+    require(sk.ROUTE_LAUNCHES["staged"] == launches["seed_hash"]
+            and sk.ROUTE_LAUNCHES["global"] == 0,
+            f"the BASELINE seeds must take the staged kernel: "
+            f"{sk.ROUTE_LAUNCHES}")
     nout = len(SEEDS) * SEED_H
     require(tuple(hashes.shape) == (N_READS, L - 4, nout),
             f"hash_seeds_batch shape {tuple(hashes.shape)}")
@@ -1082,12 +1140,17 @@ def phase_seeds(codes: np.ndarray, gen, dev, card: str) -> tuple[dict, dict]:
     tm = prepare_codes(x)
     del x
     times = {}
+    t = in_turns({"staged": lambda c: sk.hash_seeds_tm(c, SEEDS, SEED_H),
+                  "global": lambda c: old_seed_kernel(c, SEEDS, SEED_H,
+                                                      L - 4)}, tm, rounds=4)
     times["seed_hash"] = (
-        timeit(lambda c: sk.hash_seeds_tm(c, SEEDS, SEED_H), tm)
-        .seconds_per_call,
+        t["staged"],
         timeit(lambda c: sk.hash_seeds_tm_plain(c, SEEDS, SEED_H), tm,
                calls=3).seconds_per_call,
         4 * L * N_READS + 8 * (L - 4) * N_READS * nout)
+    print(f"[time] seed_hash {N_READS} x {L} bp, BASELINE, h={SEED_H}, in "
+          f"turns over 4 rounds: staged {t['staged'] * 1e3:.4f} ms, global "
+          f"(the old design) {t['global'] * 1e3:.4f} ms {tag}")
     del tm
     torch.cuda.empty_cache()
 
@@ -1101,12 +1164,18 @@ def phase_seeds(codes: np.ndarray, gen, dev, card: str) -> tuple[dict, dict]:
                  f"B3 [{LONG_L}, {LONG_READS}]")
     del got
     torch.cuda.empty_cache()
+    seg = kmer_kernel.pick_time_tile(len(SEEDS[0]))
+    t = in_turns({"staged": lambda c: sk.hash_seeds_tm_long(c, SEEDS, 1),
+                  "global": lambda c: old_seed_kernel(c, SEEDS, 1, seg)},
+                 tm, rounds=4)
     times["seed_hash_long"] = (
-        timeit(lambda c: sk.hash_seeds_tm_long(c, SEEDS, 1), tm)
-        .seconds_per_call,
+        t["staged"],
         timeit(lambda c: sk.hash_seeds_tm_long_plain(c, SEEDS, 1), tm,
                calls=3).seconds_per_call,
         4 * LONG_L * LONG_READS + 8 * w * LONG_READS * len(SEEDS))
+    print(f"[time] seed_hash_long [{LONG_L}, {LONG_READS}], BASELINE, h=1, "
+          f"in turns over 4 rounds: staged {t['staged'] * 1e3:.4f} ms, "
+          f"global (the old design) {t['global'] * 1e3:.4f} ms {tag}")
     del tm
     torch.cuda.empty_cache()
     print(f"[seeds] hash_seeds_tm_long [{LONG_L}, {LONG_READS}], h=1 per "
@@ -1249,15 +1318,43 @@ def phase_crossover(gen, dev, card: str) -> None:
         torch.cuda.empty_cache()
 
 
-def phase_sp(rng, dev, card: str) -> dict:
-    """Path 3: one 2**27-base sequence through pseudo-reads into A1, one
-    2**25-base one into B1, each against the plain route (the batch-major
-    engines) everywhere and against a whole-sequence plain roll at the
-    pseudo-read boundaries; a prime length for the padded tail."""
+def old_sequence_route(seq: torch.Tensor, k: int, h: int, seeds=None):
+    """The pseudo-read route of PRs 3-6, rebuilt: the sequence padded by
+    k - 1 invalid codes, cut into overlapping rows (``sp.pseudo_reads``),
+    cast and transposed (``prepare_codes``), hashed by the read kernel (A1,
+    or the seed kernel), its [t, rows] planes transposed back, and
+    ``window_valid`` over an int32 copy of the rows."""
+    t = sp.pick_tile(seq.shape[0], k, None if seeds is None else 128)
+    pseudo = sp.pseudo_reads(
+        torch.nn.functional.pad(seq, (0, k - 1), value=4), k, t)
+    tm = prepare_codes(pseudo)
+    planes = (hash_kmers_tm(tm, k, h) if seeds is None
+              else sk.hash_seeds_tm(tm, seeds, h))
+    return ([p.T.reshape(-1) for p in planes],
+            kmer_torch.window_valid(pseudo.to(torch.int32), k).reshape(-1))
+
+
+def reset_sequence_launches() -> None:
+    kmer_kernel.LAUNCHES = kmer_kernel.LONG_LAUNCHES = 0
+    kmer_kernel.SEQUENCE_LAUNCHES = 0
+    sk.LAUNCHES = sk.LONG_LAUNCHES = sk.SEQUENCE_LAUNCHES = 0
+
+
+def phase_sp(rng, dev, card: str) -> tuple[dict, dict, dict]:
+    """Path 3: one 2**27-base sequence through ``sp.hash_long_sequence``
+    (the one-pass entry of kmer_hash.cu), one 2**25-base one through
+    ``sp.hash_long_sequence_seeds`` (seed_hash.cu's), each one launch and no
+    read kernel, against its plain version (the pseudo-read route on the
+    batch-major engines) everywhere, the old pseudo-read route on the
+    kernels, and a whole-sequence plain roll at segment boundaries; a prime
+    length for the padded tail. Timed beside the old route and the
+    segmented read kernel over the sequence as one read [C, 1]."""
     tag = f"[{card}]"
-    launches = {}
-    for label, n, seeds in (("hash_long_sequence", SP_LEN, None),
-                            ("hash_long_sequence_seeds", SP_SEED_LEN, SEEDS)):
+    launches, times = {}, {}
+    errs = {"kmer_sequence": 0.0, "seed_sequence": 0.0}
+    for name, label, n, seeds in (
+            ("kmer_sequence", "hash_long_sequence", SP_LEN, None),
+            ("seed_sequence", "hash_long_sequence_seeds", SP_SEED_LEN, SEEDS)):
         k = K if seeds is None else len(seeds[0])
         seq = torch.from_numpy(rng.integers(0, 4, size=n, dtype=np.uint8)).to(dev)
 
@@ -1266,17 +1363,25 @@ def phase_sp(rng, dev, card: str) -> dict:
                 return sp.hash_long_sequence(x, k, 1, engine=engine)
             return sp.hash_long_sequence_seeds(x, seeds, 1, engine=engine)
 
-        kmer_kernel.LAUNCHES = sk.LAUNCHES = 0
+        reset_sequence_launches()
         got, valid = run(sp.shard_sequence(seq, k=k))
-        launches[label] = kmer_kernel.LAUNCHES if seeds is None \
-            else sk.LAUNCHES
-        require(launches[label] == 1, f"{label} launches {launches[label]}")
+        launches[name] = (kmer_kernel.SEQUENCE_LAUNCHES if seeds is None
+                          else sk.SEQUENCE_LAUNCHES)
+        others = (kmer_kernel.LAUNCHES + kmer_kernel.LONG_LAUNCHES + sk.LAUNCHES
+                  + sk.LONG_LAUNCHES + kmer_kernel.SEQUENCE_LAUNCHES
+                  + sk.SEQUENCE_LAUNCHES - launches[name])
+        require(launches[name] == 1 and others == 0,
+                f"{label}: {launches[name]} launches of its entry, {others} "
+                "of other hash kernels")
         want, pvalid = run(seq, "torch")
-        torch.cuda.synchronize()
-        require(all(torch.equal(a, b) for a, b in zip(got, want))
-                and torch.equal(valid, pvalid), f"{label} != plain route")
-        t = sp.pick_tile(n, k, None if seeds is None else 128)
-        for start in (0, 5 * t - 64, n // 2 - 64, n - 128 - k + 1):
+        same_outputs(errs, name, got + [valid], want + [pvalid],
+                     f"{label} vs its plain version")
+        old, ovalid = old_sequence_route(seq, k, 1, seeds)
+        require(all(torch.equal(a, b) for a, b in zip(got, old))
+                and torch.equal(valid, ovalid), f"{label} != the old route")
+        del want, pvalid, old, ovalid
+        span = kmer_kernel.sequence_span(k)
+        for start in (0, 5 * span - 64, n // 2 - 64, n - 128 - k + 1):
             part = prepare_codes(seq[start:start + 128 + k - 1][None])
             direct = (hash_kmers_tm_plain(part, k, 1) if seeds is None
                       else sk.hash_seeds_tm_plain(part, seeds, 1))[0][:, 0]
@@ -1284,37 +1389,53 @@ def phase_sp(rng, dev, card: str) -> dict:
                     f"{label} != whole-sequence roll at {start}")
         require(bool(valid[:n - k + 1].all()) and not bool(valid[n - k + 1:].any()),
                 f"{label}: validity")
-        t_k = timeit(lambda x: run(x), seq, calls=3).seconds_per_call
-        t_p = timeit(lambda x: run(x, "torch"), seq, calls=3).seconds_per_call
-        print(f"[sp] {label} {n} bases, k={k}, h=1, pseudo-reads of {t} "
-              f"windows: == plain route, == a whole-sequence roll at windows "
-              f"0, {5 * t - 64}, {n // 2 - 64} and the tail; launches "
-              f"{launches[label]}; kernel route {t_k * 1e3:.4f} ms "
-              f"({(n - k + 1) / t_k:.6g} windows/s), plain route "
-              f"{t_p * 1e3:.4f} ms {tag}")
-        del seq, got, valid, want, pvalid
+        del got, valid
         torch.cuda.empty_cache()
-        # a prime length: the padded tail
+        one = seq.to(torch.int32)[:, None].contiguous()
+        long = ((lambda x: kmer_kernel.hash_kmers_tm_long(one, k, 1))
+                if seeds is None
+                else (lambda x: sk.hash_seeds_tm_long(one, seeds, 1)))
+        t = in_turns({"entry": run, "old route":
+                      lambda x: old_sequence_route(x, k, 1, seeds),
+                      "[C, 1]": long}, seq, rounds=2)
+        del one
+        t_p = timeit(lambda x: run(x, "torch"), seq, calls=3).seconds_per_call
+        nbytes = n + 8 * n * (1 if seeds is None else len(seeds)) + n
+        times[name] = (t["entry"], t_p, nbytes)
+        print(f"[sp] {label} {n} bases, k={k}, h=1, one pass: == plain, == "
+              f"the old pseudo-read route, == a whole-sequence roll at "
+              f"windows 0, {5 * span - 64}, {n // 2 - 64} and the tail; "
+              f"launches {launches[name]}")
+        print(f"[time] {label} {n} bases: entry {t['entry'] * 1e3:.4f} ms "
+              f"({(n - k + 1) / t['entry']:.6g} windows/s), old pseudo-read "
+              f"route {t['old route'] * 1e3:.4f} ms "
+              f"({(n - k + 1) / t['old route']:.6g} windows/s), "
+              f"{'B2' if seeds is None else 'B3'} over [C, 1] "
+              f"{t['[C, 1]'] * 1e3:.4f} ms, plain route {t_p * 1e3:.4f} ms, "
+              f"bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e9:.4f} GB) {tag}")
+        del seq
+        torch.cuda.empty_cache()
+        # a prime length: the padded tail, and the unpadded one
         m = SP_PRIME
-        seq = torch.from_numpy(rng.integers(0, 5, size=m, dtype=np.uint8)).to(dev)
-        padded = sp.shard_sequence(seq, k=k)
-        got, valid = run(padded)
-        want, pvalid = run(padded, "torch")
+        seq = torch.from_numpy(rng.integers(0, 8, size=m, dtype=np.uint8)).to(dev)
+        for x in (sp.shard_sequence(seq, k=k), seq):
+            got, valid = run(x)
+            want, pvalid = run(x, "torch")
+            same_outputs(errs, name, got + [valid], want + [pvalid],
+                         f"{label} at length {x.shape[0]}")
         tail = prepare_codes(seq[m - 300:][None])
         direct = (hash_kmers_tm_plain(tail, k, 1) if seeds is None
                   else sk.hash_seeds_tm_plain(tail, seeds, 1))[0][:, 0]
-        require(padded.shape[0] > m and all(torch.equal(a, b) for a, b in
-                                            zip(got, want))
-                and torch.equal(valid, pvalid)
-                and torch.equal(got[0][m - 300:m - k + 1], direct)
+        require(torch.equal(got[0][m - 300:m - k + 1], direct)
                 and not bool(valid[m - k + 1:].any()),
-                f"{label}: padded tail at length {m}")
-        print(f"[sp] {label} at prime length {m} (padded to "
-              f"{padded.shape[0]}): == plain route; the last windows == a "
-              "whole-sequence roll; every window past the end invalid")
-        del seq, padded, got, valid, want, pvalid
+                f"{label}: the tail at length {m}")
+        print(f"[sp] {label} at prime length {m}, codes 0-7, padded to "
+              f"{sp.shard_sequence(seq, k=k).shape[0]} and not: == plain; "
+              "the last windows == a whole-sequence roll; every window past "
+              "the end invalid")
+        del seq, got, valid, want, pvalid
         torch.cuda.empty_cache()
-    return launches
+    return errs, launches, times
 
 
 # ----------------------------------------------------- the Bloom filter ----
@@ -2200,7 +2321,8 @@ def main() -> None:
         long_errs, long_launches, t_long = run(
             "14 long reads", phase_long_count, rng, Path(tmp), dev, smi)
     run("15 crossover", phase_crossover, gen, dev, smi)
-    sp_launches = run("16 sequences", phase_sp, rng, dev, smi)
+    seq_errs, sp_launches, seq_times = run("16 sequences", phase_sp, rng, dev,
+                                           smi)
     bloom_errs = run("17 Bloom edge shapes", phase_bloom_edges, gen, dev)
     bloom_launches = run("18 Bloom path", phase_bloom_path, codes, dev,
                          bloom_errs)
@@ -2292,6 +2414,16 @@ def main() -> None:
             "ms": k_s * 1e3, "plain_ms": p_s * 1e3,
             "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
             "library_ms": None})
+    for name, replaces in (("kmer_sequence", "nthash_tpu/ops/kmer_pallas.py:72"),
+                           ("seed_sequence", "nthash_tpu/ops/seed_pallas.py:105")):
+        k_s, p_s, nbytes = seq_times[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"nthash_tpu_torch/csrc/{name.split('_')[0]}_hash.cu",
+            "replaces": replaces, "launches": sp_launches[name],
+            "max_abs_err": seq_errs[name], "ms": k_s * 1e3,
+            "plain_ms": p_s * 1e3, "bound_ms": bound_ms(nbytes),
+            "bound_by": "bytes", "library_ms": None})
     print(f"[sp] launches on the one-sequence path: {sp_launches}")
     require(all(k["launches"] > 0 for k in kernels),
             "a kernel of the kernels line never launched: "

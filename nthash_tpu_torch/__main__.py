@@ -27,13 +27,15 @@ def _cmd_count(args) -> int:
     where = f"on {pipe.device}"
     t0 = time.perf_counter()
     if args.fused:
-        reads = pipe.count_file(args.file, batch_size=args.batch_size)
+        reads = pipe.count_file(args.file, batch_size=args.batch_size,
+                                threads=args.threads)
         total = int(pipe.sketch.rows[0].sum(dtype=torch.int64))
         dt = time.perf_counter() - t0
         print(f"{reads} reads, {total} valid {args.k}-mers in {dt:.2f}s "
               f"({reads / max(dt, 1e-9):.3g} reads/s) {where}")
         return 0
-    total = pipe.run_file(args.file, batch_size=args.batch_size)
+    total = pipe.run_file(args.file, batch_size=args.batch_size,
+                          threads=args.threads)
     dt = time.perf_counter() - t0
     print(f"{total} valid {args.k}-mers in {dt:.2f}s "
           f"({total / max(dt, 1e-9):.3g} k-mers/s) {where}")
@@ -54,6 +56,8 @@ def main(argv=None) -> int:
     pc.add_argument("--batch-size", type=int, default=65536)
     pc.add_argument("--fused", action="store_true",
                     help="fused hash->count path (sketch only, fastest)")
+    pc.add_argument("--threads", type=int, default=1,
+                    help="byte-range shard parse threads (native parser)")
     pc.add_argument("--device", default="cuda",
                     help="torch device to count on (default: cuda)")
     pc.set_defaults(fn=_cmd_count)

@@ -1,4 +1,5 @@
-// Rolling ntHash2 over time-major reads: one thread per (read, segment).
+// Rolling ntHash2 over time-major reads: one thread per (read, segment);
+// and over one flat sequence (kmer_sequence_kernel, at the end).
 //
 // Replaces nthash_tpu/ops/kmer_pallas.py::_kernel (hash_kmers_tm, one segment
 // per read) and ::_kernel_long (hash_kmers_tm_long, segments of `seg`
@@ -52,6 +53,8 @@
 // (no bucket array at all) is left to a later change.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "roll.cuh"
 
@@ -110,6 +113,47 @@ kmer_hash_kernel(const int* __restrict__ codes, int L, long long R, int k,
   }
 }
 
+// The one-sequence entry (hash_sequence): nthash::roll_sequence of roll.cuh
+// with one seed of k care positions (one run, offsets 0 and k), which is the
+// recurrence above. It replaces, for one long sequence, the pseudo-reads of
+// parallel/sp.py (overlapping rows copied from the sequence, transposed to
+// int32, their [t, rows] output planes transposed back): lane l of a warp
+// rolls windows [(j0 + l) s, (j0 + l + 1) s) of the flat uint8 codes after
+// k - 1 warm-up bases, as B2's segments do, staged 32 bases at a time by
+// 16-byte loads into the warp's ring in shared memory (a lane's bases are s
+// bytes from its neighbour's, so one-byte loads from device memory would
+// each touch another line), and its outputs leave through shared memory,
+// 32 windows a lane at a time, as contiguous 256-byte stores. Its bytes
+// (the codes once, 8 * num_hashes + 1 bytes a window written) set its floor
+// on the H100; the roll's serial step and its shared loads keep it above
+// that (PERF.md section 6).
+__global__ void __launch_bounds__(256)
+kmer_sequence_kernel(const unsigned char* __restrict__ seq, long long C, int k,
+                     int span, int num_hashes,
+                     const unsigned long long* __restrict__ tables,
+                     const int* __restrict__ meta, int rmask, int vec,
+                     unsigned long long* __restrict__ out,
+                     bool* __restrict__ valid) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const ulonglong2* pairs;
+  const unsigned long long* mult;
+  const int2* offs;
+  const int* starts;
+  unsigned char* warps = nthash::load_tables(sm, 1, 1, num_hashes, tables,
+                                             meta, &pairs, &mult, &offs,
+                                             &starts);
+  __syncthreads();
+  const long long j0 =
+      (static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5)) * 32;
+  if (j0 * span >= C) return;  // whole warps only
+  unsigned char* ring = warps + (threadIdx.x >> 5) * nthash::sequence_warp_bytes(rmask + 1);
+  unsigned long long* stage =
+      reinterpret_cast<unsigned long long*>(ring + (rmask + 1) * 32);
+  nthash::roll_sequence(seq, C, k, span, 1, starts, offs, pairs, num_hashes,
+                        mult, ring, rmask, stage, j0, threadIdx.x & 31,
+                        vec != 0, out, valid);
+}
+
 }  // namespace
 
 extern "C" {
@@ -145,6 +189,40 @@ int nthash_kmer_hash(int device, const int* codes, int L, long long R, int k,
     kmer_hash_kernel<false, false><<<grid, kThreads, smem, stream>>>(
         codes, L, R, k, seg, nseg, num_hashes, emit_fwd_rev, 0, tables, out);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// seq: [C] uint8 codes device (values above 4 read as 4); out: [num_hashes,
+// C] uint64; valid: [C] bool; span: windows a thread (a multiple of 32);
+// warps: a block (1-8); ring: rows of a warp's ring (a power of two >= k +
+// 32); tables: the 25 (fwd, rev) pairs (fwd_in[c_in] ^ fwd_out[c_out],
+// rev_in[c_in] ^ rev_out_r[c_out] at 5 c_in + c_out), then the
+// num_hashes - 1 nte64 multipliers, as uint64; meta: {0, k, 0, 1} (the run's
+// offsets, the seed's runs), int32.
+int nthash_kmer_sequence(int device, const unsigned char* seq, long long C,
+                         int k, int span, int num_hashes,
+                         const unsigned long long* tables, const int* meta,
+                         int warps, int ring, unsigned long long* out,
+                         bool* valid, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (span < 32 || span % 32 || warps < 1 || warps > 8 ||
+      ring < k + nthash::kRows || (ring & (ring - 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long threads = (C + span - 1) / span;
+  const long long blocks = ((threads + 31) / 32 + warps - 1) / warps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = nthash::sequence_tables_bytes(1, 1, num_hashes) +
+                      warps * nthash::sequence_warp_bytes(ring);
+  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(kmer_sequence_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = reinterpret_cast<uintptr_t>(seq) % 16 == 0;
+  kmer_sequence_kernel<<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
+      seq, C, k, span, num_hashes, tables, meta, ring - 1, vec, out, valid);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,13 +1,12 @@
-// Rolling spaced-seed ntHash2 ("ntmsm64") over time-major reads: one thread
-// per (read, seed, segment).
+// Rolling spaced-seed ntHash2 ("ntmsm64") over time-major reads, and over one
+// flat sequence.
 //
 // Replaces nthash_tpu/ops/seed_pallas.py::_kernel (hash_seeds_tm, one
 // segment per read) and ::_kernel_long (hash_seeds_tm_long, segments of `seg`
 // windows), and computes what they compute. For codes [L, R] int32 (0-3 =
 // ACGT, 4 = invalid; larger values count as 4) and S seed patterns of one
-// length k, each thread rolls one seed's forward and reverse hash over its
-// segment of one read and, for every window w = t - k + 1, writes
-//   hashes mode: that seed's canonical hash (fwd + rev) and its
+// length k, every window w = t - k + 1 of every read gets
+//   hashes mode: each seed's canonical hash (fwd + rev) and its
 //                num_hashes - 1 nte64 extensions (multiplier for k = the
 //                pattern length), then fwd and rev if emit_fwd_rev, into the
 //                uint64 planes [S * per_seed, W, R] in the reference's
@@ -26,30 +25,43 @@
 // the host (seed_kernel.seed_taps; srol^(s-1) at s = 0 is srol^1022 in the
 // order-1,023 split-rotation group). An invalid code selects the zero seed.
 //
-// Segments, as in kmer_hash.cu: thread (r, s, j) starts at base j*seg with
-// zero state and applies a tap only once it is off_in (or off_out) bases
-// into its segment. A base p >= j*seg then enters and leaves every run it
-// passes through, and no earlier base does anything, so each window the
-// thread writes (w >= j*seg) is exact. The TPU kernel's sequential time tiles
-// with a k-deep history ring have no counterpart: CUDA blocks run in no
-// order. seg >= W is one segment per read (B1); B3 cuts long reads so that a
-// few of them still fill the card.
+// Segments, as in kmer_hash.cu: the thread of read r and segment j starts at
+// base j*seg with zero state; every base before it reads as code 4, so a
+// base p >= j*seg enters and leaves every run it passes through and no
+// earlier base does anything: each window the thread writes (w >= j*seg) is
+// exact. The TPU kernel's sequential time tiles with a k-deep history ring
+// have no counterpart: CUDA blocks run in no order. seg >= W is one segment
+// per read (B1); B3 cuts long reads so that a few of them still fill the
+// card.
 //
-// What bounds it on the H100: output bytes (7.0 GB for the BASELINE seeds
-// {10101, 11011}, 3 hashes each, over 1M reads of 150 bp, against 0.6 GB of
-// codes). The design keeps the state (two uint64 and the invalid count) in
-// registers and makes the traffic coalesced: the read index runs fastest
-// across threads, so a warp reads 128 contiguous bytes of codes per tap and
-// writes 256 (hashes) or 128 (buckets) contiguous bytes per plane. The taps
-// read codes[(t - off) * R + r] for off in [0, k]: lines loaded at most k
-// steps earlier, so they hit L1/L2. All runs of all seeds are flattened into
-// shared memory (off_in, off_out and four 5-entry uint64 tables per run,
-// the per-seed run offsets and the nte64 multipliers), so S and the run
-// counts are runtime values. The grid is 1-D with 64-bit thread indices and
-// every offset is 64-bit (the BASELINE planes pass 2^31 elements at ~2.5M
-// reads per call).
+// The staged kernel (seed_staged_kernel), the rule. What bounds it on the
+// H100 is output bytes (7.0 GB for the BASELINE seeds {10101, 11011}, 3
+// hashes each, over 1M reads of 150 bp, against 0.6 GB of codes) once the
+// roll costs few instructions and shared loads a window. A warp takes 32
+// reads (one a lane: its writes are 256 contiguous bytes a plane) and one
+// segment, and rolls every seed: 32 rows of codes at a time are staged by
+// 16-byte loads into the warp's ring of uint8 rows in shared memory (roll.cuh)
+// and rolled seed by seed, each seed's (fwd, rev) kept in shared memory
+// between the row batches. So the codes are read from device memory once for
+// all seeds, a tap is a one-byte shared load at a 32-bit offset, and a care
+// run is one 16-byte pair-table lookup per step; the warm-up reads code 4, so
+// no tap carries a guard. Its shared memory (pair tables, ring, seed states)
+// is sized on the host (seed_kernel.seed_grid), which picks the warps a block.
+//
+// The global kernel (seed_hash_kernel), for seeds whose pair tables and ring
+// do not fit a block: one thread per (read, seed, segment), the codes read
+// from device memory per tap (lines loaded at most k steps earlier, so they
+// hit L1/L2), every care run's four 5-entry tables in shared memory.
+//
+// The one-sequence entry (seed_sequence_kernel): nthash::roll_sequence of
+// roll.cuh over a flat uint8 sequence, every window in one pass (see there).
+//
+// The grids are 1-D with 64-bit indices and every offset is 64-bit (the
+// BASELINE planes pass 2^31 elements at ~2.5M reads per call).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "roll.cuh"
 
@@ -60,6 +72,7 @@ using nthash::srol1;
 using nthash::sror1;
 
 constexpr int kThreads = 256;
+constexpr int kGlobalMinBlocks = 6;  // seed_hash_kernel's resident blocks
 constexpr int kTabPerRun = 20;   // fwd_in, fwd_out, rev_in, rev_out: 5 each
 constexpr size_t kMaxSmem = 232448;  // 227 KB: the most a block may opt into
 
@@ -67,8 +80,10 @@ constexpr size_t kMaxSmem = 232448;  // 227 KB: the most a block may opt into
 // then the num_hashes - 1 nte64 multipliers.
 // meta: per run q, off_in at 2q and off_out at 2q + 1; then the S + 1 run
 // offsets (seed s owns runs [meta[2*nruns + s], meta[2*nruns + s + 1])).
+// Six blocks a multiprocessor (40 registers): left to itself ptxas gives
+// the hashes instance 32 and spills; seed_kernel_probe.py times the bounds.
 template <bool kBuckets>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kGlobalMinBlocks)
 seed_hash_kernel(const int* __restrict__ codes, int L, long long R, int k,
                  int nseeds, int nruns, int seg, long long nseg,
                  int num_hashes, int emit_fwd_rev, int bucket_bits,
@@ -129,11 +144,112 @@ seed_hash_kernel(const int* __restrict__ codes, int L, long long R, int k,
   }
 }
 
+// Layout of the staged kernel's shared memory: the tables (as in
+// nthash::load_tables), then per warp the seeds' states [nseeds][32] and the
+// ring [ring_rows][32].
 template <bool kBuckets>
-cudaError_t launch(const int* codes, int L, long long R, int k, int nseeds,
-                   int nruns, int seg, int num_hashes, int emit_fwd_rev,
-                   int bucket_bits, const unsigned long long* tables,
-                   const int* meta, void* out, cudaStream_t stream) {
+__global__ void __launch_bounds__(256)
+seed_staged_kernel(const int* __restrict__ codes, int L, long long R, int k,
+                   int nseeds, int nruns, int seg, long long nseg,
+                   int num_hashes, int emit_fwd_rev, int bucket_bits,
+                   const unsigned long long* __restrict__ tables,
+                   const int* __restrict__ meta, int rmask, int vec,
+                   void* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const ulonglong2* pairs;
+  const unsigned long long* mult;
+  const int2* offs;
+  const int* starts;
+  unsigned char* warps = nthash::load_tables(sm, nseeds, nruns, num_hashes,
+                                             tables, meta, &pairs, &mult,
+                                             &offs, &starts);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const size_t warp_bytes = static_cast<size_t>(nseeds) * 32 * 16 +
+                            static_cast<size_t>(rmask + 1) * 32;
+  ulonglong2* state = reinterpret_cast<ulonglong2*>(
+      warps + (threadIdx.x >> 5) * warp_bytes);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(state + nseeds * 32);
+  const long long groups = (R + 31) / 32;
+  const long long gw = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) +
+                       (threadIdx.x >> 5);
+  if (gw >= groups * nseg) return;  // whole warps only
+  const long long r0 = gw % groups * 32, r = r0 + lane;
+  const int t0 = static_cast<int>(gw / groups) * seg;  // segment's first base
+  const int W = L - k + 1;
+  const int t_hi = min(t0 + seg, W) + k - 1;  // bases past it are never read
+  const int nsteps = t_hi - t0;
+  const size_t plane = static_cast<size_t>(W) * R;
+  const int per_seed = num_hashes + (!kBuckets && emit_fwd_rev ? 2 : 0);
+
+  nthash::ring_prefill(ring, k, rmask, lane);
+  for (int s = 0; s < nseeds; ++s) state[s * 32 + lane] = make_ulonglong2(0, 0);
+  int inv = k;
+  for (int c0 = 0; c0 < nsteps; c0 += nthash::kRows) {
+    __syncwarp();
+    nthash::stage_tm(ring, rmask, codes, R, r0, t0, t_hi, c0, lane, vec);
+    __syncwarp();
+    const int n = min(nthash::kRows, nsteps - c0);
+    unsigned vbits = 0;
+    if (kBuckets) {
+      for (int i = 0; i < n; ++i) {
+        nthash::roll_invalid(ring, rmask, lane, c0 + i, k, inv);
+        vbits |= static_cast<unsigned>(inv == 0) << i;
+      }
+    }
+    for (int s = 0; s < nseeds; ++s) {
+      const ulonglong2 st = state[s * 32 + lane];
+      unsigned long long fwd = st.x, rev = st.y;
+      const int q0 = starts[s], q1 = starts[s + 1];
+      const size_t first = static_cast<size_t>(s) * per_seed * plane;
+      for (int i = 0; i < n; ++i) {
+        const int dt = c0 + i;
+        nthash::roll_step(ring, rmask, lane, dt, offs, pairs, q0, q1, fwd, rev);
+        if (dt < k - 1 || r >= R) continue;
+        nthash::write_window<kBuckets>(
+            out, first + static_cast<size_t>(t0 + dt - k + 1) * R + r, plane,
+            fwd, rev, (vbits >> i) & 1, num_hashes, emit_fwd_rev, bucket_bits,
+            mult);
+      }
+      state[s * 32 + lane] = make_ulonglong2(fwd, rev);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(256)
+seed_sequence_kernel(const unsigned char* __restrict__ seq, long long C, int k,
+                     int span, int nseeds, int nruns, int num_hashes,
+                     const unsigned long long* __restrict__ tables,
+                     const int* __restrict__ meta, int rmask, int vec,
+                     unsigned long long* __restrict__ out,
+                     bool* __restrict__ valid) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const ulonglong2* pairs;
+  const unsigned long long* mult;
+  const int2* offs;
+  const int* starts;
+  unsigned char* warps = nthash::load_tables(sm, nseeds, nruns, num_hashes,
+                                             tables, meta, &pairs, &mult,
+                                             &offs, &starts);
+  __syncthreads();
+  const long long j0 =
+      (static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5)) * 32;
+  if (j0 * span >= C) return;  // whole warps only
+  unsigned char* ring = warps + (threadIdx.x >> 5) * nthash::sequence_warp_bytes(rmask + 1);
+  unsigned long long* stage =
+      reinterpret_cast<unsigned long long*>(ring + (rmask + 1) * 32);
+  nthash::roll_sequence(seq, C, k, span, nseeds, starts, offs, pairs,
+                        num_hashes, mult, ring, rmask, stage, j0,
+                        threadIdx.x & 31, vec != 0, out, valid);
+}
+
+template <bool kBuckets>
+cudaError_t launch_global(const int* codes, int L, long long R, int k,
+                          int nseeds, int nruns, int seg, int num_hashes,
+                          int emit_fwd_rev, int bucket_bits,
+                          const unsigned long long* tables, const int* meta,
+                          void* out, cudaStream_t stream) {
   const long long nseg = (static_cast<long long>(L - k + 1) + seg - 1) / seg;
   const long long blocks = (nseg * nseeds * R + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
@@ -153,35 +269,111 @@ cudaError_t launch(const int* codes, int L, long long R, int k, int nseeds,
   return cudaGetLastError();
 }
 
+template <bool kBuckets>
+cudaError_t launch_staged(const int* codes, int L, long long R, int k,
+                          int nseeds, int nruns, int seg, int num_hashes,
+                          int emit_fwd_rev, int bucket_bits,
+                          const unsigned long long* tables, const int* meta,
+                          int warps, int ring, void* out, cudaStream_t stream) {
+  const long long nseg = (static_cast<long long>(L - k + 1) + seg - 1) / seg;
+  const long long blocks = ((R + 31) / 32 * nseg + warps - 1) / warps;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const size_t smem =
+      nthash::sequence_tables_bytes(nseeds, nruns, num_hashes) +
+      static_cast<size_t>(warps) * (static_cast<size_t>(nseeds) * 32 * 16 +
+                                    static_cast<size_t>(ring) * 32);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      seed_staged_kernel<kBuckets>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int vec = R % 4 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
+  seed_staged_kernel<kBuckets><<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
+      codes, L, R, k, nseeds, nruns, seg, nseg, num_hashes, emit_fwd_rev,
+      bucket_bits, tables, meta, ring - 1, vec, out);
+  return cudaGetLastError();
+}
+
+bool valid_ring(int ring, int k) {
+  return ring >= k + nthash::kRows && (ring & (ring - 1)) == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// codes: [L, R] int32 device; tables: 20 * nruns + num_hashes - 1 uint64
-// device; meta: 2 * nruns + nseeds + 1 int32 device (layout above);
-// out: [nseeds * per_seed, L - k + 1, R] uint64 (bucket_bits == 0; per_seed
-// = num_hashes + 2 * emit_fwd_rev) or [nseeds * num_hashes, L - k + 1, R]
-// int32 buckets; seg: windows per segment (>= 1; seg >= L - k + 1 is one
-// segment per read). Launches on `stream` of `device`; returns
-// cudaGetLastError().
+// codes: [L, R] int32 device; out: [nseeds * per_seed, L - k + 1, R] uint64
+// (bucket_bits == 0; per_seed = num_hashes + 2 * emit_fwd_rev) or
+// [nseeds * num_hashes, L - k + 1, R] int32 buckets; seg: windows per
+// segment (>= 1; seg >= L - k + 1 is one segment per read).
+// warps > 0: the staged kernel, `warps` a block, a ring of `ring` rows (a
+// power of two >= k + 32); tables: per run its 25 (fwd, rev) pairs, then the
+// num_hashes - 1 nte64 multipliers, as uint64.
+// warps == 0: the global kernel; tables: per run its four 5-entry tables,
+// then the multipliers.
+// meta: per run (off_in, off_out), then the nseeds + 1 run offsets, int32.
+// Launches on `stream` of `device`; returns cudaGetLastError().
 int nthash_seed_hash(int device, const int* codes, int L, long long R, int k,
                      int nseeds, int nruns, int seg, int num_hashes,
                      int emit_fwd_rev, int bucket_bits,
                      const unsigned long long* tables, const int* meta,
-                     void* out, cudaStream_t stream) {
+                     int warps, int ring, void* out, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (seg < 1 || nseeds < 1 || nruns < nseeds) {
+  if (seg < 1 || nseeds < 1 || nruns < nseeds || warps < 0 || warps > 8 ||
+      (warps > 0 && !valid_ring(ring, k))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (bucket_bits > 0) {
-    err = launch<true>(codes, L, R, k, nseeds, nruns, seg, num_hashes, 0,
-                       bucket_bits, tables, meta, out, stream);
+  const bool buckets = bucket_bits > 0;
+  if (warps > 0 && buckets) {
+    err = launch_staged<true>(codes, L, R, k, nseeds, nruns, seg, num_hashes,
+                              0, bucket_bits, tables, meta, warps, ring, out,
+                              stream);
+  } else if (warps > 0) {
+    err = launch_staged<false>(codes, L, R, k, nseeds, nruns, seg, num_hashes,
+                               emit_fwd_rev, 0, tables, meta, warps, ring, out,
+                               stream);
+  } else if (buckets) {
+    err = launch_global<true>(codes, L, R, k, nseeds, nruns, seg, num_hashes,
+                              0, bucket_bits, tables, meta, out, stream);
   } else {
-    err = launch<false>(codes, L, R, k, nseeds, nruns, seg, num_hashes,
-                        emit_fwd_rev, 0, tables, meta, out, stream);
+    err = launch_global<false>(codes, L, R, k, nseeds, nruns, seg, num_hashes,
+                               emit_fwd_rev, 0, tables, meta, out, stream);
   }
   return static_cast<int>(err);
+}
+
+// seq: [C] uint8 codes device (values above 4 read as 4); out: [nseeds *
+// num_hashes, C] uint64; valid: [C] bool; span: windows a thread (a multiple
+// of 32); warps a block and ring rows as for nthash_seed_hash; tables and
+// meta as for its staged kernel.
+int nthash_seed_sequence(int device, const unsigned char* seq, long long C,
+                         int k, int span, int nseeds, int nruns,
+                         int num_hashes, const unsigned long long* tables,
+                         const int* meta, int warps, int ring,
+                         unsigned long long* out, bool* valid,
+                         cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (span < 32 || span % 32 || nseeds < 1 || nruns < nseeds || warps < 1 ||
+      warps > 8 || !valid_ring(ring, k)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long threads = (C + span - 1) / span;
+  const long long blocks = ((threads + 31) / 32 + warps - 1) / warps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = nthash::sequence_tables_bytes(nseeds, nruns, num_hashes) +
+                      warps * nthash::sequence_warp_bytes(ring);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(seed_sequence_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = reinterpret_cast<uintptr_t>(seq) % 16 == 0;
+  seed_sequence_kernel<<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
+      seq, C, k, span, nseeds, nruns, num_hashes, tables, meta, ring - 1, vec,
+      out, valid);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* nthash_cuda_error_string(int code) {

@@ -164,11 +164,16 @@ class ReadHashingPipeline:
         from ..io.stream import Prefetcher, stream_code_batches
         from ..utils import checkpoint
 
+        with_ckpt = checkpoint_path is not None
+        if with_ckpt and threads > 1:
+            raise ValueError(
+                "checkpointing requires the deterministic serial parse "
+                "(threads=1); parallel shard order is nondeterministic"
+            )
         _serial_only(threads)
         cfg = self.config
         total = 0
         start_offset = 0
-        with_ckpt = checkpoint_path is not None
         src = Path(path)
         ctx = {
             "input": f"{src.name}:{src.stat().st_size}",

@@ -8,6 +8,8 @@ per read (A1, the Pallas ``_kernel``), :func:`hash_kmers_tm_long` with
 segments of ``time_tile`` windows, one thread each (B2, the Pallas
 ``_kernel_long``). The source note says what bounds the kernel on the H100
 and why segments replace the TPU's sequential time tiles.
+:func:`hash_sequence` hashes one flat sequence through the same file's
+one-sequence entry, in one pass (``parallel/sp.py``'s kernel route).
 
 Each wrapper launches the kernel for a CUDA tensor and runs its plain
 version (:func:`hash_kmers_tm_plain`, :func:`hash_kmers_tm_long_plain`) for
@@ -29,6 +31,7 @@ from .. import u64
 from ..constants import nte64_multiplier
 from . import cuda_build
 from .kmer_torch import (
+    hash_kmers,
     plane_tables,
     roll_tm,
     segment_codes,
@@ -41,6 +44,15 @@ from .kmer_torch import (
 LAUNCHES = 0
 #: Kernel launches made by :func:`hash_kmers_tm_long` (segmented).
 LONG_LAUNCHES = 0
+#: Kernel launches made by :func:`hash_sequence`.
+SEQUENCE_LAUNCHES = 0
+
+#: Shared memory one block may use on the H100 (227 KB).
+MAX_SHARED_BYTES = 232448
+#: Code rows a staged ring takes at a time (``roll.cuh``'s kRows).
+RING_ROWS_AHEAD = 32
+#: u64 a lane row of the one-sequence entries' output stage (kStagePitch).
+STAGE_PITCH = 33
 
 
 def prepare_codes(codes: torch.Tensor) -> torch.Tensor:
@@ -158,6 +170,14 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        seq = lib.nthash_kmer_sequence
+        seq.restype = ctypes.c_int
+        seq.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p,
         ]
     return lib
 
@@ -289,3 +309,166 @@ def hash_kmers_batch(codes: torch.Tensor, k: int, num_hashes: int = 1):
     res = hash_kmers_tm_auto(prepare_codes(codes), k, num_hashes)
     hashes = torch.stack([r.T for r in res], dim=-1)
     return hashes, window_valid(codes.to(torch.int32), k)
+
+
+# ------------------------------------------------- one flat sequence ----
+
+
+def ring_rows(k: int) -> int:
+    """Rows of a warp's code ring in the staged kernels (``roll.cuh``): the
+    smallest power of two that holds k rows behind the step and the 32
+    staged ahead."""
+    return 1 << (k + RING_ROWS_AHEAD - 1).bit_length()
+
+
+def tables_bytes(nseeds: int, nruns: int, num_hashes: int) -> int:
+    """Shared bytes of the staged kernels' tables (``roll.cuh``
+    ``sequence_tables_bytes``): 25 16-byte pairs and two offsets a care run,
+    the nte64 multipliers and the seeds' run offsets, rounded to 16."""
+    b = nruns * 25 * 16 + (num_hashes - 1) * 8 + nruns * 8 + (nseeds + 1) * 4
+    return -(-b // 16) * 16
+
+
+def fit_warps(tables: int, per_warp: int, warps: int) -> int:
+    """The most warps a block (a power of two, at most ``warps``) whose
+    shared memory fits beside the tables; 0 when not even one does."""
+    while warps and tables + warps * per_warp > MAX_SHARED_BYTES:
+        warps //= 2
+    return warps
+
+
+def sequence_grid(k: int, nseeds: int = 1, nruns: int = 1,
+                  num_hashes: int = 1) -> tuple[int, int]:
+    """(warps a block, ring rows) of the one-sequence entries, from the
+    shapes alone: up to 4 warps, each with its ring and its [32, 33] u64
+    output stage; raises ValueError when one warp does not fit beside the
+    tables (more than ~550 care runs, or k in the thousands)."""
+    ring = ring_rows(k)
+    warps = fit_warps(tables_bytes(nseeds, nruns, num_hashes),
+                      ring * 32 + 32 * STAGE_PITCH * 8, 4)
+    if not warps:
+        raise ValueError(
+            f"{nruns} care runs at k={k} need more than the "
+            f"{MAX_SHARED_BYTES} bytes of shared memory a block may use")
+    return warps, ring
+
+
+def sequence_span(k: int) -> int:
+    """Windows a thread of the one-sequence entries rolls: a multiple of 32
+    (one output stage) of at least 256 and 8k, so that the k - 1 warm-up
+    bases add at most an eighth to the roll."""
+    return 32 * -(-max(256, 8 * k) // 32)
+
+
+def sequence_codes(codes: torch.Tensor) -> torch.Tensor:
+    """A [C] integer sequence as the one-sequence entries take it: uint8 as
+    it is (values above 4 read as 4), any other integer dtype with every
+    value outside 0-4 set to 4 before it is narrowed to uint8."""
+    if codes.dim() != 1:
+        raise ValueError(f"codes must be a [C] sequence, got shape "
+                         f"{tuple(codes.shape)}")
+    if codes.dtype == torch.uint8:
+        return codes.contiguous()
+    if codes.dtype.is_floating_point or codes.dtype.is_complex \
+            or codes.dtype == torch.bool:
+        raise TypeError(f"codes must be integers, got {codes.dtype}")
+    return torch.where((codes < 0) | (codes > 4), 4, codes).to(torch.uint8)
+
+
+def sequence_rows(codes: torch.Tensor, k: int, span: int) -> torch.Tensor:
+    """[C] codes -> [ceil(C / span), span + k - 1]: row j holds bases
+    [j span, (j + 1) span + k - 1), those at or past C invalid (4), so its
+    windows are the sequence's windows [j span, (j + 1) span), the off-end
+    ones included (the pseudo-reads of ``parallel/sp.py`` cut by ``span``)."""
+    c = codes.shape[0]
+    if c == 0:
+        raise ValueError("the sequence is empty")
+    ext = torch.nn.functional.pad(codes, (0, k - 1), value=4)
+    return segment_codes(ext[:, None], k, min(span, c)).T
+
+
+def _check_sequence(k: int, num_hashes: int) -> None:
+    if k <= 0:
+        raise ValueError("k must be greater than 0")
+    if num_hashes < 1:
+        raise ValueError(f"num_hashes ({num_hashes}) must be >= 1")
+
+
+def hash_sequence_plain(codes: torch.Tensor, k: int, num_hashes: int = 1):
+    """Plain PyTorch version of :func:`hash_sequence`, on any device: the
+    pseudo-read route on the batch-major engine (:func:`sequence_rows`, then
+    ``kmer_torch.hash_kmers`` and its ``window_valid``), trimmed to C."""
+    _check_sequence(k, num_hashes)
+    codes = sequence_codes(codes)
+    c = codes.shape[0]
+    res = hash_kmers(sequence_rows(codes, k, sequence_span(k)), k, num_hashes)
+    return ([res.hashes[..., i].reshape(-1)[:c] for i in range(num_hashes)],
+            res.valid.reshape(-1)[:c])
+
+
+@lru_cache(maxsize=32)
+def _sequence_tables(k: int, num_hashes: int, device: torch.device
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(tables int64, meta int32) of ``nthash_kmer_sequence``: the 25
+    (fwd, rev) pairs of the one care run [0, k), then the nte64
+    multipliers; the run's offsets (0, k) and the seed's runs (0, 1)."""
+    tabs = plane_tables(k)
+    vals = []
+    for ci in range(5):
+        for co in range(5):
+            vals += [tabs.fwd_in[ci] ^ tabs.fwd_out[co],
+                     tabs.rev_in[ci] ^ tabs.rev_out_r[co]]
+    vals += [nte64_multiplier(i, k) for i in range(1, num_hashes)]
+    return (u64.tensor(vals, device),
+            torch.tensor([0, k, 0, 1], dtype=torch.int32, device=device))
+
+
+def aligned(codes: torch.Tensor) -> torch.Tensor:
+    """``codes``, copied when its first byte is not 16-byte aligned (the
+    one-sequence entries stage 16 bytes a load)."""
+    return codes if codes.data_ptr() % 16 == 0 else codes.clone()
+
+
+def hash_sequence(codes: torch.Tensor, k: int, num_hashes: int = 1):
+    """Hash every window of one flat sequence in one pass.
+
+    Args:
+      codes: [C] base codes (0-3 valid, 4 and above invalid), uint8 as
+        ``parallel.sp.shard_sequence`` and the parser give them; any other
+        integer dtype is clamped (:func:`sequence_codes`).
+      k: k-mer size (any k >= 1).
+      num_hashes: canonical + nte64 extensions per window.
+
+    Returns (list of ``num_hashes`` int64 [C] tensors, valid [C] bool):
+    entry w of hash i is nte64 hash i of window [w, w + k), bases at or past
+    C reading as the invalid code; ``valid[w]`` is False where the window
+    holds an invalid base or runs off the end.
+
+    A CUDA tensor goes through ``csrc/kmer_hash.cu``'s one-sequence entry
+    (one launch), a CPU tensor through :func:`hash_sequence_plain`.
+    """
+    global SEQUENCE_LAUNCHES
+    _check_sequence(k, num_hashes)
+    codes = sequence_codes(codes)
+    if not codes.is_cuda:
+        if codes.device.type == "cpu":
+            return hash_sequence_plain(codes, k, num_hashes)
+        raise ValueError(f"no kmer_hash route for device {codes.device}")
+    c = codes.shape[0]
+    if c == 0:
+        raise ValueError("the sequence is empty")
+    dev = codes.device
+    warps, ring = sequence_grid(k, 1, 1, num_hashes)
+    out = torch.empty((num_hashes, c), dtype=torch.int64, device=dev)
+    valid = torch.empty(c, dtype=torch.bool, device=dev)
+    lib = _lib()
+    tables, meta = _sequence_tables(k, num_hashes, dev)
+    status = lib.nthash_kmer_sequence(
+        dev.index, aligned(codes).data_ptr(), c, k, sequence_span(k),
+        num_hashes, tables.data_ptr(), meta.data_ptr(), warps, ring,
+        out.data_ptr(), valid.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check(lib, status, "kmer_hash sequence launch")
+    SEQUENCE_LAUNCHES += 1
+    return list(out.unbind(0)), valid

@@ -6,8 +6,11 @@ Counterpart of ``nthash_tpu/ops/seed_pallas.py`` (``care_runs``,
 ``hash_seeds_tm_auto``, ``hash_seeds_batch``). Both routes launch
 ``csrc/seed_hash.cu``: :func:`hash_seeds_tm` with one segment per read (B1,
 the Pallas ``_kernel``), :func:`hash_seeds_tm_long` with segments of
-``time_tile`` windows (B3, the Pallas ``_kernel_long``). The source note says
-what bounds the kernel on the H100.
+``time_tile`` windows (B3, the Pallas ``_kernel_long``). The kernel is the
+staged one wherever its shared memory fits a block (:func:`seed_grid`), else
+the global one. :func:`hash_seeds_sequence` hashes one flat sequence in one
+launch (``parallel/sp.py``'s kernel route). The source note says what bounds
+the kernels on the H100.
 
 The rolling reformulation is the JAX package's: the spaced-seed hash is an
 XOR of independently rotated per-base seeds over the care positions, so for
@@ -31,23 +34,32 @@ from .. import u64
 from ..constants import COMP_CODE, SROL_PERIOD, nte64_multiplier, srol_seed
 from . import cuda_build
 from .kmer_kernel import (
+    MAX_SHARED_BYTES,
+    aligned,
     check_args,
     finish_planes,
+    fit_warps,
     long_read_threshold,
     prepare_codes,
     resolve_time_tile,
+    ring_rows,
+    sequence_codes,
+    sequence_grid,
+    sequence_rows,
+    sequence_span,
+    tables_bytes,
 )
 from .kmer_torch import segment_codes, unsegment, window_valid
-from .seed_torch import check_seeds
+from .seed_torch import check_seeds, hash_kmers_seeds
 
 #: Kernel launches made by :func:`hash_seeds_tm` (one segment per read).
 LAUNCHES = 0
 #: Kernel launches made by :func:`hash_seeds_tm_long` (segmented).
 LONG_LAUNCHES = 0
-
-#: Shared memory one block may use on the H100 (227 KB); the kernel holds
-#: every care run's tables there.
-MAX_SHARED_BYTES = 232448
+#: Kernel launches made by :func:`hash_seeds_sequence`.
+SEQUENCE_LAUNCHES = 0
+#: Read-kernel launches by route ("staged", "global").
+ROUTE_LAUNCHES = {"staged": 0, "global": 0}
 
 
 class BlockTaps(NamedTuple):
@@ -208,6 +220,50 @@ def _kernel_tables(seeds: tuple[str, ...], num_hashes: int,
     return tables, meta
 
 
+def seed_grid(k: int, nseeds: int, nruns: int,
+              num_hashes: int) -> tuple[int, int]:
+    """(warps a block, ring rows) of the staged read kernel, from the shapes
+    alone: up to 8 warps, each with its ring and every seed's state (16
+    bytes a lane); (0, 0) when one warp does not fit beside the tables, and
+    the global kernel runs instead."""
+    ring = ring_rows(k)
+    warps = fit_warps(tables_bytes(nseeds, nruns, num_hashes),
+                      ring * 32 + nseeds * 32 * 16, 8)
+    return (warps, ring) if warps else (0, 0)
+
+
+def pair_tables(runs: Sequence[BlockTaps]) -> list[int]:
+    """Per run its 25 (fwd, rev) pairs at 5 c_in + c_out, as uint64 Python
+    ints, fwd before rev: (fwd_in[c_in] ^ fwd_out[c_out], rev_in[c_in] ^
+    rev_out[c_out]), the two taps of a step in one entry."""
+    vals = []
+    for b in runs:
+        for ci in range(5):
+            for co in range(5):
+                vals += [b.fwd_in[ci] ^ b.fwd_out[co],
+                         b.rev_in[ci] ^ b.rev_out[co]]
+    return vals
+
+
+@lru_cache(maxsize=32)
+def _pair_kernel_tables(seeds: tuple[str, ...], num_hashes: int,
+                        device: torch.device
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(tables int64, meta int32) on ``device`` in the staged kernels'
+    layout: every run's pair tables, then the nte64 multipliers for k = the
+    pattern length; per run (off_in, off_out), then the S + 1 run offsets."""
+    k = len(seeds[0])
+    runs = [b for taps in _all_taps(seeds) for b in taps]
+    starts = [0]
+    for taps in _all_taps(seeds):
+        starts.append(starts[-1] + len(taps))
+    vals = pair_tables(runs) + [nte64_multiplier(i, k)
+                                for i in range(1, num_hashes)]
+    offs = [o for b in runs for o in (b.off_in, b.off_out)]
+    return (u64.tensor(vals, device),
+            torch.tensor(offs + starts, dtype=torch.int32, device=device))
+
+
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("seed_hash")
     fn = lib.nthash_seed_hash
@@ -217,21 +273,43 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p,
+        ]
+        seq = lib.nthash_seed_sequence
+        seq.restype = ctypes.c_int
+        seq.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
     return lib
 
 
-def _launch(codes_tm, seeds, k, num_hashes, emit_fwd_rev, emit_buckets, seg):
-    """Launch ``seed_hash.cu`` with ``seg`` windows per segment."""
+def _launch(codes_tm, seeds, k, num_hashes, emit_fwd_rev, emit_buckets, seg,
+            route=None):
+    """Launch ``seed_hash.cu`` with ``seg`` windows per segment: the staged
+    kernel where :func:`seed_grid` fits it, else the global one; ``route``
+    ("staged" or "global") forces one, for the tests and the smoke run."""
     length, reads = codes_tm.shape
     dev = codes_tm.device
     nruns = sum(len(t) for t in _all_taps(seeds))
-    smem = (20 * nruns + num_hashes - 1) * 8 + (2 * nruns + len(seeds) + 1) * 4
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"{nruns} care runs need {smem} bytes of tables, more than the "
-            f"{MAX_SHARED_BYTES} bytes of shared memory a block may use")
+    warps, ring = seed_grid(k, len(seeds), nruns, num_hashes)
+    if route not in (None, "staged", "global"):
+        raise ValueError(f"unknown seed_hash route {route!r}")
+    if route == "staged" and not warps:
+        raise ValueError(f"{nruns} care runs at k={k} do not fit the staged "
+                         "kernel's shared memory")
+    if route == "global" or not warps:
+        warps = ring = 0
+        smem = (20 * nruns + num_hashes - 1) * 8 \
+            + (2 * nruns + len(seeds) + 1) * 4
+        if smem > MAX_SHARED_BYTES:
+            raise ValueError(
+                f"{nruns} care runs need {smem} bytes of tables, more than "
+                f"the {MAX_SHARED_BYTES} bytes of shared memory a block may "
+                "use")
     per_seed = num_hashes + (2 if emit_fwd_rev else 0)
     dtype = torch.int64 if emit_buckets is None else torch.int32
     out = torch.empty((len(seeds) * per_seed, length - k + 1, reads),
@@ -239,14 +317,16 @@ def _launch(codes_tm, seeds, k, num_hashes, emit_fwd_rev, emit_buckets, seg):
     if reads == 0:
         return list(out.unbind(0))
     lib = _lib()
-    tables, meta = _kernel_tables(seeds, num_hashes, dev)
+    tables, meta = (_pair_kernel_tables if warps else _kernel_tables)(
+        seeds, num_hashes, dev)
     status = lib.nthash_seed_hash(
         dev.index, codes_tm.data_ptr(), length, reads, k, len(seeds), nruns,
         seg, num_hashes, int(emit_fwd_rev), emit_buckets or 0,
-        tables.data_ptr(), meta.data_ptr(), out.data_ptr(),
+        tables.data_ptr(), meta.data_ptr(), warps, ring, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, status, "seed_hash launch")
+    ROUTE_LAUNCHES["staged" if warps else "global"] += 1
     return list(out.unbind(0))
 
 
@@ -344,3 +424,79 @@ def hash_seeds_batch(codes: torch.Tensor, seeds: Sequence[str],
     res = hash_seeds_tm_auto(prepare_codes(codes), seeds, num_hashes_per_seed)
     hashes = torch.stack([r.T for r in res], dim=-1)
     return hashes, window_valid(codes.to(torch.int32), len(seeds[0]))
+
+
+def _check_sequence(seeds, num_hashes_per_seed) -> int:
+    """Validate the one-sequence entries' arguments; returns k."""
+    k = check_seeds(seeds)
+    _all_taps(tuple(seeds))  # a pattern with no care position raises
+    if num_hashes_per_seed < 1:
+        raise ValueError(f"num_hashes ({num_hashes_per_seed}) must be >= 1")
+    return k
+
+
+def hash_seeds_sequence_plain(codes: torch.Tensor, seeds: Sequence[str],
+                              num_hashes_per_seed: int = 1):
+    """Plain PyTorch version of :func:`hash_seeds_sequence`, on any device:
+    the pseudo-read route on the direct engine
+    (``kmer_kernel.sequence_rows``, then ``seed_torch.hash_kmers_seeds``
+    and its strict ``valid``), trimmed to C."""
+    seeds = tuple(seeds)
+    k = _check_sequence(seeds, num_hashes_per_seed)
+    codes = sequence_codes(codes)
+    c = codes.shape[0]
+    res = hash_kmers_seeds(sequence_rows(codes, k, sequence_span(k)), seeds,
+                           num_hashes_per_seed)
+    nout = len(seeds) * num_hashes_per_seed
+    return ([res.hashes[..., i].reshape(-1)[:c] for i in range(nout)],
+            res.valid.reshape(-1)[:c])
+
+
+def hash_seeds_sequence(codes: torch.Tensor, seeds: Sequence[str],
+                        num_hashes_per_seed: int = 1):
+    """Spaced-seed hash of every window of one flat sequence in one pass.
+
+    Args:
+      codes: [C] base codes as ``kmer_kernel.hash_sequence`` takes them.
+      seeds: '1'/'0' pattern strings, all of one length k.
+      num_hashes_per_seed: canonical + nte64 extensions per seed.
+
+    Returns (list of S * H int64 [C] tensors in the reference hash_arr
+    order, valid [C] bool): entry w covers bases [w, w + k), bases at or
+    past C reading as the invalid code; ``valid[w]`` is strict over all k
+    bases, don't-care positions included, and False off the end.
+
+    A CUDA tensor goes through ``csrc/seed_hash.cu``'s one-sequence entry
+    (one launch; raises ValueError for seeds whose tables and ring do not
+    fit a block, ``kmer_kernel.sequence_grid``), a CPU tensor through
+    :func:`hash_seeds_sequence_plain`.
+    """
+    global SEQUENCE_LAUNCHES
+    seeds = tuple(seeds)
+    k = _check_sequence(seeds, num_hashes_per_seed)
+    codes = sequence_codes(codes)
+    if not codes.is_cuda:
+        if codes.device.type == "cpu":
+            return hash_seeds_sequence_plain(codes, seeds,
+                                             num_hashes_per_seed)
+        raise ValueError(f"no seed_hash route for device {codes.device}")
+    c = codes.shape[0]
+    if c == 0:
+        raise ValueError("the sequence is empty")
+    dev = codes.device
+    nruns = sum(len(t) for t in _all_taps(seeds))
+    warps, ring = sequence_grid(k, len(seeds), nruns, num_hashes_per_seed)
+    out = torch.empty((len(seeds) * num_hashes_per_seed, c),
+                      dtype=torch.int64, device=dev)
+    valid = torch.empty(c, dtype=torch.bool, device=dev)
+    lib = _lib()
+    tables, meta = _pair_kernel_tables(seeds, num_hashes_per_seed, dev)
+    status = lib.nthash_seed_sequence(
+        dev.index, aligned(codes).data_ptr(), c, k, sequence_span(k),
+        len(seeds), nruns, num_hashes_per_seed, tables.data_ptr(),
+        meta.data_ptr(), warps, ring, out.data_ptr(), valid.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check(lib, status, "seed_hash sequence launch")
+    SEQUENCE_LAUNCHES += 1
+    return list(out.unbind(0)), valid

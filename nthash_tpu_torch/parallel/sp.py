@@ -1,4 +1,4 @@
-"""One genome-scale sequence hashed on one device through pseudo-reads.
+"""One genome-scale sequence hashed on one device.
 
 Counterpart of ``nthash_tpu/parallel/sp.py`` without its mesh: the port
 hashes on one device, so the halo exchange between devices (one
@@ -8,12 +8,17 @@ for more than one device raises NotImplementedError (multi-GPU is later
 work). ``resolve_engine`` picks the engine from the device of the codes, not
 from a JAX backend query.
 
-The sequence is reshaped into **overlapping pseudo-reads** [C/t, t + k - 1]
-(each row carries the next row's first k - 1 bases), so the batched engines
-hash t windows per row in parallel: the rolling kernels (A1, and B1 for
-spaced seeds) on a GPU, their plain versions on the CPU. A window's hash
-depends only on its own k bases, so every pseudo-read is exact from its
-first window.
+The JAX package reshapes the sequence into **overlapping pseudo-reads**
+[C/t, t + k - 1] (each row carries the next row's first k - 1 bases) so its
+batched engines hash t windows per row in parallel. The port's kernel route
+hashes the flat sequence in one pass instead (``kmer_kernel.hash_sequence``,
+``seed_kernel.hash_seeds_sequence``: a thread per segment of windows, no
+copy of the sequence, no transpose of the outputs); the "torch" route and
+the CPU take the plain versions beside them, pseudo-reads on the batch-major
+engines. A window's hash depends only on its own k bases, so every route is
+exact from its first window. The chunk is still validated as ``pick_tile``
+does (one shorter than k - 1 raises, as in the JAX package), and
+``pick_tile`` and ``pseudo_reads`` stay as the JAX package's counterparts.
 
 Window w of the result is the window starting at base w; the last k - 1
 entries run off the sequence's end and are masked invalid, as is every
@@ -26,10 +31,9 @@ from typing import Sequence
 
 import torch
 
-from ..ops.kmer_kernel import hash_kmers_tm, prepare_codes
-from ..ops.kmer_torch import hash_kmers, window_valid
-from ..ops.seed_kernel import hash_seeds_tm
-from ..ops.seed_torch import check_seeds, hash_kmers_seeds
+from ..ops.kmer_kernel import hash_sequence, hash_sequence_plain
+from ..ops.seed_kernel import hash_seeds_sequence, hash_seeds_sequence_plain
+from ..ops.seed_torch import check_seeds
 
 ENGINES = ("kernel", "torch")
 
@@ -76,16 +80,24 @@ def shard_sequence(codes: torch.Tensor, k: int | None = None,
     return codes
 
 
-def pick_tile(c: int, k: int, tile: int | None = None) -> int:
-    """Pseudo-read window count: a divisor of the chunk that is >= k-1
-    (``pseudo_reads`` pads each row by t - k + 1, so t < k - 1 would be a
-    negative pad), preferring the largest such divisor <= ``tile`` (default
-    256) and falling back to the smallest one above."""
+def check_chunk(c: int, k: int) -> int:
+    """Raise, as the JAX package does, when a chunk of ``c`` bases is
+    shorter than k - 1 (the one error :func:`pick_tile` raises); returns
+    the least pseudo-read width, max(k - 1, 1)."""
     lo = max(k - 1, 1)
     if c < lo:
         raise ValueError(
             f"per-device chunk ({c}) is smaller than k-1 ({k - 1}); "
             "pad the sequence (shard_sequence with k=)")
+    return lo
+
+
+def pick_tile(c: int, k: int, tile: int | None = None) -> int:
+    """Pseudo-read window count: a divisor of the chunk that is >= k-1
+    (``pseudo_reads`` pads each row by t - k + 1, so t < k - 1 would be a
+    negative pad), preferring the largest such divisor <= ``tile`` (default
+    256) and falling back to the smallest one above."""
+    lo = check_chunk(c, k)
     divisors = set()
     i = 1
     while i * i <= c:
@@ -99,12 +111,6 @@ def pick_tile(c: int, k: int, tile: int | None = None) -> int:
     return min(d for d in divisors if d >= lo)
 
 
-def _halo_extend(codes: torch.Tensor, k: int) -> torch.Tensor:
-    """Append the k - 1 invalid codes the JAX package's last device gets as
-    its halo, so the off-end windows mask out."""
-    return torch.nn.functional.pad(codes, (0, k - 1), value=4)
-
-
 def pseudo_reads(ext: torch.Tensor, k: int, t: int) -> torch.Tensor:
     """[C + k - 1] halo-extended sequence -> overlapping rows [C/t, t + k - 1].
 
@@ -112,11 +118,6 @@ def pseudo_reads(ext: torch.Tensor, k: int, t: int) -> torch.Tensor:
     sequence's windows [i*t, (i+1)*t).
     """
     return ext.unfold(0, t + k - 1, t)
-
-
-def _flat(planes) -> list[torch.Tensor]:
-    """[t, rows] per-hash planes -> flat [rows * t] in window order."""
-    return [p.T.reshape(-1) for p in planes]
 
 
 def hash_long_sequence(codes: torch.Tensor, k: int, num_hashes: int, *,
@@ -128,23 +129,19 @@ def hash_long_sequence(codes: torch.Tensor, k: int, num_hashes: int, *,
       codes: [L] base codes (0-3 valid, 4 and above invalid), e.g. from
         :func:`shard_sequence` with ``k=``.
       engine: "auto", "kernel" or "torch" (:func:`resolve_engine`).
-      tile: windows per pseudo-read (default 256; adjusted to divide L).
+      tile: the JAX package's windows per pseudo-read (default 256); it
+        no longer shapes the work, and the chunk is validated as
+        :func:`pick_tile` does (:func:`check_chunk`).
 
     Returns (list of ``num_hashes`` int64 [L] tensors, valid [L] bool):
     entry w of hash i is nte64 hash i of window [w, w + k); the trailing
     k - 1 entries, which would run off the end, are masked invalid.
     """
     _one_device(n_devices)
-    c = codes.shape[0]
-    t = pick_tile(c, k, tile)
-    pseudo = pseudo_reads(_halo_extend(codes, k), k, t)
+    check_chunk(codes.shape[0], k)
     if resolve_engine(engine, codes.device) == "kernel":
-        hashes = _flat(hash_kmers_tm(prepare_codes(pseudo), k, num_hashes))
-    else:
-        res = hash_kmers(pseudo, k, num_hashes)
-        hashes = [res.hashes[..., i].reshape(-1) for i in range(num_hashes)]
-    valid = window_valid(pseudo.to(torch.int32), k).reshape(-1)
-    return hashes, valid
+        return hash_sequence(codes, k, num_hashes)
+    return hash_sequence_plain(codes, k, num_hashes)
 
 
 def hash_long_sequence_seeds(codes: torch.Tensor, seeds: Sequence[str],
@@ -153,23 +150,15 @@ def hash_long_sequence_seeds(codes: torch.Tensor, seeds: Sequence[str],
                              n_devices: int = 1):
     """Spaced-seed hash of every window of one long sequence on its device.
 
-    Same pseudo-read scheme as :func:`hash_long_sequence` (the spaced-seed
-    hash depends only on the window's bases too), with the JAX package's
-    default of 128 windows per pseudo-read. Returns (list of S*H int64 [L]
-    tensors in reference hash_arr order, valid [L]).
+    As :func:`hash_long_sequence` (the spaced-seed hash depends only on the
+    window's bases too; ``tile``, the JAX package's windows per pseudo-read,
+    default 128, shapes nothing). Returns (list of S*H int64 [L] tensors in
+    reference hash_arr order, valid [L]).
     """
     _one_device(n_devices)
     seeds = tuple(seeds)
     k = check_seeds(seeds)
-    c = codes.shape[0]
-    t = pick_tile(c, k, tile if tile is not None else 128)
-    pseudo = pseudo_reads(_halo_extend(codes, k), k, t)
-    nout = len(seeds) * num_hashes_per_seed
+    check_chunk(codes.shape[0], k)
     if resolve_engine(engine, codes.device) == "kernel":
-        hashes = _flat(hash_seeds_tm(prepare_codes(pseudo), seeds,
-                                     num_hashes_per_seed))
-    else:
-        res = hash_kmers_seeds(pseudo, seeds, num_hashes_per_seed)
-        hashes = [res.hashes[..., i].reshape(-1) for i in range(nout)]
-    valid = window_valid(pseudo.to(torch.int32), k).reshape(-1)
-    return hashes, valid
+        return hash_seeds_sequence(codes, seeds, num_hashes_per_seed)
+    return hash_seeds_sequence_plain(codes, seeds, num_hashes_per_seed)

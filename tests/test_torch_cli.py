@@ -65,3 +65,22 @@ def test_python_dash_m(toy):
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("2 reads, 21 valid 4-mers")
+
+
+
+def test_count_threads_option(toy, capsys):
+    """``count --threads`` is the JAX CLI's option (default 1): with one
+    thread both CLIs print the same total; more threads exit 1 with the
+    port's NotImplementedError message instead of a usage error (2)."""
+    from nthash_tpu.__main__ import main as jmain
+
+    args = ["count", str(toy), "-k", "4", "-n", "2", "--batch-size", "8",
+            "--width-log2", "12", "--threads", "1"]
+    assert jmain(args) == 0
+    want = capsys.readouterr().out.split(" in ")[0]
+    assert main([*args, "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.split(" in ")[0] == want == "21 valid 4-mers"
+    for extra in (["--fused"], []):
+        assert main(["count", str(toy), "-k", "4", "--threads", "4",
+                     "--width-log2", "12", "--device", "cpu", *extra]) == 1
+        assert "threads > 1" in capsys.readouterr().err

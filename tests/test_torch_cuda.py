@@ -696,3 +696,139 @@ def test_sort_64_tile_chunks(cuda):
     assert pk.LAUNCHES["merge_phase"] == before + 6
     torch.cuda.synchronize()
     assert torch.equal(got, pk._sort_plain(x))
+
+
+# The staged seed kernel (B1/B3) and the one-sequence entries.
+
+MANY_RUNS = "10" * 40 + "1"             # 41 care runs of one base, k = 81
+LONG_SEED = "1" + "0" * 3000 + "1"      # two runs, a ring of 4,096 rows
+
+
+@pytest.mark.parametrize("route", ["staged", "global"])
+@pytest.mark.parametrize("mode", [{}, {"emit_fwd_rev": True},
+                                  {"emit_buckets": 12}])
+@pytest.mark.parametrize("seeds", [
+    ("1",), ("10101", "11011"), ("0110", "1001", "1111"),
+    ("11", "01", "10", "11"), ("1" * 64,), ("1" * 33, "1" + "0" * 31 + "1"),
+    (MANY_RUNS,), ("110100110011001011", "111111000000111111")])
+@pytest.mark.parametrize("reads,length,tile", [
+    (1, 300, None), (37, 150, 1), (100, 333, 7), (64, 90, 1000)])
+def test_seed_routes_vs_plain(rng, cuda, route, seeds, reads, length, tile,
+                              mode):
+    """Both kernels, forced, against plain: S = 1-4, many care runs, k up
+    to 81, R = 1 and R not a multiple of 32, tiles of one k, not dividing
+    W, and >= W (``tile`` counts k-windows)."""
+    k = len(seeds[0])
+    length = max(length, k)
+    tm = prepare_codes(_codes(rng, reads, length).to(cuda))
+    want = seed_kernel.hash_seeds_tm_plain(tm, seeds, 2, **mode)
+    before = dict(seed_kernel.ROUTE_LAUNCHES)
+    got = seed_kernel._launch(tm, seeds, k, 2, mode.get("emit_fwd_rev", False),
+                              mode.get("emit_buckets"), length - k + 1, route)
+    _same(got, want)
+    seg = min(tile * k, length - k + 1) if tile else length - k + 1
+    _same(seed_kernel._launch(tm, seeds, k, 2,
+                              mode.get("emit_fwd_rev", False),
+                              mode.get("emit_buckets"), seg, route), want)
+    assert seed_kernel.ROUTE_LAUNCHES[route] == before[route] + 2
+
+
+@pytest.mark.parametrize("mode", [{}, {"emit_buckets": 9}])
+def test_seed_long_pattern_staged(rng, cuda, mode):
+    """A seed whose ring (4,096 rows) leaves room for one warp a block."""
+    k = len(LONG_SEED)
+    assert seed_kernel.seed_grid(k, 1, 2, 1)[0] >= 1
+    tm = prepare_codes(_codes(rng, 40, k + 300).to(cuda))
+    want = seed_kernel.hash_seeds_tm_plain(tm, (LONG_SEED,), 1, **mode)
+    for tile in (None, k):
+        _same(seed_kernel.hash_seeds_tm_long(tm, (LONG_SEED,), 1,
+                                             time_tile=tile, **mode), want)
+
+
+def test_seed_route_by_shapes(rng, cuda):
+    """The staged kernel wherever seed_grid fits it; the global one beyond
+    it (500 runs at k = 1,000: 200 KB of pair tables beside a 64 KB ring;
+    80 KB of four-table runs), held to the direct engine."""
+    from nthash_tpu_torch.ops.seed_torch import hash_kmers_seeds
+
+    codes = _codes(rng, 50, 1010).to(cuda)
+    tm = prepare_codes(codes)
+    wide = ("10" * 500,)
+    assert seed_kernel.seed_grid(1000, 1, 500, 1) == (0, 0)
+    for seeds, route in ((("10101", "11011"), "staged"), (wide, "global")):
+        before = dict(seed_kernel.ROUTE_LAUNCHES)
+        got = seed_kernel.hash_seeds_tm(tm, seeds, 1)
+        want = hash_kmers_seeds(codes, seeds, 1).hashes
+        _same(got, [want[..., i].T for i in range(len(seeds))])
+        assert seed_kernel.ROUTE_LAUNCHES[route] == before[route] + 1
+    with pytest.raises(ValueError, match="staged"):
+        seed_kernel._launch(tm, wide, 1000, 1, False, None, 11, "staged")
+
+
+SEQ_LENGTHS = [4096, 100_003, 8192 + 17, 300, 31, 1]
+
+
+@pytest.mark.parametrize("h", [1, 4])
+@pytest.mark.parametrize("k", [1, 5, 32, 33, 100])
+@pytest.mark.parametrize("length", SEQ_LENGTHS)
+def test_hash_sequence_vs_plain(rng, cuda, length, k, h):
+    """Lengths a multiple of the span, prime, neither a multiple of the
+    span nor of 32, shorter than one span and than k; codes above 4."""
+    seq = torch.from_numpy(rng.integers(0, 8, size=length, dtype=np.uint8))
+    before = kmer_kernel.SEQUENCE_LAUNCHES
+    got, valid = kmer_kernel.hash_sequence(seq.to(cuda), k, h)
+    assert kmer_kernel.SEQUENCE_LAUNCHES == before + 1
+    want, wvalid = kmer_kernel.hash_sequence_plain(seq, k, h)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert len(got) == h and torch.equal(valid.cpu(), wvalid)
+
+
+@pytest.mark.parametrize("h", [1, 3])
+@pytest.mark.parametrize("seeds", [
+    ("10101", "11011"), ("1",), ("0110", "1001", "1111"),
+    ("110100110011001011", "111111000000111111"), (MANY_RUNS,)])
+@pytest.mark.parametrize("length", SEQ_LENGTHS)
+def test_hash_seeds_sequence_vs_plain(rng, cuda, length, seeds, h):
+    seq = torch.from_numpy(rng.integers(0, 8, size=length, dtype=np.uint8))
+    before = seed_kernel.SEQUENCE_LAUNCHES
+    got, valid = seed_kernel.hash_seeds_sequence(seq.to(cuda), seeds, h)
+    assert seed_kernel.SEQUENCE_LAUNCHES == before + 1
+    want, wvalid = seed_kernel.hash_seeds_sequence_plain(seq, seeds, h)
+    torch.cuda.synchronize()
+    assert len(got) == len(seeds) * h
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert torch.equal(valid.cpu(), wvalid)
+
+
+def test_sequence_entries_take_any_integer_view(rng, cuda):
+    """int32 codes with negatives and values above 4, and a uint8 view that
+    starts one byte into its storage (not 16-byte aligned)."""
+    raw = rng.integers(-3, 9, size=5001).astype(np.int32)
+    as_u8 = torch.from_numpy(np.where((raw < 0) | (raw > 4), 4, raw)
+                             .astype(np.uint8))
+    x = torch.from_numpy(raw).to(cuda)
+    for got, want in (
+            (kmer_kernel.hash_sequence(x, 32, 2),
+             kmer_kernel.hash_sequence_plain(as_u8, 32, 2)),
+            (seed_kernel.hash_seeds_sequence(x, ("10101", "11011"), 1),
+             seed_kernel.hash_seeds_sequence_plain(as_u8, ("10101", "11011"),
+                                                   1)),
+            (kmer_kernel.hash_sequence(as_u8.to(cuda)[1:], 9, 1),
+             kmer_kernel.hash_sequence_plain(as_u8[1:], 9, 1))):
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got[0], want[0]))
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_sp_one_launch_each(rng, cuda):
+    """The sequence paths launch their one-sequence entry once, and no read
+    kernel."""
+    seq = torch.from_numpy(rng.integers(0, 5, size=65_536, dtype=np.uint8))
+    seq = seq.to(cuda)
+    before = (kmer_kernel.LAUNCHES, kmer_kernel.SEQUENCE_LAUNCHES,
+              seed_kernel.LAUNCHES, seed_kernel.SEQUENCE_LAUNCHES)
+    sp.hash_long_sequence(seq, 32, 1)
+    sp.hash_long_sequence_seeds(seq, ("10101", "11011"), 1)
+    assert (kmer_kernel.LAUNCHES, kmer_kernel.SEQUENCE_LAUNCHES,
+            seed_kernel.LAUNCHES, seed_kernel.SEQUENCE_LAUNCHES) == (
+        before[0], before[1] + 1, before[2], before[3] + 1)

@@ -238,3 +238,66 @@ def test_engine_rejects_short_and_bad_k():
         kmer_torch.hash_kmers(torch.zeros(4, dtype=torch.uint8), 5)
     with pytest.raises(ValueError, match="greater than 0"):
         kmer_torch.hash_kmers(torch.zeros(4, dtype=torch.uint8), 0)
+
+
+# The one-sequence entry: its rules and its CPU route.
+
+
+def test_sequence_rules():
+    """Span: a multiple of 32, at least 256 and 8k. Ring: the smallest power
+    of two >= k + 32. Grid: up to 4 warps beside one warp's ring and output
+    stage; ValueError where one warp does not fit."""
+    for k in (1, 5, 31, 32, 33, 64, 100, 1000):
+        span = kmer_kernel.sequence_span(k)
+        assert span % 32 == 0 and span >= max(256, 8 * k) > span - 32
+        ring = kmer_kernel.ring_rows(k)
+        assert ring >= k + 32 and ring & (ring - 1) == 0 and ring // 2 < k + 32
+        warps, r = kmer_kernel.sequence_grid(k)
+        assert r == ring and warps in (1, 2, 4)
+    assert kmer_kernel.sequence_grid(32) == (4, 64)
+    assert kmer_kernel.sequence_grid(4064) == (1, 4096)
+    with pytest.raises(ValueError, match="shared memory"):
+        kmer_kernel.sequence_grid(4065)
+    with pytest.raises(ValueError, match="shared memory"):
+        kmer_kernel.sequence_grid(1000, 1, 500, 1)
+
+
+def test_sequence_codes_dtypes(rng):
+    """uint8 passes as it is; any other integer dtype has every value
+    outside 0-4 set to 4 before it is narrowed; the hashes then agree."""
+    raw = rng.integers(-300, 300, size=500)
+    want = torch.from_numpy(np.where((raw < 0) | (raw > 4), 4, raw)
+                            .astype(np.uint8))
+    for dtype in (torch.int64, torch.int32, torch.int16):
+        got = kmer_kernel.sequence_codes(torch.from_numpy(raw).to(dtype))
+        assert got.dtype == torch.uint8 and torch.equal(got, want)
+    u8 = torch.from_numpy(rng.integers(0, 256, size=500, dtype=np.uint8))
+    assert kmer_kernel.sequence_codes(u8) is not None
+    a = kmer_kernel.hash_sequence(torch.from_numpy(raw), 9, 2)
+    b = kmer_kernel.hash_sequence(want, 9, 2)
+    assert all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+    assert torch.equal(a[1], b[1])
+    with pytest.raises(TypeError):
+        kmer_kernel.sequence_codes(torch.zeros(5))
+    with pytest.raises(ValueError, match="sequence"):
+        kmer_kernel.sequence_codes(torch.zeros((2, 5), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("h", [1, 4])
+@pytest.mark.parametrize("k", [1, 9, 32, 65])
+def test_hash_sequence_vs_oracle(rng, k, h):
+    """hash_sequence on a CPU tensor (its plain version) against the host
+    oracle inside the sequence; the off-end windows hash the invalid code
+    and are invalid; no kernel launch."""
+    seq = rng.integers(0, 6, size=(700,), dtype=np.uint8)
+    before = kmer_kernel.SEQUENCE_LAUNCHES
+    got, valid = kmer_kernel.hash_sequence(torch.from_numpy(seq), k, h)
+    assert kmer_kernel.SEQUENCE_LAUNCHES == before
+    _, _, want, wvalid = oracle.hash_all_windows(seq, k, h)
+    w = 700 - k + 1
+    assert np.array_equal(np.stack([to_numpy_u64(g) for g in got], -1)[:w],
+                          want)
+    assert np.array_equal(valid.numpy()[:w], wvalid) and not valid[w:].any()
+    padded = np.concatenate([seq, np.full(k - 1, 4, np.uint8)])
+    _, _, tail, _ = oracle.hash_all_windows(padded, k, h)
+    assert np.array_equal(np.stack([to_numpy_u64(g) for g in got], -1), tail)

@@ -438,3 +438,18 @@ def test_parallel_parse_raises(fastq):
         pipe.count_file(path, threads=2)
     with pytest.raises(NotImplementedError):
         pipe.run_file(path, threads=2)
+
+
+@pytest.mark.parametrize("threads", [2, 4])
+def test_checkpoint_with_threads_raises_as_jax(fastq, tmp_path, threads):
+    """Checkpointing with a parallel parse raises the reference's
+    ValueError, before the parallel parse is refused as not ported."""
+    path, *_ = fastq
+    ckpt = tmp_path / "c.npz"
+    with pytest.raises(ValueError) as want:
+        _jax_pipe().count_file(path, checkpoint_path=ckpt, threads=threads)
+    pipe = ReadHashingPipeline(_cfg(), device=CPU)
+    with pytest.raises(ValueError) as got:
+        pipe.count_file(path, checkpoint_path=ckpt, threads=threads)
+    assert str(got.value) == str(want.value)
+    assert not ckpt.exists()

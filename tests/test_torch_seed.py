@@ -262,3 +262,76 @@ def test_wrappers_reject_layout_and_tile():
     with pytest.raises(ValueError, match="equal length"):
         seed_torch.hash_kmers_seeds(torch.zeros((2, 9), dtype=torch.uint8),
                                     ("101", "11"))
+
+
+# The staged kernel's route rule and tables, and the one-sequence entry.
+
+
+def test_seed_grid_rule():
+    """(warps, ring rows) from the shapes: up to 8 warps a block beside the
+    pair tables; a ring of the smallest power of two >= k + 32; (0, 0),
+    the global kernel, where one warp does not fit."""
+    assert seed_kernel.seed_grid(5, 2, 5, 3) == (8, 64)
+    assert seed_kernel.seed_grid(32, 1, 1, 1) == (8, 64)
+    assert seed_kernel.seed_grid(33, 1, 1, 1) == (8, 128)
+    assert seed_kernel.seed_grid(3002, 1, 2, 1) == (1, 4096)
+    assert seed_kernel.seed_grid(1000, 1, 500, 1) == (0, 0)
+    for k, s, runs, h in ((5, 2, 5, 3), (81, 1, 41, 2), (200, 4, 300, 4),
+                          (3002, 1, 2, 1)):
+        warps, ring = seed_kernel.seed_grid(k, s, runs, h)
+        need = seed_kernel.tables_bytes(s, runs, h) + warps * (
+            ring * 32 + s * 32 * 16)
+        assert need <= seed_kernel.MAX_SHARED_BYTES
+        assert ring >= k + 32 and ring & (ring - 1) == 0 and ring // 2 < k + 32
+        assert warps * 2 > 8 or need + warps * (ring * 32 + s * 512) \
+            > seed_kernel.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("name", list(SEED_SETS))
+def test_pair_tables_are_the_two_taps(name):
+    """Entry 5 c_in + c_out of a run is the XOR of its entering and leaving
+    taps, fwd then rev; code 4 leaves a tap out."""
+    for taps in seed_kernel._all_taps(SEED_SETS[name]):
+        vals = seed_kernel.pair_tables(taps)
+        assert len(vals) == 50 * len(taps)
+        for q, b in enumerate(taps):
+            for ci in range(5):
+                for co in range(5):
+                    at = 50 * q + 2 * (5 * ci + co)
+                    assert vals[at] == b.fwd_in[ci] ^ b.fwd_out[co]
+                    assert vals[at + 1] == b.rev_in[ci] ^ b.rev_out[co]
+            assert vals[50 * q + 2 * 24] == 0 and vals[50 * q + 2 * 4] \
+                == b.fwd_in[0]
+
+
+@pytest.mark.parametrize("h", [1, 2])
+@pytest.mark.parametrize("name", ["baseline", "seeds18", "one_base",
+                                  "three"])
+def test_seeds_sequence_vs_oracle(rng, name, h):
+    """The one-sequence entry's CPU route against the host oracle on the
+    windows inside the sequence, and invalid past its end."""
+    seeds = SEED_SETS[name]
+    seq = rng.integers(0, 7, size=(333,), dtype=np.uint8)
+    got, valid = seed_kernel.hash_seeds_sequence(torch.from_numpy(seq), seeds,
+                                                 h)
+    _, _, want = oracle.hash_all_windows_seeds(seq, seeds, h)
+    w = 333 - len(seeds[0]) + 1
+    assert np.array_equal(np.stack([to_numpy_u64(g) for g in got], -1)[:w],
+                          want)
+    assert len(got[0]) == 333 and not valid[w:].any()
+    assert torch.equal(valid[:w], seed_torch.hash_kmers_seeds(
+        torch.from_numpy(seq), seeds).valid)
+
+
+def test_seeds_sequence_rejects():
+    seq = torch.zeros(50, dtype=torch.uint8)
+    for seeds, match in ((("101", "11"), "equal length"),
+                         (("000",), "no care positions"), ((), "at least")):
+        with pytest.raises(ValueError, match=match):
+            seed_kernel.hash_seeds_sequence(seq, seeds, 1)
+    with pytest.raises(ValueError, match="num_hashes"):
+        seed_kernel.hash_seeds_sequence(seq, BASELINE, 0)
+    with pytest.raises(ValueError, match="empty"):
+        seed_kernel.hash_seeds_sequence(seq[:0], BASELINE, 1)
+    with pytest.raises(TypeError):
+        seed_kernel.hash_seeds_sequence(seq.float(), BASELINE, 1)

@@ -161,3 +161,88 @@ def test_cpu_routes_launch_no_kernel(rng):
 def test_short_sequence_raises():
     with pytest.raises(ValueError, match="smaller than k-1"):
         sp.hash_long_sequence(torch.zeros(16, dtype=torch.uint8), 66, 1)
+
+
+# The one-pass entries' plain versions (what engine="torch" and the CPU
+# take) against the JAX package's pseudo-read route.
+
+FLAT_CASES = [
+    # length, k, tile, shard: a tile multiple, a prime padded and unpadded,
+    # C < tile, k > tile, k = 1
+    (1024, 9, 256, True), (1009, 9, None, True), (1009, 9, None, False),
+    (100, 9, 256, False), (200, 40, 16, False), (300, 1, None, True)]
+
+
+@pytest.mark.parametrize("h", [1, 4])
+@pytest.mark.parametrize("length,k,tile,shard", FLAT_CASES)
+def test_hash_sequence_plain_vs_jax(rng, mesh1, length, k, tile, shard, h):
+    """Codes up to 7: every value above 4 is invalid."""
+    seq = rng.integers(0, 8, size=(length,), dtype=np.uint8)
+    if shard:
+        want, wvalid = _jax_kmers(seq, k, h, mesh1, tile)
+        codes = sp.shard_sequence(torch.from_numpy(seq), k=k, tile=tile)
+    else:
+        res, wv = jsp.hash_long_sequence(jnp.asarray(seq), k, h, mesh1,
+                                         engine="jnp", tile=tile)
+        want, wvalid = [r.to_np() for r in res], np.asarray(wv)
+        codes = torch.from_numpy(seq)
+    for got, valid in (kmer_kernel.hash_sequence_plain(codes, k, h),
+                       kmer_kernel.hash_sequence(codes, k, h)):
+        assert len(got) == h
+        for g, w in zip(got, want):
+            assert np.array_equal(to_numpy_u64(g), w)
+        assert np.array_equal(valid.numpy(), wvalid)
+
+
+@pytest.mark.parametrize("h", [1, 4])
+@pytest.mark.parametrize("seeds", [("10101", "11011"), SEEDS,
+                                   ("110100110011001011",
+                                    "111111000000111111")])
+@pytest.mark.parametrize("length,tile,shard", [
+    (1024, 128, True), (1009, None, True), (1009, None, False),
+    (60, 128, False), (301, 8, False)])
+def test_hash_seeds_sequence_plain_vs_jax(rng, mesh1, seeds, length, tile,
+                                          shard, h):
+    seq = rng.integers(0, 8, size=(length,), dtype=np.uint8)
+    k = len(seeds[0])
+    if shard:
+        want, wvalid = _jax_seeds(seq, seeds, h, mesh1, tile)
+        codes = sp.shard_sequence(torch.from_numpy(seq), k=k, tile=tile)
+    else:
+        res, wv = jsp.hash_long_sequence_seeds(jnp.asarray(seq), seeds, h,
+                                               mesh1, engine="jnp", tile=tile)
+        want, wvalid = [r.to_np() for r in res], np.asarray(wv)
+        codes = torch.from_numpy(seq)
+    for got, valid in (seed_kernel.hash_seeds_sequence_plain(codes, seeds, h),
+                       seed_kernel.hash_seeds_sequence(codes, seeds, h)):
+        assert len(got) == len(seeds) * h
+        for g, w in zip(got, want):
+            assert np.array_equal(to_numpy_u64(g), w)
+        assert np.array_equal(valid.numpy(), wvalid)
+
+
+def test_sequence_entries_launch_nothing_on_cpu(rng):
+    seq = torch.from_numpy(rng.integers(0, 5, size=(700,), dtype=np.uint8))
+    before = (kmer_kernel.SEQUENCE_LAUNCHES, seed_kernel.SEQUENCE_LAUNCHES,
+              kmer_kernel.LAUNCHES, seed_kernel.LAUNCHES)
+    kmer_kernel.hash_sequence(seq, 9, 2)
+    seed_kernel.hash_seeds_sequence(seq, SEEDS, 1)
+    sp.hash_long_sequence(seq, 9, 1, engine="kernel")
+    sp.hash_long_sequence_seeds(seq, SEEDS, 1, engine="kernel")
+    assert (kmer_kernel.SEQUENCE_LAUNCHES, seed_kernel.SEQUENCE_LAUNCHES,
+            kmer_kernel.LAUNCHES, seed_kernel.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_short_sequence_raises_as_jax(mesh1, engine):
+    """A chunk shorter than k - 1 raises on both packages, on every
+    engine, with or without seeds."""
+    short = np.zeros(16, dtype=np.uint8)
+    with pytest.raises(ValueError, match="smaller than k-1"):
+        jsp.hash_long_sequence(jnp.asarray(short), 66, 1, mesh1, engine="jnp")
+    with pytest.raises(ValueError, match="smaller than k-1"):
+        sp.hash_long_sequence(torch.from_numpy(short), 66, 1, engine=engine)
+    with pytest.raises(ValueError, match="smaller than k-1"):
+        sp.hash_long_sequence_seeds(torch.from_numpy(short), ("1" + "0" * 40
+                                                              + "1",), 1,
+                                    engine=engine)
