@@ -6,7 +6,7 @@ Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and nvcc; it
 imports nothing of JAX. Phases, each printing its own lines:
 
 1. environment: card name and power limit, torch / CUDA / nvcc versions;
-2. build the five CUDA sources from ``nthash_tpu_torch/csrc`` (one nvcc
+2. build the six CUDA sources from ``nthash_tpu_torch/csrc`` (one nvcc
    each, all at once) and print each kernel instance's registers and
    spills (template arguments demangled); no ``seed_hash`` instance may
    spill;
@@ -119,7 +119,27 @@ imports nothing of JAX. Phases, each printing its own lines:
 23. its timings in one call: two skewed streams at 2**20 (every entry one
    value; one eighth one value), the direct histogram beside the
    partitioned one; private against direct counters at 1 to 64 entries per
-   counter a block (what the route rule's constant rests on).
+   counter a block (what the route rule's constant rests on);
+24. the unpack kernel (``ops/unpack_kernel.py``, ``csrc/unpack.cu``) against
+   its plain version, exactly, at L = 1, 3, 4, 7, 8, 31, 150 and 10,000 x
+   B = 1, 33, 4,096 and 2**18 (all five codes, padding rows), and on each
+   packed batch of the 1M reads against ``prepare_codes`` of the batch
+   unpacked; its time, its byte bound, the plain version's and
+   ``prepare_codes``' (the yardstick);
+25. ``count_file`` by route over the 1M-read FASTQ at 2**14 and 2**20:
+   threads 1, 2, 4, 8 (up to the cores available, printed first) x
+   ``pack_h2d`` off and on, each sketch against the plain count (phases 5
+   and 9), with its launches (no partition kernel; the unpack kernel on
+   every packed batch and on no other), reads/s as the median of 3, the
+   parse alone per thread count; at 2**20 the two places the host work
+   could go instead (the producer copying codes into the pinned buffer, at
+   one thread and at half the cores; the Prefetcher thread packing after a
+   parallel parse, at half the cores); one traced run of every route at
+   2**20 (its idle share and copy time), by row for the fastest and the
+   serial one; host->device copy rates
+   from pageable and pinned memory, codes and packed; the long reads by
+   the fastest route against the serial one; and 1M reads in 62 batches of
+   2**14, packed and not, against the plain count.
 
 A failed check raises, so the exit code is not 0. The line before the last
 is the kernels' JSON record; the last line is ``{"ok": true, "device": ...}``.
@@ -129,6 +149,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -141,7 +162,14 @@ import numpy as np
 import torch
 
 from nthash_tpu_torch.io import native_loader
-from nthash_tpu_torch.io.stream import Prefetcher, stream_code_batches
+from nthash_tpu_torch.io.stream import (
+    Prefetcher,
+    pack_codes,
+    packed_batches,
+    packed_shapes,
+    stream_code_batches,
+    stream_code_batches_parallel,
+)
 from nthash_tpu_torch.constants import encode_ascii, extend_hashes
 from nthash_tpu_torch.models import bloom
 from nthash_tpu_torch.models import sketch as cms
@@ -156,6 +184,7 @@ from nthash_tpu_torch.ops import (
     kmer_kernel,
     kmer_torch,
     seed_torch,
+    unpack_kernel,
 )
 from nthash_tpu_torch.ops import part_kernel as pk
 from nthash_tpu_torch.ops import seed_kernel as sk
@@ -233,7 +262,8 @@ def phase_env() -> tuple[str, str]:
     return smi, torch.cuda.get_device_name(0)
 
 
-SOURCES = ("kmer_hash", "histogram", "partition", "seed_hash", "bloom")
+SOURCES = ("kmer_hash", "histogram", "partition", "seed_hash", "bloom",
+           "unpack")
 #: Updates in phase 17's widest checks: five per thread of the largest grid
 GRID_STRIDE_N = 5 * (1 << 20) + 3
 
@@ -2270,6 +2300,346 @@ def phase_hist_route_timings(codes: np.ndarray, gen, dev, card: str) -> None:
               f"private / direct ms: {'; '.join(cells)} {tag}")
 
 
+# ----------------------- the packed wire format and the parse routes ----
+
+UNPACK_LENGTHS = (1, 3, 4, 7, 8, 31, 150, 10_000)
+UNPACK_READS = (1, 33, 4096, 1 << 18)
+THREADS = (1, 2, 4, 8)
+SMALL_BATCH = 1 << 14       # 62 batches over the 1M reads
+COPY_KINDS = ("codes", "packed")
+
+
+def packed_input(rng, gen, length: int, reads: int, dev):
+    """(packed, nmask) on the card for ``reads`` reads of ``length`` bases
+    holding all five codes, the last eighth (at least one row when there
+    are more than one) padding rows as the stream pads them. Host
+    ``pack_codes`` up to 2**28 codes; above, random plane bytes on the card
+    (any bytes are valid input: bits past ``length`` are never read)."""
+    pad = reads - max(1, reads - reads // 8) if reads > 1 else 0
+    if reads * length <= 1 << 28:
+        codes = rng.integers(0, 5, size=(reads, length), dtype=np.uint8)
+        codes[reads - pad:] = 4
+        packed, nmask = pack_codes(codes)
+        return (torch.from_numpy(packed).to(dev),
+                torch.from_numpy(nmask).to(dev))
+    packed, nmask = (torch.randint(0, 256, shape, generator=gen, device=dev,
+                                   dtype=torch.uint8)
+                     for shape in packed_shapes((reads, length)))
+    row_p, row_m = pack_codes(np.full((1, length), 4, np.uint8))
+    packed[reads - pad:] = torch.from_numpy(row_p).to(dev)
+    nmask[reads - pad:] = torch.from_numpy(row_m).to(dev)
+    return packed, nmask
+
+
+def unpack_bytes(length: int, reads: int) -> int:
+    """Bytes the unpack must move: its planes read, its int32 codes written."""
+    planes = packed_shapes((reads, length))
+    return reads * (planes[0][1] + planes[1][1]) + 4 * length * reads
+
+
+def phase_unpack(rng, gen, codes: np.ndarray, dev, card: str) -> dict:
+    """Phase 24: the unpack kernel against its plain version, exactly, at
+    every (L, B) of the grid; on each packed batch of the 1M reads against
+    ``prepare_codes`` of the same batch unpacked; timings."""
+    tag = f"[{card}]"
+    err = 0.0
+    chunk = 1 << 14      # the plain version, reads at a time, at 2**18 x 10,000
+    for length in UNPACK_LENGTHS:
+        for reads in UNPACK_READS:
+            packed, nmask = packed_input(rng, gen, length, reads, dev)
+            got = unpack_kernel.unpack_codes_tm(packed, nmask, length)
+            for s in range(0, reads, chunk):
+                want = unpack_kernel.unpack_codes_tm_plain(
+                    packed[s:s + chunk], nmask[s:s + chunk], length)
+                part = got[:, s:s + chunk]
+                eq = torch.equal(part, want)
+                err = max(err, 0.0 if eq else max_abs_err(part, want))
+                require(eq, f"unpack != plain at L={length} B={reads}")
+            require(got.shape == (length, reads) and got.is_contiguous()
+                    and int(got.max()) <= 4 and int(got.min()) >= 0,
+                    f"unpack output at L={length} B={reads}")
+            del packed, nmask, got, want, part
+        torch.cuda.empty_cache()
+    print(f"[check] unpack == plain, exact, at L in {UNPACK_LENGTHS} x B in "
+          f"{UNPACK_READS}, all five codes and padding rows")
+    tot = dict.fromkeys(("kernel", "plain", "prepare"), 0.0)
+    nbytes = 0
+    for s in range(0, codes.shape[0], BATCH):
+        batch = codes[s:s + BATCH]
+        packed, nmask = (torch.from_numpy(a).to(dev) for a in pack_codes(batch))
+        raw = torch.from_numpy(batch).to(dev)
+        got = unpack_kernel.unpack_codes_tm(packed, nmask, L)
+        want = prepare_codes(raw)
+        eq = torch.equal(got, want)
+        err = max(err, 0.0 if eq else max_abs_err(got, want))
+        require(eq, f"unpack of batch {s // BATCH} != prepare_codes")
+        del got, want
+        tot["kernel"] += timeit(lambda a, b: unpack_kernel.unpack_codes_tm(
+            a, b, L), packed, nmask).seconds_per_call
+        tot["plain"] += timeit(lambda a, b: unpack_kernel.unpack_codes_tm_plain(
+            a, b, L), packed, nmask).seconds_per_call
+        tot["prepare"] += timeit(prepare_codes, raw).seconds_per_call
+        nbytes += unpack_bytes(L, batch.shape[0])
+        del packed, nmask, raw
+        torch.cuda.empty_cache()
+    print(f"[check] unpack == prepare_codes on each of the "
+          f"{-(-N_READS // BATCH)} packed batches of the {N_READS} reads")
+    print(f"[time] unpack_codes over {N_READS} reads x {L} bp in batches of "
+          f"{BATCH}: kernel {tot['kernel'] * 1e3:.4f} ms, plain "
+          f"{tot['plain'] * 1e3:.4f} ms, bound {bound_ms(nbytes):.4f} ms "
+          f"({nbytes / 1e9:.4f} GB); prepare_codes on the unpacked batches "
+          f"(the yardstick) {tot['prepare'] * 1e3:.4f} ms {tag}")
+    return {"err": err, "ms": tot["kernel"] * 1e3,
+            "plain_ms": tot["plain"] * 1e3, "bound_ms": bound_ms(nbytes)}
+
+
+class CopyIntoPinned(ReadHashingPipeline):
+    """The other place for the host copy: the parser writes into pageable
+    arrays and the producer (the Prefetcher thread, or each shard's worker)
+    copies every batch into a pinned buffer."""
+
+    @staticmethod
+    def _host_batches(path, batch_size, read_length, threads, pool, pack,
+                      start_offset=0, with_offsets=False):
+        require(pool is not None and not pack, "CopyIntoPinned: codes only")
+
+        def pin(item):
+            (dst,) = pool.arrays(item[0].shape)
+            np.copyto(dst, item[0])
+            return (dst,) + tuple(item[1:])
+
+        if threads > 1:
+            return stream_code_batches_parallel(
+                path, batch_size, read_length, threads=threads, stage=pin)
+        return (pin(item) for item in stream_code_batches(
+            path, batch_size, read_length))
+
+
+class PackInPrefetcher(ReadHashingPipeline):
+    """Packing in the one Prefetcher thread after the parallel parse (the
+    JAX package's place for it) in place of inside each shard's worker."""
+
+    @staticmethod
+    def _host_batches(path, batch_size, read_length, threads, pool, pack,
+                      start_offset=0, with_offsets=False):
+        require(pool is not None and pack and threads > 1,
+                "PackInPrefetcher: packed, threads > 1")
+        return packed_batches(stream_code_batches_parallel(
+            path, batch_size, read_length, threads=threads), pool.arrays)
+
+
+def host_median(fn, runs: int = 3) -> float:
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def reset_route_launches() -> None:
+    kmer_kernel.LAUNCHES = kmer_kernel.LONG_LAUNCHES = 0
+    unpack_kernel.LAUNCHES = 0
+    reset_hist_launches()
+    reset_part_launches()
+
+
+def route_count(cls, path, wl, threads, pack, want, dev, batch=None):
+    """One checked count_file by a route: its sketch against ``want``, its
+    launches (no plain version on the card: every batch through the hash
+    and histogram kernels, and the unpack kernel exactly when packed)."""
+    pipe = cls(PipelineConfig(k=K, num_hashes=H, sketch_width_log2=wl,
+                              pack_h2d=pack), device=dev)
+    reset_route_launches()
+    got = pipe.count_file(path, batch_size=batch or BATCH, threads=threads)
+    hashed = kmer_kernel.LAUNCHES + kmer_kernel.LONG_LAUNCHES
+    launches = {"hash": hashed, "histogram": hist_kernel.LAUNCHES,
+                "unpack": unpack_kernel.LAUNCHES}
+    what = f"{cls.__name__} threads={threads} pack_h2d={pack} 2**{wl}"
+    require(got == N_READS, f"{what}: {got} reads")
+    require(torch.equal(pipe.sketch.rows, want), f"{what}: sketch != plain")
+    require(hashed > 0 and launches["histogram"] == hashed
+            and launches["unpack"] == (hashed if pack else 0)
+            and not any(pk.LAUNCHES.values()),
+            f"{what}: launches {launches}, partition {dict(pk.LAUNCHES)}")
+    return pipe, launches
+
+
+def host_side_only(path, threads: int, pack: bool):
+    """The host side of a route alone, as count_file drives it on the CPU:
+    the parse into new arrays and, with ``pack``, pack_codes where the route
+    runs it (the parse thread; each shard's worker for threads > 1), with
+    no pinned buffer and no copy."""
+    src = ReadHashingPipeline._host_batches(path, BATCH, None, threads, None,
+                                            pack)
+    with Prefetcher(src) as pf:
+        for _ in pf:
+            pass
+
+
+def copy_rates(codes: np.ndarray, dev, card: str) -> None:
+    """Host->device copy of one main-path batch, codes and packed, from
+    pageable against pinned memory: host clock around the copy and a sync,
+    median of 5 after one warm-up; ms per 1M reads and GB/s."""
+    batch = codes[:BATCH]
+    arrays = {"codes": (batch,), "packed": pack_codes(batch)}
+    for kind in COPY_KINDS:
+        host = arrays[kind]
+        nbytes = sum(a.nbytes for a in host)
+        pinned = [torch.from_numpy(a).pin_memory() for a in host]
+        got = {}
+        for label, srcs, nb in (
+                ("pageable", [torch.from_numpy(a) for a in host], False),
+                ("pinned", pinned, True)):
+            def copy():
+                out = [t.to(dev, non_blocking=nb) for t in srcs]
+                torch.cuda.synchronize()
+                return out
+            copy()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                copy()
+                times.append(time.perf_counter() - t0)
+            got[label] = statistics.median(times)
+        scale = N_READS / BATCH
+        print(f"[copy] {kind} ({nbytes / BATCH:.0f} bytes a read, one batch "
+              f"of {BATCH}): pageable {got['pageable'] * scale * 1e3:.4f} ms "
+              f"per {N_READS} reads ({nbytes / got['pageable'] / 1e9:.4f} "
+              f"GB/s), pinned {got['pinned'] * scale * 1e3:.4f} ms "
+              f"({nbytes / got['pinned'] / 1e9:.4f} GB/s) [{card}]")
+        del pinned
+
+
+def traced(pipe, path, threads, label, card):
+    """One warm count_file under torch.profiler: its idle share and its
+    host->device copy time."""
+    def count():
+        pipe.sketch.rows.zero_()
+        pipe.count_file(path, batch_size=BATCH, threads=threads)
+
+    tr = trace_device(count, device=pipe.device)
+    require(tr.busy_seconds > 0, "the trace recorded no device activity")
+    h2d = sum(t for name, (t, _) in tr.by_name.items() if "HtoD" in name)
+    print(f"[trace] {label}: wall {tr.wall_seconds * 1e3:.3f} ms, device "
+          f"busy {tr.busy_seconds * 1e3:.3f} ms, idle share "
+          f"{tr.idle_share:.4f}, host->device copies {h2d * 1e3:.3f} ms "
+          f"[{card}]")
+    return tr
+
+
+def phase_routes(codes: np.ndarray, path: Path, long_path: Path, refs: dict,
+                 dev, card: str) -> int:
+    """Phase 25: count_file by route (threads x pack_h2d) at 2**14 and
+    2**20, each sketch against the plain count; reads/s, parse-only rates,
+    the two alternatives for where the host copy and the packing run, one
+    traced run of the fastest route beside the serial one, copy rates, the
+    long reads, and 62 small packed batches. Returns the unpack kernel's
+    launches on the packed count_file at 2**20 (one thread)."""
+    tag = f"[{card}]"
+    cores = len(os.sched_getaffinity(0))
+    print(f"[routes] os.cpu_count() {os.cpu_count()}, "
+          f"len(os.sched_getaffinity(0)) {cores}")
+    threads = [t for t in THREADS if t <= cores]
+    rates, traces = {}, {}
+    unpack_launches = 0
+    for wl in (WLOG, WIDE):
+        for t in threads:
+            for pack in (False, True):
+                pipe, launches = route_count(ReadHashingPipeline, path, wl, t,
+                                             pack, refs[wl], dev)
+                if wl == WIDE and t == 1 and pack:
+                    unpack_launches = launches["unpack"]
+
+                def count(pipe=pipe, t=t):
+                    pipe.sketch.rows.zero_()
+                    pipe.count_file(path, batch_size=BATCH, threads=t)
+
+                rates[wl, t, pack] = N_READS / host_median(count)
+                print(f"[routes] count_file 2**{wl} threads={t} pack_h2d="
+                      f"{pack}: sketch == plain, launches {launches}; "
+                      f"median of 3 {rates[wl, t, pack]:.6g} reads/s {tag}")
+                if wl == WIDE:
+                    traces[t, pack] = traced(
+                        pipe, path, t, f"count_file 2**{wl} threads={t} "
+                        f"pack_h2d={pack}", card)
+                del pipe
+                torch.cuda.empty_cache()
+    for t in threads:
+        for pack in (False, True):
+            r = N_READS / host_median(lambda: host_side_only(path, t, pack))
+            print(f"[routes] parse only threads={t}"
+                  f"{' + pack_codes' if pack else ''}: median of 3 "
+                  f"{r:.6g} reads/s {tag}")
+    half = max(2, threads[-1] // 2)
+    for cls, t, pack in ((CopyIntoPinned, 1, False),
+                         (CopyIntoPinned, half, False),
+                         (PackInPrefetcher, half, True)):
+        pipe, _ = route_count(cls, path, WIDE, t, pack, refs[WIDE], dev)
+
+        def count(pipe=pipe, t=t):
+            pipe.sketch.rows.zero_()
+            pipe.count_file(path, batch_size=BATCH, threads=t)
+
+        r = N_READS / host_median(count)
+        shipped = rates.get((WIDE, t, pack))
+        print(f"[routes] {cls.__name__} 2**{WIDE} threads={t} pack_h2d="
+              f"{pack}: sketch == plain; median of 3 {r:.6g} reads/s (the "
+              f"route as shipped: {shipped and f'{shipped:.6g}'}) {tag}")
+        del pipe
+    best = max((key for key in rates if key[0] == WIDE), key=rates.get)
+    _, bt, bp = best
+    print(f"[routes] fastest at 2**{WIDE}: threads={bt} pack_h2d={bp} "
+          f"{rates[best]:.6g} reads/s, serial {rates[WIDE, 1, False]:.6g}")
+    pair = list(dict.fromkeys(((1, False), (bt, bp))))  # serial, fastest
+    for t, pack in pair:
+        print(f"[trace] by row, count_file 2**{WIDE} threads={t} "
+              f"pack_h2d={pack}:")
+        for name, (sec, n) in sorted(traces[t, pack].by_name.items(),
+                                     key=lambda kv: -kv[1][0])[:8]:
+            print(f"[trace]   {sec * 1e3:9.3f} ms  x{n:<4d} {name[:90]}")
+    copy_rates(codes, dev, card)
+
+    # the long reads: the fastest route against the serial one
+    sketches = []
+    for t, pack in pair:
+        pipe = ReadHashingPipeline(PipelineConfig(pack_h2d=pack), device=dev)
+        reset_route_launches()
+        got = pipe.count_file(long_path, batch_size=LONG_BATCH,
+                              read_length=LONG_L, threads=t)
+        require(got == LONG_READS and kmer_kernel.LONG_LAUNCHES > 0
+                and unpack_kernel.LAUNCHES == (kmer_kernel.LONG_LAUNCHES
+                                               if pack else 0),
+                f"long reads threads={t} pack_h2d={pack}: {got} reads")
+        sketches.append(pipe.sketch.rows.clone())
+
+        def count(pipe=pipe, t=t):
+            pipe.sketch.rows.zero_()
+            pipe.count_file(long_path, batch_size=LONG_BATCH,
+                            read_length=LONG_L, threads=t)
+
+        r = LONG_READS / host_median(count)
+        print(f"[routes] long reads {LONG_READS} x {LONG_L} bp threads={t} "
+              f"pack_h2d={pack}: median of 3 {r:.6g} reads/s, "
+              f"{r * LONG_L:.6g} bases/s {tag}")
+        del pipe
+    require(torch.equal(sketches[0], sketches[-1]),
+            "long-read sketch of the fastest route != the serial one")
+
+    # many small batches: a pinned buffer reused before its copy completed
+    # would show here
+    for cls, t, pack in ((ReadHashingPipeline, 1, True),
+                         (ReadHashingPipeline, threads[-1], True),
+                         (ReadHashingPipeline, threads[-1], False)):
+        route_count(cls, path, WLOG, t, pack, refs[WLOG], dev,
+                    batch=SMALL_BATCH)
+        print(f"[routes] count_file in batches of {SMALL_BATCH} "
+              f"({-(-N_READS // SMALL_BATCH)} batches, threads={t}, pack_h2d="
+              f"{pack}) == plain count")
+    torch.cuda.empty_cache()
+    return unpack_launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2303,6 +2673,7 @@ def main() -> None:
         write_fastq(path, codes)
         pipe, launches = run("5 path at 2**14", phase_main_path, codes,
                              path, dev)
+        refs = {WLOG: pipe.sketch.rows.clone()}   # == the plain count
         times = run("6 timings at 2**14", phase_timings, codes, path, pipe,
                     dev, smi)
         run("7 trace at 2**14", phase_trace, path, pipe, dev, smi)
@@ -2311,6 +2682,7 @@ def main() -> None:
         pipe, part_launches, batches = run("9 path at 2**20",
                                            phase_main_wide, codes, path, dev,
                                            part_errs)
+        refs[WIDE] = pipe.sketch.rows.clone()    # == the plain count
         wide = run("10 timings at 2**20", phase_wide_timings, codes, path,
                    pipe, batches, dev, smi)
         del pipe, batches
@@ -2320,20 +2692,25 @@ def main() -> None:
         seed_errs, seeds = run("13 seeds", phase_seeds, codes, gen, dev, smi)
         long_errs, long_launches, t_long = run(
             "14 long reads", phase_long_count, rng, Path(tmp), dev, smi)
-    run("15 crossover", phase_crossover, gen, dev, smi)
-    seq_errs, sp_launches, seq_times = run("16 sequences", phase_sp, rng, dev,
-                                           smi)
-    bloom_errs = run("17 Bloom edge shapes", phase_bloom_edges, gen, dev)
-    bloom_launches = run("18 Bloom path", phase_bloom_path, codes, dev,
-                         bloom_errs)
-    bloom_times = run("19 Bloom timings", phase_bloom_timings, codes, dev,
-                      smi)
-    new_errs = run("20 redesigned kernels vs plain", phase_redesign_checks,
-                   codes, gen, dev)
-    run("21 redesigned kernels' timings", phase_redesign_timings, codes, gen,
-        dev, smi)
-    run("23 histogram routes' timings", phase_hist_route_timings, codes, gen,
-        dev, smi)
+        run("15 crossover", phase_crossover, gen, dev, smi)
+        seq_errs, sp_launches, seq_times = run("16 sequences", phase_sp, rng,
+                                               dev, smi)
+        bloom_errs = run("17 Bloom edge shapes", phase_bloom_edges, gen, dev)
+        bloom_launches = run("18 Bloom path", phase_bloom_path, codes, dev,
+                             bloom_errs)
+        bloom_times = run("19 Bloom timings", phase_bloom_timings, codes, dev,
+                          smi)
+        new_errs = run("20 redesigned kernels vs plain",
+                       phase_redesign_checks, codes, gen, dev)
+        run("21 redesigned kernels' timings", phase_redesign_timings, codes,
+            gen, dev, smi)
+        run("23 histogram routes' timings", phase_hist_route_timings, codes,
+            gen, dev, smi)
+        unpack = run("24 unpack vs plain", phase_unpack, rng, gen, codes, dev,
+                     smi)
+        unpack["launches"] = run("25 count_file routes", phase_routes, codes,
+                                 path, Path(tmp) / "long.fq", refs, dev, smi)
+        del refs
     bloom_errs["bloom_words_rows"] = max(bloom_errs["bloom_words_rows"],
                                          new_errs["bloom_words_rows"])
     for name in ("sort_tiles", "merge_phase"):
@@ -2424,6 +2801,14 @@ def main() -> None:
             "max_abs_err": seq_errs[name], "ms": k_s * 1e3,
             "plain_ms": p_s * 1e3, "bound_ms": bound_ms(nbytes),
             "bound_by": "bytes", "library_ms": None})
+    kernels.append({
+        "name": "unpack_codes", "route": "cuda",
+        "source": "nthash_tpu_torch/csrc/unpack.cu",
+        "replaces": "nthash_tpu/parallel/dp.py:86",
+        "launches": unpack["launches"], "max_abs_err": unpack["err"],
+        "ms": unpack["ms"], "plain_ms": unpack["plain_ms"],
+        "bound_ms": unpack["bound_ms"], "bound_by": "bytes",
+        "library_ms": None})
     print(f"[sp] launches on the one-sequence path: {sp_launches}")
     require(all(k["launches"] > 0 for k in kernels),
             "a kernel of the kernels line never launched: "

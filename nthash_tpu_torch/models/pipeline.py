@@ -2,9 +2,15 @@
 
 Counterpart of ``nthash_tpu/models/pipeline.py`` together with the
 single-device part of ``nthash_tpu/parallel/dp.py`` (``fused_count``,
-``hash_and_sketch``): with one device there is no shard_map and no psum, so
-the per-shard step is the whole step. Multi-GPU, the parallel parse and the
-packed host->device format are later work and raise NotImplementedError.
+``hash_and_sketch`` here; ``fused_count_packed`` in ``parallel/dp.py``):
+with one device there is no shard_map and no psum, so the per-shard step is
+the whole step. Multi-GPU is later work and raises NotImplementedError.
+
+A file streams by one of four routes: one parse thread or ``threads``
+byte-range shards (``io/stream.py``), each carrying codes or, with
+``pack_h2d``, the 2-bit wire format. On a CUDA device every route copies
+its batches to the card from pinned host buffers, asynchronously, on a side
+stream (``io/pinned.py``); on the CPU nothing is copied or pinned.
 
 The sketch is updated in place: every step adds its counts into
 ``pipeline.sketch.rows`` (``rows += counts``) instead of building a new
@@ -13,12 +19,15 @@ tensor.
 
 from __future__ import annotations
 
+import threading
+from contextlib import nullcontext
 from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..io.pinned import PinnedBuffers
 from ..ops.kmer_kernel import hash_kmers_tm_auto, prepare_codes
 from ..ops.kmer_torch import window_valid_tm
 from . import sketch as cms
@@ -40,7 +49,11 @@ class PipelineConfig:
     #: per-hash [W, B] tensors (the kernel's own layout), False one
     #: [B, W, H] stack.
     time_major: bool = True
-    #: The JAX package's 2-bit host->device wire format; not ported yet.
+    #: count_file only: pack each batch on the host to 2 bits a base plus
+    #: an N bitmap (``io/stream.py::pack_codes``, in the parse threads) and
+    #: unpack it on the card (``ops/unpack_kernel.py``): 2.63x fewer bytes
+    #: over the host->device link at 150 bp, and the same sketch. Off by
+    #: default, as in the JAX package.
     pack_h2d: bool = False
 
 
@@ -64,6 +77,20 @@ def fused_count_step(codes_tm: torch.Tensor, sketch: cms.CountMinSketch,
                                    emitted_width_log2=width_log2)
 
 
+def _reused_per_thread():
+    """An ``alloc`` that gives each thread one array it fills again: for
+    batches packed before their thread parses the next."""
+    local = threading.local()
+
+    def alloc(shape):
+        buf = getattr(local, "buf", None)
+        if buf is None or buf.shape != shape:
+            buf = local.buf = np.empty(shape, np.uint8)
+        return buf
+
+    return alloc
+
+
 class ReadHashingPipeline:
     """Stateful wrapper around the hash+sketch step on one device.
 
@@ -79,8 +106,6 @@ class ReadHashingPipeline:
             raise NotImplementedError(
                 f"n_devices={config.n_devices}: multi-GPU is not ported yet "
                 "(ROADMAP)")
-        if config.pack_h2d:
-            raise NotImplementedError("pack_h2d is not ported yet (ROADMAP)")
         if config.engine != "auto":
             raise ValueError(f"unknown engine {config.engine!r}")
         cms.check_width(config.sketch_width_log2)
@@ -89,10 +114,56 @@ class ReadHashingPipeline:
         self.sketch = cms.CountMinSketch.zeros(
             config.num_hashes, config.sketch_width_log2, self.device)
 
-    def _to_device(self, codes) -> torch.Tensor:
-        if isinstance(codes, np.ndarray):
-            codes = torch.from_numpy(codes)
-        return codes.to(self.device)
+    def _pool(self, threads: int, prefetch: int):
+        """Pinned buffers for one stream on a CUDA device (None elsewhere):
+        one a parse thread fills, the prefetch queue's and two more, so the
+        copy in flight and the consumer's batch do not stall the parse."""
+        if self.device.type != "cuda":
+            return None
+        return PinnedBuffers(self.device, max(1, threads) + prefetch + 2)
+
+    @staticmethod
+    def _host_batches(path, batch_size, read_length, threads, pool, pack,
+                      start_offset=0, with_offsets=False):
+        """The stream of host items: (codes, n, ...) or, with ``pack``,
+        ((packed, nmask, L), n, ...), in ``pool``'s pinned buffers where
+        there is a pool. The parser writes codes straight into a pinned
+        buffer; packed, it refills one array per thread and ``pack_codes``
+        writes the planes into a pinned buffer, in the thread that parsed
+        them (each shard's worker when ``threads > 1``)."""
+        from ..io.stream import (
+            packed_batches, stream_code_batches, stream_code_batches_parallel,
+        )
+
+        stage = None
+        if pack:
+            alloc = _reused_per_thread()
+            planes = None if pool is None else pool.arrays
+
+            def stage(item):
+                (packed,) = packed_batches([item], planes)
+                return packed
+        elif pool is not None:
+            def alloc(shape):
+                return pool.arrays(shape)[0]
+        else:
+            alloc = None
+        if threads > 1:
+            return stream_code_batches_parallel(
+                path, batch_size, read_length, threads=threads, alloc=alloc,
+                stage=stage)
+        src = stream_code_batches(
+            path, batch_size, read_length, start_offset=start_offset,
+            with_offsets=with_offsets, alloc=alloc)
+        return src if stage is None else (stage(item) for item in src)
+
+    def _to_device(self, pool, *arrays) -> tuple[torch.Tensor, ...]:
+        """Host arrays of one item -> uint8 tensors on the device: one
+        asynchronous copy from ``pool``'s pinned buffer, or none at all on
+        the CPU."""
+        if pool is None:
+            return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+        return pool.to_device(*arrays)
 
     def step(self, codes):
         """Hash one [B, L] batch and fold its valid k-mers into the sketch.
@@ -102,7 +173,9 @@ class ReadHashingPipeline:
         ``time_major=False``, one int64 [B, W, H] tensor plus valid [B, W].
         """
         cfg = self.config
-        codes = self._to_device(codes)
+        if isinstance(codes, np.ndarray):
+            codes = torch.from_numpy(codes)
+        codes = codes.to(self.device)
         wlog = cfg.sketch_width_log2
         tm = prepare_codes(codes)
         hashes = hash_kmers_tm_auto(tm, cfg.k, cfg.num_hashes)  # H x [W, B]
@@ -127,17 +200,21 @@ class ReadHashingPipeline:
                  read_length: int | None = None, prefetch: int = 2,
                  threads: int = 1) -> int:
         """Stream a FASTA/FASTQ file through :meth:`step` (full hashes plus
-        the sketch update). Parsing runs in a background thread; valid-k-mer
-        counts stay on the device until one sync at the end. Returns the
-        total number of valid k-mers hashed."""
-        from ..io.stream import Prefetcher, stream_code_batches
+        the sketch update). Parsing runs in a background thread, or in
+        ``threads`` byte-range shard threads
+        (``io/stream.stream_code_batches_parallel``, which needs the native
+        parser); valid-k-mer counts stay on the device until one sync at the
+        end. Returns the total number of valid k-mers hashed."""
+        from ..io.stream import Prefetcher
 
-        _serial_only(threads)
+        pool = self._pool(threads, prefetch)
+        src = self._host_batches(path, batch_size, read_length, threads,
+                                 pool, pack=False)
         counts = []
-        with Prefetcher(stream_code_batches(path, batch_size, read_length),
-                        depth=prefetch) as pf:
+        with Prefetcher(src, depth=prefetch) as pf, pool or nullcontext():
             for batch, _ in pf:
-                _, valid = self.step(batch)
+                (codes,) = self._to_device(pool, batch)
+                _, valid = self.step(codes)
                 counts.append(valid.sum(dtype=torch.int64))
         return int(torch.stack(counts).sum()) if counts else 0
 
@@ -149,8 +226,12 @@ class ReadHashingPipeline:
         in the hash kernel, row histograms; no 64-bit hash reaches device
         memory): the production streaming configuration.
 
-        Parsing runs in a background thread and nothing synchronises per
-        batch, so parse, host->device copy and kernels overlap.
+        Parsing runs in a background thread (or ``threads`` byte-range
+        shard threads: batch order is then nondeterministic, and the sketch
+        order-invariant) and nothing synchronises per batch, so parse,
+        host->device copy and kernels overlap. ``pack_h2d`` ships the 2-bit
+        wire format and unpacks it on the device
+        (``parallel/dp.fused_count_packed``).
 
         ``checkpoint_path`` + ``checkpoint_every`` (batches) persist the
         sketch and the file offset just past the last counted record, in
@@ -161,7 +242,8 @@ class ReadHashingPipeline:
 
         Returns the number of reads streamed, including a resumed prefix.
         """
-        from ..io.stream import Prefetcher, stream_code_batches
+        from ..io.stream import Prefetcher
+        from ..parallel import dp
         from ..utils import checkpoint
 
         with_ckpt = checkpoint_path is not None
@@ -170,7 +252,6 @@ class ReadHashingPipeline:
                 "checkpointing requires the deterministic serial parse "
                 "(threads=1); parallel shard order is nondeterministic"
             )
-        _serial_only(threads)
         cfg = self.config
         total = 0
         start_offset = 0
@@ -199,16 +280,23 @@ class ReadHashingPipeline:
                 "offset": np.int64(offset),
             }, context=ctx)
 
-        batches = stream_code_batches(
-            path, batch_size, read_length,
+        pool = self._pool(threads, prefetch)
+        src_it = self._host_batches(
+            path, batch_size, read_length, threads, pool, cfg.pack_h2d,
             start_offset=start_offset, with_offsets=with_ckpt)
         done = 0
         offset = start_offset
-        with Prefetcher(batches, depth=prefetch) as pf:
+        with Prefetcher(src_it, depth=prefetch) as pf, pool or nullcontext():
             for item in pf:
                 batch, n = item[0], item[1]
-                codes = prepare_codes(self._to_device(batch))
-                fused_count_step(codes, self.sketch, cfg.k)
+                if cfg.pack_h2d:
+                    packed, nmask, length = batch
+                    packed, nmask = self._to_device(pool, packed, nmask)
+                    dp.fused_count_packed(packed, nmask, self.sketch, cfg.k,
+                                          length)
+                else:
+                    (codes,) = self._to_device(pool, batch)
+                    fused_count_step(prepare_codes(codes), self.sketch, cfg.k)
                 total += n
                 done += 1
                 if with_ckpt:
@@ -220,10 +308,3 @@ class ReadHashingPipeline:
         if with_ckpt:
             save_ckpt(offset)
         return total
-
-
-def _serial_only(threads: int) -> None:
-    if threads > 1:
-        raise NotImplementedError(
-            "threads > 1 (the byte-range parallel parse) is not ported yet "
-            "(ROADMAP)")

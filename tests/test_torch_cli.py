@@ -69,18 +69,18 @@ def test_python_dash_m(toy):
 
 
 def test_count_threads_option(toy, capsys):
-    """``count --threads`` is the JAX CLI's option (default 1): with one
-    thread both CLIs print the same total; more threads exit 1 with the
-    port's NotImplementedError message instead of a usage error (2)."""
+    """``count --threads`` is the JAX CLI's option (default 1): at one
+    thread and at four (byte-range shards), with and without ``--fused``,
+    the port prints the JAX CLI's total."""
     from nthash_tpu.__main__ import main as jmain
 
-    args = ["count", str(toy), "-k", "4", "-n", "2", "--batch-size", "8",
-            "--width-log2", "12", "--threads", "1"]
-    assert jmain(args) == 0
-    want = capsys.readouterr().out.split(" in ")[0]
-    assert main([*args, "--device", "cpu"]) == 0
-    assert capsys.readouterr().out.split(" in ")[0] == want == "21 valid 4-mers"
-    for extra in (["--fused"], []):
-        assert main(["count", str(toy), "-k", "4", "--threads", "4",
-                     "--width-log2", "12", "--device", "cpu", *extra]) == 1
-        assert "threads > 1" in capsys.readouterr().err
+    for threads in ("1", "4"):
+        args = ["count", str(toy), "-k", "4", "-n", "2", "--batch-size", "8",
+                "--width-log2", "12", "--threads", threads]
+        assert jmain(args) == 0
+        want = capsys.readouterr().out.split(" in ")[0]
+        assert main([*args, "--device", "cpu"]) == 0
+        assert capsys.readouterr().out.split(" in ")[0] == want \
+            == "21 valid 4-mers"
+        assert main([*args, "--fused", "--device", "cpu"]) == 0
+        assert capsys.readouterr().out.startswith(f"2 reads, {want}")

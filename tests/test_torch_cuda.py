@@ -20,7 +20,13 @@ from nthash_tpu_torch.models.pipeline import (
     ReadHashingPipeline,
     fused_count_step,
 )
-from nthash_tpu_torch.ops import hist_kernel, kmer_kernel, seed_kernel
+from nthash_tpu_torch.io.stream import pack_codes
+from nthash_tpu_torch.ops import (
+    hist_kernel,
+    kmer_kernel,
+    seed_kernel,
+    unpack_kernel,
+)
 from nthash_tpu_torch.ops import part_kernel as pk
 from nthash_tpu_torch.ops.hist_kernel import histogram_rows, histogram_rows_plain
 from nthash_tpu_torch.ops.kmer_kernel import (
@@ -832,3 +838,73 @@ def test_sp_one_launch_each(rng, cuda):
     assert (kmer_kernel.LAUNCHES, kmer_kernel.SEQUENCE_LAUNCHES,
             seed_kernel.LAUNCHES, seed_kernel.SEQUENCE_LAUNCHES) == (
         before[0], before[1] + 1, before[2], before[3] + 1)
+
+
+def _packed(rng, reads, length, cuda):
+    """pack_codes' planes on the card of reads holding all five codes, the
+    last eighth padding rows."""
+    codes = rng.integers(0, 5, size=(reads, length), dtype=np.uint8)
+    codes[reads - reads // 8:] = 4
+    packed, nmask = pack_codes(codes)
+    return (torch.from_numpy(packed).to(cuda),
+            torch.from_numpy(nmask).to(cuda), codes)
+
+
+@pytest.mark.parametrize("reads", [1, 33, 4096])
+@pytest.mark.parametrize("length", [1, 3, 4, 7, 8, 31, 150, 10_000])
+def test_unpack_kernel_vs_plain(rng, cuda, length, reads):
+    packed, nmask, codes = _packed(rng, reads, length, cuda)
+    before = unpack_kernel.LAUNCHES
+    got = unpack_kernel.unpack_codes_tm(packed, nmask, length)
+    assert unpack_kernel.LAUNCHES == before + 1
+    want = unpack_kernel.unpack_codes_tm_plain(packed, nmask, length)
+    torch.cuda.synchronize()
+    assert got.is_cuda and got.dtype == torch.int32 and got.is_contiguous()
+    assert torch.equal(got, want)
+    assert np.array_equal(got.T.cpu().numpy(), codes)
+
+
+def _fastq(path, rng, n, length):
+    seqs = np.frombuffer(b"ACGTN", np.uint8)[
+        rng.integers(0, 5, size=(n, length))]
+    with open(path, "wb") as f:
+        for s in seqs:
+            f.write(b"@r\n" + s.tobytes() + b"\n+\n" + b"I" * length + b"\n")
+    return path
+
+
+@pytest.mark.parametrize("pack", [False, True])
+@pytest.mark.parametrize("threads", [2, 4])
+def test_count_file_routes_vs_serial(tmp_path, rng, cuda, threads, pack):
+    """The parallel and packed routes give the serial sketch on the card,
+    through the kernels (the unpack kernel on every packed batch)."""
+    path = _fastq(tmp_path / "reads.fq", rng, 5000, 150)
+    cfg = dict(k=21, num_hashes=3, sketch_width_log2=14)
+    serial = ReadHashingPipeline(PipelineConfig(**cfg), device=cuda)
+    assert serial.count_file(path, batch_size=512) == 5000
+    pipe = ReadHashingPipeline(PipelineConfig(**cfg, pack_h2d=pack),
+                               device=cuda)
+    before = (kmer_kernel.LAUNCHES, unpack_kernel.LAUNCHES)
+    assert pipe.count_file(path, batch_size=512, threads=threads) == 5000
+    hashed = kmer_kernel.LAUNCHES - before[0]
+    assert hashed >= 10
+    assert unpack_kernel.LAUNCHES - before[1] == (hashed if pack else 0)
+    assert torch.equal(pipe.sketch.rows, serial.sketch.rows)
+    run = ReadHashingPipeline(PipelineConfig(**cfg), device=cuda)
+    run.run_file(path, batch_size=512, threads=threads)
+    assert torch.equal(run.sketch.rows, serial.sketch.rows)
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_packed_many_small_batches(tmp_path, rng, cuda, threads):
+    """62 packed batches through a few pinned buffers equal the plain count:
+    a buffer reused before its copy completed would change the sketch."""
+    n = 62 * 256 - 100
+    path = _fastq(tmp_path / "reads.fq", rng, n, 150)
+    cfg = PipelineConfig(k=21, num_hashes=3, sketch_width_log2=14,
+                         pack_h2d=True)
+    pipe = ReadHashingPipeline(cfg, device=cuda)
+    assert pipe.count_file(path, batch_size=256, threads=threads) == n
+    cpu = ReadHashingPipeline(cfg, device="cpu")
+    cpu.count_file(path, batch_size=256)
+    assert torch.equal(pipe.sketch.rows.cpu(), cpu.sketch.rows)

@@ -422,7 +422,7 @@ def test_count_file_2_20_vs_jax_run_file(fastq):
 
 @pytest.mark.parametrize("cfg,err", [
     (dict(n_devices=2), NotImplementedError),
-    (dict(pack_h2d=True), NotImplementedError),
+    (dict(n_devices=4), NotImplementedError),
     (dict(engine="pallas"), ValueError),
     (dict(engine="torch"), ValueError),
 ])
@@ -431,19 +431,53 @@ def test_unported_options_raise(cfg, err):
         ReadHashingPipeline(_cfg(**cfg), device=CPU)
 
 
-def test_parallel_parse_raises(fastq):
+def test_pack_h2d_counts_as_unpacked(fastq):
+    """PipelineConfig(pack_h2d=True) runs: the packed wire format builds the
+    unpacked route's sketch, the JAX run_file's."""
+    path, n, L = fastq
+    pipe = ReadHashingPipeline(_cfg(pack_h2d=True), device=CPU)
+    assert pipe.count_file(path, batch_size=128) == n
+    jp = _jax_pipe()
+    jp.run_file(path, batch_size=128, read_length=L)
+    assert np.array_equal(pipe.sketch.to_numpy(), np.asarray(jp.sketch.rows))
+
+
+def test_parallel_parse_raises(fastq, monkeypatch):
+    """threads > 1 needs the native parser: without it both entry points
+    raise the JAX package's RuntimeError, never parsing serially instead."""
     path, *_ = fastq
+    from nthash_tpu.io import native_loader as jnl
+    from nthash_tpu_torch.io import native_loader as nl
+
+    monkeypatch.setattr(nl, "available", lambda: False)
+    monkeypatch.setattr(jnl, "available", lambda: False)
     pipe = ReadHashingPipeline(_cfg(), device=CPU)
-    with pytest.raises(NotImplementedError):
-        pipe.count_file(path, threads=2)
-    with pytest.raises(NotImplementedError):
-        pipe.run_file(path, threads=2)
+    for run in (pipe.count_file, pipe.run_file, _jax_pipe().run_file):
+        with pytest.raises(RuntimeError, match="native parser"):
+            run(path, threads=2)
+    assert not pipe.sketch.rows.any()
+
+
+@needs_native
+@pytest.mark.parametrize("threads", [2, 3])
+def test_run_file_threads_matches_jax(fastq, threads):
+    """run_file and count_file over byte-range shards: the JAX run_file's
+    sketch and total at the same thread count."""
+    path, n, L = fastq
+    jp = _jax_pipe()
+    jtotal = jp.run_file(path, batch_size=64, read_length=L, threads=threads)
+    pipe = ReadHashingPipeline(_cfg(), device=CPU)
+    assert pipe.run_file(path, batch_size=64, threads=threads) == jtotal
+    assert np.array_equal(pipe.sketch.to_numpy(), np.asarray(jp.sketch.rows))
+    fused = ReadHashingPipeline(_cfg(), device=CPU)
+    assert fused.count_file(path, batch_size=64, threads=threads) == n
+    assert torch.equal(fused.sketch.rows, pipe.sketch.rows)
 
 
 @pytest.mark.parametrize("threads", [2, 4])
 def test_checkpoint_with_threads_raises_as_jax(fastq, tmp_path, threads):
     """Checkpointing with a parallel parse raises the reference's
-    ValueError, before the parallel parse is refused as not ported."""
+    ValueError before anything is parsed or written."""
     path, *_ = fastq
     ckpt = tmp_path / "c.npz"
     with pytest.raises(ValueError) as want:
