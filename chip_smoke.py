@@ -6,7 +6,7 @@ Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and nvcc; it
 imports nothing of JAX. Phases, each printing its own lines:
 
 1. environment: card name and power limit, torch / CUDA / nvcc versions;
-2. build the six CUDA sources from ``nthash_tpu_torch/csrc`` (one nvcc
+2. build the seven CUDA sources from ``nthash_tpu_torch/csrc`` (one nvcc
    each, all at once) and print each kernel instance's registers and
    spills (template arguments demangled); no ``seed_hash`` instance may
    spill;
@@ -139,7 +139,40 @@ imports nothing of JAX. Phases, each printing its own lines:
    serial one; host->device copy rates
    from pageable and pinned memory, codes and packed; the long reads by
    the fastest route against the serial one; and 1M reads in 62 batches of
-   2**14, packed and not, against the plain count.
+   2**14, packed and not, against the plain count;
+26. the one-sequence entries with ``emit_fwd_rev=True`` (the facade's
+   tiles) against their plain versions at every entry, invalid windows
+   included, at C in {1, k, span - 1, span + 1, 2**22 + 17}, k in {1, 5, 32,
+   97}, h in {1, 4}, the BASELINE seeds and SEEDS18 (the seed route also
+   through B1 over pseudo-reads, where seeds do not fit the entry); their
+   hashes and validity equal the route without the flag; both instances
+   timed in turns at 2**27 bases (k=32, h=1) and 2**25 (BASELINE seeds);
+27. the facade over 2**25 bases with ~1% N in runs, k=32, h=4, tiles of
+   2**22 windows: ``NtHash.__iter__`` over every window (its count against
+   ``oracle.nthash_positions``, its hashes against the oracle at 10,000
+   seeded positions and +-32 around each of the seven tile boundaries),
+   ``roll()`` over 2**21 + 1,000 windows across a boundary, ``roll_back()``
+   across another and ``peek``/``peek_back`` in lockstep with the oracle
+   engine, ``SeedNtHash`` (BASELINE seeds) over 2**23 bases against
+   ``oracle.seed_nthash_positions`` and the oracle at windows holding an N,
+   ``BlindNtHash`` / ``BlindSeedNtHash`` over 200,000 fed bases; rates
+   (medians of 3), each tile's kernel and device->host copy ms, and the
+   fwd/rev launches (one a tile);
+28. the facade's threshold: one tile through the oracle and through the
+   kernel (copies included) at 2**4 .. 2**16 windows, and where the kernel
+   starts to win (``api.AUTO_DEVICE_THRESHOLD``);
+29. the blind-roll kernel (``csrc/blind.cu``, ``roll_many`` of
+   ``ops/blind_scan.py`` and ``ops/blind_seed_scan.py``) against the step
+   loop at B in {1, 31, 33, 4097}, T in {1, k - 1, k, k + 1, 257}, k in {1,
+   5, 32, 97}, h in {1, 4}, the BASELINE seeds and SEEDS18; the DBG probe at
+   2**20 walks, k=32, 64 steps (``peek4`` -> Bloom ``contains`` at 2**30
+   bits -> argmax -> ``roll_select``; the filter filled with a 2**25-base
+   genome), the chosen bases replayed through ``roll_many`` (one launch)
+   and its plain version against the walked state, ms per step and its
+   parts, ``roll_select`` / ``roll_back_select`` alone; ``roll_many`` at
+   B = 2**20, T = 64, h = 4 against its byte bound and the plain loop, and
+   the seed kernel on 2**18 walks fed the genome (BASELINE seeds, h=3)
+   against its plain version and ``hash_seeds_sequence``.
 
 A failed check raises, so the exit code is not 0. The line before the last
 is the kernels' JSON record; the last line is ``{"ok": true, "device": ...}``.
@@ -161,6 +194,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from nthash_tpu_torch import (
+    BlindNtHash,
+    BlindSeedNtHash,
+    NtHash,
+    SeedNtHash,
+    api,
+    oracle,
+)
 from nthash_tpu_torch.io import native_loader
 from nthash_tpu_torch.io.stream import (
     Prefetcher,
@@ -179,6 +220,9 @@ from nthash_tpu_torch.models.pipeline import (
     fused_count_step,
 )
 from nthash_tpu_torch.ops import (
+    blind_kernel,
+    blind_scan,
+    blind_seed_scan,
     cuda_build,
     hist_kernel,
     kmer_kernel,
@@ -263,7 +307,7 @@ def phase_env() -> tuple[str, str]:
 
 
 SOURCES = ("kmer_hash", "histogram", "partition", "seed_hash", "bloom",
-           "unpack")
+           "unpack", "blind")
 #: Updates in phase 17's widest checks: five per thread of the largest grid
 GRID_STRIDE_N = 5 * (1 << 20) + 3
 
@@ -454,7 +498,7 @@ def phase_timings(codes: np.ndarray, path: Path, pipe, dev, card: str):
     reads, w = tm.shape[1], L - K + 1
     times = {}
 
-    def both(label, items, unit, kernel_fn, plain_fn, *args):
+    def both(label, items, unit, kernel_fn, plain_fn, *args, nbytes=None):
         # one timing of these kernels can move by several percent between
         # consecutive rounds on one card: the median of three rounds
         rounds = []
@@ -465,14 +509,18 @@ def phase_timings(codes: np.ndarray, path: Path, pipe, dev, card: str):
         t_p = timeit(plain_fn, *args).seconds_per_call
         torch.cuda.empty_cache()
         times[label] = (t_k, t_p)
+        bound = "" if nbytes is None else \
+            f", bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e9:.4f} GB)"
         print(f"[time] {label}: kernel {t_k * 1e3:.4f} ms, plain "
               f"{t_p * 1e3:.4f} ms ({items / t_k:.6g} vs "
-              f"{items / t_p:.6g} {unit}/s) {tag}")
+              f"{items / t_p:.6g} {unit}/s){bound} {tag}")
 
     for h in (1, H):
+        # the codes read once (int32), the hashes written once
         both(f"kmer_hash k={K} h={h} hashes {reads}x{L}", reads * w, "windows",
              lambda x, h=h: hash_kmers_tm(x, K, h),
-             lambda x, h=h: hash_kmers_tm_plain(x, K, h), tm)
+             lambda x, h=h: hash_kmers_tm_plain(x, K, h), tm,
+             nbytes=(4 * L + 8 * h * w) * reads)
     both(f"kmer_hash k={K} h={H} buckets 2**{WLOG} {reads}x{L}", reads * w,
          "windows", lambda x: hash_kmers_tm(x, K, H, emit_buckets=WLOG),
          lambda x: hash_kmers_tm_plain(x, K, H, emit_buckets=WLOG), tm)
@@ -2640,6 +2688,558 @@ def phase_routes(codes: np.ndarray, path: Path, long_path: Path, refs: dict,
     return unpack_launches
 
 
+# ------------------------- the facade, the blind scans (phases 26 to 29) ----
+
+FACADE_LEN = 1 << 25         # a chromosome-scale sequence, ~33.5 Mbp
+FACADE_H = 4
+FACADE_SEED_LEN = 1 << 23
+FACADE_SAMPLES = 10_000
+FACADE_ROLLS = (1 << 21) + 1000   # roll() calls across a tile boundary
+BLIND_FED = 200_000          # caller-fed bases through the Blind classes
+BLIND_WALKS, BLIND_STEPS = 1 << 20, 64
+BLIND_SEED_WALKS = 1 << 18
+DBG_GENOME, DBG_WIDTH, DBG_H = 1 << 25, 30, 4
+SEQ_FR_KERNELS = ("kmer_sequence_fwd_rev", "seed_sequence_fwd_rev")
+BLIND_KERNELS = ("blind_roll_many", "blind_seed_roll_many")
+
+
+def genome_with_n_runs(rng, n: int) -> np.ndarray:
+    """n random bases with ~1% N, in runs of 1 to 20."""
+    codes = rng.integers(0, 4, size=n, dtype=np.uint8)
+    starts = rng.integers(0, n, size=n // 1000)
+    lengths = rng.integers(1, 21, size=starts.size)
+    first = np.repeat(np.cumsum(lengths) - lengths, lengths)
+    at = np.repeat(starts, lengths) + np.arange(lengths.sum()) - first
+    codes[np.minimum(at, n - 1)] = 4
+    return codes
+
+
+def reset_fwd_rev_launches() -> None:
+    reset_sequence_launches()
+    kmer_kernel.FWD_REV_LAUNCHES = sk.FWD_REV_LAUNCHES = 0
+
+
+def phase_fwd_rev(rng, dev, card: str) -> tuple[dict, dict]:
+    """The one-sequence entries with ``emit_fwd_rev=True`` against their
+    plain versions, every entry (invalid windows included), at C in {1, k,
+    span - 1, span + 1, 2**22 + 17}, k in {1, 5, 32, 97}, h in {1, 4}, and
+    for the BASELINE seeds and SEEDS18 (the seed route also through B1 over
+    pseudo-reads); the hashes and validity equal the route without the flag.
+    Then both instances timed in turns at 2**27 (k=32, h=1) and, for seeds,
+    2**25 (BASELINE, h=1)."""
+    errs = dict.fromkeys(SEQ_FR_KERNELS, 0.0)
+    cases = 0
+    for seeds in (None, SEEDS, SEEDS18):
+        for k in ((1, 5, 32, 97) if seeds is None else (len(seeds[0]),)):
+            span = kmer_kernel.sequence_span(k)
+            for c in sorted({1, k, span - 1, span + 1, (1 << 22) + 17}):
+                seq = torch.from_numpy(
+                    rng.integers(0, 6, size=c, dtype=np.uint8)).to(dev)
+                for h in (1, 4):
+                    if seeds is None:
+                        got, valid = kmer_kernel.hash_sequence(
+                            seq, k, h, emit_fwd_rev=True)
+                        want, wvalid = kmer_kernel.hash_sequence_plain(
+                            seq, k, h, emit_fwd_rev=True)
+                        base, bvalid = kmer_kernel.hash_sequence(seq, k, h)
+                        name, groups = SEQ_FR_KERNELS[0], [got[:h]]
+                    else:
+                        got, valid = sk.hash_seeds_sequence(
+                            seq, seeds, h, emit_fwd_rev=True)
+                        want, wvalid = sk.hash_seeds_sequence_plain(
+                            seq, seeds, h, emit_fwd_rev=True)
+                        rows, rvalid = sk.hash_seeds_sequence_rows(
+                            seq, seeds, h, emit_fwd_rev=True)
+                        same_outputs(errs, SEQ_FR_KERNELS[1], rows + [rvalid],
+                                     want + [wvalid],
+                                     f"B1 over pseudo-reads, fwd/rev, C={c}")
+                        base, bvalid = sk.hash_seeds_sequence(seq, seeds, h)
+                        name = SEQ_FR_KERNELS[1]
+                        groups = [got[s * (h + 2):s * (h + 2) + h]
+                                  for s in range(len(seeds))]
+                    same_outputs(errs, name, got + [valid], want + [wvalid],
+                                 f"{name} C={c} k={k} h={h}")
+                    flat = [g for group in groups for g in group]
+                    require(all(torch.equal(a, b) for a, b in zip(flat, base))
+                            and torch.equal(valid, bvalid),
+                            f"{name} C={c} k={k} h={h}: the hashes differ from "
+                            "the route without fwd/rev")
+                    cases += 1
+                del seq
+    torch.cuda.empty_cache()
+    print(f"[fwd/rev] {cases} cases of the one-sequence entries with fwd/rev "
+          "== plain at every entry (invalid windows included), == the route "
+          "without the flag, the seed route also through B1 over pseudo-reads")
+    times = {}
+    for name, n, seeds in ((SEQ_FR_KERNELS[0], SP_LEN, None),
+                           (SEQ_FR_KERNELS[1], SP_SEED_LEN, SEEDS)):
+        seq = torch.from_numpy(rng.integers(0, 4, size=n, dtype=np.uint8)).to(dev)
+        if seeds is None:
+            def run(x, fr):
+                return kmer_kernel.hash_sequence(x, K, 1, emit_fwd_rev=fr)
+
+            def plain(x):
+                return kmer_kernel.hash_sequence_plain(x, K, 1,
+                                                       emit_fwd_rev=True)
+        else:
+            def run(x, fr):
+                return sk.hash_seeds_sequence(x, seeds, 1, emit_fwd_rev=fr)
+
+            def plain(x):
+                return sk.hash_seeds_sequence_plain(x, seeds, 1,
+                                                    emit_fwd_rev=True)
+        t = in_turns({"off": lambda x: run(x, False),
+                      "on": lambda x: run(x, True)}, seq, rounds=2)
+        t_p = timeit(plain, seq, calls=3).seconds_per_call
+        s = 1 if seeds is None else len(seeds)
+        b_off, b_on = n + 8 * n * s + n, n + 24 * n * s + n
+        times[name] = (t["on"], t_p, b_on)
+        print(f"[time] {name} {n} bases, h=1: fwd/rev {t['on'] * 1e3:.4f} ms "
+              f"(bound {bound_ms(b_on):.4f}), without it "
+              f"{t['off'] * 1e3:.4f} ms (bound {bound_ms(b_off):.4f}), in "
+              f"turns; plain with fwd/rev {t_p * 1e3:.4f} ms [{card}]")
+        del seq
+        torch.cuda.empty_cache()
+    return errs, times
+
+
+def phase_facade(rng, dev, card: str) -> dict:
+    """The facade over a chromosome-scale sequence: 2**25 bases with ~1% N
+    in runs (N cleared around the fourth tile boundary, so roll_back can
+    cross it: it cannot cross an N island), k=32, h=4, tiles of 2**22
+    windows (seven boundaries), engine "auto" on the card. NtHash.__iter__
+    over every window (count == oracle.nthash_positions; hashes == the
+    oracle at 10,000 seeded positions and at +-32 around every boundary);
+    roll() over 2**21 + 1,000 windows across a boundary, then roll_back()
+    across one and peek/peek_back, in lockstep with the oracle engine;
+    SeedNtHash (BASELINE seeds, h=3) over 2**23 bases, its positions ==
+    oracle.seed_nthash_positions and its hashes == the oracle at 10,000
+    positions and at windows holding an N (the quirk); BlindNtHash and
+    BlindSeedNtHash over 200,000 caller-fed bases against the oracle and
+    the one-sequence entries. Rates (medians of 3), each tile's kernel and
+    device->host copy ms, and the launches of the path."""
+    k, h = K, FACADE_H
+    tile = api.FACADE_TILE_WINDOWS
+    codes = genome_with_n_runs(rng, FACADE_LEN)
+    n_win = FACADE_LEN - k + 1
+    bounds = list(range(tile, n_win, tile))
+    require(len(bounds) == 7, f"{len(bounds)} tile boundaries, not 7")
+    clear = bounds[3]
+    codes[clear - 3000:clear + 3000] = rng.integers(0, 4, size=6000,
+                                                    dtype=np.uint8)
+    valid = oracle.window_valid(codes, k)
+    want_count = len(oracle.nthash_positions(codes, k))
+    samples = set(rng.integers(0, n_win, size=FACADE_SAMPLES).tolist())
+    samples |= {b + d for b in bounds for d in range(-32, 33)}
+    checked = sorted(p for p in samples if valid[p])
+
+    reset_fwd_rev_launches()
+    nth = NtHash(codes, h, k, device=dev)
+    got, count, ti, nxt = {}, 0, 0, checked[0]
+    t0 = time.perf_counter()
+    for row in nth:
+        count += 1
+        if nth.get_pos() == nxt:
+            got[nxt] = row.copy()
+            ti += 1
+            nxt = checked[ti] if ti < len(checked) else -1
+    t_full = time.perf_counter() - t0
+    launches = {"kmer": kmer_kernel.FWD_REV_LAUNCHES,
+                "kmer_all": kmer_kernel.SEQUENCE_LAUNCHES}
+    require(count == want_count,
+            f"NtHash.__iter__ visited {count} windows, the oracle {want_count}")
+    require(len(got) == len(checked), "a sampled window was not visited")
+    for p in checked:
+        _, _, want, _ = oracle.hash_all_windows(codes[p:p + k], k, h)
+        require(np.array_equal(got[p], want[0]), f"NtHash window {p}")
+    require(launches["kmer"] == len(bounds) + 1,
+            f"{launches['kmer']} fwd/rev launches for {len(bounds) + 1} tiles")
+    print(f"[facade] NtHash.__iter__ over {FACADE_LEN} bases (k={k}, h={h}, "
+          f"{len(bounds) + 1} tiles of {tile} windows): {count} windows == "
+          f"oracle.nthash_positions; {len(checked)} sampled windows (+-32 "
+          f"around every boundary) == the oracle; {t_full:.3f} s "
+          f"({count / t_full:.6g} k-mers/s); launches {launches}")
+
+    # roll() across a boundary, roll_back() across another, peeks, in
+    # lockstep with the oracle engine (its tiles small, so it stays cheap)
+    start = bounds[0] - FACADE_ROLLS // 2
+    r = NtHash(codes, h, k, pos=start, device=dev)
+    expect = np.nonzero(valid[start:])[0][:FACADE_ROLLS] + start
+    t0 = time.perf_counter()
+    pos = []
+    for _ in range(len(expect)):
+        require(r.roll(), "roll() stopped early")
+        pos.append(r.get_pos())
+        if pos[-1] in got:
+            require(np.array_equal(r.hashes(), got[pos[-1]]),
+                    f"roll() at {pos[-1]}")
+    t_roll = time.perf_counter() - t0
+    require(pos == expect.tolist() and pos[-1] > bounds[0],
+            "roll() positions != the valid windows")
+    a = NtHash(codes, h, k, pos=clear + 400, device=dev)
+    o = NtHash(codes, h, k, pos=clear + 400, engine="oracle",
+               tile_windows=4096)
+    steps = ["roll"] + ["roll_back"] * 900 + ["peek", "peek_back"] + \
+        ["roll"] * 50 + ["peek_back", "roll_back", "peek"]
+    crossed = False
+    for op in steps:
+        ra, ro = getattr(a, op)(), getattr(o, op)()
+        require(ra == ro and a.get_pos() == o.get_pos()
+                and np.array_equal(a.hashes(), o.hashes())
+                and a.get_forward_hash() == o.get_forward_hash()
+                and a.get_reverse_hash() == o.get_reverse_hash(),
+                f"{op} at {a.get_pos()}: kernel engine != oracle engine")
+        crossed |= a.get_pos() < clear
+    require(crossed, "roll_back did not cross the tile boundary")
+    print(f"[facade] roll() over {len(expect)} windows across the boundary "
+          f"at {bounds[0]}: positions == the valid windows, hashes == the "
+          f"oracle at the sampled ones; roll_back() across the boundary at "
+          f"{clear}, peek/peek_back: == the oracle engine in lockstep")
+
+    def iter_rate():
+        one = NtHash(codes[:tile + k - 1], h, k, device=dev)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in one)
+        return n / (time.perf_counter() - t0)
+
+    def roll_rate(at):
+        one = NtHash(codes, h, k, pos=at, device=dev)
+        one.roll()
+        t0 = time.perf_counter()
+        for _ in range(1 << 19):
+            one.roll()
+        return (1 << 19) / (time.perf_counter() - t0)
+
+    rates = {"iter": statistics.median(iter_rate() for _ in range(3)),
+             "roll": statistics.median(roll_rate(b + 4096) for b in bounds[:3])}
+
+    # SeedNtHash over 2**23 bases: the quirk windows included
+    seeds, sh = SEEDS, SEED_H
+    scodes = codes[:FACADE_SEED_LEN]
+    ks = len(seeds[0])
+    want_pos = oracle.seed_nthash_positions(scodes, ks)
+    wpos = np.asarray(want_pos)
+    has_n = ~oracle.window_valid(scodes, ks)
+    quirk = wpos[has_n[wpos]]
+    pick = set(rng.choice(wpos, size=FACADE_SAMPLES, replace=False).tolist())
+    pick |= set(quirk[:2000].tolist())
+    pick = sorted(pick)
+    reset_fwd_rev_launches()
+    snt = SeedNtHash(scodes, seeds, sh, ks, device=dev)
+    spos, srows, ti = [], {}, 0
+    t0 = time.perf_counter()
+    for row in snt:
+        p = snt.get_pos()
+        spos.append(p)
+        if ti < len(pick) and p == pick[ti]:
+            srows[p] = row.copy()
+            ti += 1
+    t_seed = time.perf_counter() - t0
+    launches["seed"] = sk.FWD_REV_LAUNCHES
+    require(spos == want_pos, "SeedNtHash positions != "
+            "oracle.seed_nthash_positions")
+    require(len(srows) == len(pick) and quirk.size > 0,
+            f"{len(srows)} of {len(pick)} picked windows seen, "
+            f"{quirk.size} quirk windows")
+    for p in pick:
+        _, _, want = oracle.hash_all_windows_seeds(scodes[p:p + ks], seeds, sh)
+        require(np.array_equal(srows[p], want[0]), f"SeedNtHash window {p}")
+    require(launches["seed"] == 2, f"{launches['seed']} seed fwd/rev launches")
+
+    def seed_rate():
+        s = SeedNtHash(scodes[:tile + ks - 1], seeds, sh, ks, device=dev)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in s)
+        return n / (time.perf_counter() - t0)
+
+    rates["seed iter"] = statistics.median(
+        [len(spos) / t_seed, seed_rate(), seed_rate()])
+    print(f"[facade] SeedNtHash {seeds}, h={sh}, over {FACADE_SEED_LEN} "
+          f"bases: {len(spos)} positions == oracle.seed_nthash_positions, "
+          f"{len(pick)} windows ({quirk.size} hold an N: the quirk, "
+          f"{min(quirk.size, 2000)} checked) == the oracle; launches "
+          f"{launches['seed']}")
+
+    # the Blind classes fed the sequence base by base
+    fed = codes[:BLIND_FED + k]
+    seq_h, _ = kmer_kernel.hash_sequence(torch.from_numpy(fed).to(dev), k, h)
+    seq_h = np.stack([to_numpy_u64(x) for x in seq_h], -1)
+
+    def blind_walk(check):
+        b = BlindNtHash(fed, h, k)
+        out = np.empty((BLIND_FED, h), np.uint64) if check else None
+        t0 = time.perf_counter()
+        for i in range(BLIND_FED):
+            b.roll(int(fed[k + i]))
+            if check:
+                out[i] = b.hashes()
+        return BLIND_FED / (time.perf_counter() - t0), out
+
+    rate, walked = blind_walk(True)
+    require(np.array_equal(walked, seq_h[1:BLIND_FED + 1]),
+            "BlindNtHash != the one-sequence entry")
+    for i in rng.integers(0, BLIND_FED, size=1000):
+        _, _, want, _ = oracle.hash_all_windows(fed[i + 1:i + 1 + k], k, h)
+        require(np.array_equal(walked[i], want[0]), f"BlindNtHash step {i}")
+    rates["blind"] = statistics.median([rate, blind_walk(False)[0],
+                                        blind_walk(False)[0]])
+    sfed = codes[:BLIND_FED + ks]
+    bs_ = BlindSeedNtHash(sfed, seeds, sh, ks)
+    sq, _ = sk.hash_seeds_sequence(torch.from_numpy(sfed).to(dev), seeds, sh)
+    sq = np.stack([to_numpy_u64(x) for x in sq], -1)
+    t0 = time.perf_counter()
+    for i in range(BLIND_FED):
+        bs_.roll(int(sfed[ks + i]))
+        if i % 97 == 0:
+            require(np.array_equal(bs_.hashes(), sq[i + 1]),
+                    f"BlindSeedNtHash step {i}")
+    rates["blind seed"] = BLIND_FED / (time.perf_counter() - t0)
+    for i in rng.integers(0, BLIND_FED, size=200):
+        b2 = BlindSeedNtHash(sfed[i:i + ks], seeds, sh, ks)
+        _, _, want = oracle.hash_all_windows_seeds(sfed[i:i + ks], seeds, sh)
+        require(np.array_equal(b2.hashes(), want[0]) and
+                np.array_equal(sq[i], want[0]), f"BlindSeedNtHash init {i}")
+    print(f"[facade] BlindNtHash over {BLIND_FED} fed bases == the "
+          f"one-sequence entry at every step, == the oracle at 1,000; "
+          f"BlindSeedNtHash == hash_seeds_sequence every 97th step, "
+          f"== the oracle at 200 windows")
+    print(f"[time] facade, medians of 3: NtHash.__iter__ "
+          f"{rates['iter']:.6g} k-mers/s (one tile, hashing included), "
+          f"roll() {rates['roll']:.6g}/s, SeedNtHash.__iter__ "
+          f"{rates['seed iter']:.6g} k-mers/s, BlindNtHash.roll "
+          f"{rates['blind']:.6g}/s; BlindSeedNtHash.roll "
+          f"{rates['blind seed']:.6g}/s (one run); the whole 2**25 walk "
+          f"{t_full:.3f} s, roll() across a boundary "
+          f"{len(expect) / t_roll:.6g}/s [{card}]")
+
+    # each tile's kernel and device->host copy
+    for ti in range(len(bounds) + 1):
+        lo = ti * tile
+        hi = min(lo + tile, n_win)
+        chunk = torch.from_numpy(codes[lo:hi + k - 1]).to(dev)
+        t_k = timeit(lambda x: kmer_kernel.hash_sequence(
+            x, k, h, emit_fwd_rev=True), chunk, calls=3).seconds_per_call
+        outs, ok = kmer_kernel.hash_sequence(chunk, k, h, emit_fwd_rev=True)
+        torch.cuda.synchronize()
+        t_c = host_median(lambda: (api._host(outs, hi - lo),
+                                   ok[:hi - lo].cpu()), runs=1)
+        print(f"[time] facade tile {ti}: {hi - lo} windows, kernel "
+              f"{t_k * 1e3:.4f} ms, device->host {t_c * 1e3:.4f} ms "
+              f"({(hi - lo) * (8 * (h + 2) + 1) / t_c / 1e9:.4f} GB/s) "
+              f"[{card}]")
+        del chunk, outs, ok
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_threshold(rng, dev, card: str) -> int:
+    """Where the kernel engine starts to win on a tile: the oracle against
+    ``api._kernel_tile`` (host->device, the launch, the stack and the
+    device->host copies) at 2**4 .. 2**16 windows, k=32, h=1 (the CLI's
+    default), medians of 3 and 5 host timings."""
+    k = K
+    codes = rng.integers(0, 4, size=(1 << 16) + k - 1, dtype=np.uint8)
+    win = None
+    for e in range(4, 17):
+        w = 1 << e
+        chunk = codes[:w + k - 1]
+        t_o = host_median(lambda: oracle.hash_all_windows(chunk, k, 1))
+        t_k = host_median(lambda: api._kernel_tile(chunk, k, 1, dev), runs=5)
+        if t_k < t_o and win is None:
+            win = w
+        elif t_k >= t_o:
+            win = None
+        print(f"[threshold] {w} windows, k={k}, h=1: oracle "
+              f"{t_o * 1e3:.4f} ms, kernel tile {t_k * 1e3:.4f} ms [{card}]")
+    require(win is not None, "the kernel never wins")
+    print(f"[threshold] the kernel wins from {win} windows on; "
+          f"api.AUTO_DEVICE_THRESHOLD = {api.AUTO_DEVICE_THRESHOLD} [{card}]")
+    return win
+
+
+def blind_bytes(steps: int, walks: int, k: int, nseeds: int, h: int) -> int:
+    """Bytes roll_many must move: the fed int32 codes, the window read and
+    written, every step's hashes written, (fwd, rev) read and written."""
+    return (4 * steps * walks + 8 * walks * k + 8 * steps * walks * nseeds * h
+            + 32 * walks * nseeds)
+
+
+def phase_blind(rng, gen, dev, card: str) -> tuple[dict, dict, dict]:
+    """The blind-roll kernel against the step loop at B in {1, 31, 33, 4097},
+    T in {0 .. 257}, k in {1, 5, 32, 97}, h in {1, 4}, and for the BASELINE
+    seeds and SEEDS18; then the DBG probe at 2**20 walks (k=32, 64 steps:
+    peek4 -> Bloom contains -> argmax -> roll_select, the filter at 2**30
+    bits, h=4, filled with a 2**25-base genome), the walks' chosen bases
+    replayed through roll_many (one launch) and its plain version against
+    the walked state; the seed kernel on 2**18 walks fed the genome against
+    its plain version and the one-sequence entry; timings."""
+    errs = dict.fromkeys(BLIND_KERNELS, 0.0)
+    cases = 0
+    for seeds in (None, SEEDS, SEEDS18):
+        for k in ((1, 5, 32, 97) if seeds is None else (len(seeds[0]),)):
+            for walks in (1, 31, 33, 4097):
+                for steps in sorted({1, k - 1, k, k + 1, 257}):
+                    w = torch.from_numpy(rng.integers(-1, 6, size=(walks, k))
+                                         .astype(np.int32)).to(dev)
+                    ch = torch.from_numpy(rng.integers(0, 6, size=(steps, walks))
+                                          .astype(np.int32)).to(dev)
+                    for h in (1, 4):
+                        if seeds is None:
+                            st = blind_scan.init_state(w)
+                            a, ha = blind_scan.roll_many(st, ch, h)
+                            b, hb = blind_scan.roll_many_plain(st, ch, h)
+                            name = BLIND_KERNELS[0]
+                        else:
+                            st = blind_seed_scan.init_state(w, seeds)
+                            a, ha = blind_seed_scan.roll_many(st, ch, seeds, h)
+                            b, hb = blind_seed_scan.roll_many_plain(
+                                st, ch, seeds, h)
+                            name = BLIND_KERNELS[1]
+                        same_outputs(errs, name, [ha, *a], [hb, *b],
+                                     f"{name} B={walks} T={steps} k={k} h={h}")
+                        regs = in_registers(st, ch, seeds or ("1" * k,), h)
+                        same_outputs(errs, name, regs,
+                                     [hb, b.fwd.reshape(walks, -1),
+                                      b.rev.reshape(walks, -1), b.window],
+                                     f"{name}, registers kernel forced, "
+                                     f"B={walks} T={steps} k={k} h={h}")
+                        cases += 1
+    print(f"[blind] {cases} cases of roll_many (csrc/blind.cu) == the step "
+          "loop, by the staged kernel (the rule) and by the registers kernel "
+          "forced: every hash and the final state, codes outside 0-3 in the "
+          "windows and the stream")
+
+    # the DBG probe
+    k, h, walks, steps = K, DBG_H, BLIND_WALKS, BLIND_STEPS
+    genome = torch.randint(0, 4, (DBG_GENOME,), dtype=torch.uint8,
+                           device=dev, generator=gen)
+    ghash, gvalid = kmer_kernel.hash_sequence(genome, k, h)
+    bf = bloom.insert(bloom.BloomFilter.zeros(DBG_WIDTH, dev),
+                      torch.stack(ghash, -1), gvalid, DBG_WIDTH)
+    del ghash, gvalid
+    starts = torch.randint(0, DBG_GENOME - k - steps, (walks,), device=dev,
+                           generator=gen)
+    windows = genome[starts[:, None] + torch.arange(k, device=dev)]
+    state0 = blind_scan.init_state(windows)
+    state = state0
+    choices = torch.empty((steps, walks), dtype=torch.int32, device=dev)
+    parts = dict.fromkeys(("peek4", "contains", "argmax", "roll_select"), 0.0)
+    on_genome = torch.zeros((), dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        probes = blind_scan.peek4(state, h)
+        ev[1].record()
+        hit = bloom.contains(bf, probes, DBG_WIDTH)
+        ev[2].record()
+        choice = torch.argmax(hit.to(torch.int8), dim=1).to(torch.int32)
+        ev[3].record()
+        state = blind_scan.roll_select(state, choice)
+        ev[4].record()
+        choices[t] = choice
+        on_genome += (choice == genome[starts + k + t]).sum()
+        torch.cuda.synchronize()
+        for i, name in enumerate(parts):
+            parts[name] += ev[i].elapsed_time(ev[i + 1])
+    t_walk = time.perf_counter() - t0
+    reset_blind_launches()
+    replay, rhash = blind_scan.roll_many(state0, choices, h)
+    launches = {BLIND_KERNELS[0]: blind_scan.LAUNCHES}
+    plain, phash = blind_scan.roll_many_plain(state0, choices, h)
+    same_outputs(errs, BLIND_KERNELS[0], [rhash, *replay], [phash, *plain],
+                 "the DBG walks replayed: kernel vs plain")
+    require(all(torch.equal(x, y) for x, y in zip(replay, state))
+            and torch.equal(rhash[-1], blind_scan.hashes_of(state, h)),
+            "the DBG walks replayed through roll_many != the walked state")
+    frac = int(on_genome) / (walks * steps)
+    print(f"[dbg] {walks} walks x {steps} steps, k={k}, Bloom 2**{DBG_WIDTH} "
+          f"bits, h={h}, genome {DBG_GENOME} bases: {frac:.6f} of the chosen "
+          f"bases are the genome's; the walked state == roll_many over the "
+          f"chosen bases (kernel) == its plain version; launches {launches}")
+    per = {name: ms / steps for name, ms in parts.items()}
+    t_sel = timeit(lambda c: blind_scan.roll_select(state0, c), choices[0],
+                   calls=5).seconds_per_call
+    t_back = timeit(lambda c: blind_scan.roll_back_select(state0, c),
+                    choices[0], calls=5).seconds_per_call
+    print(f"[time] DBG step at {walks} walks: {t_walk / steps * 1e3:.4f} ms "
+          f"a step (host clock); device ms a step: "
+          + ", ".join(f"{n} {v:.4f}" for n, v in per.items())
+          + f"; roll_select alone {t_sel * 1e3:.4f} ms, roll_back_select "
+          f"{t_back * 1e3:.4f} ms (plain tensor ops: the [B, k] window "
+          f"shifted, {8 * walks * k / 1e6:.1f} MB moved) [{card}]")
+    del bf
+    torch.cuda.empty_cache()
+    times = {}
+    t = in_turns({
+        "kernel": lambda c: blind_scan.roll_many(state0, c, h),
+        "registers": lambda c: in_registers(state0, c, ("1" * k,), h),
+        "plain": lambda c: blind_scan.roll_many_plain(state0, c, h)},
+        choices, rounds=2)
+    nbytes = blind_bytes(steps, walks, k, 1, h)
+    times[BLIND_KERNELS[0]] = (t["kernel"], t["plain"], nbytes)
+    print(f"[time] roll_many B={walks} T={steps} k={k} h={h}: kernel "
+          f"{t['kernel'] * 1e3:.4f} ms (staged), registers kernel "
+          f"{t['registers'] * 1e3:.4f} ms, bound {bound_ms(nbytes):.4f} ms "
+          f"({nbytes / 1e9:.4f} GB), plain step loop "
+          f"{t['plain'] * 1e3:.4f} ms, in turns [{card}]")
+    del state, state0, replay, plain, rhash, phash, choices
+    torch.cuda.empty_cache()
+
+    # spaced seeds: 2**18 walks fed the genome's own bases
+    seeds, sh, ks = SEEDS, SEED_H, len(SEEDS[0])
+    starts = torch.randint(0, DBG_GENOME - ks - steps, (BLIND_SEED_WALKS,),
+                           device=dev, generator=gen)
+    sw = genome[starts[:, None] + torch.arange(ks, device=dev)]
+    fed = genome[starts[None, :] + ks
+                 + torch.arange(steps, device=dev)[:, None]].to(torch.int32)
+    sst = blind_seed_scan.init_state(sw, seeds)
+    reset_blind_launches()
+    a, ha = blind_seed_scan.roll_many(sst, fed, seeds, sh)
+    launches[BLIND_KERNELS[1]] = blind_seed_scan.LAUNCHES
+    b, hb = blind_seed_scan.roll_many_plain(sst, fed, seeds, sh)
+    same_outputs(errs, BLIND_KERNELS[1], [ha, *a], [hb, *b],
+                 "seed roll_many over the genome: kernel vs plain")
+    seq, _ = sk.hash_seeds_sequence(genome, seeds, sh)
+    at = starts[None, :] + 1 + torch.arange(steps, device=dev)[:, None]
+    want = torch.stack([s[at] for s in seq], -1)
+    require(torch.equal(ha, want), "seed roll_many over the genome != "
+            "the one-sequence entry at the same windows")
+    print(f"[blind] {BLIND_SEED_WALKS} seed walks ({seeds}, h={sh}) fed "
+          f"{steps} genome bases: kernel == plain == hash_seeds_sequence at "
+          f"the same windows; launches {launches[BLIND_KERNELS[1]]}")
+    del seq, want, a, b, ha, hb
+    t = in_turns({
+        "kernel": lambda c: blind_seed_scan.roll_many(sst, c, seeds, sh),
+        "registers": lambda c: in_registers(sst, c, seeds, sh),
+        "plain": lambda c: blind_seed_scan.roll_many_plain(sst, c, seeds,
+                                                           sh)},
+        fed, rounds=2)
+    nbytes = blind_bytes(steps, BLIND_SEED_WALKS, ks, len(seeds), sh)
+    times[BLIND_KERNELS[1]] = (t["kernel"], t["plain"], nbytes)
+    print(f"[time] seed roll_many B={BLIND_SEED_WALKS} T={steps} {seeds} "
+          f"h={sh}: kernel {t['kernel'] * 1e3:.4f} ms (staged), registers "
+          f"kernel {t['registers'] * 1e3:.4f} ms, bound "
+          f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e9:.4f} GB), plain step "
+          f"loop {t['plain'] * 1e3:.4f} ms, in turns [{card}]")
+    del genome, sst, fed
+    torch.cuda.empty_cache()
+    return errs, launches, times
+
+
+def in_registers(state, chars, seeds, h):
+    """The blind roll by the kernel with a thread's values in registers
+    (the first design; the route for seed sets too large to stage), forced:
+    [hashes, fwd [B, S], rev [B, S], window]."""
+    return list(blind_kernel.launch(chars, state.window, state.fwd,
+                                    state.rev, seeds, h, warps=0))
+
+
+def reset_blind_launches() -> None:
+    blind_scan.LAUNCHES = blind_seed_scan.LAUNCHES = 0
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2711,6 +3311,14 @@ def main() -> None:
         unpack["launches"] = run("25 count_file routes", phase_routes, codes,
                                  path, Path(tmp) / "long.fq", refs, dev, smi)
         del refs
+    del codes
+    torch.cuda.empty_cache()
+    fr_errs, fr_times = run("26 sequence entries with fwd/rev",
+                            phase_fwd_rev, rng, dev, smi)
+    fr_launches = run("27 the facade", phase_facade, rng, dev, smi)
+    run("28 the facade's threshold", phase_threshold, rng, dev, smi)
+    blind_errs, blind_launches, blind_times = run(
+        "29 blind scans", phase_blind, rng, gen, dev, smi)
     bloom_errs["bloom_words_rows"] = max(bloom_errs["bloom_words_rows"],
                                          new_errs["bloom_words_rows"])
     for name in ("sort_tiles", "merge_phase"):
@@ -2809,6 +3417,30 @@ def main() -> None:
         "ms": unpack["ms"], "plain_ms": unpack["plain_ms"],
         "bound_ms": unpack["bound_ms"], "bound_by": "bytes",
         "library_ms": None})
+    for name, source, replaces, n, err, (k_s, p_s, nbytes) in (
+            ("kmer_sequence_fwd_rev", "nthash_tpu_torch/csrc/kmer_hash.cu",
+             "nthash_tpu/ops/kmer_pallas.py:72", fr_launches["kmer"],
+             fr_errs["kmer_sequence_fwd_rev"],
+             fr_times["kmer_sequence_fwd_rev"]),
+            ("seed_sequence_fwd_rev", "nthash_tpu_torch/csrc/seed_hash.cu",
+             "nthash_tpu/ops/seed_pallas.py:105", fr_launches["seed"],
+             fr_errs["seed_sequence_fwd_rev"],
+             fr_times["seed_sequence_fwd_rev"]),
+            ("blind_roll_many", "nthash_tpu_torch/csrc/blind.cu",
+             "nthash_tpu/ops/blind_scan.py:99",
+             blind_launches["blind_roll_many"],
+             blind_errs["blind_roll_many"], blind_times["blind_roll_many"]),
+            ("blind_seed_roll_many", "nthash_tpu_torch/csrc/blind.cu",
+             "nthash_tpu/ops/blind_seed_scan.py:141",
+             blind_launches["blind_seed_roll_many"],
+             blind_errs["blind_seed_roll_many"],
+             blind_times["blind_seed_roll_many"])):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n, "max_abs_err": err,
+            "ms": k_s * 1e3, "plain_ms": p_s * 1e3,
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+            "library_ms": None})
     print(f"[sp] launches on the one-sequence path: {sp_launches}")
     require(all(k["launches"] > 0 for k in kernels),
             "a kernel of the kernels line never launched: "

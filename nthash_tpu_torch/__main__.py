@@ -1,8 +1,12 @@
-"""Command-line interface: ``python -m nthash_tpu_torch count FILE``.
+"""Command-line interface: ``python -m nthash_tpu_torch <command>``.
 
-Counterpart of ``nthash_tpu/__main__.py``'s ``count`` command: stream a
-FASTA/FASTQ file through the hash-and-sketch pipeline on one device and print
-totals and throughput. (``hash`` needs the scalar facade, not ported yet.)
+Counterpart of ``nthash_tpu/__main__.py``, on one device. Commands:
+
+- ``hash``:  print ntHash2 hashes for a sequence (or stdin lines), through
+  the facade (``NtHash`` / ``SeedNtHash``): the oracle below the facade's
+  threshold, the kernels on ``--device`` above it.
+- ``count``: stream a FASTA/FASTQ file through the hash-and-sketch pipeline;
+  print totals and throughput.
 """
 
 from __future__ import annotations
@@ -10,6 +14,22 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+
+
+def _cmd_hash(args) -> int:
+    from . import NtHash, SeedNtHash
+
+    seqs = args.sequence or [line.strip() for line in sys.stdin if line.strip()]
+    for seq in seqs:
+        if args.seeds:
+            nth = SeedNtHash(seq, tuple(args.seeds), args.num_hashes, args.k,
+                             device=args.device)
+        else:
+            nth = NtHash(seq, args.num_hashes, args.k, device=args.device)
+        while nth.roll():
+            p = nth.get_pos()
+            print(seq[p : p + args.k], *(f"{h:016x}" for h in nth.hashes()))
+    return 0
 
 
 def _cmd_count(args) -> int:
@@ -46,6 +66,16 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="nthash_tpu_torch",
                                 description=__doc__.splitlines()[0])
     sub = p.add_subparsers(dest="command", required=True)
+
+    ph = sub.add_parser("hash", help="print hashes of sequences")
+    ph.add_argument("sequence", nargs="*", help="sequences (default: stdin)")
+    ph.add_argument("-k", type=int, default=32)
+    ph.add_argument("-n", "--num-hashes", type=int, default=1)
+    ph.add_argument("-s", "--seeds", action="append",
+                    help="spaced-seed pattern (repeatable)")
+    ph.add_argument("--device", default="cuda",
+                    help="torch device to hash on (default: cuda)")
+    ph.set_defaults(fn=_cmd_hash)
 
     pc = sub.add_parser("count", help="stream a FASTA/FASTQ into a sketch")
     pc.add_argument("file")

@@ -124,9 +124,13 @@ kmer_hash_kernel(const int* __restrict__ codes, int L, long long R, int k,
 // bytes from its neighbour's, so one-byte loads from device memory would
 // each touch another line), and its outputs leave through shared memory,
 // 32 windows a lane at a time, as contiguous 256-byte stores. Its bytes
-// (the codes once, 8 * num_hashes + 1 bytes a window written) set its floor
-// on the H100; the roll's serial step and its shared loads keep it above
-// that (PERF.md section 6).
+// (the codes once, 8 * num_hashes + 1 bytes a window written, 16 more with
+// kFwdRev) set its floor on the H100; the roll's serial step and its shared
+// loads keep it above that (PERF.md section 6). kFwdRev (the facade's tiles,
+// api.NtHash) also writes each window's fwd and rev: its output stage holds
+// both, twice the shared memory a warp, and its own instance leaves the
+// canonical-only route as it was.
+template <bool kFwdRev>
 __global__ void __launch_bounds__(256)
 kmer_sequence_kernel(const unsigned char* __restrict__ seq, long long C, int k,
                      int span, int num_hashes,
@@ -146,12 +150,13 @@ kmer_sequence_kernel(const unsigned char* __restrict__ seq, long long C, int k,
   const long long j0 =
       (static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5)) * 32;
   if (j0 * span >= C) return;  // whole warps only
-  unsigned char* ring = warps + (threadIdx.x >> 5) * nthash::sequence_warp_bytes(rmask + 1);
+  unsigned char* ring =
+      warps + (threadIdx.x >> 5) * nthash::sequence_warp_bytes(rmask + 1, kFwdRev ? 2 : 1);
   unsigned long long* stage =
       reinterpret_cast<unsigned long long*>(ring + (rmask + 1) * 32);
-  nthash::roll_sequence(seq, C, k, span, 1, starts, offs, pairs, num_hashes,
-                        mult, ring, rmask, stage, j0, threadIdx.x & 31,
-                        vec != 0, out, valid);
+  nthash::roll_sequence<kFwdRev>(seq, C, k, span, 1, starts, offs, pairs,
+                                 num_hashes, mult, ring, rmask, stage, j0,
+                                 threadIdx.x & 31, vec != 0, out, valid);
 }
 
 }  // namespace
@@ -192,15 +197,15 @@ int nthash_kmer_hash(int device, const int* codes, int L, long long R, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// seq: [C] uint8 codes device (values above 4 read as 4); out: [num_hashes,
-// C] uint64; valid: [C] bool; span: windows a thread (a multiple of 32);
-// warps: a block (1-8); ring: rows of a warp's ring (a power of two >= k +
-// 32); tables: the 25 (fwd, rev) pairs (fwd_in[c_in] ^ fwd_out[c_out],
-// rev_in[c_in] ^ rev_out_r[c_out] at 5 c_in + c_out), then the
-// num_hashes - 1 nte64 multipliers, as uint64; meta: {0, k, 0, 1} (the run's
-// offsets, the seed's runs), int32.
+// seq: [C] uint8 codes device (values above 4 read as 4); out: [num_hashes
+// (+ 2 with fwd_rev), C] uint64; valid: [C] bool; span: windows a thread (a
+// multiple of 32); warps: a block (1-8); ring: rows of a warp's ring (a power
+// of two >= k + 32); tables: the 25 (fwd, rev) pairs (fwd_in[c_in] ^
+// fwd_out[c_out], rev_in[c_in] ^ rev_out_r[c_out] at 5 c_in + c_out), then
+// the num_hashes - 1 nte64 multipliers, as uint64; meta: {0, k, 0, 1} (the
+// run's offsets, the seed's runs), int32; fwd_rev: also write fwd and rev.
 int nthash_kmer_sequence(int device, const unsigned char* seq, long long C,
-                         int k, int span, int num_hashes,
+                         int k, int span, int num_hashes, int fwd_rev,
                          const unsigned long long* tables, const int* meta,
                          int warps, int ring, unsigned long long* out,
                          bool* valid, cudaStream_t stream) {
@@ -214,14 +219,14 @@ int nthash_kmer_sequence(int device, const unsigned char* seq, long long C,
   const long long blocks = ((threads + 31) / 32 + warps - 1) / warps;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem = nthash::sequence_tables_bytes(1, 1, num_hashes) +
-                      warps * nthash::sequence_warp_bytes(ring);
+                      warps * nthash::sequence_warp_bytes(ring, fwd_rev ? 2 : 1);
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(kmer_sequence_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = fwd_rev ? &kmer_sequence_kernel<true> : &kmer_sequence_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vec = reinterpret_cast<uintptr_t>(seq) % 16 == 0;
-  kmer_sequence_kernel<<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
       seq, C, k, span, num_hashes, tables, meta, ring - 1, vec, out, valid);
   return static_cast<int>(cudaGetLastError());
 }

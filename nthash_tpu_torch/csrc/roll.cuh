@@ -201,12 +201,16 @@ constexpr int kStagePitch = 33;  // u64 a lane row of the output stage
 // of a flat sequence of C codes, base = (j0 + l) s, after k - 1 warm-up
 // bases, each seed in turn (seeds [0, nseeds), runs starts[s]..starts[s+1]),
 // and writes, for every window w < C, the seed's canonical hash and its
-// num_hashes - 1 nte64 extensions into planes [nseeds * num_hashes, C]
-// (seed-major), and valid[w] (no invalid base among bases w .. w + k - 1;
-// bases at or past C read 4). Every 32 windows the lanes' canonical hashes
-// go through `stage` ([32][kStagePitch] u64, the pitch keeps 8-byte stores
-// free of bank conflicts), and the warp writes lane i's 32 windows as one
-// contiguous 256-byte store per plane, i = 0..31, by streaming stores.
+// num_hashes - 1 nte64 extensions, then with kFwdRev its forward and reverse
+// hash, into planes [nseeds * (num_hashes + 2 kFwdRev), C] (seed-major, the
+// batch entries' layout), and valid[w] (no invalid base among bases w .. w +
+// k - 1; bases at or past C read 4). Every 32 windows the lanes' states go
+// through `stage` ([32][kStagePitch] u64 a plane, the pitch keeps 8-byte
+// stores free of bank conflicts): fwd + rev in one plane, or with kFwdRev
+// fwd and rev in two, the canonical hash formed at the store. The warp then
+// writes lane i's 32 windows as one contiguous 256-byte store per output
+// plane, i = 0..31, by streaming stores.
+template <bool kFwdRev>
 __device__ __forceinline__ void roll_sequence(
     const unsigned char* __restrict__ seq, long long C, int k, int s,
     int nseeds, const int* starts, const int2* offs, const ulonglong2* pairs,
@@ -215,9 +219,11 @@ __device__ __forceinline__ void roll_sequence(
     unsigned long long* __restrict__ out, bool* __restrict__ valid) {
   const long long base = (j0 + lane) * s;
   const int nsteps = s + k - 1;
+  const int per_seed = num_hashes + (kFwdRev ? 2 : 0);
+  unsigned long long* stage_rev = stage + 32 * kStagePitch;
   for (int si = 0; si < nseeds; ++si) {
     const int q0 = starts[si], q1 = starts[si + 1];
-    unsigned long long* o = out + static_cast<long long>(si) * num_hashes * C;
+    unsigned long long* o = out + static_cast<long long>(si) * per_seed * C;
     __syncwarp();
     ring_prefill(ring, k, rmask, lane);
     unsigned long long fwd = 0, rev = 0;
@@ -233,7 +239,12 @@ __device__ __forceinline__ void roll_sequence(
       if (si == 0) roll_invalid(ring, rmask, lane, dt, k, inv);
       const int u = dt - (k - 1);
       if (u < 0) continue;
-      stage[lane * kStagePitch + (u & 31)] = fwd + rev;
+      if (kFwdRev) {
+        stage[lane * kStagePitch + (u & 31)] = fwd;
+        stage_rev[lane * kStagePitch + (u & 31)] = rev;
+      } else {
+        stage[lane * kStagePitch + (u & 31)] = fwd + rev;
+      }
       vbits |= static_cast<unsigned>(inv == 0) << (u & 31);
       if ((u & 31) != 31) continue;
       __syncwarp();
@@ -241,7 +252,13 @@ __device__ __forceinline__ void roll_sequence(
         const unsigned vb = __shfl_sync(0xffffffffu, vbits, i);
         const long long w = (j0 + i) * s + (u - 31) + lane;
         if (w >= C) continue;
-        const unsigned long long canon = stage[i * kStagePitch + lane];
+        unsigned long long canon = stage[i * kStagePitch + lane];
+        if (kFwdRev) {
+          const unsigned long long r = stage_rev[i * kStagePitch + lane];
+          __stcs(o + num_hashes * C + w, canon);
+          __stcs(o + (num_hashes + 1) * C + w, r);
+          canon += r;
+        }
         __stcs(o + w, canon);
         for (int h = 1; h < num_hashes; ++h) {
           unsigned long long e = canon * mult[h - 1];
@@ -257,7 +274,8 @@ __device__ __forceinline__ void roll_sequence(
 }
 
 // Shared memory of the one-sequence entry: the tables, then per warp its
-// ring (ring_rows x 32 bytes) and its output stage.
+// ring (ring_rows x 32 bytes) and its output stage (`planes` of 32 x
+// kStagePitch u64: 1, or 2 with fwd and rev).
 __host__ __device__ inline size_t sequence_tables_bytes(int nseeds, int nruns,
                                                         int num_hashes) {
   const size_t b = static_cast<size_t>(nruns) * 25 * 16 +
@@ -267,8 +285,10 @@ __host__ __device__ inline size_t sequence_tables_bytes(int nseeds, int nruns,
   return (b + 15) / 16 * 16;
 }
 
-__host__ __device__ inline size_t sequence_warp_bytes(int ring_rows) {
-  return static_cast<size_t>(ring_rows) * 32 + 32 * kStagePitch * 8;
+__host__ __device__ inline size_t sequence_warp_bytes(int ring_rows,
+                                                      int planes) {
+  return static_cast<size_t>(ring_rows) * 32 +
+         static_cast<size_t>(planes) * 32 * kStagePitch * 8;
 }
 
 // Loads the tables into shared memory (layout: pairs [25 nruns] ulonglong2,

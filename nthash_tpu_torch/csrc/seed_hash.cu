@@ -54,7 +54,9 @@
 // hit L1/L2), every care run's four 5-entry tables in shared memory.
 //
 // The one-sequence entry (seed_sequence_kernel): nthash::roll_sequence of
-// roll.cuh over a flat uint8 sequence, every window in one pass (see there).
+// roll.cuh over a flat uint8 sequence, every window in one pass (see there);
+// its kFwdRev instance also writes every seed's fwd and rev (the facade's
+// tiles, api.SeedNtHash).
 //
 // The grids are 1-D with 64-bit indices and every offset is 64-bit (the
 // BASELINE planes pass 2^31 elements at ~2.5M reads per call).
@@ -217,6 +219,7 @@ seed_staged_kernel(const int* __restrict__ codes, int L, long long R, int k,
   }
 }
 
+template <bool kFwdRev>
 __global__ void __launch_bounds__(256)
 seed_sequence_kernel(const unsigned char* __restrict__ seq, long long C, int k,
                      int span, int nseeds, int nruns, int num_hashes,
@@ -236,12 +239,13 @@ seed_sequence_kernel(const unsigned char* __restrict__ seq, long long C, int k,
   const long long j0 =
       (static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5)) * 32;
   if (j0 * span >= C) return;  // whole warps only
-  unsigned char* ring = warps + (threadIdx.x >> 5) * nthash::sequence_warp_bytes(rmask + 1);
+  unsigned char* ring =
+      warps + (threadIdx.x >> 5) * nthash::sequence_warp_bytes(rmask + 1, kFwdRev ? 2 : 1);
   unsigned long long* stage =
       reinterpret_cast<unsigned long long*>(ring + (rmask + 1) * 32);
-  nthash::roll_sequence(seq, C, k, span, nseeds, starts, offs, pairs,
-                        num_hashes, mult, ring, rmask, stage, j0,
-                        threadIdx.x & 31, vec != 0, out, valid);
+  nthash::roll_sequence<kFwdRev>(seq, C, k, span, nseeds, starts, offs,
+                                 pairs, num_hashes, mult, ring, rmask, stage,
+                                 j0, threadIdx.x & 31, vec != 0, out, valid);
 }
 
 template <bool kBuckets>
@@ -344,15 +348,16 @@ int nthash_seed_hash(int device, const int* codes, int L, long long R, int k,
 }
 
 // seq: [C] uint8 codes device (values above 4 read as 4); out: [nseeds *
-// num_hashes, C] uint64; valid: [C] bool; span: windows a thread (a multiple
-// of 32); warps a block and ring rows as for nthash_seed_hash; tables and
-// meta as for its staged kernel.
+// (num_hashes + 2 fwd_rev), C] uint64 (with fwd_rev each seed's group is
+// followed by its fwd and rev); valid: [C] bool; span: windows a thread (a
+// multiple of 32); warps a block and ring rows as for nthash_seed_hash;
+// tables and meta as for its staged kernel.
 int nthash_seed_sequence(int device, const unsigned char* seq, long long C,
                          int k, int span, int nseeds, int nruns,
-                         int num_hashes, const unsigned long long* tables,
-                         const int* meta, int warps, int ring,
-                         unsigned long long* out, bool* valid,
-                         cudaStream_t stream) {
+                         int num_hashes, int fwd_rev,
+                         const unsigned long long* tables, const int* meta,
+                         int warps, int ring, unsigned long long* out,
+                         bool* valid, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (span < 32 || span % 32 || nseeds < 1 || nruns < nseeds || warps < 1 ||
@@ -363,14 +368,14 @@ int nthash_seed_sequence(int device, const unsigned char* seq, long long C,
   const long long blocks = ((threads + 31) / 32 + warps - 1) / warps;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem = nthash::sequence_tables_bytes(nseeds, nruns, num_hashes) +
-                      warps * nthash::sequence_warp_bytes(ring);
+                      warps * nthash::sequence_warp_bytes(ring, fwd_rev ? 2 : 1);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(seed_sequence_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = fwd_rev ? &seed_sequence_kernel<true> : &seed_sequence_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vec = reinterpret_cast<uintptr_t>(seq) % 16 == 0;
-  seed_sequence_kernel<<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
       seq, C, k, span, nseeds, nruns, num_hashes, tables, meta, ring - 1, vec,
       out, valid);
   return static_cast<int>(cudaGetLastError());

@@ -46,6 +46,8 @@ LAUNCHES = 0
 LONG_LAUNCHES = 0
 #: Kernel launches made by :func:`hash_sequence`.
 SEQUENCE_LAUNCHES = 0
+#: Of those, launches of its fwd/rev instance (``emit_fwd_rev=True``).
+FWD_REV_LAUNCHES = 0
 
 #: Shared memory one block may use on the H100 (227 KB).
 MAX_SHARED_BYTES = 232448
@@ -175,9 +177,9 @@ def _lib() -> ctypes.CDLL:
         seq.restype = ctypes.c_int
         seq.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p,
         ]
     return lib
 
@@ -337,15 +339,25 @@ def fit_warps(tables: int, per_warp: int, warps: int) -> int:
     return warps
 
 
+def sequence_warps(k: int, nseeds: int = 1, nruns: int = 1,
+                   num_hashes: int = 1, emit_fwd_rev: bool = False) -> int:
+    """Warps a block of the one-sequence entries, from the shapes alone: up
+    to 4, each with its ring and its output stage ([32, 33] u64, a second
+    one for ``emit_fwd_rev``); 0 when one warp does not fit beside the
+    tables."""
+    stage = (2 if emit_fwd_rev else 1) * 32 * STAGE_PITCH * 8
+    return fit_warps(tables_bytes(nseeds, nruns, num_hashes),
+                     ring_rows(k) * 32 + stage, 4)
+
+
 def sequence_grid(k: int, nseeds: int = 1, nruns: int = 1,
-                  num_hashes: int = 1) -> tuple[int, int]:
-    """(warps a block, ring rows) of the one-sequence entries, from the
-    shapes alone: up to 4 warps, each with its ring and its [32, 33] u64
-    output stage; raises ValueError when one warp does not fit beside the
-    tables (more than ~550 care runs, or k in the thousands)."""
+                  num_hashes: int = 1,
+                  emit_fwd_rev: bool = False) -> tuple[int, int]:
+    """(warps a block, ring rows) of the one-sequence entries
+    (:func:`sequence_warps`); raises ValueError when one warp does not fit
+    beside the tables (more than ~550 care runs, or k in the thousands)."""
     ring = ring_rows(k)
-    warps = fit_warps(tables_bytes(nseeds, nruns, num_hashes),
-                      ring * 32 + 32 * STAGE_PITCH * 8, 4)
+    warps = sequence_warps(k, nseeds, nruns, num_hashes, emit_fwd_rev)
     if not warps:
         raise ValueError(
             f"{nruns} care runs at k={k} need more than the "
@@ -394,7 +406,8 @@ def _check_sequence(k: int, num_hashes: int) -> None:
         raise ValueError(f"num_hashes ({num_hashes}) must be >= 1")
 
 
-def hash_sequence_plain(codes: torch.Tensor, k: int, num_hashes: int = 1):
+def hash_sequence_plain(codes: torch.Tensor, k: int, num_hashes: int = 1, *,
+                        emit_fwd_rev: bool = False):
     """Plain PyTorch version of :func:`hash_sequence`, on any device: the
     pseudo-read route on the batch-major engine (:func:`sequence_rows`, then
     ``kmer_torch.hash_kmers`` and its ``window_valid``), trimmed to C."""
@@ -402,8 +415,10 @@ def hash_sequence_plain(codes: torch.Tensor, k: int, num_hashes: int = 1):
     codes = sequence_codes(codes)
     c = codes.shape[0]
     res = hash_kmers(sequence_rows(codes, k, sequence_span(k)), k, num_hashes)
-    return ([res.hashes[..., i].reshape(-1)[:c] for i in range(num_hashes)],
-            res.valid.reshape(-1)[:c])
+    out = [res.hashes[..., i].reshape(-1)[:c] for i in range(num_hashes)]
+    if emit_fwd_rev:
+        out += [res.fwd.reshape(-1)[:c], res.rev.reshape(-1)[:c]]
+    return out, res.valid.reshape(-1)[:c]
 
 
 @lru_cache(maxsize=32)
@@ -429,7 +444,8 @@ def aligned(codes: torch.Tensor) -> torch.Tensor:
     return codes if codes.data_ptr() % 16 == 0 else codes.clone()
 
 
-def hash_sequence(codes: torch.Tensor, k: int, num_hashes: int = 1):
+def hash_sequence(codes: torch.Tensor, k: int, num_hashes: int = 1, *,
+                  emit_fwd_rev: bool = False):
     """Hash every window of one flat sequence in one pass.
 
     Args:
@@ -438,37 +454,43 @@ def hash_sequence(codes: torch.Tensor, k: int, num_hashes: int = 1):
         integer dtype is clamped (:func:`sequence_codes`).
       k: k-mer size (any k >= 1).
       num_hashes: canonical + nte64 extensions per window.
+      emit_fwd_rev: additionally emit every window's forward and reverse
+        hash (the facade's tiles).
 
-    Returns (list of ``num_hashes`` int64 [C] tensors, valid [C] bool):
-    entry w of hash i is nte64 hash i of window [w, w + k), bases at or past
-    C reading as the invalid code; ``valid[w]`` is False where the window
-    holds an invalid base or runs off the end.
+    Returns (list of ``num_hashes`` int64 [C] tensors, then fwd and rev with
+    ``emit_fwd_rev``; valid [C] bool): entry w of hash i is nte64 hash i of
+    window [w, w + k), bases at or past C reading as the invalid code;
+    ``valid[w]`` is False where the window holds an invalid base or runs off
+    the end.
 
     A CUDA tensor goes through ``csrc/kmer_hash.cu``'s one-sequence entry
     (one launch), a CPU tensor through :func:`hash_sequence_plain`.
     """
-    global SEQUENCE_LAUNCHES
+    global SEQUENCE_LAUNCHES, FWD_REV_LAUNCHES
     _check_sequence(k, num_hashes)
     codes = sequence_codes(codes)
     if not codes.is_cuda:
         if codes.device.type == "cpu":
-            return hash_sequence_plain(codes, k, num_hashes)
+            return hash_sequence_plain(codes, k, num_hashes,
+                                       emit_fwd_rev=emit_fwd_rev)
         raise ValueError(f"no kmer_hash route for device {codes.device}")
     c = codes.shape[0]
     if c == 0:
         raise ValueError("the sequence is empty")
     dev = codes.device
-    warps, ring = sequence_grid(k, 1, 1, num_hashes)
-    out = torch.empty((num_hashes, c), dtype=torch.int64, device=dev)
+    warps, ring = sequence_grid(k, 1, 1, num_hashes, emit_fwd_rev)
+    out = torch.empty((num_hashes + (2 if emit_fwd_rev else 0), c),
+                      dtype=torch.int64, device=dev)
     valid = torch.empty(c, dtype=torch.bool, device=dev)
     lib = _lib()
     tables, meta = _sequence_tables(k, num_hashes, dev)
     status = lib.nthash_kmer_sequence(
         dev.index, aligned(codes).data_ptr(), c, k, sequence_span(k),
-        num_hashes, tables.data_ptr(), meta.data_ptr(), warps, ring,
-        out.data_ptr(), valid.data_ptr(),
+        num_hashes, int(emit_fwd_rev), tables.data_ptr(), meta.data_ptr(),
+        warps, ring, out.data_ptr(), valid.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, status, "kmer_hash sequence launch")
     SEQUENCE_LAUNCHES += 1
+    FWD_REV_LAUNCHES += emit_fwd_rev
     return list(out.unbind(0)), valid

@@ -47,6 +47,7 @@ from .kmer_kernel import (
     sequence_grid,
     sequence_rows,
     sequence_span,
+    sequence_warps,
     tables_bytes,
 )
 from .kmer_torch import segment_codes, unsegment, window_valid
@@ -58,6 +59,8 @@ LAUNCHES = 0
 LONG_LAUNCHES = 0
 #: Kernel launches made by :func:`hash_seeds_sequence`.
 SEQUENCE_LAUNCHES = 0
+#: Of those, launches of its fwd/rev instance (``emit_fwd_rev=True``).
+FWD_REV_LAUNCHES = 0
 #: Read-kernel launches by route ("staged", "global").
 ROUTE_LAUNCHES = {"staged": 0, "global": 0}
 
@@ -281,8 +284,8 @@ def _lib() -> ctypes.CDLL:
         seq.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
     return lib
 
@@ -436,7 +439,8 @@ def _check_sequence(seeds, num_hashes_per_seed) -> int:
 
 
 def hash_seeds_sequence_plain(codes: torch.Tensor, seeds: Sequence[str],
-                              num_hashes_per_seed: int = 1):
+                              num_hashes_per_seed: int = 1, *,
+                              emit_fwd_rev: bool = False):
     """Plain PyTorch version of :func:`hash_seeds_sequence`, on any device:
     the pseudo-read route on the direct engine
     (``kmer_kernel.sequence_rows``, then ``seed_torch.hash_kmers_seeds``
@@ -447,56 +451,101 @@ def hash_seeds_sequence_plain(codes: torch.Tensor, seeds: Sequence[str],
     c = codes.shape[0]
     res = hash_kmers_seeds(sequence_rows(codes, k, sequence_span(k)), seeds,
                            num_hashes_per_seed)
-    nout = len(seeds) * num_hashes_per_seed
-    return ([res.hashes[..., i].reshape(-1)[:c] for i in range(nout)],
-            res.valid.reshape(-1)[:c])
+    h = num_hashes_per_seed
+    out = []
+    for si in range(len(seeds)):
+        out += [res.hashes[..., si * h + i].reshape(-1)[:c] for i in range(h)]
+        if emit_fwd_rev:
+            out += [res.fwd[..., si].reshape(-1)[:c],
+                    res.rev[..., si].reshape(-1)[:c]]
+    return out, res.valid.reshape(-1)[:c]
+
+
+def sequence_fits(seeds: Sequence[str], num_hashes_per_seed: int = 1,
+                  emit_fwd_rev: bool = False) -> bool:
+    """Whether ``seeds`` fit the one-sequence entry's shared memory
+    (``kmer_kernel.sequence_warps``), from the shapes alone; where they do
+    not, :func:`hash_seeds_sequence` raises on a CUDA tensor and
+    :func:`hash_seeds_sequence_rows` takes the read kernel instead."""
+    seeds = tuple(seeds)
+    nruns = sum(len(t) for t in _all_taps(seeds))
+    return sequence_warps(len(seeds[0]), len(seeds), nruns,
+                          num_hashes_per_seed, emit_fwd_rev) > 0
+
+
+def hash_seeds_sequence_rows(codes: torch.Tensor, seeds: Sequence[str],
+                             num_hashes_per_seed: int = 1, *,
+                             emit_fwd_rev: bool = False):
+    """:func:`hash_seeds_sequence`'s outputs through B1 over pseudo-reads:
+    ``kmer_kernel.sequence_rows`` cut by ``sequence_span(k)``, then
+    :func:`hash_seeds_tm` (the staged read kernel where ``seed_grid`` fits
+    it, else the global one) and the planes back in sequence order. For
+    seed sets that do not fit the one-sequence entry (:func:`sequence_fits`);
+    identical outputs, one more copy and two transposes."""
+    seeds = tuple(seeds)
+    k = _check_sequence(seeds, num_hashes_per_seed)
+    codes = sequence_codes(codes)
+    c = codes.shape[0]
+    rows = sequence_rows(codes, k, sequence_span(k))
+    planes = hash_seeds_tm(prepare_codes(rows), seeds, num_hashes_per_seed,
+                           emit_fwd_rev=emit_fwd_rev)
+    return ([p.T.reshape(-1)[:c] for p in planes],
+            window_valid(rows.to(torch.int32), k).reshape(-1)[:c])
 
 
 def hash_seeds_sequence(codes: torch.Tensor, seeds: Sequence[str],
-                        num_hashes_per_seed: int = 1):
+                        num_hashes_per_seed: int = 1, *,
+                        emit_fwd_rev: bool = False):
     """Spaced-seed hash of every window of one flat sequence in one pass.
 
     Args:
       codes: [C] base codes as ``kmer_kernel.hash_sequence`` takes them.
       seeds: '1'/'0' pattern strings, all of one length k.
       num_hashes_per_seed: canonical + nte64 extensions per seed.
+      emit_fwd_rev: additionally emit each seed's forward and reverse hash,
+        after the seed's group (the batch entries' layout).
 
     Returns (list of S * H int64 [C] tensors in the reference hash_arr
-    order, valid [C] bool): entry w covers bases [w, w + k), bases at or
-    past C reading as the invalid code; ``valid[w]`` is strict over all k
-    bases, don't-care positions included, and False off the end.
+    order, S * (H + 2) with ``emit_fwd_rev``; valid [C] bool): entry w
+    covers bases [w, w + k), bases at or past C reading as the invalid code;
+    ``valid[w]`` is strict over all k bases, don't-care positions included,
+    and False off the end.
 
     A CUDA tensor goes through ``csrc/seed_hash.cu``'s one-sequence entry
     (one launch; raises ValueError for seeds whose tables and ring do not
-    fit a block, ``kmer_kernel.sequence_grid``), a CPU tensor through
+    fit a block, :func:`sequence_fits`), a CPU tensor through
     :func:`hash_seeds_sequence_plain`.
     """
-    global SEQUENCE_LAUNCHES
+    global SEQUENCE_LAUNCHES, FWD_REV_LAUNCHES
     seeds = tuple(seeds)
     k = _check_sequence(seeds, num_hashes_per_seed)
     codes = sequence_codes(codes)
     if not codes.is_cuda:
         if codes.device.type == "cpu":
             return hash_seeds_sequence_plain(codes, seeds,
-                                             num_hashes_per_seed)
+                                             num_hashes_per_seed,
+                                             emit_fwd_rev=emit_fwd_rev)
         raise ValueError(f"no seed_hash route for device {codes.device}")
     c = codes.shape[0]
     if c == 0:
         raise ValueError("the sequence is empty")
     dev = codes.device
     nruns = sum(len(t) for t in _all_taps(seeds))
-    warps, ring = sequence_grid(k, len(seeds), nruns, num_hashes_per_seed)
-    out = torch.empty((len(seeds) * num_hashes_per_seed, c),
-                      dtype=torch.int64, device=dev)
+    warps, ring = sequence_grid(k, len(seeds), nruns, num_hashes_per_seed,
+                                emit_fwd_rev)
+    per_seed = num_hashes_per_seed + (2 if emit_fwd_rev else 0)
+    out = torch.empty((len(seeds) * per_seed, c), dtype=torch.int64,
+                      device=dev)
     valid = torch.empty(c, dtype=torch.bool, device=dev)
     lib = _lib()
     tables, meta = _pair_kernel_tables(seeds, num_hashes_per_seed, dev)
     status = lib.nthash_seed_sequence(
         dev.index, aligned(codes).data_ptr(), c, k, sequence_span(k),
-        len(seeds), nruns, num_hashes_per_seed, tables.data_ptr(),
-        meta.data_ptr(), warps, ring, out.data_ptr(), valid.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        len(seeds), nruns, num_hashes_per_seed, int(emit_fwd_rev),
+        tables.data_ptr(), meta.data_ptr(), warps, ring, out.data_ptr(),
+        valid.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, status, "seed_hash sequence launch")
     SEQUENCE_LAUNCHES += 1
+    FWD_REV_LAUNCHES += emit_fwd_rev
     return list(out.unbind(0)), valid

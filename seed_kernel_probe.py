@@ -195,7 +195,7 @@ def main() -> None:
         out = torch.empty((1, n), dtype=torch.int64, device=dev)
         ok = torch.empty(n, dtype=torch.bool, device=dev)
         status = lib.nthash_kmer_sequence(
-            dev.index, x.data_ptr(), n, k, span, 1, tables.data_ptr(),
+            dev.index, x.data_ptr(), n, k, span, 1, 0, tables.data_ptr(),
             meta.data_ptr(), warps, kk.ring_rows(k), out.data_ptr(),
             ok.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         cuda_build.check(lib, status, "kmer_hash sequence launch")

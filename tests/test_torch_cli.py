@@ -84,3 +84,67 @@ def test_count_threads_option(toy, capsys):
             == "21 valid 4-mers"
         assert main([*args, "--fused", "--device", "cpu"]) == 0
         assert capsys.readouterr().out.startswith(f"2 reads, {want}")
+
+
+def test_hash_golden_first_line(capsys):
+    assert main(["hash", "-k", "5", "-n", "3", "TGACTGATCGAGTCGTACTAG",
+                 "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 17
+    assert lines[0].split()[:2] == ["TGACT", "606f60c2a6fd7d2d"]
+
+
+@pytest.mark.parametrize("args", [
+    ["-k", "5", "-n", "1", "TGACTGATCGAGTCGTACTAG"],
+    ["-k", "5", "-s", "10101", "-s", "11011", "-n", "3",
+     "TGACTGATCGAGTCGTACTAG", "ACGTNACGTACGTAGTCAGT"],
+    ["-k", "7", "-n", "2", "ACGTNNACGTACGTAGTCAGTACCA", "GGGGCCCCAAAATTTT"],
+    ["-k", "0", "ACGT"],
+    ["-k", "9", "ACGT"],
+    ["-k", "5", "-s", "111", "ACGTACGT"],
+])
+def test_hash_output_equals_jax_cli(capsys, args):
+    """The port's ``hash`` prints what the JAX CLI prints, to stdout and
+    stderr, with the same exit code."""
+    from nthash_tpu.__main__ import main as jmain
+
+    want_rc = jmain(["hash", *args])
+    want = capsys.readouterr()
+    assert main(["hash", *args, "--device", "cpu"]) == want_rc
+    got = capsys.readouterr()
+    assert got.out == want.out and got.err == want.err
+    assert want.out or want.err
+
+
+def test_hash_stdin_equals_jax_cli(capsys, monkeypatch):
+    import io
+
+    from nthash_tpu.__main__ import main as jmain
+
+    text = "ACGTACGTTGCA\n\nTTGCANNNACGTAGCTAGC\n"
+    outs = []
+    for fn, extra in ((jmain, []), (main, ["--device", "cpu"])):
+        monkeypatch.setattr(sys, "stdin", io.StringIO(text))
+        assert fn(["hash", "-k", "6", "-n", "2", *extra]) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and len(outs[0].splitlines()) == 7 + 6
+
+
+def test_hash_python_dash_m():
+    proc = subprocess.run(
+        [sys.executable, "-m", "nthash_tpu_torch", "hash", "-k", "5",
+         "TGACTGATCGAGTCGTACTAG", "--device", "cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("TGACT 606f60c2a6fd7d2d\n")
+
+
+def test_public_names_are_the_jax_ones_less_u64():
+    import nthash_tpu
+    import nthash_tpu_torch
+
+    assert nthash_tpu_torch.__all__ == \
+        [n for n in nthash_tpu.__all__ if n != "U64"]
+    for name in nthash_tpu_torch.__all__:
+        assert getattr(nthash_tpu_torch, name) is not None
+    assert nthash_tpu_torch.NTHASH_FN_NAME == nthash_tpu.NTHASH_FN_NAME

@@ -908,3 +908,129 @@ def test_packed_many_small_batches(tmp_path, rng, cuda, threads):
     cpu = ReadHashingPipeline(cfg, device="cpu")
     cpu.count_file(path, batch_size=256)
     assert torch.equal(pipe.sketch.rows.cpu(), cpu.sketch.rows)
+
+
+@pytest.mark.parametrize("h", [1, 4])
+@pytest.mark.parametrize("k", [1, 5, 32, 97])
+@pytest.mark.parametrize("length", SEQ_LENGTHS)
+def test_hash_sequence_fwd_rev_vs_plain(rng, cuda, length, k, h):
+    """The fwd/rev instance of the one-sequence entry against its plain
+    version, every entry (invalid windows included), and its hashes and
+    validity against the route without the flag."""
+    seq = torch.from_numpy(rng.integers(0, 8, size=length, dtype=np.uint8))
+    before = kmer_kernel.SEQUENCE_LAUNCHES
+    got, valid = kmer_kernel.hash_sequence(seq.to(cuda), k, h,
+                                           emit_fwd_rev=True)
+    base, bvalid = kmer_kernel.hash_sequence(seq.to(cuda), k, h)
+    assert kmer_kernel.SEQUENCE_LAUNCHES == before + 2
+    want, wvalid = kmer_kernel.hash_sequence_plain(seq, k, h,
+                                                   emit_fwd_rev=True)
+    torch.cuda.synchronize()
+    assert len(got) == h + 2
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert all(torch.equal(g, b) for g, b in zip(got[:h], base))
+    assert torch.equal(valid.cpu(), wvalid) and torch.equal(valid, bvalid)
+
+
+@pytest.mark.parametrize("seeds", [
+    ("10101", "11011"), ("1",), ("0110", "1001", "1111"),
+    ("110100110011001011", "111111000000111111"), (MANY_RUNS,)])
+@pytest.mark.parametrize("length", SEQ_LENGTHS)
+def test_hash_seeds_sequence_fwd_rev_vs_plain(rng, cuda, length, seeds):
+    seq = torch.from_numpy(rng.integers(0, 8, size=length, dtype=np.uint8))
+    want, wvalid = seed_kernel.hash_seeds_sequence_plain(
+        seq, seeds, 2, emit_fwd_rev=True)
+    routes = [seed_kernel.hash_seeds_sequence_rows]
+    if seed_kernel.sequence_fits(seeds, 2, True):
+        routes.append(seed_kernel.hash_seeds_sequence)
+    for route in routes:
+        got, valid = route(seq.to(cuda), seeds, 2, emit_fwd_rev=True)
+        torch.cuda.synchronize()
+        assert len(got) == len(seeds) * 4
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        assert torch.equal(valid.cpu(), wvalid)
+
+
+BLIND_SEEDS = [("10101", "11011"), ("110100110011001011",
+                                    "111111000000111111")]
+
+
+def _registers_kernel_agrees(state, chars, seeds, h, want, final):
+    """blind.cu's kernel with a thread's values in registers, forced
+    (``warps=0``; the route for seed sets too large to stage), == plain."""
+    from nthash_tpu_torch.ops import blind_kernel
+
+    out, fwd, rev, window = blind_kernel.launch(
+        chars, state.window, state.fwd, state.rev, seeds, h, warps=0)
+    torch.cuda.synchronize()
+    walks = chars.shape[1]
+    assert torch.equal(out, want) and torch.equal(window, final.window)
+    assert torch.equal(fwd, final.fwd.reshape(walks, -1))
+    assert torch.equal(rev, final.rev.reshape(walks, -1))
+
+
+@pytest.mark.parametrize("h", [1, 4])
+@pytest.mark.parametrize("steps", [0, 1, 4, 5, 6, 257])
+@pytest.mark.parametrize("walks", [1, 31, 33, 4097])
+def test_blind_roll_many_vs_plain(rng, cuda, walks, steps, h):
+    """roll_many through csrc/blind.cu against the step loop, k-mers at
+    k = 5 and 32 and two seed sets, every hash and the final state; codes
+    outside 0-3 in the windows and the stream."""
+    from nthash_tpu_torch.ops import blind_scan as bs
+    from nthash_tpu_torch.ops import blind_seed_scan as bss
+
+    for k in (5, 32):
+        w = torch.from_numpy(rng.integers(-1, 6, size=(walks, k))
+                             .astype(np.int32)).to(cuda)
+        chars = torch.from_numpy(rng.integers(0, 6, size=(steps, walks))
+                                 .astype(np.uint8)).to(cuda)
+        st = bs.init_state(w)
+        before = bs.LAUNCHES
+        a, ha = bs.roll_many(st, chars, h)
+        assert bs.LAUNCHES == before + 1
+        b, hb = bs.roll_many_plain(st, chars, h)
+        torch.cuda.synchronize()
+        assert torch.equal(ha, hb)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        _registers_kernel_agrees(st, chars, ("1" * k,), h, hb, b)
+    for seeds in BLIND_SEEDS:
+        k = len(seeds[0])
+        w = torch.from_numpy(rng.integers(0, 5, size=(walks, k))
+                             .astype(np.int32)).to(cuda)
+        chars = torch.from_numpy(rng.integers(0, 5, size=(steps, walks))
+                                 .astype(np.int32)).to(cuda)
+        st = bss.init_state(w, seeds)
+        before = bss.LAUNCHES
+        a, ha = bss.roll_many(st, chars, seeds, h)
+        assert bss.LAUNCHES == before + 1
+        b, hb = bss.roll_many_plain(st, chars, seeds, h)
+        torch.cuda.synchronize()
+        assert torch.equal(ha, hb)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        _registers_kernel_agrees(st, chars, seeds, h, hb, b)
+
+
+def test_facade_on_the_card_vs_oracle(rng, cuda):
+    """NtHash and SeedNtHash with engine="kernel" on the card: tiles of
+    4,096 windows through the one-sequence entries (launches counted), every
+    visited window equal to the host oracle, across tile boundaries."""
+    from nthash_tpu_torch import NtHash, SeedNtHash, oracle
+
+    codes = rng.integers(0, 4, size=20_000, dtype=np.uint8)
+    codes[rng.random(20_000) < 0.01] = 4
+    k = 21
+    _, _, want, valid = oracle.hash_all_windows(codes, k, 3)
+    before = kmer_kernel.SEQUENCE_LAUNCHES
+    nth = NtHash(codes, 3, k, engine="kernel", device=cuda, tile_windows=4096)
+    seen = [(nth.get_pos(), row.copy()) for row in nth]
+    assert kmer_kernel.SEQUENCE_LAUNCHES > before
+    assert [p for p, _ in seen] == np.nonzero(valid)[0].tolist()
+    assert all(np.array_equal(r, want[p]) for p, r in seen)
+    seeds = ("10101", "11011")
+    _, _, swant = oracle.hash_all_windows_seeds(codes[:9000], seeds, 2)
+    before = seed_kernel.SEQUENCE_LAUNCHES
+    snt = SeedNtHash(codes, seeds, 2, 5, engine="kernel", device=cuda,
+                     tile_windows=4096)
+    while snt.roll() and snt.get_pos() < 9000 - 4:
+        assert np.array_equal(snt.hashes(), swant[snt.get_pos()])
+    assert seed_kernel.SEQUENCE_LAUNCHES > before

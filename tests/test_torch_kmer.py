@@ -301,3 +301,49 @@ def test_hash_sequence_vs_oracle(rng, k, h):
     padded = np.concatenate([seq, np.full(k - 1, 4, np.uint8)])
     _, _, tail, _ = oracle.hash_all_windows(padded, k, h)
     assert np.array_equal(np.stack([to_numpy_u64(g) for g in got], -1), tail)
+
+
+@pytest.mark.parametrize("h", [1, 3])
+@pytest.mark.parametrize("k", [1, 7, 32, 65])
+def test_hash_sequence_fwd_rev_vs_jax(rng, k, h):
+    """``emit_fwd_rev=True`` appends every window's fwd and rev to the
+    hashes, each equal to ``kmer_jnp.hash_kmers``' on the windows inside
+    the sequence, invalid windows (an N inside) included; the hashes and
+    validity are those of the route without the flag."""
+    seq = rng.integers(0, 6, size=(420,), dtype=np.uint8)
+    got, valid = kmer_kernel.hash_sequence(torch.from_numpy(seq), k, h,
+                                           emit_fwd_rev=True)
+    base, bvalid = kmer_kernel.hash_sequence(torch.from_numpy(seq), k, h)
+    assert len(got) == h + 2 and torch.equal(valid, bvalid)
+    assert all(torch.equal(a, b) for a, b in zip(got[:h], base))
+    ref = kmer_jnp.hash_kmers(jnp.asarray(seq), k, h)
+    w = 420 - k + 1
+    assert np.array_equal(to_numpy_u64(got[h])[:w], ref.fwd.to_np())
+    assert np.array_equal(to_numpy_u64(got[h + 1])[:w], ref.rev.to_np())
+    assert np.array_equal(np.stack([to_numpy_u64(g) for g in got[:h]],
+                                   -1)[:w], ref.hashes.to_np())
+    plain, _ = kmer_kernel.hash_sequence_plain(torch.from_numpy(seq), k, h,
+                                               emit_fwd_rev=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+def test_sequence_grid_fwd_rev_stage():
+    """The fwd/rev route's warp holds a second output stage: the same warps
+    where they fit, fewer where the second stage crowds them out (500 care
+    runs of tables), and the route without the flag keeps its grid."""
+    stage = 32 * kmer_kernel.STAGE_PITCH * 8
+    assert kmer_kernel.sequence_grid(32) == (4, 64)
+    assert kmer_kernel.sequence_grid(32, emit_fwd_rev=True) == (4, 64)
+    assert kmer_kernel.sequence_grid(4064, emit_fwd_rev=True) == (1, 4096)
+    assert kmer_kernel.sequence_warps(32, 1, 500, 1) == 2
+    assert kmer_kernel.sequence_warps(32, 1, 500, 1, emit_fwd_rev=True) == 1
+    for k, nruns in ((1, 1), (97, 1), (1000, 1), (32, 500), (32, 550)):
+        one = kmer_kernel.sequence_warps(k, 1, nruns, 1)
+        two = kmer_kernel.sequence_warps(k, 1, nruns, 1, emit_fwd_rev=True)
+        tables = kmer_kernel.tables_bytes(1, nruns, 1)
+        ring = kmer_kernel.ring_rows(k)
+        assert one == kmer_kernel.fit_warps(tables, ring * 32 + stage, 4)
+        assert two == kmer_kernel.fit_warps(tables, ring * 32 + 2 * stage, 4)
+        assert two <= one
+    with pytest.raises(ValueError, match="care runs"):
+        kmer_kernel.sequence_grid(32, 1, 560, 1, emit_fwd_rev=True)

@@ -335,3 +335,47 @@ def test_seeds_sequence_rejects():
         seed_kernel.hash_seeds_sequence(seq[:0], BASELINE, 1)
     with pytest.raises(TypeError):
         seed_kernel.hash_seeds_sequence(seq.float(), BASELINE, 1)
+
+
+@pytest.mark.parametrize("name", ["baseline", "seeds18", "one_care",
+                                  "zero_ends"])
+def test_seeds_sequence_fwd_rev_vs_jax(rng, name):
+    """``emit_fwd_rev=True`` follows each seed's group by its fwd and rev,
+    equal to ``seed_jnp.hash_kmers_seeds``' at every window inside the
+    sequence (invalid ones included, N as the zero seed); the pseudo-read
+    route through B1 (``hash_seeds_sequence_rows``) gives the same planes."""
+    seeds = SEED_SETS[name]
+    k, h, s = len(seeds[0]), 2, len(seeds)
+    seq = rng.integers(0, 6, size=(300,), dtype=np.uint8)
+    got, valid = seed_kernel.hash_seeds_sequence(torch.from_numpy(seq), seeds,
+                                                 h, emit_fwd_rev=True)
+    assert len(got) == s * (h + 2)
+    ref = seed_jnp.hash_kmers_seeds(jnp.asarray(seq), seeds, h)
+    w = 300 - k + 1
+    fwd, rev, hashes = ref.fwd.to_np(), ref.rev.to_np(), ref.hashes.to_np()
+    for si in range(s):
+        group = got[si * (h + 2):(si + 1) * (h + 2)]
+        for i in range(h):
+            assert np.array_equal(to_numpy_u64(group[i])[:w],
+                                  hashes[:, si * h + i])
+        assert np.array_equal(to_numpy_u64(group[h])[:w], fwd[:, si])
+        assert np.array_equal(to_numpy_u64(group[h + 1])[:w], rev[:, si])
+    rows, rvalid = seed_kernel.hash_seeds_sequence_rows(
+        torch.from_numpy(seq), seeds, h, emit_fwd_rev=True)
+    assert all(torch.equal(a, b) for a, b in zip(rows, got))
+    assert torch.equal(rvalid, valid)
+    base, bvalid = seed_kernel.hash_seeds_sequence(torch.from_numpy(seq),
+                                                   seeds, h)
+    assert torch.equal(bvalid, valid)
+    assert all(torch.equal(base[si * h + i], got[si * (h + 2) + i])
+               for si in range(s) for i in range(h))
+
+
+def test_sequence_fits():
+    """Where the seeds fit the one-sequence entry, decided from the shapes:
+    the BASELINE seeds do, 600 care runs do not (then the facade takes B1
+    over pseudo-reads)."""
+    assert seed_kernel.sequence_fits(BASELINE, 3, True)
+    many = ("10" * 600,)
+    assert not seed_kernel.sequence_fits(many, 1, False)
+    assert not seed_kernel.sequence_fits(many, 1, True)
