@@ -172,7 +172,22 @@ imports nothing of JAX. Phases, each printing its own lines:
    parts, ``roll_select`` / ``roll_back_select`` alone; ``roll_many`` at
    B = 2**20, T = 64, h = 4 against its byte bound and the plain loop, and
    the seed kernel on 2**18 walks fed the genome (BASELINE seeds, h=3)
-   against its plain version and ``hash_seeds_sequence``.
+   against its plain version and ``hash_seeds_sequence``;
+30. the multi-GPU paths (``parallel/mesh.py``, ``parallel/dp.py``, the halo
+   exchange of ``parallel/sp.py``, ``models/bloom.union_across``): in a real
+   NCCL group of world size 1 (a FileStore, no port), ``count_file`` at
+   ``PipelineConfig(n_devices=1)`` over the 1M reads against phase 9's
+   sketch, ``dp.fused_count`` and ``hash_and_sketch`` on one 2**18 batch
+   against the one-device step, the 1M reads through ``dp.fused_count`` and
+   their 2**20 filter through ``union_across`` against phases 9 and 18,
+   ``union_across`` of phase 18's 2**30 filter, ``sp.hash_long_sequence``
+   (2**27) and ``_seeds`` (2**25) over the mesh against phase 16, with the
+   A1/A2/C1/sequence launches and no plain version on the card; gloo groups
+   of 2 and 4 ranks sharing the one card (CUDA tensors, every rank a
+   process of this script started with ``--rank``), each rank's blocks of
+   the 1M reads, 2**20 filter and chunk of a 2**24-base sequence against
+   the one-device results; times of the sketch's all-reduce, the dp step
+   beside ``fused_count_step`` and ``union_across`` at 2**30.
 
 A failed check raises, so the exit code is not 0. The line before the last
 is the kernels' JSON record; the last line is ``{"ok": true, "device": ...}``.
@@ -181,11 +196,14 @@ is the kernels' JSON record; the last line is ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import datetime
 import json
 import os
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -193,6 +211,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nthash_tpu_torch import (
     BlindNtHash,
@@ -238,7 +257,7 @@ from nthash_tpu_torch.ops.kmer_kernel import (
     hash_kmers_tm_plain,
     prepare_codes,
 )
-from nthash_tpu_torch.parallel import sp
+from nthash_tpu_torch.parallel import dp, mesh, sp
 from nthash_tpu_torch.u64 import to_numpy_u64
 from nthash_tpu_torch.utils.profiling import timeit, trace_device
 
@@ -1418,7 +1437,7 @@ def reset_sequence_launches() -> None:
     sk.LAUNCHES = sk.LONG_LAUNCHES = sk.SEQUENCE_LAUNCHES = 0
 
 
-def phase_sp(rng, dev, card: str) -> tuple[dict, dict, dict]:
+def phase_sp(rng, dev, card: str) -> tuple[dict, dict, dict, dict]:
     """Path 3: one 2**27-base sequence through ``sp.hash_long_sequence``
     (the one-pass entry of kmer_hash.cu), one 2**25-base one through
     ``sp.hash_long_sequence_seeds`` (seed_hash.cu's), each one launch and no
@@ -1426,9 +1445,11 @@ def phase_sp(rng, dev, card: str) -> tuple[dict, dict, dict]:
     batch-major engines) everywhere, the old pseudo-read route on the
     kernels, and a whole-sequence plain roll at segment boundaries; a prime
     length for the padded tail. Timed beside the old route and the
-    segmented read kernel over the sequence as one read [C, 1]."""
+    segmented read kernel over the sequence as one read [C, 1]. Also
+    returns each sequence with its outputs, which phase 30 holds the
+    distributed route to."""
     tag = f"[{card}]"
-    launches, times = {}, {}
+    launches, times, keep = {}, {}, {}
     errs = {"kmer_sequence": 0.0, "seed_sequence": 0.0}
     for name, label, n, seeds in (
             ("kmer_sequence", "hash_long_sequence", SP_LEN, None),
@@ -1467,6 +1488,7 @@ def phase_sp(rng, dev, card: str) -> tuple[dict, dict, dict]:
                     f"{label} != whole-sequence roll at {start}")
         require(bool(valid[:n - k + 1].all()) and not bool(valid[n - k + 1:].any()),
                 f"{label}: validity")
+        keep[name] = (seq, got, valid)
         del got, valid
         torch.cuda.empty_cache()
         one = seq.to(torch.int32)[:, None].contiguous()
@@ -1513,7 +1535,7 @@ def phase_sp(rng, dev, card: str) -> tuple[dict, dict, dict]:
               "the end invalid")
         del seq, got, valid, want, pvalid
         torch.cuda.empty_cache()
-    return errs, launches, times
+    return errs, launches, times, keep
 
 
 # ----------------------------------------------------- the Bloom filter ----
@@ -1656,7 +1678,8 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
-def phase_bloom_path(codes: np.ndarray, dev, errs: dict) -> dict:
+def phase_bloom_path(codes: np.ndarray, dev, errs: dict
+                     ) -> tuple[dict, dict]:
     """Phase 18: the Bloom path over the 1M reads at 2**17, 2**20 and 2**30
     against the plain hash -> plain insert, contains on every valid window,
     the merge of two half-filters, C1 against plain on the path's own
@@ -1665,10 +1688,12 @@ def phase_bloom_path(codes: np.ndarray, dev, errs: dict) -> dict:
     fill ratio); launches per kernel. Then, off the path, the partitioned
     words (C3, through C2) over the same reads at 2**20 and 2**30 against
     the same filter, C2 on batch 0's windows, and whether the overflow flag
-    fired. Returns the launches by kernel: C1's on the default path, C2's
-    in the partitioned runs."""
+    fired. Returns the launches by kernel (C1's on the default path, C2's
+    in the partitioned runs) and the words of the 2**20 and 2**30 filters,
+    which phase 30 unions across ranks."""
     tms = bloom_tms(codes, dev)
     total = dict.fromkeys(BLOOM_KERNELS, 0)
+    filters = {}
     for wl in BLOOM_WIDTHS:
         reset_launches()
         t0 = time.perf_counter()
@@ -1791,9 +1816,11 @@ def phase_bloom_path(codes: np.ndarray, dev, errs: dict) -> dict:
               f"{bits} bits set, fill ratio {bits / (1 << wl):.6f}); contains "
               f"true on every valid window; merge of two halves == the whole; "
               f"launches {launches}; first run {seconds:.3f} s")
+        if wl in DIST_BLOOM_WIDTHS:
+            filters[wl] = bf.words
         del bf
         torch.cuda.empty_cache()
-    return total
+    return total, filters
 
 
 def scatter_pack(flat: torch.Tensor, wl: int) -> torch.Tensor:
@@ -3240,10 +3267,283 @@ def reset_blind_launches() -> None:
     blind_scan.LAUNCHES = blind_seed_scan.LAUNCHES = 0
 
 
+# ------------------------------------------------- multi-GPU (phase 30) ----
+
+#: Phase 18's filters that phase 30 unions across ranks.
+DIST_BLOOM_WIDTHS = (20, 30)
+#: The gloo groups that share the one card, and the sequence they hash.
+DIST_WORLDS = (2, 4)
+DIST_SP_LEN = 1 << 24
+#: Modules whose ``*_plain`` functions phase 30 watches.
+PLAIN_HOMES = (kmer_kernel, sk, hist_kernel, unpack_kernel, pk, sp)
+
+
+@contextlib.contextmanager
+def plain_guard():
+    """Record every call of a plain version with a CUDA tensor argument
+    while the block runs: the wrappers launch their kernels on the card, so
+    a plain version there is a route that skipped its kernel."""
+    calls, saved = [], []
+    for mod in PLAIN_HOMES:
+        for name, fn in list(vars(mod).items()):
+            if not (name.endswith("_plain") and callable(fn)):
+                continue
+
+            def watched(*a, _fn=fn, _name=name, **kw):
+                if any(isinstance(x, torch.Tensor) and x.is_cuda
+                       for x in (*a, *kw.values())):
+                    calls.append(_name)
+                return _fn(*a, **kw)
+
+            saved.append((mod, name, fn))
+            setattr(mod, name, watched)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def reset_dist_launches() -> None:
+    kmer_kernel.LAUNCHES = kmer_kernel.LONG_LAUNCHES = 0
+    kmer_kernel.SEQUENCE_LAUNCHES = sk.SEQUENCE_LAUNCHES = 0
+    reset_hist_launches()
+    for name in hist_kernel.BLOOM_LAUNCHES:
+        hist_kernel.BLOOM_LAUNCHES[name] = 0
+
+
+def dist_launches() -> dict:
+    return {"A1": kmer_kernel.LAUNCHES + kmer_kernel.LONG_LAUNCHES,
+            "A2": hist_kernel.LAUNCHES,
+            "C1": hist_kernel.BLOOM_LAUNCHES["bloom_words"],
+            "sequence": kmer_kernel.SEQUENCE_LAUNCHES + sk.SEQUENCE_LAUNCHES}
+
+
+def dist_count_and_filter(codes: np.ndarray, reads, dev):
+    """This rank's blocks of the 1M reads, in batches of 2**18:
+    ``dp.fused_count`` at 2**20 into one sketch, and a Bloom filter at
+    2**20 of the same blocks (one C1 launch a batch) united across the
+    ranks by ``union_across``."""
+    sketch = cms.CountMinSketch.zeros(H, WIDE, dev)
+    bf = bloom.BloomFilter.zeros(WIDE, dev)
+    for s in range(0, codes.shape[0], BATCH):
+        block = dp.shard_reads(torch.from_numpy(codes[s:s + BATCH]),
+                               reads).to(dev)
+        dp.fused_count(block, sketch, K, reads)
+        bloom.insert_from_buckets(bf, kmer_kernel.hash_kmers_tm_auto(
+            prepare_codes(block), K, H, emit_buckets=WIDE),
+            emitted_width_log2=WIDE)
+    return sketch, bloom.union_across(bf.words, reads)
+
+
+def rank_worker(rank: int, world: int, tmp: Path) -> None:
+    """One rank of a gloo group on the one card (CUDA tensors): its blocks
+    of the 1M reads counted and filtered (phase 30's references: phase 9's
+    sketch, phase 18's 2**20 filter) and its chunk of a 2**24-base
+    sequence hashed (the one-device result); raises on any difference, on
+    a plain version on the card, or on a kernel that never launched."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    mesh.initialize_distributed(
+        "cuda", backend="gloo", rank=rank, world_size=world,
+        store=dist.FileStore(str(tmp / f"gloo{world}.store"), world),
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        reads = mesh.device_mesh()
+        seq_mesh = mesh.device_mesh(axis=mesh.SEQ_AXIS)
+        codes = np.load(tmp / "dist_codes.npy")
+        seq = torch.from_numpy(np.load(tmp / "dist_seq.npy")).to(dev)
+        with plain_guard() as plain:
+            reset_dist_launches()
+            sketch, words = dist_count_and_filter(codes, reads, dev)
+            chunk = sp.shard_sequence(seq, seq_mesh, k=K)
+            hashes, valid = sp.hash_long_sequence(chunk, K, 1, seq_mesh)
+            launches = dist_launches()
+        c = chunk.shape[0]
+        refs = {name: torch.from_numpy(np.load(tmp / f"dist_{name}.npy"))
+                .to(dev) for name in ("sketch", "words", "hashes", "valid")}
+        errs = {
+            "dp.fused_count vs phase 9": max_abs_err(sketch.rows,
+                                                      refs["sketch"]),
+            "union_across 2**20 vs phase 18": max_abs_err(words,
+                                                          refs["words"]),
+            "sp hashes vs one device": max_abs_err(
+                hashes[0], refs["hashes"][rank * c:(rank + 1) * c]),
+            "sp valid vs one device": max_abs_err(
+                valid, refs["valid"][rank * c:(rank + 1) * c])}
+        print(f"[dist] gloo rank {rank}/{world} on one card: {errs}; "
+              f"launches {launches}; plain versions on the card "
+              f"{sorted(set(plain))}; {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        require(not any(errs.values()), f"rank {rank}/{world}: {errs}")
+        require(not plain, f"rank {rank}/{world}: plain versions ran on "
+                f"the card: {sorted(set(plain))}")
+        require(all(v > 0 for v in launches.values()),
+                f"rank {rank}/{world}: a kernel never launched: {launches}")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_rank_groups(tmp: Path) -> None:
+    """Start the gloo groups of DIST_WORLDS ranks together, every rank a
+    process of this script on the one card, after the kernels are built;
+    wait for all, print each rank's line, fail if any rank failed."""
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    procs = [(world, subprocess.Popen(
+        [sys.executable, __file__, "--rank", str(r), str(world), str(tmp)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env)) for world in DIST_WORLDS for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for _, p in procs]
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (world, p), out in zip(procs, outs):
+        print(out.rstrip() if p.returncode == 0 else
+              f"[dist] a rank of {world} failed (exit {p.returncode}):\n{out}")
+    require(all(p.returncode == 0 for _, p in procs),
+            "a rank of a gloo group failed")
+
+
+def phase_distributed(rng, codes: np.ndarray, path: Path, tmp, wide_ref,
+                      filters: dict, seq_keep: dict, dev, card: str) -> None:
+    """Phase 30: the distributed paths. A real NCCL group of world size 1
+    (a FileStore in the run's temporary directory, no port): ``count_file``
+    at ``PipelineConfig(n_devices=1)`` over the 1M reads against phase 9's
+    sketch; ``dp.fused_count`` and ``hash_and_sketch(time_major=True)`` on
+    one 2**18 batch against ``fused_count_step`` and the one-device step;
+    the 1M reads by ``dp.fused_count`` and their 2**20 filter through
+    ``union_across`` against phases 9 and 18; ``union_across`` of phase
+    18's 2**30 filter; ``sp.hash_long_sequence`` (2**27 bases) and
+    ``_seeds`` (2**25) over the mesh against phase 16. No plain version may
+    run on the card, and every kernel of the path must launch. Then gloo
+    groups of 2 and 4 ranks on the one card (CUDA tensors), each rank a
+    process; times: the all-reduce of the 2**20 sketch, the dp step per
+    2**18 batch beside ``fused_count_step`` in turns, ``union_across`` at
+    2**30. Ends by destroying the group."""
+    tag = f"[{card}]"
+    tmp = Path(tmp)
+    errs = {}
+
+    def same(name, got, want):
+        torch.cuda.synchronize()
+        errs[name] = max(errs.get(name, 0.0), max_abs_err(got, want))
+        require(torch.equal(got, want), f"phase 30: {name}: max_abs_err "
+                f"{errs[name]}")
+
+    mesh.initialize_distributed(
+        "cuda", store=dist.FileStore(str(tmp / "nccl.store"), 1), rank=0,
+        world_size=1)
+    try:
+        require(dist.get_backend() == "nccl", "phase 30: not an NCCL group")
+        reads = mesh.device_mesh(1)
+        seq_mesh = mesh.device_mesh(1, mesh.SEQ_AXIS)
+        zeros = (lambda: cms.CountMinSketch.zeros(H, WIDE, dev))
+        with plain_guard() as plain:
+            reset_dist_launches()
+            pipe = ReadHashingPipeline(PipelineConfig(n_devices=1), device=dev)
+            require(pipe.mesh is not None and pipe.n_devices == 1,
+                    "phase 30: the pipeline formed no mesh")
+            require(pipe.count_file(path) == N_READS, "phase 30: reads")
+            same("count_file (NCCL, world 1) vs phase 9", pipe.sketch.rows,
+                 wide_ref)
+            path_launches = dist_launches()
+            del pipe
+            batch = torch.from_numpy(codes[:BATCH]).to(dev)
+            same("dp.fused_count vs fused_count_step, one 2**18 batch",
+                 dp.fused_count(dp.shard_reads(batch, reads), zeros(), K,
+                                reads).rows,
+                 fused_count_step(prepare_codes(batch), zeros(), K).rows)
+            got = dp.hash_and_sketch(batch, zeros(), K, H, WIDE, reads,
+                                     time_major=True)
+            want = dp.hash_and_sketch(batch, zeros(), K, H, WIDE, None,
+                                      time_major=True)
+            for i in range(H):
+                same("hash_and_sketch hashes vs the one-device step",
+                     got[0][i], want[0][i])
+            same("hash_and_sketch valid vs the one-device step", got[1],
+                 want[1])
+            same("hash_and_sketch sketch vs the one-device step",
+                 got[2].rows, want[2].rows)
+            del got, want
+            sketch, words = dist_count_and_filter(codes, reads, dev)
+            same("dp.fused_count over the 1M reads vs phase 9", sketch.rows,
+                 wide_ref)
+            same("union_across of the 2**20 filter vs phase 18", words,
+                 filters[20])
+            same("union_across at 2**30 vs phase 18",
+                 bloom.union_across(filters[30], reads), filters[30])
+            del sketch, words
+            for name, (seq, want_h, want_v) in seq_keep.items():
+                k = K if name == "kmer_sequence" else len(SEEDS[0])
+                chunk = sp.shard_sequence(seq, seq_mesh, k=k)
+                got_h, got_v = (
+                    sp.hash_long_sequence(chunk, k, 1, seq_mesh)
+                    if name == "kmer_sequence" else
+                    sp.hash_long_sequence_seeds(chunk, SEEDS, 1, seq_mesh))
+                same(f"sp {name} over the mesh vs phase 16", got_h[0],
+                     want_h[0])
+                same(f"sp {name} valid vs phase 16", got_v, want_v)
+                del got_h, got_v
+            launches = dist_launches()
+        require(not plain, "phase 30: plain versions ran on the card: "
+                f"{sorted(set(plain))}")
+        require(all(v > 0 for v in launches.values()),
+                f"phase 30: a kernel never launched: {launches}")
+        print(f"[dist] NCCL world 1, {N_READS} reads k={K} h={H} 2**{WIDE}: "
+              f"count_file == phase 9 (launches {path_launches}); every "
+              f"comparison exact: {errs}; launches in the phase {launches}; "
+              "no plain version on the card")
+        # the gloo groups on the one card: their inputs and references
+        seq = rng.integers(0, 5, size=DIST_SP_LEN, dtype=np.uint8)
+        hashes, valid = sp.hash_long_sequence(torch.from_numpy(seq).to(dev),
+                                              K, 1)
+        for name, arr in (("codes", codes), ("seq", seq),
+                          ("sketch", wide_ref), ("words", filters[20]),
+                          ("hashes", hashes[0]), ("valid", valid)):
+            np.save(tmp / f"dist_{name}.npy", arr if isinstance(
+                arr, np.ndarray) else arr.cpu().numpy())
+        del hashes, valid
+        t0 = time.perf_counter()
+        run_rank_groups(tmp)
+        print(f"[dist] gloo groups of {DIST_WORLDS} ranks on the one card "
+              f"(CUDA tensors; gloo took every all-reduce and all-gather on "
+              f"them, so none was staged through the host): every rank == "
+              f"the one-device results; {time.perf_counter() - t0:.3f} s")
+        # times on the card, over the NCCL group of one
+        buf = torch.zeros((H, 1 << WIDE), dtype=torch.int32, device=dev)
+        t_ar = timeit(lambda x: mesh.all_reduce_sum(x, reads),
+                      buf).seconds_per_call
+        sk_t = zeros()
+        t = in_turns({
+            "dp.fused_count": lambda b: dp.fused_count(b, sk_t, K, reads),
+            "fused_count_step": lambda b: fused_count_step(
+                prepare_codes(b), sk_t, K)}, batch)
+        t_union = timeit(lambda w: bloom.union_across(w, reads),
+                         filters[30]).seconds_per_call
+        print(f"[time] NCCL world 1: all_reduce of the {H} x 2**{WIDE} int32 "
+              f"sketch ({buf.numel() * 4 / 1e6:.1f} MB) {t_ar * 1e3:.4f} ms; "
+              f"per 2**18-read batch at 2**{WIDE}: dp.fused_count "
+              f"{t['dp.fused_count'] * 1e3:.4f} ms, fused_count_step "
+              f"{t['fused_count_step'] * 1e3:.4f} ms (in turns); "
+              f"union_across at 2**30 ({filters[30].numel() * 4 / 1e6:.1f} "
+              f"MB of words) {t_union * 1e3:.4f} ms {tag}")
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rank", nargs=3, metavar=("RANK", "WORLD", "DIR"),
+                    help="run one rank of phase 30's gloo groups (the "
+                    "script starts them itself)")
     args = ap.parse_args()
+    if args.rank:
+        rank_worker(int(args.rank[0]), int(args.rank[1]), Path(args.rank[2]))
+        return
     rng = np.random.default_rng(args.seed)
 
     t_start = time.perf_counter()
@@ -3293,11 +3593,11 @@ def main() -> None:
         long_errs, long_launches, t_long = run(
             "14 long reads", phase_long_count, rng, Path(tmp), dev, smi)
         run("15 crossover", phase_crossover, gen, dev, smi)
-        seq_errs, sp_launches, seq_times = run("16 sequences", phase_sp, rng,
-                                               dev, smi)
+        seq_errs, sp_launches, seq_times, seq_keep = run(
+            "16 sequences", phase_sp, rng, dev, smi)
         bloom_errs = run("17 Bloom edge shapes", phase_bloom_edges, gen, dev)
-        bloom_launches = run("18 Bloom path", phase_bloom_path, codes, dev,
-                             bloom_errs)
+        bloom_launches, filters = run("18 Bloom path", phase_bloom_path,
+                                      codes, dev, bloom_errs)
         bloom_times = run("19 Bloom timings", phase_bloom_timings, codes, dev,
                           smi)
         new_errs = run("20 redesigned kernels vs plain",
@@ -3310,15 +3610,18 @@ def main() -> None:
                      smi)
         unpack["launches"] = run("25 count_file routes", phase_routes, codes,
                                  path, Path(tmp) / "long.fq", refs, dev, smi)
+        wide_ref = refs[WIDE]
         del refs
-    del codes
-    torch.cuda.empty_cache()
-    fr_errs, fr_times = run("26 sequence entries with fwd/rev",
-                            phase_fwd_rev, rng, dev, smi)
-    fr_launches = run("27 the facade", phase_facade, rng, dev, smi)
-    run("28 the facade's threshold", phase_threshold, rng, dev, smi)
-    blind_errs, blind_launches, blind_times = run(
-        "29 blind scans", phase_blind, rng, gen, dev, smi)
+        torch.cuda.empty_cache()
+        fr_errs, fr_times = run("26 sequence entries with fwd/rev",
+                                phase_fwd_rev, rng, dev, smi)
+        fr_launches = run("27 the facade", phase_facade, rng, dev, smi)
+        run("28 the facade's threshold", phase_threshold, rng, dev, smi)
+        blind_errs, blind_launches, blind_times = run(
+            "29 blind scans", phase_blind, rng, gen, dev, smi)
+        run("30 multi-GPU", phase_distributed, rng, codes, path, tmp,
+            wide_ref, filters, seq_keep, dev, smi)
+        del codes, wide_ref, filters, seq_keep
     bloom_errs["bloom_words_rows"] = max(bloom_errs["bloom_words_rows"],
                                          new_errs["bloom_words_rows"])
     for name in ("sort_tiles", "merge_phase"):

@@ -6,9 +6,9 @@ layout mirrors ``nthash_tpu``: the four iterator classes, ``parse_seeds``,
 API, include/nthash/nthash.hpp:34-60), host constants, the oracle and 64-bit
 primitives beside them, the engines, the blind scans and hand-written CUDA
 kernels under ops/ (sources in csrc/), the count-min sketch, the packed
-Bloom filter and the streaming pipeline under models/, one-device
-long-sequence hashing under parallel/, FASTX streaming under io/,
-checkpoint/profiling under utils/. The JAX package's ``U64`` limb pair has
+Bloom filter and the streaming pipeline under models/, data and sequence
+parallelism over ``torch.distributed`` under parallel/, FASTX streaming
+under io/, checkpoint/profiling/metrics under utils/. The JAX package's ``U64`` limb pair has
 no counterpart: the port holds a uint64 as the bits of an int64 (``u64.py``).
 """
 

@@ -1,12 +1,13 @@
 """Command-line interface: ``python -m nthash_tpu_torch <command>``.
 
-Counterpart of ``nthash_tpu/__main__.py``, on one device. Commands:
+Counterpart of ``nthash_tpu/__main__.py``. Commands:
 
 - ``hash``:  print ntHash2 hashes for a sequence (or stdin lines), through
   the facade (``NtHash`` / ``SeedNtHash``): the oracle below the facade's
   threshold, the kernels on ``--device`` above it.
 - ``count``: stream a FASTA/FASTQ file through the hash-and-sketch pipeline;
-  print totals and throughput.
+  print totals, throughput and the devices it ran on (the process group's
+  world size when one was formed, else 1).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ def _cmd_count(args) -> int:
                        sketch_width_log2=args.width_log2),
         device=args.device,
     )
-    where = f"on {pipe.device}"
+    where = f"on {pipe.n_devices} device(s) ({pipe.device})"
     t0 = time.perf_counter()
     if args.fused:
         reads = pipe.count_file(args.file, batch_size=args.batch_size,
@@ -95,7 +96,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     try:
         return args.fn(args)
-    except (ValueError, FileNotFoundError, NotImplementedError) as e:
+    except (ValueError, FileNotFoundError) as e:
         # reference raise_error prints to stderr and exits 1
         # (reference src/internal.hpp:16-22)
         print(e, file=sys.stderr)

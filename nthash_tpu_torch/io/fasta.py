@@ -2,12 +2,15 @@
 
 Counterpart of ``nthash_tpu/io/fasta.py``. Padding uses the invalid code (4),
 which the engines mask, so padded tails never produce valid windows.
+:func:`stream_batches` is the pure-numpy streaming reader; the counting path
+streams through ``io/stream.py`` (native parser, fixed-shape batches).
 """
 
 from __future__ import annotations
 
 import gzip
 import io
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterable, Iterator
 
@@ -89,3 +92,25 @@ def encode_batch(seqs: Iterable[bytes], length: int | None = None) -> np.ndarray
         arr = ASCII_TO_CODE[np.frombuffer(s[:L], dtype=np.uint8)]
         out[i, : len(arr)] = arr
     return out
+
+
+@dataclass
+class BatchConfig:
+    batch_size: int = 65536
+    read_length: int | None = None  # None: longest read in each batch
+
+
+def stream_batches(path, config: BatchConfig = BatchConfig()
+                   ) -> Iterator[np.ndarray]:
+    """Stream a FASTA/FASTQ file as [batch_size, L] code batches.
+
+    The final partial batch is yielded at its true size.
+    """
+    buf: list[bytes] = []
+    for _, seq in read_fastx(path):
+        buf.append(seq)
+        if len(buf) == config.batch_size:
+            yield encode_batch(buf, config.read_length)
+            buf = []
+    if buf:
+        yield encode_batch(buf, config.read_length)

@@ -1,6 +1,6 @@
 """ctypes bindings for the native C++ FASTX parser.
 
-Counterpart of ``nthash_tpu/io/native_loader.py``, with its parser bindings.
+Counterpart of ``nthash_tpu/io/native_loader.py``: the encoder and the parser.
 The parser source is this package's own copy, ``io/native/fastx.cpp`` (a test
 keeps it byte-identical to the JAX package's), built with g++ at first use
 into this package's git-ignored ``_build`` directory. Callers that cannot
@@ -51,6 +51,8 @@ def _load():
     try:
         _build()
         lib = ctypes.CDLL(str(LIB))
+        lib.nthash_encode.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p]
         lib.nthash_parser_open.restype = ctypes.c_void_p
         lib.nthash_parser_open.argtypes = [ctypes.c_char_p]
         lib.nthash_parser_open_range.restype = ctypes.c_void_p
@@ -73,6 +75,16 @@ def _load():
 
 def available() -> bool:
     return _load() is not None
+
+
+def encode(seq: bytes) -> np.ndarray:
+    """ASCII bytes -> uint8 base codes via the native encoder."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"native loader unavailable: {_build_error}")
+    out = np.empty(len(seq), dtype=np.uint8)
+    lib.nthash_encode(seq, len(seq), out.ctypes.data_as(ctypes.c_void_p))
+    return out
 
 
 def sniff_format(path) -> int:
@@ -130,13 +142,9 @@ class NativeFastxParser:
     def __exit__(self, *exc):
         self.close()
 
-    def next_batch_into(self, out: np.ndarray) -> tuple[int, int]:
-        """Fill rows of a preallocated C-contiguous [max_reads, row_len]
-        uint8 array; returns (reads produced, 0 at EOF; max true read length
-        in the batch). Reads longer than row_len are truncated in ``out``;
-        the caller detects that from the returned max length."""
-        if out.dtype != np.uint8 or out.ndim != 2 or not out.flags.c_contiguous:
-            raise ValueError("out must be a C-contiguous 2-D uint8 array")
+    def _fill(self, out: np.ndarray) -> tuple[int, np.ndarray]:
+        """Parse up to ``len(out)`` reads into the rows of ``out``; returns
+        (reads produced, 0 at EOF; their true lengths)."""
         max_reads, row_len = out.shape
         lengths = np.empty(max_reads, dtype=np.int64)
         n = self._lib.nthash_parser_next_batch(
@@ -146,4 +154,30 @@ class NativeFastxParser:
         )
         if n < 0:
             raise ValueError(self._lib.nthash_parser_error(self._h).decode())
-        return int(n), int(lengths[:n].max()) if n else 0
+        return int(n), lengths[:n]
+
+    def next_batch(self, max_reads: int, row_len: int):
+        """Returns (codes [n, row_len] uint8, lengths [n] int64), or None at
+        EOF. A read longer than ``row_len`` is truncated in ``codes``; its
+        length says so."""
+        codes = np.empty((max_reads, row_len), dtype=np.uint8)
+        n, lengths = self._fill(codes)
+        return (codes[:n], lengths) if n else None
+
+    def batches(self, max_reads: int, row_len: int):
+        """Yield :meth:`next_batch` results until EOF."""
+        while True:
+            b = self.next_batch(max_reads, row_len)
+            if b is None:
+                return
+            yield b
+
+    def next_batch_into(self, out: np.ndarray) -> tuple[int, int]:
+        """Fill rows of a preallocated C-contiguous [max_reads, row_len]
+        uint8 array; returns (reads produced, 0 at EOF; max true read length
+        in the batch). Reads longer than row_len are truncated in ``out``;
+        the caller detects that from the returned max length."""
+        if out.dtype != np.uint8 or out.ndim != 2 or not out.flags.c_contiguous:
+            raise ValueError("out must be a C-contiguous 2-D uint8 array")
+        n, lengths = self._fill(out)
+        return n, int(lengths.max()) if n else 0

@@ -22,8 +22,9 @@ path.
 
 ``insert`` and ``insert_from_buckets`` OR into ``bf.words`` in place and
 return the same filter; ``merge`` returns a new one. Queries are a gather
-and a bit test in plain PyTorch. The cross-device union (``union_across``)
-waits for the multi-GPU port.
+and a bit test in plain PyTorch. ``union_across`` ORs the ranks' words of a
+process group together: one all-gather, then an OR-fold over the ranks, as
+in the JAX package (NCCL has no bitwise all-reduce).
 
 False-positive tuning: m = 2**width_log2 bits, optimal h ~= (m/n) ln 2.
 """
@@ -45,6 +46,7 @@ from ..ops.hist_kernel import (
     rows_view,
     word_index,
 )
+from ..parallel.mesh import all_gather
 
 
 def check_width(width_log2: int) -> None:
@@ -178,6 +180,19 @@ def contains(bf: BloomFilter, hashes: torch.Tensor,
 def merge(a: BloomFilter, b: BloomFilter) -> BloomFilter:
     """Union (bitwise OR), as a new filter."""
     return BloomFilter(a.words | b.words)
+
+
+def union_across(words: torch.Tensor, mesh_or_group) -> torch.Tensor:
+    """Union of every rank's words over a ``DeviceMesh`` or process group:
+    one all-gather, then an OR-fold over the rank axis (OR is not linear,
+    so no sum applies to packed words; the gather moves width / 32 words a
+    rank). Returns a new tensor of ``words``' shape, the same on every
+    rank."""
+    gathered = all_gather(words, mesh_or_group)      # [ranks, *shape]
+    out = gathered[0]
+    for other in gathered[1:]:
+        out |= other
+    return out
 
 
 def count_set_bits(bf: BloomFilter) -> torch.Tensor:

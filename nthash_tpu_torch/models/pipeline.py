@@ -1,10 +1,11 @@
-"""The streaming model: reads -> k-mer hashes -> count-min sketch, on one GPU.
+"""The streaming model: reads -> k-mer hashes -> merged count-min sketch.
 
-Counterpart of ``nthash_tpu/models/pipeline.py`` together with the
-single-device part of ``nthash_tpu/parallel/dp.py`` (``fused_count``,
-``hash_and_sketch`` here; ``fused_count_packed`` in ``parallel/dp.py``):
-with one device there is no shard_map and no psum, so the per-shard step is
-the whole step. Multi-GPU is later work and raises NotImplementedError.
+Counterpart of ``nthash_tpu/models/pipeline.py``. Read batches stream
+data-parallel over the GPUs of a process group, one process a GPU: every
+rank streams the same file, takes its block of each batch
+(``parallel/dp.shard_reads``), hashes it, and the batch's counts merge into
+every rank's sketch with one all-reduce (``parallel/dp.py``). Without a
+process group the pipeline runs on its one device with no collective.
 
 A file streams by one of four routes: one parse thread or ``threads``
 byte-range shards (``io/stream.py``), each carrying codes or, with
@@ -26,10 +27,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..io.pinned import PinnedBuffers
-from ..ops.kmer_kernel import hash_kmers_tm_auto, prepare_codes
-from ..ops.kmer_torch import window_valid_tm
+from ..ops.kmer_kernel import hash_kmers_tm_auto
+from ..parallel import dp
+from ..parallel.mesh import all_reduce_sum, device_mesh, size_and_rank
 from . import sketch as cms
 
 
@@ -38,7 +41,10 @@ class PipelineConfig:
     k: int = 32
     num_hashes: int = 4
     sketch_width_log2: int = 20
-    n_devices: int | None = None  # only one device (None or 1) for now
+    #: Devices to shard the reads over: None means the world size of the
+    #: process group (1 without one); any other value than the world size
+    #: raises ValueError.
+    n_devices: int | None = None
     #: Selects nothing: kept only so the field list matches the JAX
     #: PipelineConfig. The device of the codes decides the route (the CUDA
     #: kernel for a GPU tensor, its plain version for a CPU one). Any value
@@ -92,7 +98,12 @@ def _reused_per_thread():
 
 
 class ReadHashingPipeline:
-    """Stateful wrapper around the hash+sketch step on one device.
+    """Stateful wrapper around the distributed hash+sketch step.
+
+    Under a process group (``parallel/mesh.initialize_distributed``) it
+    shards every batch over a mesh of the whole group (``self.mesh``) and
+    every rank holds the merged sketch; without one, ``self.mesh`` is None
+    and the one device does all the work.
 
     >>> pipe = ReadHashingPipeline(PipelineConfig(k=32, num_hashes=4,
     ...                                           sketch_width_log2=14))
@@ -102,17 +113,28 @@ class ReadHashingPipeline:
 
     def __init__(self, config: PipelineConfig = PipelineConfig(),
                  device="cuda"):
-        if config.n_devices not in (None, 1):
-            raise NotImplementedError(
-                f"n_devices={config.n_devices}: multi-GPU is not ported yet "
-                "(ROADMAP)")
         if config.engine != "auto":
             raise ValueError(f"unknown engine {config.engine!r}")
         cms.check_width(config.sketch_width_log2)
         self.config = config
         self.device = torch.device(device)
+        if dist.is_initialized():
+            self.mesh = device_mesh(config.n_devices,
+                                    device_type=self.device.type)
+        elif config.n_devices in (None, 1):
+            self.mesh = None
+        else:
+            raise ValueError(
+                f"n_devices={config.n_devices}: no process group, so one "
+                "device; start one process per device and call "
+                "parallel.mesh.initialize_distributed")
         self.sketch = cms.CountMinSketch.zeros(
             config.num_hashes, config.sketch_width_log2, self.device)
+
+    @property
+    def n_devices(self) -> int:
+        """Devices the reads are sharded over (the world size, or 1)."""
+        return 1 if self.mesh is None else self.mesh.size()
 
     def _pool(self, threads: int, prefetch: int):
         """Pinned buffers for one stream on a CUDA device (None elsewhere):
@@ -166,27 +188,24 @@ class ReadHashingPipeline:
         return pool.to_device(*arrays)
 
     def step(self, codes):
-        """Hash one [B, L] batch and fold its valid k-mers into the sketch.
+        """Hash this rank's block of one [B, L] batch (B divisible by the
+        mesh's size) and fold the whole batch's valid k-mers into the
+        sketch.
 
-        Returns (hashes, valid): with the default time-major config, a list
-        of ``num_hashes`` int64 [W, B] tensors plus valid [W, B]; with
-        ``time_major=False``, one int64 [B, W, H] tensor plus valid [B, W].
+        Returns (hashes, valid) of this rank's b = B / n reads: with the
+        default time-major config, a list of ``num_hashes`` int64 [W, b]
+        tensors plus valid [W, b]; with ``time_major=False``, one int64
+        [b, W, H] tensor plus valid [b, W].
         """
         cfg = self.config
         if isinstance(codes, np.ndarray):
             codes = torch.from_numpy(codes)
-        codes = codes.to(self.device)
-        wlog = cfg.sketch_width_log2
-        tm = prepare_codes(codes)
-        hashes = hash_kmers_tm_auto(tm, cfg.k, cfg.num_hashes)  # H x [W, B]
-        valid = window_valid_tm(tm, cfg.k)
-        sentinel = 1 << wlog
-        cms.update_from_buckets(self.sketch, [
-            torch.where(valid, cms.buckets(h, wlog), sentinel) for h in hashes
-        ], emitted_width_log2=wlog)
-        if cfg.time_major:
-            return hashes, valid
-        return torch.stack(hashes, dim=-1).transpose(0, 1), valid.T
+        codes = dp.shard_reads(codes, self.mesh).to(self.device)
+        # "kernel": the config's engine selects nothing (see PipelineConfig)
+        hashes, valid, _ = dp.hash_and_sketch(
+            codes, self.sketch, cfg.k, cfg.num_hashes, cfg.sketch_width_log2,
+            self.mesh, "kernel", time_major=cfg.time_major)
+        return hashes, valid
 
     def query(self, hashes) -> torch.Tensor:
         """Count-min multiplicity estimates for window hashes in either
@@ -204,9 +223,13 @@ class ReadHashingPipeline:
         ``threads`` byte-range shard threads
         (``io/stream.stream_code_batches_parallel``, which needs the native
         parser); valid-k-mer counts stay on the device until one sync at the
-        end. Returns the total number of valid k-mers hashed."""
+        end. Under a process group every rank streams the whole file and
+        hashes its block of each batch (``batch_size`` rounded up to a
+        multiple of the world size); the total is the whole file's.
+        Returns the total number of valid k-mers hashed."""
         from ..io.stream import Prefetcher
 
+        batch_size += (-batch_size) % self.n_devices
         pool = self._pool(threads, prefetch)
         src = self._host_batches(path, batch_size, read_length, threads,
                                  pool, pack=False)
@@ -216,7 +239,11 @@ class ReadHashingPipeline:
                 (codes,) = self._to_device(pool, batch)
                 _, valid = self.step(codes)
                 counts.append(valid.sum(dtype=torch.int64))
-        return int(torch.stack(counts).sum()) if counts else 0
+        total = (torch.stack(counts).sum() if counts
+                 else torch.zeros((), dtype=torch.int64, device=self.device))
+        if self.mesh is not None:
+            all_reduce_sum(total, self.mesh)
+        return int(total)
 
     def count_file(self, path, batch_size: int = 1 << 18,
                    read_length: int | None = None, prefetch: int = 2,
@@ -240,10 +267,16 @@ class ReadHashingPipeline:
         parameters seeks to that offset and produces a sketch identical to
         an uninterrupted run. Checkpointing needs the native parser.
 
+        Under a process group every rank streams the whole file, copies
+        each batch to its device and counts its block (``batch_size``
+        rounded up to a multiple of the world size, as in the JAX package);
+        the counts merge into every rank's sketch. The checkpoint holds the merged sketch: rank 0 writes
+        it, every rank resumes from it, and no rank returns before the last
+        one is written.
+
         Returns the number of reads streamed, including a resumed prefix.
         """
         from ..io.stream import Prefetcher
-        from ..parallel import dp
         from ..utils import checkpoint
 
         with_ckpt = checkpoint_path is not None
@@ -253,6 +286,8 @@ class ReadHashingPipeline:
                 "(threads=1); parallel shard order is nondeterministic"
             )
         cfg = self.config
+        batch_size += (-batch_size) % self.n_devices
+        writes = self.mesh is None or size_and_rank(self.mesh)[1] == 0
         total = 0
         start_offset = 0
         src = Path(path)
@@ -274,6 +309,8 @@ class ReadHashingPipeline:
             start_offset = int(state["offset"])
 
         def save_ckpt(offset):
+            if not writes:
+                return
             checkpoint.save(checkpoint_path, {
                 "rows": self.sketch.rows,
                 "reads": np.int64(total),
@@ -292,11 +329,14 @@ class ReadHashingPipeline:
                 if cfg.pack_h2d:
                     packed, nmask, length = batch
                     packed, nmask = self._to_device(pool, packed, nmask)
-                    dp.fused_count_packed(packed, nmask, self.sketch, cfg.k,
-                                          length)
+                    dp.fused_count_packed(
+                        dp.shard_reads(packed, self.mesh),
+                        dp.shard_reads(nmask, self.mesh), self.sketch, cfg.k,
+                        length, self.mesh)
                 else:
                     (codes,) = self._to_device(pool, batch)
-                    fused_count_step(prepare_codes(codes), self.sketch, cfg.k)
+                    dp.fused_count(dp.shard_reads(codes, self.mesh),
+                                   self.sketch, cfg.k, self.mesh)
                 total += n
                 done += 1
                 if with_ckpt:
@@ -307,4 +347,6 @@ class ReadHashingPipeline:
             torch.cuda.synchronize(self.device)
         if with_ckpt:
             save_ckpt(offset)
+            if self.mesh is not None:
+                dist.barrier(group=self.mesh.get_group())
         return total

@@ -1,28 +1,38 @@
-"""One genome-scale sequence hashed on one device.
+"""Sequence parallelism: one genome-scale sequence sharded over GPUs.
 
-Counterpart of ``nthash_tpu/parallel/sp.py`` without its mesh: the port
-hashes on one device, so the halo exchange between devices (one
-``ppermute`` of k - 1 bases) has no work to do, and the one device is the
-JAX package's last device, whose halo is k - 1 invalid codes. Any request
-for more than one device raises NotImplementedError (multi-GPU is later
-work). ``resolve_engine`` picks the engine from the device of the codes, not
-from a JAX backend query.
+Counterpart of ``nthash_tpu/parallel/sp.py``. The hash is position
+decomposable, so a length-L sequence splits into one chunk a rank with only
+a (k - 1)-base halo from the next rank: rank r owns windows [rC, (r+1)C) of
+the padded sequence and needs the next rank's first k - 1 codes; the last
+rank's halo is k - 1 invalid codes (4), so its off-end windows mask out.
+The JAX package moves the halo with one ring ``ppermute``; here one
+``all_gather`` of every rank's k - 1 head codes moves it
+(:func:`_halo_extend`). A send/receive pair per rank would move less, but
+gloo's point-to-point calls do not take CUDA tensors, and the all-gather
+runs on NCCL and gloo, CUDA and CPU alike; the heads are n (k - 1) bytes.
 
-The JAX package reshapes the sequence into **overlapping pseudo-reads**
+The JAX package reshapes each chunk into **overlapping pseudo-reads**
 [C/t, t + k - 1] (each row carries the next row's first k - 1 bases) so its
 batched engines hash t windows per row in parallel. The port's kernel route
-hashes the flat sequence in one pass instead (``kmer_kernel.hash_sequence``,
-``seed_kernel.hash_seeds_sequence``: a thread per segment of windows, no
-copy of the sequence, no transpose of the outputs); the "torch" route and
-the CPU take the plain versions beside them, pseudo-reads on the batch-major
-engines. A window's hash depends only on its own k bases, so every route is
-exact from its first window. The chunk is still validated as ``pick_tile``
-does (one shorter than k - 1 raises, as in the JAX package), and
-``pick_tile`` and ``pseudo_reads`` stay as the JAX package's counterparts.
+hashes the halo-extended chunk in one pass instead
+(``kmer_kernel.hash_sequence``, ``seed_kernel.hash_seeds_sequence``: a
+thread per segment of windows, no pseudo-read copy, no transpose of the
+outputs; with a mesh the chunk and its halo are first joined into one
+[C + k - 1] tensor); the "torch" route and the CPU take the plain versions beside
+them, pseudo-reads on the batch-major engines. A window's hash depends only
+on its own k bases, so every route is exact from its first window. The
+chunk is still validated as ``pick_tile`` does (one shorter than k - 1
+raises, as in the JAX package), and ``pick_tile`` and ``pseudo_reads`` stay
+as the JAX package's counterparts.
 
-Window w of the result is the window starting at base w; the last k - 1
-entries run off the sequence's end and are masked invalid, as is every
-window that covers padding.
+``mesh=None`` hashes on one device with no group: the one device is the
+JAX package's last device, whose halo is k - 1 invalid codes, so no halo is
+added. ``n_devices``, if given, must be the number of devices the call
+spans (1 without a mesh).
+
+Window w of a rank's result is the window starting at base rC + w; the last
+k - 1 windows of the sequence run off its end and are masked invalid, as is
+every window that covers padding.
 """
 
 from __future__ import annotations
@@ -34,50 +44,66 @@ import torch
 from ..ops.kmer_kernel import hash_sequence, hash_sequence_plain
 from ..ops.seed_kernel import hash_seeds_sequence, hash_seeds_sequence_plain
 from ..ops.seed_torch import check_seeds
-
-ENGINES = ("kernel", "torch")
-
-
-def _one_device(n_devices: int) -> None:
-    if n_devices != 1:
-        raise NotImplementedError(
-            f"n_devices={n_devices}: sequence parallelism across GPUs (the "
-            "halo exchange) is not ported yet (ROADMAP)")
+from .dp import resolve_engine
+from .mesh import all_gather, size_and_rank
 
 
-def resolve_engine(engine: str = "auto", device=None) -> str:
-    """'auto' -> "kernel" (the wrappers of ``ops/*_kernel.py``: the CUDA
-    kernels for a GPU tensor, their plain versions for a CPU one), or
-    "torch" (the batch-major reference engines of ``ops/*_torch.py``).
-    "auto" takes "kernel" on a CUDA device and "torch" elsewhere, as the
-    JAX package takes its Pallas kernel on a TPU only."""
-    if engine == "auto":
-        return "kernel" if torch.device(device or "cpu").type == "cuda" \
-            else "torch"
-    if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r}: one of {ENGINES}")
-    return engine
+def _spanned(mesh, n_devices: int | None) -> tuple[int, int]:
+    """(devices the call spans, this rank); raise ValueError where
+    ``n_devices`` names another count."""
+    n, r = (1, 0) if mesh is None else size_and_rank(mesh)
+    if n_devices is not None and n_devices != n:
+        raise ValueError(
+            f"n_devices={n_devices}: this call spans {n} device(s); pass "
+            "the mesh of the whole process group (parallel/mesh.py "
+            "device_mesh) to shard over GPUs")
+    return n, r
 
 
-def shard_sequence(codes: torch.Tensor, k: int | None = None,
-                   tile: int | None = None, n_devices: int = 1
-                   ) -> torch.Tensor:
-    """A [L] sequence ready for :func:`hash_long_sequence` on one device.
+def shard_sequence(codes: torch.Tensor, mesh=None, k: int | None = None,
+                   tile: int | None = None, *,
+                   n_devices: int | None = None) -> torch.Tensor:
+    """This rank's chunk of a [L] sequence, for :func:`hash_long_sequence`.
 
     With ``k`` given, any length is accepted: the sequence is padded with
-    invalid codes up to a multiple of ``max(tile or 256, k - 1, 1)``, so it
-    divides into pseudo-reads of at least k - 1 windows. Padded windows hold
-    an invalid base and are masked like the off-end windows; window
-    w < L - k + 1 is unaffected. Without ``k`` the sequence is returned as
-    it is (one device divides any length).
+    invalid codes up to a multiple of ``n * max(tile or 256, k - 1, 1)``
+    for a mesh of n ranks, so every chunk divides into pseudo-reads of at
+    least k - 1 windows. Padded windows hold an invalid base and are masked
+    like the off-end windows; window w < L - k + 1 is unaffected. Without
+    ``k``, L must divide by n (any length on one device).
     """
-    _one_device(n_devices)
+    n, r = _spanned(mesh, n_devices)
     if k is not None:
-        t0 = max(tile or 256, k - 1, 1)
-        pad = (-codes.shape[0]) % t0
+        pad = (-codes.shape[0]) % (n * max(tile or 256, k - 1, 1))
         if pad:
             codes = torch.nn.functional.pad(codes, (0, pad), value=4)
-    return codes
+    elif codes.shape[0] % n:
+        raise ValueError(
+            f"sequence length {codes.shape[0]} is not divisible by the "
+            f"{n}-device seq mesh; pass k= to shard_sequence to pad")
+    c = codes.shape[0] // n
+    return codes[r * c:(r + 1) * c]
+
+
+def _halo_extend(chunk: torch.Tensor, k: int, mesh) -> torch.Tensor:
+    """[C] chunk -> [C + k - 1]: the next rank's first k - 1 codes appended,
+    k - 1 invalid codes on the last rank."""
+    if k == 1:
+        return chunk
+    n, r = size_and_rank(mesh)
+    heads = all_gather(chunk[:k - 1], mesh)      # [n, k - 1]
+    halo = heads[r + 1] if r + 1 < n else torch.full_like(heads[0], 4)
+    return torch.cat([chunk, halo])
+
+
+def _hash_chunk(fn, chunk: torch.Tensor, k: int, mesh):
+    """``fn(codes) -> (hashes, valid)`` over this rank's chunk and its halo,
+    cut back to the chunk's windows."""
+    if mesh is None:
+        return fn(chunk)
+    c = chunk.shape[0]
+    hashes, valid = fn(_halo_extend(chunk, k, mesh))
+    return [h[:c] for h in hashes], valid[:c]
 
 
 def check_chunk(c: int, k: int) -> int:
@@ -120,45 +146,51 @@ def pseudo_reads(ext: torch.Tensor, k: int, t: int) -> torch.Tensor:
     return ext.unfold(0, t + k - 1, t)
 
 
-def hash_long_sequence(codes: torch.Tensor, k: int, num_hashes: int, *,
-                       engine: str = "auto", tile: int | None = None,
-                       n_devices: int = 1):
-    """Hash every window of one long sequence on its device.
+def hash_long_sequence(codes: torch.Tensor, k: int, num_hashes: int,
+                       mesh=None, *, engine: str = "auto",
+                       tile: int | None = None,
+                       n_devices: int | None = None):
+    """Hash every window of a long sequence sharded over the mesh.
 
     Args:
-      codes: [L] base codes (0-3 valid, 4 and above invalid), e.g. from
-        :func:`shard_sequence` with ``k=``.
-      engine: "auto", "kernel" or "torch" (:func:`resolve_engine`).
+      codes: this rank's [C] chunk of base codes (0-3 valid, 4 and above
+        invalid), e.g. from :func:`shard_sequence` with ``k=``; on one
+        device (``mesh=None``) the whole sequence.
+      engine: "auto", "kernel" or "torch" (``dp.resolve_engine``).
       tile: the JAX package's windows per pseudo-read (default 256); it
         no longer shapes the work, and the chunk is validated as
         :func:`pick_tile` does (:func:`check_chunk`).
 
-    Returns (list of ``num_hashes`` int64 [L] tensors, valid [L] bool):
-    entry w of hash i is nte64 hash i of window [w, w + k); the trailing
-    k - 1 entries, which would run off the end, are masked invalid.
+    Returns (list of ``num_hashes`` int64 [C] tensors, valid [C] bool), this
+    rank's windows: entry w of hash i is nte64 hash i of the window starting
+    at base rC + w; the sequence's trailing k - 1 windows, which would run
+    off its end, are masked invalid.
     """
-    _one_device(n_devices)
+    _spanned(mesh, n_devices)
     check_chunk(codes.shape[0], k)
-    if resolve_engine(engine, codes.device) == "kernel":
-        return hash_sequence(codes, k, num_hashes)
-    return hash_sequence_plain(codes, k, num_hashes)
+    fn = (hash_sequence if resolve_engine(engine, codes.device) == "kernel"
+          else hash_sequence_plain)
+    return _hash_chunk(lambda x: fn(x, k, num_hashes), codes, k, mesh)
 
 
 def hash_long_sequence_seeds(codes: torch.Tensor, seeds: Sequence[str],
-                             num_hashes_per_seed: int, *,
+                             num_hashes_per_seed: int, mesh=None, *,
                              engine: str = "auto", tile: int | None = None,
-                             n_devices: int = 1):
-    """Spaced-seed hash of every window of one long sequence on its device.
+                             n_devices: int | None = None):
+    """Spaced-seed hash of every window of a long sequence sharded over the
+    mesh.
 
     As :func:`hash_long_sequence` (the spaced-seed hash depends only on the
     window's bases too; ``tile``, the JAX package's windows per pseudo-read,
-    default 128, shapes nothing). Returns (list of S*H int64 [L] tensors in
-    reference hash_arr order, valid [L]).
+    default 128, shapes nothing). Returns (list of S*H int64 [C] tensors in
+    reference hash_arr order, valid [C]) for this rank's windows.
     """
-    _one_device(n_devices)
+    _spanned(mesh, n_devices)
     seeds = tuple(seeds)
     k = check_seeds(seeds)
     check_chunk(codes.shape[0], k)
-    if resolve_engine(engine, codes.device) == "kernel":
-        return hash_seeds_sequence(codes, seeds, num_hashes_per_seed)
-    return hash_seeds_sequence_plain(codes, seeds, num_hashes_per_seed)
+    fn = (hash_seeds_sequence
+          if resolve_engine(engine, codes.device) == "kernel"
+          else hash_seeds_sequence_plain)
+    return _hash_chunk(lambda x: fn(x, seeds, num_hashes_per_seed), codes, k,
+                       mesh)

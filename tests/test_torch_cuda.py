@@ -1034,3 +1034,67 @@ def test_facade_on_the_card_vs_oracle(rng, cuda):
     while snt.roll() and snt.get_pos() < 9000 - 4:
         assert np.array_equal(snt.hashes(), swant[snt.get_pos()])
     assert seed_kernel.SEQUENCE_LAUNCHES > before
+
+
+@pytest.fixture
+def nccl_mesh(tmp_path, cuda):
+    """A real NCCL group of world size 1 (a FileStore, no port) and its
+    mesh; destroyed after the test."""
+    import torch.distributed as dist
+
+    from nthash_tpu_torch.parallel import mesh
+
+    mesh.initialize_distributed("cuda", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        assert dist.get_backend() == "nccl"
+        yield mesh.device_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_nccl_fused_count_vs_one_device(rng, cuda, nccl_mesh):
+    """dp.fused_count (twice) and hash_and_sketch over the NCCL group of
+    one equal the one-device steps, through the kernels."""
+    from nthash_tpu_torch.parallel import dp
+
+    codes = _codes(rng, 4096).to(cuda)
+    want = cms.CountMinSketch.zeros(4, 20, cuda)
+    got = cms.CountMinSketch.zeros(4, 20, cuda)
+    for _ in range(2):
+        fused_count_step(prepare_codes(codes), want, 32)
+        before = (kmer_kernel.LAUNCHES, hist_kernel.LAUNCHES)
+        dp.fused_count(dp.shard_reads(codes, nccl_mesh), got, 32, nccl_mesh)
+        assert (kmer_kernel.LAUNCHES, hist_kernel.LAUNCHES) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(got.rows, want.rows)
+    sk = cms.CountMinSketch.zeros(4, 14, cuda)
+    hashes, valid, _ = dp.hash_and_sketch(codes, sk, 32, 4, 14, nccl_mesh,
+                                          time_major=True)
+    pipe = ReadHashingPipeline(PipelineConfig(sketch_width_log2=14),
+                               device=cuda)
+    assert pipe.mesh is not None and pipe.n_devices == 1
+    one = cms.CountMinSketch.zeros(4, 14, cuda)
+    wh, wv, _ = dp.hash_and_sketch(codes, one, 32, 4, 14, None,
+                                   time_major=True)
+    assert all(torch.equal(a, b) for a, b in zip(hashes, wh))
+    assert torch.equal(valid, wv) and torch.equal(sk.rows, one.rows)
+
+
+def test_nccl_union_and_sequence_vs_one_device(rng, cuda, nccl_mesh):
+    from nthash_tpu_torch.parallel.mesh import SEQ_AXIS, device_mesh
+
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, size=1 << 15,
+                                          dtype=np.int64).astype(np.int32))
+    got = bloom.union_across(words.to(cuda), nccl_mesh)
+    assert got.is_cuda and torch.equal(got.cpu(), words)
+    seq = torch.from_numpy(rng.integers(0, 5, size=100_003,
+                                        dtype=np.uint8)).to(cuda)
+    seq_mesh = device_mesh(1, SEQ_AXIS)
+    chunk = sp.shard_sequence(seq, seq_mesh, k=32)
+    before = kmer_kernel.SEQUENCE_LAUNCHES
+    hashes, valid = sp.hash_long_sequence(chunk, 32, 2, seq_mesh)
+    assert kmer_kernel.SEQUENCE_LAUNCHES == before + 1
+    want, wvalid = sp.hash_long_sequence(sp.shard_sequence(seq, k=32), 32, 2)
+    assert all(torch.equal(a, b) for a, b in zip(hashes, want))
+    assert torch.equal(valid, wvalid)

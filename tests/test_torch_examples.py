@@ -38,3 +38,20 @@ def test_example_runs_on_cpu(name):
         assert out.splitlines()[0] == want.splitlines()[0]
         assert out.splitlines()[1] == \
             "roll_many over the genome: 81920/81920 windows found in the sketch"
+
+
+@pytest.mark.parametrize("name", ["streaming_count", "bloom_filter",
+                                  "long_sequence"])
+def test_multi_device_example_matches_jax(tmp_path, name):
+    """The examples of the distributed paths print, on the CPU at world
+    size 1, what their JAX counterparts print on one device."""
+    if name == "streaming_count":
+        path = tmp_path / "reads.fq"
+        path.write_text("@a\nACGTACGTNACGTACGTACGTAC\n+\n" + "I" * 23 + "\n"
+                        "@b\nTTGACCATGACCAGTAGGACCATGACA\n+\n" + "I" * 27
+                        + "\n")
+        args = [str(path), "8", "2"]
+    else:
+        args = ["4096"] if name == "long_sequence" else []
+    want = _run(f"{name}.py", *args)
+    assert _run(f"{name}_torch.py", *args, "--device", "cpu") == want

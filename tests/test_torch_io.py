@@ -167,3 +167,46 @@ def test_prefetcher_order_errors_and_close():
     pf.close()
     assert not pf._thread.is_alive()
     assert closed == [True]
+
+
+@pytest.mark.parametrize("batch_size,read_length", [(64, None), (7, 20),
+                                                    (500, 37), (1000, 50)])
+def test_stream_batches_match_jax(fastq, fasta_file, batch_size,
+                                  read_length):
+    """BatchConfig / stream_batches: the numpy reader's batches, the last
+    one at its true size."""
+    for path in (fastq[0], fasta_file):
+        cfg = fasta.BatchConfig(batch_size, read_length)
+        want = list(jfasta.stream_batches(
+            path, jfasta.BatchConfig(batch_size, read_length)))
+        got = list(fasta.stream_batches(path, cfg))
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            assert g.dtype == np.uint8 and np.array_equal(g, w)
+    assert fasta.BatchConfig() == fasta.BatchConfig(65536, None)
+
+
+@needs_native
+def test_native_encode_matches_jax():
+    seq = bytes(range(256)) + b"ACGTNacgtnRYKM" * 7
+    assert np.array_equal(native_loader.encode(seq),
+                          jax_native_loader.encode(seq))
+    assert native_loader.encode(b"").shape == (0,)
+
+
+@needs_native
+@pytest.mark.parametrize("max_reads,row_len", [(64, 37), (100, 20),
+                                               (1000, 40), (1, 37)])
+def test_next_batch_and_batches_match_jax(fastq, max_reads, row_len):
+    """next_batch (codes and true lengths, truncated rows) and batches
+    against the JAX package's parser bindings."""
+    path = fastq[0]
+    with native_loader.NativeFastxParser(path) as p, \
+            jax_native_loader.NativeFastxParser(path) as jp:
+        got = list(p.batches(max_reads, row_len))
+        want = list(jp.batches(max_reads, row_len))
+        assert p.next_batch(max_reads, row_len) is None
+    assert len(got) == len(want) > 0
+    for (codes, lengths), (wcodes, wlengths) in zip(got, want):
+        assert np.array_equal(codes, wcodes)
+        assert np.array_equal(lengths, wlengths)

@@ -421,14 +421,32 @@ def test_count_file_2_20_vs_jax_run_file(fastq):
 
 
 @pytest.mark.parametrize("cfg,err", [
-    (dict(n_devices=2), NotImplementedError),
-    (dict(n_devices=4), NotImplementedError),
+    (dict(n_devices=2), ValueError),
+    (dict(n_devices=4), ValueError),
     (dict(engine="pallas"), ValueError),
     (dict(engine="torch"), ValueError),
 ])
 def test_unported_options_raise(cfg, err):
+    """Without a process group the world is one device: n_devices other
+    than 1 raises (tests/test_torch_parallel.py runs 2 and 4 ranks)."""
     with pytest.raises(err):
         ReadHashingPipeline(_cfg(**cfg), device=CPU)
+
+
+@pytest.mark.parametrize("n_devices", [None, 1])
+def test_one_device_needs_no_group(fastq, n_devices):
+    """n_devices None or 1 with no process group: no mesh, no group
+    formed, and the one-device sketch."""
+    import torch.distributed as dist
+
+    path, n, _ = fastq
+    pipe = ReadHashingPipeline(_cfg(n_devices=n_devices), device=CPU)
+    assert pipe.mesh is None and pipe.n_devices == 1
+    assert pipe.count_file(path, batch_size=128) == n
+    assert not dist.is_initialized()
+    ref = ReadHashingPipeline(_cfg(), device=CPU)
+    ref.count_file(path, batch_size=128)
+    assert torch.equal(pipe.sketch.rows, ref.sketch.rows)
 
 
 def test_pack_h2d_counts_as_unpacked(fastq):

@@ -141,13 +141,28 @@ def test_resolve_engine():
 
 
 def test_more_than_one_device_raises(rng):
+    """Without a mesh a call spans one device: n_devices other than 1
+    raises (tests/test_torch_parallel.py shards over 2 and 4 ranks)."""
     seq = torch.from_numpy(rng.integers(0, 4, size=(256,), dtype=np.uint8))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="spans 1 device"):
         sp.shard_sequence(seq, k=9, n_devices=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="spans 1 device"):
         sp.hash_long_sequence(seq, 9, 1, n_devices=4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="spans 1 device"):
         sp.hash_long_sequence_seeds(seq, SEEDS, 1, n_devices=8)
+
+
+def test_n_devices_one_is_the_one_device_route(rng):
+    seq = torch.from_numpy(rng.integers(0, 5, size=(300,), dtype=np.uint8))
+    codes = sp.shard_sequence(seq, k=9, n_devices=1)
+    assert torch.equal(codes, sp.shard_sequence(seq, k=9))
+    for got, want in ((sp.hash_long_sequence(codes, 9, 2, n_devices=1),
+                       sp.hash_long_sequence(codes, 9, 2)),
+                      (sp.hash_long_sequence_seeds(codes, SEEDS, 1,
+                                                   n_devices=1),
+                       sp.hash_long_sequence_seeds(codes, SEEDS, 1))):
+        assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+        assert torch.equal(got[1], want[1])
 
 
 def test_cpu_routes_launch_no_kernel(rng):
