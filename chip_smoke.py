@@ -29,15 +29,17 @@ imports nothing of JAX. Phases, each printing its own lines:
    mostly-sentinel stream that must not trip it;
 9. the main path at ``PipelineConfig()`` (width 2**20): ``count_file`` over
    the same FASTQ against the plain hash->count, the hash and histogram
-   kernels' launch counts and no partition kernel's; off the path,
-   ``partitioned_histogram_rows`` over the same reads' buckets against the
-   direct sketch, each partition kernel against its plain version on the
-   main path's own batches, and whether the overflow flag fired;
+   kernels' launch counts (the histogram by the rule's route, binned on
+   every batch: one binning pass and one range pass a launch) and no
+   partition kernel's; off the path, ``partitioned_histogram_rows`` over
+   the same reads' buckets against the sketch, each partition kernel
+   against its plain version on the main path's own batches, and whether
+   the overflow flag fired;
 10. timings at 2**20: each partition kernel, its plain version, its bound
    and ``torch.sort``; the sub-histograms by both routes; the partitioned
-   against the direct histogram per batch at 2**20..2**30; the direct
-   histogram at full width; the fused step beside the old partitioned
-   route, in turns; ``count_file``, and one traced ``count_file`` for the
+   against the rule's histogram per batch at 2**20..2**30; the histogram
+   at full width over all 1M reads, binned and direct; the fused step
+   beside the old partitioned route, in turns; ``count_file``, and one traced ``count_file`` for the
    idle share;
 11. the long-read kernel B2 (``hash_kmers_tm_long``) and the spaced-seed
    kernels B1 (``hash_seeds_tm``) and B3 (``hash_seeds_tm_long``) against
@@ -77,7 +79,8 @@ imports nothing of JAX. Phases, each printing its own lines:
    with the fill ratio of the words compared;
 18. the Bloom path over the same 1M reads in batches of 2**18:
    ``hash_kmers_tm_auto(..., emit_buckets=wl)`` -> ``insert_from_buckets``
-   at 2**17, 2**20 and 2**30 (one C1 launch a batch, no partition kernel),
+   at 2**17, 2**20 and 2**30 (one C1 call a batch by the rule's route:
+   private words at 2**17 and 2**20, binned at 2**30; no partition kernel),
    each filter against the plain hash -> plain insert, with ``contains``
    true on every valid window, a merge of two half-filters equal to the
    whole, C1 against plain at batch 0's launch shape (sparse as well as
@@ -187,7 +190,24 @@ imports nothing of JAX. Phases, each printing its own lines:
    process of this script started with ``--rank``), each rank's blocks of
    the 1M reads, 2**20 filter and chunk of a 2**24-base sequence against
    the one-device results; times of the sketch's all-reduce, the dp step
-   beside ``fused_count_step`` and ``union_across`` at 2**30.
+   beside ``fused_count_step`` and ``union_across`` at 2**30;
+31. the binned routes of A2 and C1 (``csrc/bin.cuh``'s binning pass, then
+   ``histogram_ranges_kernel`` / ``bloom_ranges_kernel``; run after phase
+   29): each forced, against plain and direct with ``torch.equal`` on whole
+   tables, on batch 0's [4, n] buckets at 2**20 and stream at 2**30 and at
+   edge shapes (n of 1 to 100,003, fewer than the ranges, a row off a
+   16-byte boundary, every entry in one range, every entry one value,
+   sentinel-only rows, a gate of 0 and 1 into an accumulating ``out``, C1
+   weights, 5M updates) at widths 2**16..2**27 (A2) and 2**21..2**31 (C1),
+   one C1 compare below a fill of 0.5; ``bin_ranges`` against its plain
+   version (counts, starts, blocks; each range's offsets as a multiset);
+   forced binned routes refused where there is none. Then, in turns with
+   the card's name and power limit on each line: binned against direct
+   for A2 at 2**20 and C1 at 2**30 over the 1M reads, each pass alone, the
+   plain versions, bounds and yardsticks; phase 23's skewed streams; the
+   fused step at 2**20 and the Bloom step at 2**30 by the rule and without
+   a binned route; the sweep of updates a call that sets
+   ``hist_kernel.BINNED_MIN_ENTRIES`` and ``BINNED_MIN_WORD_ENTRIES``.
 
 A failed check raises, so the exit code is not 0. The line before the last
 is the kernels' JSON record; the last line is ``{"ok": true, "device": ...}``.
@@ -358,14 +378,22 @@ def phase_build() -> None:
     require(not spills, f"seed_hash instances spill: {spills}")
 
 
+#: Itanium codes of the template type arguments the kernels take.
+TYPE_CODES = {"t": "unsigned short", "j": "unsigned int", "i": "int"}
+
+
 def kernel_instance(line: str) -> str | None:
-    """The kernel a ptxas line names, with its template arguments (ints and
-    bools) demangled: ``seed_staged_kernel<true>``, ``sort_span_kernel<4>``."""
-    m = re.search(r"([a-z][a-z_]*_kernel)(?:I((?:L[a-z]+\d+E)+)E)?E", line)
+    """The kernel a ptxas line names, with its template arguments (ints,
+    bools and types) demangled: ``seed_staged_kernel<true>``,
+    ``sort_span_kernel<4>``, ``bin_scatter_kernel<unsigned short>``."""
+    m = re.search(r"([a-z][a-z_]*_kernel)(?:I((?:L[a-z]+\d+E|[a-z])+)E)?E",
+                  line)
     if not m:
         return None
-    args = [("true" if v == "1" else "false") if t == "b" else v
-            for t, v in re.findall(r"L([a-z]+?)(\d+)E", m.group(2) or "")]
+    args = [TYPE_CODES.get(ty, ty) if ty else
+            ("true" if v == "1" else "false") if t == "b" else v
+            for t, v, ty in re.findall(r"L([a-z]+?)(\d+)E|([a-z])",
+                                       m.group(2) or "")]
     return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
@@ -475,8 +503,10 @@ def reset_part_launches() -> None:
 
 def reset_hist_launches() -> None:
     hist_kernel.LAUNCHES = 0
-    for route in hist_kernel.ROUTE_LAUNCHES:
-        hist_kernel.ROUTE_LAUNCHES[route] = 0
+    for counts in (hist_kernel.ROUTE_LAUNCHES, hist_kernel.BIN_LAUNCHES,
+                   hist_kernel.RANGE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def phase_main_path(codes: np.ndarray, path: Path, dev):
@@ -810,13 +840,25 @@ def phase_main_wide(codes: np.ndarray, path: Path, dev, errs: dict):
     launches = {"kmer_hash": kmer_kernel.LAUNCHES,
                 "histogram": hist_kernel.LAUNCHES}
     routes = dict(hist_kernel.ROUTE_LAUNCHES)
+    bins = dict(hist_kernel.BIN_LAUNCHES)
     parts = dict(pk.LAUNCHES)
+    launches["bin_ranges_counts"] = bins["histogram"]
+    launches["histogram_ranges"] = hist_kernel.RANGE_LAUNCHES["histogram"]
     require(reads == N_READS, f"count_file streamed {reads} reads")
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the 2**20 main path never launched: {launches}")
-    require(not any(parts.values()) and routes["direct"] == launches["histogram"],
-            f"the 2**20 path must count directly, with no partition kernel: "
-            f"partition launches {parts}, histogram by route {routes}")
+    wide_launches = dict(launches)
+    want_routes = dict.fromkeys(routes, 0)
+    for s in range(0, N_READS, BATCH):
+        n = min(BATCH, N_READS - s) * (L - K + 1)
+        want_routes[hist_kernel._counts_route(H, n, WIDE, False, None)[0]] += 1
+    require(not any(parts.values()) and routes == want_routes
+            and bins["histogram"] == routes["binned"]
+            == launches["histogram_ranges"],
+            f"the 2**20 path must count by the rule's route ({want_routes}), "
+            f"binning once a binned launch, with no partition kernel: "
+            f"partition launches {parts}, histogram by route {routes}, "
+            f"binning passes {bins}")
     want = torch.zeros((H, 1 << WIDE), dtype=torch.int64, device=dev)
     for s in range(0, codes.shape[0], BATCH):
         tm = prepare_codes(torch.from_numpy(codes[s:s + BATCH]).to(dev))
@@ -861,7 +903,7 @@ def phase_main_wide(codes: np.ndarray, path: Path, dev, errs: dict):
     fired = [int(f) for f in fired]
     print(f"[main] partition kernels == plain on batch 0 ({tuple(batches[0].shape)}); "
           f"overflow flag per batch {fired} (fired: {any(fired)})")
-    return pipe, part_launches, batches
+    return pipe, {**part_launches, **wide_launches}, batches
 
 
 def time_prepared(prepare, fn, calls: int = 5) -> float:
@@ -983,20 +1025,24 @@ def phase_wide_timings(codes, path, pipe, batches, dev, card: str) -> dict:
         idx = torch.stack(hash_kmers_tm(tm, K, H, emit_buckets=wl)).reshape(H, -1)
         t_part = timeit(lambda x: pk.partitioned_histogram_rows(x, wl), idx)
         t_dir = timeit(lambda x: histogram_rows(x, None, wl), idx)
+        route = hist_kernel._counts_route(H, idx.shape[1], wl, False, None)[0]
         print(f"[time] crossover at 2**{wl}, {H} x {idx.shape[1]} buckets "
               f"(one batch): partitioned_histogram_rows "
-              f"{t_part.seconds_per_call * 1e3:.4f} ms, direct histogram "
-              f"{t_dir.seconds_per_call * 1e3:.4f} ms {tag}")
+              f"{t_part.seconds_per_call * 1e3:.4f} ms, the histogram (the "
+              f"rule's route, {route}) {t_dir.seconds_per_call * 1e3:.4f} ms "
+              f"{tag}")
         del idx
         torch.cuda.empty_cache()
     del tm
     tm = prepare_codes(torch.from_numpy(codes).to(dev))
     reads, w = tm.shape[1], L - K + 1
     idx = torch.stack(hash_kmers_tm(tm, K, H, emit_buckets=WIDE)).reshape(H, -1)
-    t_direct = timeit(lambda x: histogram_rows(x, None, WIDE), idx)
-    print(f"[time] histogram (A2, direct atomics: the path's route) alone at "
-          f"full width 2**{WIDE}, {H} rows x {idx.shape[1]}: "
-          f"{t_direct.seconds_per_call * 1e3:.4f} ms, bound "
+    whole = in_turns({r: (lambda x, r=r: hist_by(r, x, None, WIDE))
+                      for r in ("binned", "direct")}, idx)
+    print(f"[time] histogram (A2) alone at full width 2**{WIDE}, {H} rows x "
+          f"{idx.shape[1]} (the 1M reads in one launch): binned "
+          f"{whole['binned'] * 1e3:.4f} ms, direct atomics "
+          f"{whole['direct'] * 1e3:.4f} ms, in turns; bound "
           f"{bound_ms(idx.numel() * 4 + H * (1 << WIDE) * 4):.4f} ms {tag}")
     del idx
     torch.cuda.empty_cache()
@@ -1010,11 +1056,12 @@ def phase_wide_timings(codes, path, pipe, batches, dev, card: str) -> dict:
         pk.partitioned_histogram_rows(
             torch.stack([t.reshape(-1) for t in b]), WIDE, out=sk.rows)
 
-    steps = in_turns({"direct": lambda x: fused_count_step(x, sk, K),
+    steps = in_turns({"path": lambda x: fused_count_step(x, sk, K),
                       "partitioned": old_step}, tm)
-    print(f"[time] fused_count_step k={K} h={H} 2**{WIDE} {reads}x{L}: "
-          f"{steps['direct'] * 1e3:.4f} ms, "
-          f"{reads * w / steps['direct']:.6g} k-mers/s (all windows); the old "
+    route = hist_kernel._counts_route(H, reads * w, WIDE, False, None)[0]
+    print(f"[time] fused_count_step k={K} h={H} 2**{WIDE} {reads}x{L} (the "
+          f"histogram {route}): {steps['path'] * 1e3:.4f} ms, "
+          f"{reads * w / steps['path']:.6g} k-mers/s (all windows); the old "
           f"route (partitioned_histogram_rows) {steps['partitioned'] * 1e3:.4f}"
           f" ms, in turns {tag}")
     del tm, sk
@@ -1673,7 +1720,8 @@ def bloom_build(tms, wl: int, dev):
 
 def reset_launches() -> None:
     kmer_kernel.LAUNCHES = kmer_kernel.LONG_LAUNCHES = 0
-    for counts in (pk.LAUNCHES, hist_kernel.BLOOM_LAUNCHES):
+    for counts in (pk.LAUNCHES, hist_kernel.BLOOM_LAUNCHES,
+                   hist_kernel.BIN_LAUNCHES, hist_kernel.RANGE_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -1692,7 +1740,8 @@ def phase_bloom_path(codes: np.ndarray, dev, errs: dict
     in the partitioned runs) and the words of the 2**20 and 2**30 filters,
     which phase 30 unions across ranks."""
     tms = bloom_tms(codes, dev)
-    total = dict.fromkeys(BLOOM_KERNELS, 0)
+    total = dict.fromkeys((*BLOOM_KERNELS, "bin_ranges_words",
+                           "bloom_ranges"), 0)
     filters = {}
     for wl in BLOOM_WIDTHS:
         reset_launches()
@@ -1702,14 +1751,25 @@ def phase_bloom_path(codes: np.ndarray, dev, errs: dict
         seconds = time.perf_counter() - t0
         launches = {"kmer_hash": kmer_kernel.LAUNCHES,
                     "kmer_hash_long": kmer_kernel.LONG_LAUNCHES,
-                    **hist_kernel.BLOOM_LAUNCHES, **pk.LAUNCHES}
+                    **hist_kernel.BLOOM_LAUNCHES, **pk.LAUNCHES,
+                    "bin_ranges_words": hist_kernel.BIN_LAUNCHES["bloom"],
+                    "bloom_ranges": hist_kernel.RANGE_LAUNCHES["bloom"]}
+        binned = sum(hist_kernel._words_route_of(
+            1, H * tm.shape[1] * (tm.shape[0] - K + 1), wl, None)[0]
+            == "binned" for tm in tms)
         require(launches["kmer_hash"] > 0
                 and launches["bloom_words"] == len(tms)
                 and not launches["bloom_words_rows"]
-                and not any(launches[k] for k in PART_KERNELS),
-                f"the 2**{wl} Bloom path must take one bloom_words launch a "
-                f"batch and no partition kernel: {launches}")
-        total["bloom_words"] += launches["bloom_words"]
+                and not any(launches[k] for k in PART_KERNELS)
+                and launches["bin_ranges_words"] == binned
+                == launches["bloom_ranges"],
+                f"the 2**{wl} Bloom path must take one bloom_words call a "
+                f"batch, binned on the {binned} batches where the rule bins "
+                f"(one binning and one range pass each), and no partition "
+                f"kernel: {launches}")
+        for name in total:
+            if name != "bloom_words_rows":
+                total[name] += launches[name]
         want = torch.zeros_like(bf.words)
         for tm in tms:
             for b in hash_kmers_tm_plain(tm, K, H, emit_buckets=wl):
@@ -1749,10 +1809,10 @@ def phase_bloom_path(codes: np.ndarray, dev, errs: dict
         for ewl in sorted({wl, 30}):
             stream = hist_kernel.rows_view(hash_kmers_tm(
                 tms[0], K, H, emit_buckets=ewl)).reshape(-1)
-            grid = hist_kernel.private_words_grid(1, stream.numel(), ewl)
+            route = hist_kernel._words_route_of(1, stream.numel(), ewl, None)
             same("bloom_words", hist_kernel.bloom_words(stream, None, ewl),
                  hist_kernel.bloom_words_plain(stream, None, ewl),
-                 f"bloom_words, batch 0's stream at 2**{ewl} (grid {grid})",
+                 f"bloom_words, batch 0's stream at 2**{ewl} (route {route})",
                  stream.numel())
             del stream
         if wl in PART_BLOOM_WIDTHS:
@@ -1870,9 +1930,9 @@ def phase_bloom_timings(codes: np.ndarray, dev, card: str) -> dict:
             flat = stream.long()
             lib_s = t(lambda x: scatter_pack(x, wl), flat)
             del flat
-            grid = hist_kernel.private_words_grid(1, n, wl)
+            route = hist_kernel._words_route_of(1, n, wl, None)
             add(f"bloom_words at 2**{wl} (one launch a batch, the path; "
-                f"grid {grid})",
+                f"route {route})",
                 t(lambda x: hist_kernel.bloom_words(x, None, wl, out=words),
                   stream),
                 t(lambda x: hist_kernel.bloom_words_plain(x, None, wl,
@@ -2358,8 +2418,8 @@ def phase_hist_route_timings(codes: np.ndarray, gen, dev, card: str) -> None:
             idx = torch.randint(0, width, (rows, m), device=dev,
                                 generator=gen, dtype=torch.int32)
             out = torch.zeros((rows, width), dtype=torch.int32, device=dev)
-            require(hist_kernel._counts_grid(rows, m, wl, "private")
-                    == (blocks, threads), "the sweep's grid")
+            require(hist_kernel._counts_route(rows, m, wl, False, "private")
+                    == ("private", blocks, threads), "the sweep's grid")
 
             def fresh(x, route):
                 out.zero_()
@@ -3267,6 +3327,466 @@ def reset_blind_launches() -> None:
     blind_scan.LAUNCHES = blind_seed_scan.LAUNCHES = 0
 
 
+# ------------------------------- the binned routes (A2, C1; phase 31) ----
+
+#: (width_log2, rows) of phase 31's edge shapes: the histogram's binned
+#: widths (up to the most ranges one pass takes: 4 rows at 2**25, one at
+#: 2**27) and the presence words' (up to 2**31).
+BIN_HIST_EDGES = ((16, 4), (20, 4), (21, 4), (25, 4), (27, 1))
+BIN_WORD_EDGES = ((21, 1), (21, 3), (25, 1), (30, 1), (31, 1))
+#: (kernel, width_log2, rows) with no binned route, which a forced binned
+#: route refuses: the private widths and too many ranges for one pass.
+BIN_REFUSED = (("A2", 15, 4), ("A2", 26, 4), ("A2", 30, 1), ("C1", 16, 1),
+               ("C1", 20, 1), ("C1", 21, 4096))
+#: (kernel, width_log2, rows) of the sweep that sets BINNED_MIN_ENTRIES and
+#: BINNED_MIN_WORD_ENTRIES: every width the rule bins at the path's rows
+#: (A2 with 4 rows, C1 with one), and the ends of the other row counts.
+BIN_SWEEP = (tuple(("A2", wl, 4) for wl in range(16, 26))
+             + (("A2", 16, 1), ("A2", 22, 1), ("A2", 27, 1))
+             + tuple(("C1", wl, 1) for wl in range(21, 32))
+             + (("C1", 21, 4), ("C1", 26, 4)))
+
+
+@contextlib.contextmanager
+def direct_rule():
+    """The route rules without a binned route, as they were before it:
+    above the private widths every update is one direct atomic."""
+    saved = hist_kernel.binned_counts_grid, hist_kernel.binned_words_grid
+    hist_kernel.binned_counts_grid = hist_kernel.binned_words_grid = (
+        lambda *a, **k: (0, 0))
+    try:
+        yield
+    finally:
+        hist_kernel.binned_counts_grid, hist_kernel.binned_words_grid = saved
+
+
+def bins_err(idx, weight, wl: int, rl: int, per: int = 4096) -> float:
+    """``bin_ranges`` against ``bin_ranges_plain``: the largest difference
+    of the counts, the starts, the range pass's block prefix and each
+    range's offsets compared as multisets (the order inside a range is
+    free; both sorted by range, then offset). 0 when all are equal."""
+    got = hist_kernel.bin_ranges(idx, weight, wl, rl, per)
+    want = hist_kernel.bin_ranges_plain(idx, weight, wl, rl, per)
+    def diff(a, b):
+        return 0.0 if torch.equal(a, b) else max_abs_err(a, b)
+
+    err = max(diff(a, b) for a, b in zip(got[:3], want[:3]))
+    if err:
+        return err
+    total = int(want.starts[-1])
+    rid = torch.repeat_interleave(
+        torch.arange(want.counts.numel(), device=idx.device), want.counts)
+
+    def grouped(stage):
+        return torch.sort((rid << rl)
+                          | (stage[:total].long() & ((1 << rl) - 1))).values
+
+    return diff(grouped(got.stage), grouped(want.stage))
+
+
+def edge_streams(gen, rows: int, wl: int, rl: int, dev) -> list:
+    """(label, idx [rows, n]) of the edge shapes at 2**wl with ranges of
+    2**rl: ragged n (fewer entries than ranges at the widest), a row that
+    starts off a 16-byte boundary, every entry in the last range, every
+    entry one value, sentinel-only rows, one entry in eight one value."""
+    width = 1 << wl
+    top = min(width + 3, (1 << 31) - 1)
+
+    def rand(n, lo=-3, hi=top):
+        return torch.randint(lo, hi, (rows, n), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    hot = rand(300_001)
+    hot[:, ::8] = 777
+    return ([(f"n={n}", rand(n)) for n in (1, 7, 1000, 8193, 100_003)]
+            + [("a view one int past a 16-byte boundary",
+                rand(100_004)[:, 1:]),
+               ("every entry in the last range",
+                rand(65_537, width - (1 << rl), min(width, (1 << 31) - 1))),
+               ("every entry one value",
+                torch.full((rows, 50_001), 12345, device=dev,
+                           dtype=torch.int32)),
+               ("sentinel-only rows",
+                torch.full((rows, 50_001), width if wl < 31 else -1,
+                           device=dev, dtype=torch.int32)),
+               ("one entry in eight one value", hot)])
+
+
+def phase_binned_checks(codes: np.ndarray, gen, dev) -> dict:
+    """Phase 31, checks: the binned route of A2 and of C1, each forced,
+    against the plain version and the direct route with ``torch.equal`` on
+    whole tables: on the path's own batch-0 buckets at 2**20 ([4, n]) and
+    stream at 2**30, and at the edge shapes (``edge_streams``) at every
+    binned width of ``BIN_HIST_EDGES`` / ``BIN_WORD_EDGES``, with a gate of
+    0 and 1 into an ``out`` that accumulates and, for C1, weights; one C1
+    compare below a fill of 0.5 at least. ``bin_ranges`` against its plain
+    version on the same inputs. Forced binned routes refused where there is
+    none. Returns the largest difference of each new kernel (0 when
+    equal)."""
+    errs = dict.fromkeys(("bin_ranges_counts", "histogram_ranges",
+                          "bin_ranges_words", "bloom_ranges"), 0.0)
+    fills = []
+    counted = {"A2": 0, "C1": 0, "bins": 0}
+
+    def clone(t):
+        return None if t is None else t.clone()
+
+    def hist_same(idx, wl, what, gate=None, out=None):
+        got = hist_by("binned", idx, None, wl, gate, clone(out))
+        want = histogram_rows_plain(idx, None, wl, gate=gate, out=clone(out))
+        direct = hist_by("direct", idx, None, wl, gate, clone(out))
+        torch.cuda.synchronize()
+        errs["histogram_ranges"] = max(errs["histogram_ranges"],
+                                       max_abs_err(got, want))
+        require(torch.equal(got, want) and torch.equal(direct, want),
+                f"binned histogram != plain != direct: {what}")
+        counted["A2"] += 1
+
+    def words_same(idx, weight, wl, what, gate=None, out=None):
+        got = words_by("binned", idx, weight, wl, gate, clone(out))
+        want = hist_kernel._words_plain(idx, weight, wl, gate, clone(out))
+        direct = words_by("direct", idx, weight, wl, gate, clone(out))
+        torch.cuda.synchronize()
+        errs["bloom_ranges"] = max(errs["bloom_ranges"],
+                                   max_abs_err(got, want))
+        require(torch.equal(got, want) and torch.equal(direct, want),
+                f"binned words != plain != direct: {what}")
+        fills.append((fill_of(want), what))
+        counted["C1"] += 1
+
+    def bins_same(idx, weight, wl, rl, what):
+        name = ("bin_ranges_counts" if rl == hist_kernel.COUNTS_RANGE_LOG2
+                else "bin_ranges_words")
+        err = bins_err(idx, weight, wl, rl)
+        errs[name] = max(errs[name], err)
+        require(err == 0, f"bin_ranges != plain by {err}: {what}")
+        counted["bins"] += 1
+
+    def gated(same, idx, wl, cols, *w):
+        base = torch.randint(-(1 << 31), (1 << 31) - 1, (idx.shape[0], cols),
+                             generator=gen, device=dev, dtype=torch.int32)
+        for g in (0, 1):
+            gate = torch.full((1,), g, dtype=torch.int32, device=dev)
+            same(idx, *w, wl, f"gate {g}, out accumulating, [{idx.shape[0]}, "
+                 f"{idx.shape[1]}] at 2**{wl}", gate, base)
+
+    # the path's own shapes: batch 0's [4, n] buckets at 2**20 and its
+    # buckets as one stream at 2**30
+    tm = prepare_codes(torch.from_numpy(codes[:BATCH]).to(dev))
+    bucks = hist_kernel.rows_view(hash_kmers_tm(tm, K, H, emit_buckets=WIDE))
+    hist_same(bucks, WIDE, f"batch 0's [{H}, n] buckets at 2**{WIDE}")
+    gated(hist_same, bucks, WIDE, 1 << WIDE)
+    bins_same(bucks, None, WIDE, hist_kernel.COUNTS_RANGE_LOG2,
+              f"batch 0's buckets at 2**{WIDE}")
+    del bucks
+    stream = hist_kernel.rows_view(hash_kmers_tm(
+        tm, K, H, emit_buckets=30)).reshape(1, -1)
+    words_same(stream, None, 30, "batch 0's stream at 2**30")
+    bins_same(stream, None, 30, hist_kernel.WORDS_RANGE_LOG2,
+              "batch 0's stream at 2**30")
+    del stream, tm
+    torch.cuda.empty_cache()
+    for wl, rows in BIN_HIST_EDGES:
+        for what, idx in edge_streams(gen, rows, wl, 15, dev):
+            hist_same(idx, wl, f"{what}, [{rows}, n] at 2**{wl}")
+            bins_same(idx, None, wl, 15, f"{what}, [{rows}, n] at 2**{wl}")
+        gated(hist_same, edge_streams(gen, rows, wl, 15, dev)[4][1], wl,
+              1 << wl)
+        torch.cuda.empty_cache()
+    for wl, rows in BIN_WORD_EDGES:
+        streams = edge_streams(gen, rows, wl, 20, dev)
+        for what, idx in streams:
+            words_same(idx, None, wl, f"{what}, [{rows}, n] at 2**{wl}")
+            bins_same(idx, None, wl, 20, f"{what}, [{rows}, n] at 2**{wl}")
+            if rows == 1:
+                w = torch.randint(-1, 2, (idx.shape[1],), generator=gen,
+                                  device=dev, dtype=torch.int32)
+                words_same(idx, w, wl, f"{what}, weighted, at 2**{wl}")
+                bins_same(idx, w, wl, 20, f"{what}, weighted, at 2**{wl}")
+        gated(words_same, streams[4][1], wl, (1 << wl) // 32, None)
+        big = torch.randint(0, (1 << 31) - 1 if wl == 31 else 1 << wl,
+                            (rows, GRID_STRIDE_N), generator=gen, device=dev,
+                            dtype=torch.int32)
+        words_same(big, None, wl, f"[{rows}, {GRID_STRIDE_N}] at 2**{wl}")
+        del streams, big
+        torch.cuda.empty_cache()
+    for kernel, wl, rows in BIN_REFUSED:
+        idx = torch.zeros((rows, 8), dtype=torch.int32, device=dev)
+        try:
+            (hist_by if kernel == "A2" else words_by)("binned", idx, None, wl)
+        except ValueError:
+            continue
+        raise AssertionError(f"a binned {kernel} at 2**{wl} x {rows} rows "
+                             "was not refused")
+    low = min(fills)
+    require(low[0] < 0.5, f"every C1 compare was saturated: {low}")
+    print(f"[binned] exact (torch.equal, whole tables): A2 binned == plain "
+          f"== direct in {counted['A2']} compares, C1 in {counted['C1']} "
+          f"(lowest fill {low[0]:.6f}: {low[1]}; highest "
+          f"{max(fills)[0]:.6f}), bin_ranges == plain (counts, starts, "
+          f"blocks; each range's offsets as a multiset) in "
+          f"{counted['bins']}; widths A2 {[w for w, _ in BIN_HIST_EDGES]}, C1 "
+          f"{[w for w, _ in BIN_WORD_EDGES]}; refused where there is none: "
+          f"{list(BIN_REFUSED)}")
+    return errs
+
+
+def prepared_in_turns(prepare, fns: dict, rounds: int = 2) -> dict:
+    """``time_prepared`` of each function in turns (A B B A), mean of the
+    rounds' medians: for kernels that OR or add into a table that
+    ``prepare`` zeroes, untimed, before each call."""
+    names = list(fns)
+    got = {name: [] for name in names}
+    for i in range(rounds):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            got[name].append(time_prepared(prepare, fns[name]))
+    return {name: statistics.mean(v) for name, v in got.items()}
+
+
+def phase_binned_timings(codes: np.ndarray, gen, dev, card: str) -> dict:
+    """Phase 31, timings in one call, in turns, each line with the card's
+    name and power limit: over the 1M reads (four batches), A2 at 2**20 as
+    the path launches it ([4, n] a batch) and C1 at 2**30 (one stream a
+    batch): the binned route, direct atomics, the binning and the range
+    pass alone, their plain versions, the byte bounds and the yardsticks
+    (``torch.bincount``, ``scatter_pack``; ``torch.sort`` of the flat
+    buckets for the binning pass); phase 23's two skewed streams; the
+    fused step at 2**20 and the Bloom step at 2**30 by the rule and by the
+    rule without a binned route; the sweep of updates a call that sets
+    ``BINNED_MIN_ENTRIES`` and ``BINNED_MIN_WORD_ENTRIES``. Returns
+    [kernel s, plain s, library s or None, bytes] per new kernel, for the
+    kernels line."""
+    tag = f"[{card}]"
+    res = {}
+
+    def add(name, k_s, p_s, lib_s, nbytes):
+        row = res.setdefault(name, [0.0, 0.0, 0.0, 0])
+        for i, v in enumerate((k_s, p_s, lib_s, nbytes)):
+            row[i] += v
+
+    # A2 at 2**20, one [4, n] launch a batch, into the sketch's rows
+    width = 1 << WIDE
+    routes = dict.fromkeys(("binned", "direct"), 0.0)
+    plain_route, route_bytes = 0.0, 0
+    rows_out = torch.zeros((H, width), dtype=torch.int32, device=dev)
+    for idx in path_buckets(codes, WIDE, dev):
+        n = idx.shape[1]
+        per, blocks = hist_kernel.binned_counts_grid(H, n, WIDE)
+        require(per > 0, f"the rule gives the 2**{WIDE} path no binned route")
+        for r, v in in_turns({r: (lambda x, r=r: hist_by(r, x, None, WIDE,
+                                                          out=rows_out))
+                              for r in routes}, idx).items():
+            routes[r] += v
+        bins = hist_kernel.bin_ranges(idx, None, WIDE, 15, per)
+        plain_bins = hist_kernel.bin_ranges_plain(idx, None, WIDE, 15, per)
+        valid = int(plain_bins.starts[-1])
+        flat = (idx.long() + torch.arange(H, device=dev)[:, None]
+                * (width + 1)).reshape(-1)
+        add("bin_ranges_counts",
+            timeit(lambda x: hist_kernel.bin_ranges(x, None, WIDE, 15, per),
+                   idx).seconds_per_call,
+            timeit(lambda x: hist_kernel.bin_ranges_plain(x, None, WIDE, 15,
+                                                          per),
+                   idx).seconds_per_call,
+            timeit(lambda x: torch.sort(x), flat).seconds_per_call,
+            idx.numel() * 4 + valid * 2)
+        add("histogram_ranges",
+            time_prepared(lambda: bins, lambda b: hist_kernel._ranges_launch(
+                "histogram", b, blocks, rows_out, None)),
+            time_prepared(lambda: plain_bins,
+                          lambda b: hist_kernel.histogram_ranges_plain(
+                              b, H, WIDE, out=rows_out)),
+            timeit(lambda x: torch.bincount(x, minlength=H * (width + 1)),
+                   flat).seconds_per_call,
+            valid * 2 + H * width * 4)
+        plain_route += timeit(lambda x: histogram_rows_plain(x, None, WIDE),
+                              idx).seconds_per_call
+        route_bytes += idx.numel() * 4 + H * width * 4
+        del idx, bins, plain_bins, flat
+        torch.cuda.empty_cache()
+    del rows_out
+    print(f"[time] A2 at 2**{WIDE} as the path launches it ([{H}, n] a "
+          f"batch, into the sketch's rows), over {N_READS} reads: binned "
+          f"{routes['binned'] * 1e3:.4f} ms, direct atomics (the old route) "
+          f"{routes['direct'] * 1e3:.4f} ms, in turns; of the binned route "
+          f"the binning pass {res['bin_ranges_counts'][0] * 1e3:.4f} ms and "
+          f"the range pass {res['histogram_ranges'][0] * 1e3:.4f} ms; plain "
+          f"{plain_route * 1e3:.4f} ms, torch.bincount "
+          f"{res['histogram_ranges'][2] * 1e3:.4f} ms, bound "
+          f"{bound_ms(route_bytes):.4f} ms ({route_bytes / 1e9:.4f} GB) {tag}")
+    for name in ("bin_ranges_counts", "histogram_ranges"):
+        k_s, p_s, lib_s, nbytes = res[name]
+        print(f"[time] {name} at 2**{WIDE} over {N_READS} reads: kernel "
+              f"{k_s * 1e3:.4f} ms, plain {p_s * 1e3:.4f} ms, library "
+              f"({'torch.sort' if name.startswith('bin') else 'torch.bincount'})"
+              f" {lib_s * 1e3:.4f} ms, bound {bound_ms(nbytes):.4f} ms "
+              f"({nbytes / 1e9:.4f} GB) {tag}")
+
+    # C1 at 2**30, one stream a batch, into words zeroed before each call
+    wl = 30
+    words = torch.zeros((1, (1 << wl) // 32), dtype=torch.int32, device=dev)
+    routes = dict.fromkeys(("binned", "direct"), 0.0)
+    extra = {"plain": 0.0, "scatter_pack": 0.0, "bytes": 0}
+    for tm in bloom_tms(codes, dev):
+        stream = hist_kernel.rows_view(hash_kmers_tm(
+            tm, K, H, emit_buckets=wl)).reshape(1, -1)
+        del tm
+        n = stream.shape[1]
+        per, blocks = hist_kernel.binned_words_grid(1, n, wl)
+        require(per > 0, "the rule gives the 2**30 Bloom path no binned route")
+
+        def zeroed(x=stream):
+            words.zero_()
+            return x
+
+        for r, v in prepared_in_turns(zeroed, {
+                r: (lambda x, r=r: words_by(r, x, None, wl, out=words))
+                for r in routes}).items():
+            routes[r] += v
+        bins = hist_kernel.bin_ranges(stream, None, wl, 20, per)
+        plain_bins = hist_kernel.bin_ranges_plain(stream, None, wl, 20, per)
+        valid = int(plain_bins.starts[-1])
+        flat = torch.where(stream[0] >= 0, stream[0].long(), 1 << wl)
+        add("bin_ranges_words",
+            timeit(lambda x: hist_kernel.bin_ranges(x, None, wl, 20, per),
+                   stream).seconds_per_call,
+            timeit(lambda x: hist_kernel.bin_ranges_plain(x, None, wl, 20,
+                                                          per),
+                   stream).seconds_per_call,
+            timeit(lambda x: torch.sort(x), flat).seconds_per_call,
+            n * 4 + valid * 4)
+        add("bloom_ranges",
+            time_prepared(lambda: (words.zero_(), bins)[1],
+                          lambda b: hist_kernel._ranges_launch(
+                              "bloom", b, blocks, words, None)),
+            time_prepared(lambda: (words.zero_(), plain_bins)[1],
+                          lambda b: hist_kernel.bloom_ranges_plain(
+                              b, 1, wl, out=words)),
+            0.0, valid * 4 + words.numel() * 4)
+        extra["plain"] += timeit(lambda x: hist_kernel.bloom_words_plain(
+            x, None, wl), stream).seconds_per_call
+        extra["scatter_pack"] += timeit(lambda x: scatter_pack(x, wl),
+                                        flat).seconds_per_call
+        extra["bytes"] += n * 4 + words.numel() * 4
+        del stream, bins, plain_bins, flat
+        torch.cuda.empty_cache()
+    print(f"[time] C1 at 2**{wl} as the Bloom path launches it (one stream "
+          f"a batch, into words zeroed untimed before each call), over "
+          f"{N_READS} reads: binned {routes['binned'] * 1e3:.4f} ms, direct "
+          f"atomics (the old route) {routes['direct'] * 1e3:.4f} ms, in "
+          f"turns; of the binned route the binning pass "
+          f"{res['bin_ranges_words'][0] * 1e3:.4f} ms and the range pass "
+          f"{res['bloom_ranges'][0] * 1e3:.4f} ms; plain "
+          f"{extra['plain'] * 1e3:.4f} ms, scatter yardstick "
+          f"{extra['scatter_pack'] * 1e3:.4f} ms, bound "
+          f"{bound_ms(extra['bytes']):.4f} ms ({extra['bytes'] / 1e9:.4f} "
+          f"GB) {tag}")
+    for name in ("bin_ranges_words", "bloom_ranges"):
+        k_s, p_s, lib_s, nbytes = res[name]
+        lib = (f", library (torch.sort) {lib_s * 1e3:.4f} ms"
+               if name.startswith("bin") else "")
+        print(f"[time] {name} at 2**{wl} over {N_READS} reads: kernel "
+              f"{k_s * 1e3:.4f} ms, plain {p_s * 1e3:.4f} ms{lib}, bound "
+              f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e9:.4f} GB) {tag}")
+    res["bloom_ranges"][2] = None
+    del words
+    torch.cuda.empty_cache()
+
+    # phase 23's skewed streams at 2**20, binned against direct
+    bucks = path_buckets(codes[:BATCH], WIDE, dev)[0]
+    n = bucks.shape[1]
+    for label, idx in (("(a) every entry one value",
+                        torch.full_like(bucks, 12345)),
+                       ("(b) one eighth of the entries one value",
+                        bucks.clone().index_fill_(
+                            1, torch.arange(0, n, 8, device=dev), 12345))):
+        got = in_turns({r: (lambda x, r=r: hist_by(r, x, None, WIDE))
+                        for r in ("binned", "direct")}, idx)
+        require(torch.equal(hist_by("binned", idx, None, WIDE),
+                            hist_by("direct", idx, None, WIDE)),
+                f"skewed stream {label}: binned != direct")
+        print(f"[time] skewed stream at 2**{WIDE}, batch 0's [{H}, {n}] "
+              f"buckets, {label}: binned {got['binned'] * 1e3:.4f} ms, direct "
+              f"{got['direct'] * 1e3:.4f} ms, in turns (results equal) {tag}")
+        del idx
+    del bucks
+    torch.cuda.empty_cache()
+
+    # the steps by the rule and by the rule without a binned route
+    tm = prepare_codes(torch.from_numpy(codes[:BATCH]).to(dev))
+    sk = cms.CountMinSketch.zeros(H, WIDE, dev)
+
+    def direct_step(x):
+        with direct_rule():
+            fused_count_step(x, sk, K)
+
+    steps = in_turns({"binned": lambda x: fused_count_step(x, sk, K),
+                      "direct": direct_step}, tm)
+    print(f"[time] fused_count_step k={K} h={H} 2**{WIDE}, one batch of "
+          f"{BATCH} reads x {L} bp: by the rule (binned) "
+          f"{steps['binned'] * 1e3:.4f} ms, by the rule without a binned "
+          f"route (direct) {steps['direct'] * 1e3:.4f} ms, in turns {tag}")
+    del tm, sk
+    tms = bloom_tms(codes, dev)
+
+    def bloom_step():
+        bf = bloom.BloomFilter.zeros(30, device=dev)
+        for t in tms:
+            bloom.insert_from_buckets(
+                bf, kmer_kernel.hash_kmers_tm_auto(t, K, H, emit_buckets=30),
+                emitted_width_log2=30)
+
+    def direct_bloom_step():
+        with direct_rule():
+            bloom_step()
+
+    steps = in_turns({"binned": bloom_step, "direct": direct_bloom_step},
+                     device=dev)
+    print(f"[time] Bloom step at 2**30 (hash_kmers_tm_auto buckets + "
+          f"insert_from_buckets), {N_READS} reads in {len(tms)} batches: by "
+          f"the rule (binned) {steps['binned'] * 1e3:.4f} ms, by the rule "
+          f"without a binned route (direct) {steps['direct'] * 1e3:.4f} ms, "
+          f"in turns {tag}")
+    del tms
+    torch.cuda.empty_cache()
+
+    # the rule's constants: updates a call from which binned beats direct,
+    # at every width where the rule bins
+    lost = []
+    for kernel, wl, rows in BIN_SWEEP:
+        cols = (1 << wl) if kernel == "A2" else (1 << wl) // 32
+        table = torch.zeros((rows, cols), dtype=torch.int32, device=dev)
+        by = hist_by if kernel == "A2" else words_by
+        grid = (hist_kernel.binned_counts_grid if kernel == "A2"
+                else hist_kernel.binned_words_grid)
+        cells = []
+        for total in (1 << 22, 1 << 23, 1 << 24, 1 << 25):
+            x = torch.randint(0, min(1 << wl, (1 << 31) - 1),
+                              (rows, total // rows), generator=gen,
+                              device=dev, dtype=torch.int32)
+            got = prepared_in_turns(
+                lambda x=x: (table.zero_(), x)[1],
+                {r: (lambda y, r=r: by(r, y, None, wl, out=table))
+                 for r in ("binned", "direct")})
+            rule = "binned" if grid(rows, total // rows, wl)[0] else "direct"
+            if rule == "binned" and got["binned"] >= got["direct"]:
+                lost.append(f"{kernel} [{rows}, n] at 2**{wl}, 2**"
+                            f"{total.bit_length() - 1}")
+            cells.append(f"2**{total.bit_length() - 1}: "
+                         f"{got['binned'] * 1e3:.4f} / "
+                         f"{got['direct'] * 1e3:.4f} ({rule})")
+            del x
+        print(f"[time] sweep, {kernel} [{rows}, n] at 2**{wl} (ranges "
+              f"{hist_kernel.binned_ranges(rows, wl, 15 if kernel == 'A2' else 20)}"
+              f"), updates a call: binned / direct ms, in turns (the rule's "
+              f"route): {'; '.join(cells)} {tag}")
+        del table
+        torch.cuda.empty_cache()
+    print(f"[time] sweep: {len(BIN_SWEEP)} shapes x 4 sizes; where the rule "
+          f"bins, binned lost at {lost or 'none'} {tag}")
+    return res
+
+
 # ------------------------------------------------- multi-GPU (phase 30) ----
 
 #: Phase 18's filters that phase 30 unions across ranks.
@@ -3619,6 +4139,10 @@ def main() -> None:
         run("28 the facade's threshold", phase_threshold, rng, dev, smi)
         blind_errs, blind_launches, blind_times = run(
             "29 blind scans", phase_blind, rng, gen, dev, smi)
+        binned_errs = run("31 binned routes vs plain", phase_binned_checks,
+                          codes, gen, dev)
+        binned = run("31 binned routes' timings", phase_binned_timings, codes,
+                     gen, dev, smi)
         run("30 multi-GPU", phase_distributed, rng, codes, path, tmp,
             wide_ref, filters, seq_keep, dev, smi)
         del codes, wide_ref, filters, seq_keep
@@ -3744,6 +4268,27 @@ def main() -> None:
             "ms": k_s * 1e3, "plain_ms": p_s * 1e3,
             "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
             "library_ms": None})
+    for name, source, replaces, n in (
+            ("bin_ranges_counts", "nthash_tpu_torch/csrc/bin.cuh",
+             "nthash_tpu/ops/hist_pallas.py:133",
+             part_launches["bin_ranges_counts"]),
+            ("histogram_ranges", "nthash_tpu_torch/csrc/histogram.cu",
+             "nthash_tpu/ops/hist_pallas.py:133",
+             part_launches["histogram_ranges"]),
+            ("bin_ranges_words", "nthash_tpu_torch/csrc/bin.cuh",
+             "nthash_tpu/ops/hist_pallas.py:157",
+             bloom_launches["bin_ranges_words"]),
+            ("bloom_ranges", "nthash_tpu_torch/csrc/bloom.cu",
+             "nthash_tpu/ops/hist_pallas.py:157",
+             bloom_launches["bloom_ranges"])):
+        k_s, p_s, lib_s, nbytes = binned[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n,
+            "max_abs_err": binned_errs[name], "ms": k_s * 1e3,
+            "plain_ms": p_s * 1e3, "bound_ms": bound_ms(nbytes),
+            "bound_by": "bytes",
+            "library_ms": None if lib_s is None else lib_s * 1e3})
     print(f"[sp] launches on the one-sequence path: {sp_launches}")
     require(all(k["launches"] > 0 for k in kernels),
             "a kernel of the kernels line never launched: "

@@ -126,17 +126,23 @@ def _seed_kernel_tile(chunk: np.ndarray, seeds: tuple[str, ...],
     ``chunk`` through ``hash_seeds_sequence(..., emit_fwd_rev=True)`` on
     ``device``, or, on a CUDA device where the seeds do not fit the
     one-sequence entry (decided from the shapes), through B1 over
-    pseudo-reads (``hash_seeds_sequence_rows``)."""
+    pseudo-reads (``hash_seeds_sequence_rows``). A seed with no care
+    position hashes to 0 (``seed_kernel.with_empty_seeds``)."""
     from .ops import seed_kernel
 
     k = len(seeds[0])
     w = len(chunk) - k + 1
     codes = torch.from_numpy(chunk).to(device)
-    entry = seed_kernel.hash_seeds_sequence
-    if codes.is_cuda and not seed_kernel.sequence_fits(seeds, num_hashes,
+
+    def hash_care(x, care):
+        entry = seed_kernel.hash_seeds_sequence
+        if x.is_cuda and not seed_kernel.sequence_fits(care, num_hashes,
                                                        True):
-        entry = seed_kernel.hash_seeds_sequence_rows
-    outs, _ = entry(codes, seeds, num_hashes, emit_fwd_rev=True)
+            entry = seed_kernel.hash_seeds_sequence_rows
+        return entry(x, care, num_hashes, emit_fwd_rev=True)
+
+    outs, _ = seed_kernel.with_empty_seeds(hash_care, codes, seeds,
+                                           num_hashes, emit_fwd_rev=True)
     g, s = num_hashes + 2, len(seeds)
     order = ([si * g + i for si in range(s) for i in range(num_hashes)]
              + [si * g + num_hashes for si in range(s)]

@@ -19,7 +19,8 @@
 // filter, 256 MB of words), where the sentinel no longer fits an int32 and
 // callers fold invalid updates to -1.
 //
-// Two routes, chosen by the caller from the shapes alone (blocks_x > 0 or 0):
+// Three routes, chosen by the caller from the shapes alone
+// (ops/hist_kernel.py::private_words_grid, binned_words_grid):
 //
 // Private words (bloom_rows_private_kernel). A block owns one row and one
 // long contiguous slice of its entries; it zeroes width / 32 words of dynamic
@@ -34,23 +35,36 @@
 // entries than the row has words (few, fat blocks). What bounds it: the
 // bytes of its indices, each read once.
 //
+// Binned (bin.cuh's binning pass, then bloom_ranges_kernel), filters of
+// 2^21 bits and more where the rows hold at most 4,096 ranges of 2^20 bits
+// and a call brings at least 2^25 updates: the valid updates (zero weights
+// dropped) are grouped by range with no sort, staged as uint32 offsets, and
+// each block of the range pass sets a slice of one range's bits in 2^15
+// private words (128 KB), as the private kernel does, and merges them into
+// the range's words, which word_index keeps contiguous. What bounds it: the
+// indices' bytes, read twice, and the stage's, written and read once, in
+// place of one read-modify-write of a random DRAM sector per update. At
+// 2^30, per 1M reads (476M updates, one call a batch, into zeroed words):
+// binned 4.6934 ms (binning 3.0980, range pass 1.2873) against direct
+// 20.7227 ms in turns, bytes 0.7286 ms (chip_smoke.py phase 31).
+//
 // Direct atomics (bloom_rows_kernel): a grid-stride loop, one global atomic
 // OR (a fire-and-forget RED) per valid update. For rows whose words do not
-// fit a block's shared memory (a filter of 2^21 bits and more) or whose
-// entries are too few to pay for a merge. What bounds it: the L2's atomic
-// unit, and badly so where the addresses are few. Blocks are scheduled x
-// first, so all threads resident at one moment work on one row; with 128
-// rows of 256 words (the 2^20 plan's windows, 187M entries a batch) they
-// hit 1 KB of words. Measured by chip_smoke.py (phase 21) on an NVIDIA H100
-// 80GB HBM3 at 700.00 W, one batch: direct 15.7602 ms as the windows are,
-// 25.0571 ms with each row's entries shuffled (no two neighbours of a warp
-// stay neighbours, the row is as hot), 0.9217 ms with the rows interleaved
-// in runs of 256 entries (the same neighbours, all 128 rows in flight at
-// once); private words 0.2542 ms, against 0.2235 ms for its bytes at 3.35
-// TB/s. So it is the few hot addresses, not collisions inside a warp, that
-// the private words remove.
+// fit a block's shared memory and calls too small to pay for the binned
+// passes, or whose entries are too few to pay for a merge. What bounds it:
+// the L2's atomic unit, and badly so where the addresses are few. Blocks
+// are scheduled x first, so all threads resident at one moment work on one
+// row; with 128 rows of 256 words (the 2^20 plan's windows, 187M entries a
+// batch) they hit 1 KB of words. Measured by chip_smoke.py (phase 21) on an
+// NVIDIA H100 80GB HBM3 at 700.00 W, one batch: direct 15.7602 ms as the
+// windows are, 25.0571 ms with each row's entries shuffled (no two
+// neighbours of a warp stay neighbours, the row is as hot), 0.9217 ms with
+// the rows interleaved in runs of 256 entries (the same neighbours, all 128
+// rows in flight at once); private words 0.2542 ms, against 0.2235 ms for
+// its bytes at 3.35 TB/s. So it is the few hot addresses, not collisions
+// inside a warp, that the private words remove.
 //
-// OR is idempotent and commutative, so either route is exact whatever order
+// OR is idempotent and commutative, so every route is exact whatever order
 // the atomics land in. The optional `gate` (one device int) works as in
 // histogram.cu: where *gate == 0 every block returns at once. The
 // partitioned path gates its per-partition launch and its full-width skew
@@ -61,6 +75,8 @@
 
 #include <cstdint>
 
+#include "bin.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -68,6 +84,9 @@ constexpr long long kMaxBlocksX = 4096;
 constexpr long long kMaxBlocksY = 65535;
 constexpr int kPrivateMaxThreads = 1024;
 constexpr int kMaxSharedBytes = 227 * 1024;
+constexpr int kRangeLog2 = 20;  // buckets of one range of the binned route
+constexpr int kRangeWords = 1 << (kRangeLog2 - 5);
+constexpr int kRangeThreads = 1024;
 
 __global__ void __launch_bounds__(kThreads)
 bloom_rows_kernel(const int* __restrict__ idx, long long R, long long N,
@@ -172,6 +191,37 @@ bloom_rows_private_kernel(const int* __restrict__ idx, long long R,
   }
 }
 
+// Binned route, range pass: block j sets the bits of `per` staged offsets of
+// its range g (bin.cuh) in 2^15 private words, then merges them into words
+// [g << 15, (g + 1) << 15) of the row-major [R, width / 32] words, as the
+// private kernel merges.
+__global__ void __launch_bounds__(kRangeThreads)
+bloom_ranges_kernel(const unsigned* __restrict__ stage,
+                    const unsigned long long* __restrict__ meta, int nranges,
+                    long long per, unsigned* __restrict__ words,
+                    const int* __restrict__ gate) {
+  if (gate && *gate == 0) return;
+  extern __shared__ unsigned sw[];
+  const unsigned long long* starts = meta + nranges;
+  const unsigned long long* blocks = starts + 2 * nranges + 1;
+  const int g = nthash_bin::range_of_block(blocks, nranges);
+  if (g < 0) return;
+  const unsigned long long lo =
+      starts[g] + (blockIdx.x - blocks[g]) * static_cast<unsigned long long>(per);
+  const unsigned long long hi = min(lo + per, starts[g + 1]);
+  for (int w = threadIdx.x; w < kRangeWords; w += blockDim.x) sw[w] = 0;
+  __syncthreads();
+  nthash_bin::for_each_staged(stage, lo, hi, [&](unsigned o) {
+    set_private(sw, o, 1u << kRangeLog2);
+  });
+  __syncthreads();
+  unsigned* wrow = words + (static_cast<long long>(g) << (kRangeLog2 - 5));
+  for (int w = threadIdx.x; w < kRangeWords; w += blockDim.x) {
+    const unsigned m = sw[w];
+    if (m != 0 && (__ldcg(wrow + w) & m) != m) atomicOr(wrow + w, m);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -214,6 +264,45 @@ int nthash_bloom_words_rows(int device, const int* idx, long long R, long long N
   bloom_rows_private_kernel<<<dim3(static_cast<unsigned>(blocks_x), by),
                               threads, static_cast<size_t>(bytes), stream>>>(
       idx, R, N, weight, 1u << width_log2, words, gate, per);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The binned route's binning pass (bin.cuh) over idx [R, N] int32 device
+// (weight: nullptr or [N] int32 device, R == 1; zero weights dropped) into
+// meta (4 * R * 2^(width_log2 - 20) + 2 unsigned 64-bit device words) and
+// stage (R * N uint32 device), `per` staged entries a block of the range
+// pass; width_log2 in [21, 31], R * 2^(width_log2 - 20) <= 4,096. Launches
+// on `stream` of `device`; returns cudaGetLastError().
+int nthash_bloom_bin(int device, const int* idx, long long R, long long N,
+                     const int* weight, int width_log2, long long per,
+                     unsigned long long* meta, unsigned* stage,
+                     const int* gate, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return nthash_bin::bin_ranges(idx, R, N, weight, width_log2, kRangeLog2,
+                                per, meta, stage, gate, stream);
+}
+
+// The binned route's range pass: `blocks` blocks (at least the binning
+// pass's block total) over the stage and meta of nthash_bloom_bin with the
+// same `per`, OR-ed into words [R, width / 32] device.
+int nthash_bloom_ranges(int device, const unsigned* stage,
+                        const unsigned long long* meta, int nranges,
+                        long long per, long long blocks, unsigned* words,
+                        const int* gate, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (nranges < 1 || nranges > nthash_bin::kMaxRanges || per < 1 ||
+      blocks < 1 || blocks > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int kBytes = static_cast<int>(sizeof(unsigned)) * kRangeWords;
+  err = cudaFuncSetAttribute(bloom_ranges_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bloom_ranges_kernel<<<static_cast<unsigned>(blocks), kRangeThreads, kBytes,
+                        stream>>>(stage, meta, nranges, per, words, gate);
   return static_cast<int>(cudaGetLastError());
 }
 

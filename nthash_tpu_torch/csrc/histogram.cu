@@ -15,8 +15,8 @@
 // tile of counters in VMEM across its sequential grid (its scratch,
 // hist_pallas.py:142); a block's shared memory is the counterpart here.
 //
-// Two routes, chosen by the caller from the shapes alone (blocks_x > 0 or 0,
-// ops/hist_kernel.py::private_counts_grid):
+// Three routes, chosen by the caller from the shapes alone
+// (ops/hist_kernel.py::private_counts_grid, binned_counts_grid):
 //
 // Private counters (histogram_rows_private_kernel), widths 2^10..2^15. A
 // block owns one row and one contiguous slice of its entries. It zeroes the
@@ -31,11 +31,21 @@
 // `width` atomics a block, so the caller gives every block at least two
 // entries per counter (few, fat blocks).
 //
+// Binned (bin.cuh's binning pass, then histogram_ranges_kernel), widths
+// 2^16 and up where the rows hold at most 4,096 ranges of 2^15 counters
+// and a call brings at least 2^24 updates: the updates are grouped by range
+// with no sort, staged as uint16 offsets, and each block of the range pass
+// counts a slice of one range in 2^15 private counters (128 KB) and merges
+// them into the range's counters. What bounds it: the indices' bytes, read
+// twice, and the stage's, written and read once; a hot bucket costs shared
+// atomics in one block, not serialised atomics on one L2 address.
+//
 // Direct atomics (histogram_rows_kernel), every width up to 2^30: a
 // grid-stride loop, one fire-and-forget atomic (RED) per in-range update
 // into the row in device memory. For rows whose counters do not fit a
-// block's shared memory (2^16 and up) or whose entries are too few to pay
-// for a merge. What bounds it: the L2's atomic unit, and badly so where the
+// block's shared memory and calls too small to pay for the binned passes,
+// for weighted counts above 2^15, or for entries too few to pay for a
+// merge. What bounds it: the L2's atomic unit, and badly so where the
 // addresses are few. Blocks are scheduled x first, so every thread resident
 // at one moment works on one row: at 2^14 on 64 KB of counters.
 //
@@ -44,12 +54,14 @@
 // [4, n] launch a batch, private 0.7384 ms and direct 6.6382 ms against
 // 0.5687 ms for the bytes at 3.35 TB/s; the 2^20 plan's sub-histograms (512
 // rows at 2^13) private 1.0495 ms, direct 4.5484 ms, bytes 0.8802 ms; at
-// full width 2^20 direct 4.1321 ms (bytes 0.5734 ms), the L2's atomic rate.
-// A hot bucket costs the direct route most: on one batch at 2^20, 1.09 ms
-// as hashed, 12.23 ms with every eighth entry one value, 86.67 ms with all
-// of them one value (atomics on one address serialise). The sort-partitioned
-// histogram overflows its windows there and falls back to this same launch,
-// so it is slower still (17.17 and 91.29 ms).
+// full width 2^20, one [4, n] launch a batch, binned 2.4674 ms (binning
+// 2.0097, range pass 0.4636) against direct 4.2063 ms in turns, bytes
+// 0.5884 ms (phase 31). A hot bucket costs the direct route most: on one
+// batch at 2^20, direct 12.1965 ms with every eighth entry one value and
+// 86.7354 ms with all of them one value (atomics on one address
+// serialise), binned 0.6678 and 1.0575 ms. The sort-partitioned histogram
+// overflows its windows there and falls back to the full-width launch
+// (17.17 and 91.29 ms when that was direct).
 //
 // The optional `gate` (one device int) lets a caller choose between two
 // launches on the device, as the TPU path's lax.cond does: where *gate == 0
@@ -62,6 +74,8 @@
 
 #include <cstdint>
 
+#include "bin.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -70,6 +84,8 @@ constexpr long long kMaxBlocksY = 65535;
 constexpr int kPrivateMaxThreads = 1024;
 constexpr int kPrivateMaxWidthLog2 = 15;
 constexpr int kMaxSharedBytes = 227 * 1024;
+constexpr int kRangeLog2 = 15;  // counters of one range of the binned route
+constexpr int kRangeThreads = 1024;
 
 __global__ void __launch_bounds__(kThreads)
 histogram_rows_kernel(const int* __restrict__ idx, long long R, long long N,
@@ -161,6 +177,36 @@ histogram_rows_private_kernel(const int* __restrict__ idx, long long R,
   }
 }
 
+// Binned route, range pass: block j counts `per` staged offsets of its range
+// g (bin.cuh) into 2^15 private counters, then merges them into counters
+// [g << 15, (g + 1) << 15) of the row-major [R, width] table.
+__global__ void __launch_bounds__(kRangeThreads)
+histogram_ranges_kernel(const unsigned short* __restrict__ stage,
+                        const unsigned long long* __restrict__ meta,
+                        int nranges, long long per, int* __restrict__ out,
+                        const int* __restrict__ gate) {
+  if (gate && *gate == 0) return;
+  extern __shared__ int counts[];
+  const unsigned long long* starts = meta + nranges;
+  const unsigned long long* blocks = starts + 2 * nranges + 1;
+  const int g = nthash_bin::range_of_block(blocks, nranges);
+  if (g < 0) return;
+  const unsigned long long lo =
+      starts[g] + (blockIdx.x - blocks[g]) * static_cast<unsigned long long>(per);
+  const unsigned long long hi = min(lo + per, starts[g + 1]);
+  constexpr int kWidth = 1 << kRangeLog2;
+  for (int b = threadIdx.x; b < kWidth; b += blockDim.x) counts[b] = 0;
+  __syncthreads();
+  nthash_bin::for_each_staged(stage, lo, hi,
+                              [&](unsigned o) { atomicAdd(counts + o, 1); });
+  __syncthreads();
+  int* orow = out + (static_cast<long long>(g) << kRangeLog2);
+  for (int b = threadIdx.x; b < kWidth; b += blockDim.x) {
+    const int c = counts[b];
+    if (c != 0) atomicAdd(orow + b, c);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -205,6 +251,45 @@ int nthash_histogram_rows(int device, const int* idx, long long R, long long N,
                                   threads, static_cast<size_t>(4) << width_log2,
                                   stream>>>(
       idx, R, N, weight, weight_stride, 1u << width_log2, out, gate, per);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The binned route's binning pass (bin.cuh) over idx [R, N] int32 device
+// into meta (4 * R * 2^(width_log2 - 15) + 2 unsigned 64-bit device words)
+// and stage (R * N uint16 device), `per` staged entries a block of the range
+// pass; width_log2 in [16, 31], R * 2^(width_log2 - 15) <= 4,096. Launches
+// on `stream` of `device`; returns cudaGetLastError().
+int nthash_histogram_bin(int device, const int* idx, long long R, long long N,
+                         int width_log2, long long per,
+                         unsigned long long* meta, unsigned short* stage,
+                         const int* gate, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return nthash_bin::bin_ranges(idx, R, N, nullptr, width_log2, kRangeLog2,
+                                per, meta, stage, gate, stream);
+}
+
+// The binned route's range pass: `blocks` blocks (at least the binning
+// pass's block total) over the stage and meta of nthash_histogram_bin with
+// the same `per`, added into out [R, width] int32 device.
+int nthash_histogram_ranges(int device, const unsigned short* stage,
+                            const unsigned long long* meta, int nranges,
+                            long long per, long long blocks, int* out,
+                            const int* gate, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (nranges < 1 || nranges > nthash_bin::kMaxRanges || per < 1 ||
+      blocks < 1 || blocks > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int kBytes = static_cast<int>(sizeof(int)) << kRangeLog2;
+  err = cudaFuncSetAttribute(histogram_ranges_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  histogram_ranges_kernel<<<static_cast<unsigned>(blocks), kRangeThreads,
+                            kBytes, stream>>>(stage, meta, nranges, per, out,
+                                              gate);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,11 +9,14 @@ uint32 has neither ``>>`` nor ``index_put_``; :meth:`BloomFilter.from_numpy`
 and :meth:`BloomFilter.to_numpy` carry them to and from the JAX package's
 ``np.asarray(bf.words)``.
 
-Insertion is a scatter-OR: one ``bloom_words`` launch (``csrc/bloom.cu``)
-at every width, 2**12..2**31. Each block ORs its share of the updates into
-private words in shared memory and merges them into the filter once, up to
-2**20; above that the updates go to the filter's words directly, atomic ORs
-needing no transient (``ops/hist_kernel.private_words_grid`` picks). The
+Insertion is a scatter-OR: one ``bloom_words`` call (``csrc/bloom.cu``)
+at every width, 2**12..2**31. Up to 2**20 each block ORs its share of the
+updates into private words in shared memory and merges them into the
+filter once; above that, for batches large enough to pay, a binning pass
+groups the updates by range of 2**20 bits and each range's words are set in
+shared memory and merged once, else the updates go to the filter's words
+directly (``ops/hist_kernel.private_words_grid`` and ``binned_words_grid``
+pick). The
 JAX package routes 2**19..2**30 through the sort-partitioned words and
 2**31 through an int8 scatter presence, because a TPU core can neither hold
 a wide filter in VMEM nor scatter; ``ops/part_kernel.py``'s

@@ -3,9 +3,11 @@
 Counterpart of ``nthash_tpu/models/sketch.py``. Row r of the sketch counts
 the low ``width_log2`` bits of the r-th nte64 hash of every valid window, at
 widths 2**10..2**30, through the exact row histogram of
-``ops/hist_kernel.py`` at every width (the CUDA kernel on a CUDA sketch:
-private counters in shared memory up to 2**15, direct atomics into the rows
-above; its plain version on a CPU one). Other widths raise
+``ops/hist_kernel.py`` at every width (the CUDA kernels on a CUDA sketch:
+private counters in shared memory up to 2**15; above that, for batches
+large enough to pay, the updates binned by range of 2**15 counters and each
+range counted in shared memory, else direct atomics into the rows; its
+plain version on a CPU one). Other widths raise
 :class:`ValueError`. The JAX package routes its wide sketches through the
 sort-partitioned histogram because a TPU core can neither hold a wide row
 in VMEM nor scatter; this card can, and ``ops/part_kernel.py``'s

@@ -6,15 +6,23 @@ for what it computes rather than for the TPU's matrix unit:
 
 - :func:`histogram_rows` is ``mxu_histogram_rows`` and :func:`histogram` is
   ``mxu_histogram``; the kernel is ``csrc/histogram.cu`` (replaces the
-  Pallas ``_hist_kernel``). It has two routes, private counters in shared
-  memory or direct atomics, and :func:`private_counts_grid` picks one from
+  Pallas ``_hist_kernel``). It has three routes, private counters in
+  shared memory, binned (the updates grouped by range of 2**15 counters,
+  then each range counted in shared memory) or direct atomics, and
+  :func:`private_counts_grid` and :func:`binned_counts_grid` pick one from
   the shapes alone;
 - :func:`bloom_words` is ``mxu_bloom_words`` and :func:`bloom_words_rows` is
   ``mxu_bloom_words_rows``; the kernel is ``csrc/bloom.cu`` (replaces
   ``_bloom_kernel`` and ``_bloom_rows_kernel``), in the same
-  :func:`word_index` / :func:`bit_index` layout. It has two routes, private
-  words in shared memory or direct atomics, and
-  :func:`private_words_grid` picks one from the shapes alone.
+  :func:`word_index` / :func:`bit_index` layout. It has three routes,
+  private words in shared memory, binned (ranges of 2**20 buckets) or
+  direct atomics, and :func:`private_words_grid` and
+  :func:`binned_words_grid` pick one from the shapes alone.
+
+Both binned routes share one binning pass, ``csrc/bin.cuh``
+(:func:`bin_ranges`); its plain version :func:`bin_ranges_plain` and the
+range passes' :func:`histogram_ranges_plain` and :func:`bloom_ranges_plain`
+compose to :func:`histogram_rows_plain` and :func:`bloom_words_plain`.
 
 Each source note says what bounds its kernel on the H100.
 
@@ -41,6 +49,7 @@ patterns: PyTorch's CPU uint32 has neither ``>>`` nor ``index_put_``.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -52,7 +61,7 @@ MAX_WIDTH_LOG2 = 30
 #: Kernel launches made by :func:`histogram_rows` in this process, and the
 #: same launches by route.
 LAUNCHES = 0
-ROUTE_LAUNCHES = {"private": 0, "direct": 0}
+ROUTE_LAUNCHES = {"private": 0, "direct": 0, "binned": 0}
 #: Widest row whose counters a block keeps in shared memory: 2**15 int32
 #: counters are 128 KB of the 227 KB a block may use.
 PRIVATE_COUNTS_MAX_WIDTH_LOG2 = 15
@@ -66,11 +75,41 @@ PRIVATE_MIN_ENTRIES_PER_COUNTER = 2
 #: each of the H100's 132 multiprocessors.
 PRIVATE_TARGET_THREADS = 132 * 1024
 
+#: The binned routes (``csrc/bin.cuh``): log2 of the buckets one range
+#: holds, 2**15 counters (128 KB of int32) or 2**20 bits (2**15 words, 128
+#: KB), each range's table in one block's shared memory.
+COUNTS_RANGE_LOG2 = 15
+WORDS_RANGE_LOG2 = 20
+#: Most ranges (all rows together) one binning pass takes: its blocks keep
+#: a count, a rank and a base per range of their row in shared memory.
+BINNED_MAX_RANGES = 4096
+#: The binned routes pay where a call brings at least this many updates
+#: (the histogram's, then the presence words'): below it the passes' fixed
+#: costs (five launches, a block a range, the scratch) outweigh what they
+#: save. ``chip_smoke.py`` phase 31 sweeps 2**22..2**25 updates at every
+#: width the rule bins (A2 with 4 rows at 2**16..2**25 and one row at 2**16,
+#: 2**22, 2**27; C1 with one row at 2**21..2**31 and 4 rows at 2**21,
+#: 2**26) on an NVIDIA H100 80GB HBM3 at 700 W: A2 binned wins from 2**24
+#: at every width and C1 from 2**25 (from fewer where the table is past
+#: the L2). Each constant is the least that wins at every swept width.
+#: With at most ``BINNED_MAX_RANGES`` ranges that is at least 4,096 updates
+#: a range.
+BINNED_MIN_ENTRIES = 1 << 24
+BINNED_MIN_WORD_ENTRIES = 1 << 25
+#: Staged entries one block of a range pass covers at most, and at least.
+BINNED_RANGE_ENTRIES = 1 << 17
+BINNED_MIN_RANGE_ENTRIES = 1 << 14
+#: Launches of the binning pass and of the range pass that follows it, by
+#: the library that ran them (``histogram``: A2, ``bloom``: C1 and C2).
+BIN_LAUNCHES = {"histogram": 0, "bloom": 0}
+RANGE_LAUNCHES = {"histogram": 0, "bloom": 0}
+
 PACK = 32  # buckets per packed word
 BLOOM_MIN_WIDTH_LOG2 = 12  # the layout tiles the width in 4,096-bucket blocks
 BLOOM_ROWS_MAX_WIDTH_LOG2 = 26
 BLOOM_MAX_WIDTH_LOG2 = 31
-#: Kernel launches of ``csrc/bloom.cu`` in this process, by entry point.
+#: Kernel launches of ``csrc/bloom.cu`` in this process, by entry point;
+#: ``RANGE_LAUNCHES["bloom"]`` of them took the binned route.
 BLOOM_LAUNCHES = {"bloom_words": 0, "bloom_words_rows": 0}
 #: Widest row whose words a block keeps in shared memory: 2**20 / 32 words
 #: are 128 KB of the 227 KB a block may use.
@@ -184,7 +223,21 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
         ]
+        _bind_binned(lib, "histogram")
     return lib
+
+
+def _bind_binned(lib: ctypes.CDLL, name: str) -> None:
+    """argtypes of a library's two binned entry points, ``nthash_<name>_bin``
+    and ``nthash_<name>_ranges``."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = getattr(lib, f"nthash_{name}_bin")
+    fn.restype = i
+    fn.argtypes = ([i, p, ll, ll] + ([p] if name == "bloom" else [])
+                   + [i, ll, p, p, p, p])
+    fn = getattr(lib, f"nthash_{name}_ranges")
+    fn.restype = i
+    fn.argtypes = [i, p, p, i, ll, ll, p, p, p]
 
 
 def _private_count_threads(width_log2: int) -> int:
@@ -221,33 +274,265 @@ def private_counts_grid(
         threads
 
 
-def _counts_grid(rows, n, width_log2, route):
-    """(blocks per row, threads) of :func:`_launch`: the rule's, or the
-    ``route`` forced ("direct" or "private"; a forced private route takes
-    the rule's grid at one entry per counter, and one block a row below
-    that)."""
-    if route is None:
-        return private_counts_grid(rows, n, width_log2)
-    if route == "direct":
+# ------------------------------------------------------- binned routes ----
+
+
+class Bins(NamedTuple):
+    """What a binning pass leaves for its range pass. Ranges are numbered
+    row by row: range g = (r << (width_log2 - range_log2)) | (b >> range_log2)
+    holds the updates b of row r in [g << range_log2, (g + 1) << range_log2)
+    of the row-major table. On the kernel route ``counts``, ``starts`` and
+    ``blocks`` are views of one int64 buffer (``counts`` at its start), as
+    the kernels take it."""
+
+    counts: torch.Tensor  #: int64 [nranges], valid updates a range
+    starts: torch.Tensor  #: int64 [nranges + 1], exclusive scan of counts
+    blocks: torch.Tensor  #: int64 [nranges + 1], scan of ceil(counts / per)
+    stage: torch.Tensor   #: offsets b & (2**range_log2 - 1), grouped by range
+    per: int              #: staged entries a block of the range pass takes
+
+
+def binned_ranges(rows: int, width_log2: int, range_log2: int) -> int:
+    """Ranges of a binned route over ``rows`` rows at width 2**width_log2
+    with ranges of 2**range_log2 buckets, or 0 where there is no binned
+    route: a row no wider than one range (the private routes serve those
+    widths) or more than ``BINNED_MAX_RANGES`` ranges for one pass."""
+    if width_log2 <= range_log2 or rows < 1:
+        return 0
+    nranges = rows << (width_log2 - range_log2)
+    return nranges if nranges <= BINNED_MAX_RANGES else 0
+
+
+def _range_grid(total: int, nranges: int) -> tuple[int, int]:
+    """(entries a block of the range pass takes, blocks to launch) for
+    ``total`` updates over ``nranges`` ranges. ``per`` splits the updates
+    over four blocks for each of the H100's 132 multiprocessors, within
+    [``BINNED_MIN_RANGE_ENTRIES``, ``BINNED_RANGE_ENTRIES``], rounded up to
+    whole 16-byte loads. Range g takes ceil(count / per) blocks, so
+    ceil(total / per) + nranges blocks cover any split of ``total`` over
+    the ranges; the blocks past the last range's return at once."""
+    per = min(BINNED_RANGE_ENTRIES,
+              max(BINNED_MIN_RANGE_ENTRIES, total // (4 * 132)))
+    per = -(-per // 8) * 8
+    return per, -(-total // per) + nranges
+
+
+def _binned_grid(rows, n, width_log2, range_log2):
+    nranges = binned_ranges(rows, width_log2, range_log2)
+    least = (BINNED_MIN_ENTRIES if range_log2 == COUNTS_RANGE_LOG2
+             else BINNED_MIN_WORD_ENTRIES)
+    if n < 1 or not nranges or rows * n < least:
         return 0, 0
+    return _range_grid(rows * n, nranges)
+
+
+def binned_counts_grid(rows: int, n: int,
+                       width_log2: int) -> tuple[int, int]:
+    """The histogram's binned route for idx [rows, n], from the shapes
+    alone: (entries a block of the range pass takes, blocks of the range
+    pass), or (0, 0) where it does not apply.
+
+    It applies above the private counters' widths (from 2**16) where the
+    rows' ranges of 2**15 counters number at most ``BINNED_MAX_RANGES``
+    (with 4 rows up to 2**25) and the call brings at least
+    ``BINNED_MIN_ENTRIES`` updates. Weighted counts never take it (:func:`histogram_rows`): the main
+    path counts unweighted buckets, and staging a weight beside each offset
+    would double the stage's bytes for the one caller that passes one
+    (``models/sketch.update``'s 0/1 validity).
+    """
+    return _binned_grid(rows, n, width_log2, COUNTS_RANGE_LOG2)
+
+
+def bin_ranges_plain(idx: torch.Tensor, weight: torch.Tensor | None,
+                     width_log2: int, range_log2: int,
+                     per: int = BINNED_RANGE_ENTRIES) -> Bins:
+    """Plain PyTorch version of :func:`bin_ranges`, on any device: the
+    valid updates (in range, weight non-zero) ordered by range with a
+    stable sort, so each range keeps its updates in row order (the kernel's
+    order within a range is free); the stage is int16 for ranges of 2**15
+    buckets, else int32."""
+    idx, weight = _bin_args(idx, weight, width_log2, range_log2)
+    rows = idx.shape[0]
+    nbins = 1 << (width_log2 - range_log2)
+    dev = idx.device
+    b = idx.to(torch.int64)
+    keep = (b >= 0) & (b < (1 << width_log2))
+    if weight is not None:
+        keep &= weight.reshape(1, -1) != 0
+    rid = ((torch.arange(rows, device=dev)[:, None] * nbins)
+           + (b >> range_log2))[keep]
+    order = torch.sort(rid, stable=True).indices
+    counts = torch.zeros(rows * nbins, dtype=torch.int64, device=dev)
+    counts.index_add_(0, rid, torch.ones_like(rid))
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    stage = (b[keep] & ((1 << range_log2) - 1))[order]
+    return Bins(counts, torch.cat([zero, counts.cumsum(0)]),
+                torch.cat([zero, ((counts + per - 1) // per).cumsum(0)]),
+                stage.to(_stage_dtype(range_log2)), per)
+
+
+def _stage_dtype(range_log2: int) -> torch.dtype:
+    return torch.int16 if range_log2 <= COUNTS_RANGE_LOG2 else torch.int32
+
+
+def _bin_args(idx, weight, width_log2, range_log2):
+    if range_log2 not in (COUNTS_RANGE_LOG2, WORDS_RANGE_LOG2):
+        raise ValueError(f"range_log2 must be {COUNTS_RANGE_LOG2} or "
+                         f"{WORDS_RANGE_LOG2}, got {range_log2}")
+    idx, weight = _rows_and_weight(idx, weight, width_log2, MIN_WIDTH_LOG2,
+                                   BLOOM_MAX_WIDTH_LOG2)
+    if weight is not None and (idx.shape[0] != 1 or weight.dim() != 1):
+        raise ValueError("a weight needs a single row of indices")
+    if not binned_ranges(idx.shape[0], width_log2, range_log2):
+        raise ValueError(
+            f"no binned route for {idx.shape[0]} row(s) at width "
+            f"2**{width_log2} with ranges of 2**{range_log2}: at most "
+            f"{BINNED_MAX_RANGES} ranges, each narrower than a row")
+    return idx, weight
+
+
+def _bin_launch(idx, weight, width_log2, range_log2, per, gate) -> Bins:
+    """Launch the binning pass on validated idx [R, N] (R * N > 0): scratch
+    from ``torch.empty``, the stage sized for every update."""
+    rows, n = idx.shape
+    nranges = binned_ranges(rows, width_log2, range_log2)
+    dev = idx.device
+    meta = torch.empty(4 * nranges + 2, dtype=torch.int64, device=dev)
+    stage = torch.empty(rows * n, dtype=_stage_dtype(range_log2), device=dev)
+    name = "histogram" if range_log2 == COUNTS_RANGE_LOG2 else "bloom"
+    lib = _lib() if name == "histogram" else _bloom_lib()
+    args = [dev.index, idx.contiguous().data_ptr(), rows, n]
+    if name == "bloom":
+        args.append(None if weight is None else weight.contiguous().data_ptr())
+    status = getattr(lib, f"nthash_{name}_bin")(
+        *args, width_log2, per, meta.data_ptr(), stage.data_ptr(),
+        None if gate is None else gate.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(lib, status, f"{name} binning launch")
+    BIN_LAUNCHES[name] += 1
+    return Bins(meta[:nranges], meta[nranges:2 * nranges + 1],
+                meta[3 * nranges + 1:], stage, per)
+
+
+def _ranges_launch(name: str, bins: Bins, blocks: int, out: torch.Tensor,
+                   gate) -> None:
+    """Launch the range pass of library ``name`` ("histogram" or "bloom")
+    over a binning pass's ``bins`` (kernel route): ``blocks`` blocks of
+    ``bins.per`` staged entries, added or OR-ed into ``out``."""
+    dev = out.device
+    lib = _lib() if name == "histogram" else _bloom_lib()
+    status = getattr(lib, f"nthash_{name}_ranges")(
+        dev.index, bins.stage.data_ptr(), bins.counts.data_ptr(),
+        bins.counts.numel(), bins.per, blocks, out.data_ptr(),
+        None if gate is None else gate.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(lib, status, f"{name} range launch")
+    RANGE_LAUNCHES[name] += 1
+
+
+def bin_ranges(idx: torch.Tensor, weight: torch.Tensor | None,
+               width_log2: int, range_log2: int,
+               per: int = BINNED_RANGE_ENTRIES) -> Bins:
+    """The binning pass of the binned routes: the valid updates of idx
+    [R, ...] grouped by range of 2**range_log2 buckets, with no sort.
+
+    ``range_log2`` is 15 (the histogram's ranges, an int16 stage, launched
+    from ``csrc/histogram.cu``) or 20 (the presence words', int32, from
+    ``csrc/bloom.cu``); ``weight`` (int32 [N], one row only) drops the
+    updates whose weight is 0. Returns :class:`Bins`; on the kernel route
+    the stage has R * N entries, of which the first ``starts[-1]`` are
+    written, each range's in any order.
+
+    A CUDA tensor goes through ``csrc/bin.cuh``'s three kernels (a count by
+    range, a scan, a scatter; no host sync), a CPU tensor through
+    :func:`bin_ranges_plain`.
+    """
+    idx2, w = _bin_args(idx, weight, width_log2, range_log2)
+    if idx2.is_cuda:
+        if idx2.numel() == 0:  # nothing to bin: every range empty
+            nranges = binned_ranges(idx2.shape[0], width_log2, range_log2)
+            zeros = torch.zeros(2 * nranges + 2, dtype=torch.int64,
+                                device=idx2.device)
+            return Bins(zeros[:nranges], zeros[:nranges + 1],
+                        zeros[nranges + 1:], torch.empty(
+                            0, dtype=_stage_dtype(range_log2),
+                            device=idx2.device), per)
+        return _bin_launch(idx2, w, width_log2, range_log2, per, None)
+    if idx2.device.type == "cpu":
+        return bin_ranges_plain(idx2, w, width_log2, range_log2, per)
+    raise ValueError(f"no binning route for device {idx2.device}")
+
+
+def _range_ids(bins: Bins) -> torch.Tensor:
+    """int64 range id of each staged entry of ``bins``."""
+    counts = bins.counts
+    return torch.repeat_interleave(
+        torch.arange(counts.numel(), device=counts.device), counts)
+
+
+def _staged_buckets(bins: Bins, range_log2: int) -> torch.Tensor:
+    """Each staged update as its flat index row * width + b, int64."""
+    total = int(bins.starts[-1])
+    off = bins.stage[:total].to(torch.int64) & ((1 << range_log2) - 1)
+    return (_range_ids(bins) << range_log2) | off
+
+
+def histogram_ranges_plain(bins: Bins, rows: int, width_log2: int, *,
+                           out: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the binned histogram's range pass: each
+    staged offset counted at its range's counters, into ``out`` (int32
+    [rows, 2**width_log2], zeroed when not given)."""
+    flat = _staged_buckets(bins, COUNTS_RANGE_LOG2)
+    if out is None:
+        out = torch.zeros((rows, 1 << width_log2), dtype=torch.int32,
+                          device=flat.device)
+    out.view(-1).index_add_(0, flat, torch.ones(flat.shape, dtype=torch.int32,
+                                                device=flat.device))
+    return out
+
+
+def _counts_route(rows, n, width_log2, weighted, route):
+    """(route, a, b) of :func:`_launch`: "private" with (blocks per row,
+    threads), "binned" with :func:`binned_counts_grid`'s (per, blocks), or
+    "direct"; the rule's, or the ``route`` forced (a forced private route
+    takes the rule's grid at one entry per counter, and one block a row
+    below that; a forced binned route takes its grid at any n, and there is
+    none for weighted counts or where :func:`binned_ranges` has none)."""
+    if route is None:
+        blocks, threads = private_counts_grid(rows, n, width_log2)
+        if blocks:
+            return "private", blocks, threads
+        per, grid = ((0, 0) if weighted else
+                     binned_counts_grid(rows, n, width_log2))
+        return ("binned", per, grid) if per else ("direct", 0, 0)
+    if route == "direct":
+        return "direct", 0, 0
+    if route == "binned":
+        nranges = binned_ranges(rows, width_log2, COUNTS_RANGE_LOG2)
+        if weighted or not nranges:
+            raise ValueError(
+                f"no binned route for {'weighted ' if weighted else ''}"
+                f"counts of {rows} row(s) at width 2**{width_log2}")
+        return ("binned",) + _range_grid(rows * n, nranges)
     if route != "private":
-        raise ValueError(f"route must be 'direct' or 'private', got {route!r}")
+        raise ValueError("route must be 'direct', 'private' or 'binned', "
+                         f"got {route!r}")
     if width_log2 > PRIVATE_COUNTS_MAX_WIDTH_LOG2:
         raise ValueError(
             f"no private route at width 2**{width_log2}: the counters do "
             "not fit a block's shared memory")
     blocks, threads = private_counts_grid(rows, n, width_log2, 1)
-    return (blocks, threads) if blocks else (1, _private_count_threads(
-        width_log2))
+    return ("private",) + ((blocks, threads) if blocks else (
+        1, _private_count_threads(width_log2)))
 
 
 def _launch(idx, weight, width_log2, gate, out, route=None):
     """Launch ``csrc/histogram.cu`` on validated idx [R, N]. ``route``
-    ("direct" or "private") overrides :func:`private_counts_grid`'s choice,
-    for the tests and the smoke run."""
+    ("direct", "private" or "binned") overrides the rule's choice, for the
+    tests and the smoke run."""
     global LAUNCHES
     rows, n = idx.shape
-    blocks, threads = _counts_grid(rows, n, width_log2, route)
+    kind, a, b = _counts_route(rows, n, width_log2, weight is not None, route)
     dev = idx.device
     if out is None:
         out = torch.zeros((rows, 1 << width_log2), dtype=torch.int32,
@@ -255,19 +540,23 @@ def _launch(idx, weight, width_log2, gate, out, route=None):
     if rows == 0 or n == 0:
         return out
     idx = idx.contiguous()
-    if weight is not None:
-        weight = weight.contiguous()
-    lib = _lib()
-    status = lib.nthash_histogram_rows(
-        dev.index, idx.data_ptr(), rows, n,
-        None if weight is None else weight.data_ptr(),
-        n if weight is not None and weight.dim() == 2 else 0,
-        width_log2, out.data_ptr(), None if gate is None else gate.data_ptr(),
-        blocks, threads, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    cuda_build.check(lib, status, "histogram launch")
+    if kind == "binned":
+        bins = _bin_launch(idx, None, width_log2, COUNTS_RANGE_LOG2, a, gate)
+        _ranges_launch("histogram", bins, b, out, gate)
+    else:
+        if weight is not None:
+            weight = weight.contiguous()
+        lib = _lib()
+        status = lib.nthash_histogram_rows(
+            dev.index, idx.data_ptr(), rows, n,
+            None if weight is None else weight.data_ptr(),
+            n if weight is not None and weight.dim() == 2 else 0,
+            width_log2, out.data_ptr(), None if gate is None else
+            gate.data_ptr(), a, b, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        cuda_build.check(lib, status, "histogram launch")
     LAUNCHES += 1
-    ROUTE_LAUNCHES["private" if blocks else "direct"] += 1
+    ROUTE_LAUNCHES[kind] += 1
     return out
 
 
@@ -295,9 +584,10 @@ def histogram_rows(idx: torch.Tensor, weight: torch.Tensor | None,
 
     There is no ``weight_bits``: every int32 weight is exact.
 
-    A CUDA tensor goes through the CUDA kernel (``csrc/histogram.cu``), by
-    private counters or direct atomics as :func:`private_counts_grid`
-    picks; a CPU tensor through :func:`histogram_rows_plain`.
+    A CUDA tensor goes through the CUDA kernels (``csrc/histogram.cu``), by
+    private counters, binned ranges or direct atomics as
+    :func:`private_counts_grid` and :func:`binned_counts_grid` pick; a CPU
+    tensor through :func:`histogram_rows_plain`.
     """
     idx2, w = _rows_and_weight(idx, weight, width_log2)
     _check_extras(idx2, 1 << width_log2, gate, out)
@@ -358,27 +648,45 @@ def _words_plain(idx, weight, width_log2, gate, out):
     full-width presence (4 GiB as int32 at 2**30)."""
     rows = idx.shape[0]
     dev = idx.device
-    nwords = (1 << width_log2) // PACK
     if out is None:
-        out = torch.zeros((rows, nwords), dtype=torch.int32, device=dev)
+        out = torch.zeros((rows, (1 << width_log2) // PACK), dtype=torch.int32,
+                          device=dev)
     keep = idx >= 0
     if width_log2 < 31:  # every non-negative int32 is in range at 2**31
         keep &= idx < (1 << width_log2)
     if weight is not None:
         keep &= weight.reshape(1, -1) != 0
-    row = torch.arange(rows, device=dev)[:, None] << 31
-    key = torch.unique((idx.to(torch.int64) + row)[keep])
-    b = key & ((1 << 31) - 1)
-    word, inv = torch.unique((key >> 31) * nwords + word_index(b),
-                             return_inverse=True)
+    row = torch.arange(rows, device=dev)[:, None] << width_log2
+    return _or_buckets(out, (idx.to(torch.int64) + row)[keep], gate)
+
+
+def _or_buckets(out, buckets, gate):
+    """OR the bits of int64 ``buckets`` (row * width + b, so that
+    ``word_index`` of one is row * width / 32 + ``word_index(b)``) into the
+    words ``out``, the gate as a 0/1 factor."""
+    key = torch.unique(buckets)
+    word, inv = torch.unique(word_index(key), return_inverse=True)
     # the distinct bits of one word sum to their OR
-    bits = torch.zeros(word.shape, dtype=torch.int64, device=dev).index_add_(
-        0, inv, torch.ones_like(b) << bit_index(b))
+    bits = torch.zeros(word.shape, dtype=torch.int64,
+                       device=key.device).index_add_(
+        0, inv, torch.ones_like(key) << bit_index(key))
     if gate is not None:
         bits = bits * (gate.reshape(()) != 0)
     flat = out.view(-1)
     flat.index_put_((word,), flat[word] | _as_int32(bits))
     return out
+
+
+def bloom_ranges_plain(bins: Bins, rows: int, width_log2: int, *,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the binned presence words' range pass: the
+    bit of each staged offset set in its range's words, OR-ed into ``out``
+    (int32 [rows, 2**width_log2 / 32], zeroed when not given)."""
+    flat = _staged_buckets(bins, WORDS_RANGE_LOG2)
+    if out is None:
+        out = torch.zeros((rows, (1 << width_log2) // PACK),
+                          dtype=torch.int32, device=flat.device)
+    return _or_buckets(out, flat, None)
 
 
 def _bloom_lib() -> ctypes.CDLL:
@@ -391,6 +699,7 @@ def _bloom_lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
         ]
+        _bind_binned(lib, "bloom")
     return lib
 
 
@@ -427,13 +736,57 @@ def private_words_grid(
         threads
 
 
+def binned_words_grid(rows: int, n: int,
+                      width_log2: int) -> tuple[int, int]:
+    """The presence-word kernel's binned route for idx [rows, n], from the
+    shapes alone: (entries a block of the range pass takes, blocks of the
+    range pass), or (0, 0) where it does not apply.
+
+    It applies above the private words' widths (from 2**21) where the rows'
+    ranges of 2**20 buckets number at most ``BINNED_MAX_RANGES`` (one row
+    up to 2**31) and the call brings at least ``BINNED_MIN_WORD_ENTRIES``
+    updates. A weight
+    (one row) only drops the updates whose weight is 0, in the binning
+    pass.
+    """
+    return _binned_grid(rows, n, width_log2, WORDS_RANGE_LOG2)
+
+
+def _words_route_of(rows, n, width_log2, route):
+    """(route, a, b) of :func:`_words_launch`, as :func:`_counts_route`."""
+    if route is None:
+        blocks, threads = private_words_grid(rows, n, width_log2)
+        if blocks:
+            return "private", blocks, threads
+        per, grid = binned_words_grid(rows, n, width_log2)
+        return ("binned", per, grid) if per else ("direct", 0, 0)
+    if route == "direct":
+        return "direct", 0, 0
+    if route == "binned":
+        nranges = binned_ranges(rows, width_log2, WORDS_RANGE_LOG2)
+        if not nranges:
+            raise ValueError(f"no binned route for {rows} row(s) at width "
+                             f"2**{width_log2}")
+        return ("binned",) + _range_grid(rows * n, nranges)
+    if route != "private":
+        raise ValueError("route must be 'direct', 'private' or 'binned', "
+                         f"got {route!r}")
+    if width_log2 > PRIVATE_MAX_WIDTH_LOG2:
+        raise ValueError(
+            f"no private route at width 2**{width_log2}: the words do "
+            "not fit a block's shared memory")
+    blocks, threads = private_words_grid(rows, n, width_log2, 1)
+    return ("private",) + ((blocks, threads) if blocks else (
+        1, _private_threads(width_log2)))
+
+
 def _words_launch(idx, weight, width_log2, gate, out, name, route=None):
-    """Launch ``csrc/bloom.cu``. ``route`` ("direct" or "private") overrides
-    :func:`private_words_grid`'s choice (a forced private route takes the
-    rule's grid at one entry per word, and one block a row below that), for
+    """Launch ``csrc/bloom.cu``. ``route`` ("direct", "private" or
+    "binned") overrides the rule's choice (:func:`_words_route_of`), for
     the tests and the smoke run."""
     rows, n = idx.shape
     dev = idx.device
+    kind, a, b = _words_route_of(rows, n, width_log2, route)
     if out is None:
         out = torch.zeros((rows, (1 << width_log2) // PACK), dtype=torch.int32,
                           device=dev)
@@ -442,27 +795,18 @@ def _words_launch(idx, weight, width_log2, gate, out, name, route=None):
     idx = idx.contiguous()
     if weight is not None:
         weight = weight.contiguous()
-    blocks, threads = private_words_grid(rows, n, width_log2)
-    if route == "direct":
-        blocks = threads = 0
-    elif route == "private":
-        if width_log2 > PRIVATE_MAX_WIDTH_LOG2:
-            raise ValueError(
-                f"no private route at width 2**{width_log2}: the words do "
-                "not fit a block's shared memory")
-        blocks, threads = private_words_grid(rows, n, width_log2, 1)
-        if not blocks:
-            blocks, threads = 1, _private_threads(width_log2)
-    elif route is not None:
-        raise ValueError(f"route must be 'direct' or 'private', got {route!r}")
-    lib = _bloom_lib()
-    status = lib.nthash_bloom_words_rows(
-        dev.index, idx.data_ptr(), rows, n,
-        None if weight is None else weight.data_ptr(), width_log2,
-        out.data_ptr(), None if gate is None else gate.data_ptr(),
-        blocks, threads, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    cuda_build.check(lib, status, f"{name} launch")
+    if kind == "binned":
+        bins = _bin_launch(idx, weight, width_log2, WORDS_RANGE_LOG2, a, gate)
+        _ranges_launch("bloom", bins, b, out, gate)
+    else:
+        lib = _bloom_lib()
+        status = lib.nthash_bloom_words_rows(
+            dev.index, idx.data_ptr(), rows, n,
+            None if weight is None else weight.data_ptr(), width_log2,
+            out.data_ptr(), None if gate is None else gate.data_ptr(), a, b,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        cuda_build.check(lib, status, f"{name} launch")
     BLOOM_LAUNCHES[name] += 1
     return out
 
@@ -541,9 +885,11 @@ def bloom_words(idx: torch.Tensor, weight: torch.Tensor | None,
     and, with a ``weight`` (int32, one per entry), entries whose weight is 0
     are dropped. ``width_log2`` is in [12, 31]: past the JAX kernel's 2**26,
     because on this card atomic ORs serve every width (into private words in
-    shared memory up to 2**20, straight into the words above that:
-    :func:`private_words_grid`): the Bloom filter's every width, the
-    partitioned path's skew fallback and the widest filter at 2**31.
+    shared memory up to 2**20, into each range's words in shared memory
+    after a binning pass above that, or straight into the words:
+    :func:`private_words_grid`, :func:`binned_words_grid`): the Bloom
+    filter's every width, the partitioned path's skew fallback and the
+    widest filter at 2**31.
     ``gate`` and ``out`` (contiguous int32 [2**width_log2 / 32], OR-ed into
     in place) are as in :func:`bloom_words_rows`.
 

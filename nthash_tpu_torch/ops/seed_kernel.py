@@ -493,6 +493,44 @@ def hash_seeds_sequence_rows(codes: torch.Tensor, seeds: Sequence[str],
             window_valid(rows.to(torch.int32), k).reshape(-1)[:c])
 
 
+def with_empty_seeds(hash_care, codes: torch.Tensor, seeds: Sequence[str],
+                     num_hashes_per_seed: int = 1, *,
+                     emit_fwd_rev: bool = False):
+    """A one-sequence entry's outputs for seeds of which some have no care
+    position at all ('0's only), as the JAX package's direct engine and the
+    reference give them: such a seed hashes to 0 (fwd, rev and every nte64
+    extension) in every window.
+
+    ``hash_care(codes, care_seeds)`` hashes the seeds that have a care
+    position (one of :func:`hash_seeds_sequence`, its plain version or
+    :func:`hash_seeds_sequence_rows` with the other arguments bound); the
+    zero planes are put in their seeds' places. With no care seed nothing
+    is hashed, and ``valid`` is the strict window validity the entries
+    return. The entries themselves raise on such a seed, as the JAX
+    package's Pallas route does.
+    """
+    seeds = tuple(seeds)
+    care = tuple(s for s in seeds if "1" in s)
+    if len(care) == len(seeds):
+        return hash_care(codes, seeds)
+    k = check_seeds(seeds)
+    codes = sequence_codes(codes)
+    c = codes.shape[0]
+    per_seed = num_hashes_per_seed + (2 if emit_fwd_rev else 0)
+    if care:
+        outs, valid = hash_care(codes, care)
+    else:
+        outs = []
+        valid = window_valid(sequence_rows(codes, k, sequence_span(k))
+                             .to(torch.int32), k).reshape(-1)[:c]
+    zeros = iter(torch.zeros((per_seed * (len(seeds) - len(care)), c),
+                             dtype=torch.int64, device=codes.device).unbind(0))
+    done = iter(outs)
+    planes = [next(done if "1" in s else zeros)
+              for s in seeds for _ in range(per_seed)]
+    return planes, valid
+
+
 def hash_seeds_sequence(codes: torch.Tensor, seeds: Sequence[str],
                         num_hashes_per_seed: int = 1, *,
                         emit_fwd_rev: bool = False):

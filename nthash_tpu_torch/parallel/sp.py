@@ -42,7 +42,11 @@ from typing import Sequence
 import torch
 
 from ..ops.kmer_kernel import hash_sequence, hash_sequence_plain
-from ..ops.seed_kernel import hash_seeds_sequence, hash_seeds_sequence_plain
+from ..ops.seed_kernel import (
+    hash_seeds_sequence,
+    hash_seeds_sequence_plain,
+    with_empty_seeds,
+)
 from ..ops.seed_torch import check_seeds
 from .dp import resolve_engine
 from .mesh import all_gather, size_and_rank
@@ -183,7 +187,9 @@ def hash_long_sequence_seeds(codes: torch.Tensor, seeds: Sequence[str],
     As :func:`hash_long_sequence` (the spaced-seed hash depends only on the
     window's bases too; ``tile``, the JAX package's windows per pseudo-read,
     default 128, shapes nothing). Returns (list of S*H int64 [C] tensors in
-    reference hash_arr order, valid [C]) for this rank's windows.
+    reference hash_arr order, valid [C]) for this rank's windows. A seed
+    with no care position hashes to 0, as in the JAX package's jnp engine
+    (``seed_kernel.with_empty_seeds``).
     """
     _spanned(mesh, n_devices)
     seeds = tuple(seeds)
@@ -192,5 +198,8 @@ def hash_long_sequence_seeds(codes: torch.Tensor, seeds: Sequence[str],
     fn = (hash_seeds_sequence
           if resolve_engine(engine, codes.device) == "kernel"
           else hash_seeds_sequence_plain)
-    return _hash_chunk(lambda x: fn(x, seeds, num_hashes_per_seed), codes, k,
-                       mesh)
+    return _hash_chunk(
+        lambda x: with_empty_seeds(lambda y, care: fn(y, care,
+                                                      num_hashes_per_seed),
+                                   x, seeds, num_hashes_per_seed),
+        codes, k, mesh)

@@ -537,3 +537,42 @@ def test_auto_engine_threshold(monkeypatch):
         h = api.NtHash(long_, 1, 5, engine="kernel", device="cuda")
         with pytest.raises((RuntimeError, AssertionError)):
             h.roll()
+
+
+@pytest.mark.parametrize("engine", ["kernel", "auto"])
+@pytest.mark.parametrize("seeds", [("0000",), ("0000", "1001"),
+                                   ("1001", "0000")])
+def test_seeds_without_care_positions_vs_jax(rng, monkeypatch, engine, seeds):
+    """A seed with no care position: the port's kernel engine (and "auto"
+    past its threshold) against the JAX facade's jnp and oracle engines,
+    by roll() and by __iter__, over tiles of 64 windows with N; such a seed
+    hashes to 0 (fwd, rev and every extension)."""
+    monkeypatch.setattr(api, "AUTO_DEVICE_THRESHOLD_CPU", 16)
+    assert api.SeedNtHash("ACGTACGTAC", ["0000"], 2, 4, engine=engine,
+                          device="cpu").roll()
+    seq = _random_seq(rng, 300, 0.03)
+
+    def walk(h):
+        out = []
+        while h.roll():
+            out.append((h.get_pos(), _norm(h.hashes()),
+                        _norm(h.get_forward_hash()),
+                        _norm(h.get_reverse_hash())))
+        return out
+
+    def port():
+        return api.SeedNtHash(seq, seeds, 2, 4, engine=engine, device="cpu",
+                              tile_windows=64)
+
+    got = walk(port())
+    assert got and [(p, h) for p, h, _, _ in got] == \
+        [(p, _norm(r)) for p, r in ((h.get_pos(), r)
+                                    for h in [port()] for r in h)]
+    for jeng in ("jnp", "oracle"):
+        want = walk(japi.SeedNtHash(seq, seeds, 2, 4, engine=jeng,
+                                    tile_windows=64))
+        assert got == want
+    zero = [i for i, s in enumerate(seeds) if "1" not in s]
+    for _, h, f, r in got:
+        for i in zero:
+            assert h[2 * i:2 * i + 2] == (0, 0) and f[i] == r[i] == 0

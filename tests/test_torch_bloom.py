@@ -500,3 +500,115 @@ def test_count_set_bits_and_fill_ratio(rng):
         == int(np.unpackbits(words.view(np.uint8)).sum())
     assert float(bloom.fill_ratio(bf)) == pytest.approx(
         float(jbloom.fill_ratio(jbf)))
+
+
+# ------------------------------------------------- the binned route ----
+
+
+def _skewed_stream(rng, n, wl):
+    """``_stream`` with a hot bucket (every eighth entry) and the last
+    bucket of the width."""
+    width = 1 << wl
+    idx = _stream(rng, n, width) if wl < 31 else rng.integers(
+        -3, width - 1, size=n).astype(np.int32)
+    idx[::8] = 12345
+    idx[5::16] = width - 1
+    return idx
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("wl,n", [(21, 2 * hp.CHUNK + 7), (22, 5_001)])
+def test_binned_pieces_compose_to_pallas_interpret(rng, wl, n, weighted):
+    """The binning pass's plain version and the range pass's, composed, set
+    the bits ``bloom_words_plain`` sets and the JAX ``mxu_bloom_words``
+    sets in interpret mode; a weight drops the entries whose weight is 0
+    in the binning pass."""
+    idx = _skewed_stream(rng, n, wl)
+    w = rng.integers(-2, 3, size=n).astype(np.int32) if weighted else None
+    want = np.asarray(hp.mxu_bloom_words(
+        jnp.asarray(idx), None if w is None else jnp.asarray(w), wl,
+        interpret=True))
+    t = torch.from_numpy(idx)
+    tw = None if w is None else torch.from_numpy(w)
+    for per in (1, 777, 1 << 17):
+        bins = hk.bin_ranges(t[None], tw, wl, 20, per)
+        assert bins.stage.dtype == torch.int32
+        got = hk.bloom_ranges_plain(bins, 1, wl)
+        assert np.array_equal(_words(got[0]), want)
+    assert np.array_equal(_words(hk.bloom_words_plain(t, tw, wl)), want)
+
+
+@pytest.mark.parametrize("rows,wl", [(3, 21), (2, 23), (1, 31)])
+def test_binned_rows_compose_to_plain(rng, rows, wl):
+    """Rows of ranges (row r's words follow row r - 1's), an empty row, a
+    row all in one range, and ``out`` OR-ed into; at 2**31 the top range."""
+    n = 4_003
+    idx = np.stack([_skewed_stream(rng, n, wl) for _ in range(rows)])
+    if rows > 1:
+        idx[1] = -1
+        idx[-1] = rng.integers(3 << 20, 4 << 20, size=n)
+    if wl == 31:
+        idx[0, ::3] = rng.integers((1 << 31) - (1 << 20), (1 << 31) - 1,
+                                   size=idx[0, ::3].size)
+    t = torch.from_numpy(idx.astype(np.int32))
+    bins = hk.bin_ranges(t, None, wl, 20, 500)
+    base = torch.from_numpy(rng.integers(-(2**31), 2**31,
+                                         size=(rows, (1 << wl) // 32),
+                                         dtype=np.int64).astype(np.int32))
+    got = hk.bloom_ranges_plain(bins, rows, wl, out=base.clone())
+    want = hk._words_plain(t, None, wl, None, base.clone())
+    assert torch.equal(got, want)
+    if wl <= hk.BLOOM_ROWS_MAX_WIDTH_LOG2:
+        assert torch.equal(hk.bloom_ranges_plain(bins, rows, wl),
+                           hk.bloom_words_rows_plain(t, wl))
+
+
+@pytest.mark.parametrize("rows,n,wl,want", [
+    # the 2**30 Bloom path: batch 0's [4, n] buckets as one stream
+    (1, 124_780_544, 30, (1 << 17, 952 + 1024)),
+    (1, 124_780_544, 31, (1 << 17, 952 + 2048)),
+    (1, 124_780_544, 21, (1 << 17, 952 + 2)),
+    # the private words' widths, too many ranges, too few updates: none
+    (1, 124_780_544, 20, (0, 0)),
+    (8, 1 << 22, 30, (0, 0)),
+    (1, (1 << 25) - 1, 30, (0, 0)),
+    (1, 1 << 25, 30, (63_552, 528 + 1024)),
+    (0, 100, 30, (0, 0)),
+    (1, 0, 30, (0, 0)),
+])
+def test_binned_words_grid(rows, n, wl, want):
+    """The presence words' binned route is a pure function of the shapes."""
+    assert hk.binned_words_grid(rows, n, wl) == want
+
+
+def test_words_route_rule():
+    route = hk._words_route_of
+    assert route(1, 124_780_544, 17, None)[0] == "private"
+    assert route(1, 124_780_544, 30, None)[0] == "binned"
+    assert route(1, 1 << 24, 30, None)[0] == "direct"
+    assert route(1, 1000, 30, "binned") == ("binned", 1 << 14, 1025)
+    assert route(1, 1 << 20, 30, "direct") == ("direct", 0, 0)
+
+
+@pytest.mark.parametrize("rows,wl", [(1, 12), (1, 20), (4096, 21), (3, 31)])
+def test_binned_route_refused(rows, wl):
+    """A forced binned route is refused at widths the private words serve
+    and where one pass would need more than ``BINNED_MAX_RANGES`` ranges,
+    before anything reaches the card."""
+    idx = torch.zeros((rows, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="no binned route"):
+        hk._words_launch(idx, None, wl, None, None, "bloom_words",
+                         route="binned")
+    with pytest.raises(ValueError, match="no binned route"):
+        hk.bin_ranges(idx, None, wl, 20)
+
+
+def test_bin_ranges_weight_needs_one_row():
+    with pytest.raises(ValueError, match="single row"):
+        hk.bin_ranges(torch.zeros((2, 8), dtype=torch.int32),
+                      torch.ones(8, dtype=torch.int32), 21, 20)
+    before = (dict(hk.BIN_LAUNCHES), dict(hk.RANGE_LAUNCHES),
+              dict(hk.BLOOM_LAUNCHES))
+    hk.bloom_words(torch.zeros(8, dtype=torch.int32), None, 30)
+    assert (dict(hk.BIN_LAUNCHES), dict(hk.RANGE_LAUNCHES),
+            dict(hk.BLOOM_LAUNCHES)) == before

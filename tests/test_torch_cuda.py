@@ -1036,6 +1036,47 @@ def test_facade_on_the_card_vs_oracle(rng, cuda):
     assert seed_kernel.SEQUENCE_LAUNCHES > before
 
 
+@pytest.mark.parametrize("seeds", [("0000", "1001"), ("0000",)])
+def test_seeds_without_care_positions_on_card(rng, cuda, seeds):
+    """A seed with no care position on the card: SeedNtHash with
+    engine="kernel" (tiles of 1,024 windows) against the host oracle engine,
+    window by window, and sp.hash_long_sequence_seeds on a CUDA tensor
+    against the CPU; such a seed hashes to 0 in every window."""
+    from nthash_tpu_torch import SeedNtHash
+
+    codes = rng.integers(0, 4, size=5000, dtype=np.uint8)
+    codes[rng.random(5000) < 0.02] = 4
+
+    def walk(h):
+        out = []
+        while h.roll():
+            out.append((h.get_pos(), h.hashes().tolist(),
+                        h.get_forward_hash().tolist(),
+                        h.get_reverse_hash().tolist()))
+        return out
+
+    got = walk(SeedNtHash(codes, seeds, 2, 4, engine="kernel", device=cuda,
+                          tile_windows=1024))
+    want = walk(SeedNtHash(codes, seeds, 2, 4, engine="oracle",
+                           device="cpu"))
+    assert got and got == want
+    zero = [i for i, s in enumerate(seeds) if "1" not in s]
+    assert all(h[2 * i:2 * i + 2] == [0, 0] and f[i] == r[i] == 0
+               for _, h, f, r in got for i in zero)
+    seq = torch.from_numpy(codes)
+
+    def run(x):
+        return sp.hash_long_sequence_seeds(sp.shard_sequence(x, k=4), seeds,
+                                           2)
+
+    hashes, valid = run(seq.to(cuda))
+    whashes, wvalid = run(seq)
+    assert len(hashes) == len(whashes) == 2 * len(seeds)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(hashes, whashes))
+    assert torch.equal(valid.cpu(), wvalid)
+    assert not any(hashes[2 * i + j].any() for i in zero for j in (0, 1))
+
+
 @pytest.fixture
 def nccl_mesh(tmp_path, cuda):
     """A real NCCL group of world size 1 (a FileStore, no port) and its
@@ -1098,3 +1139,120 @@ def test_nccl_union_and_sequence_vs_one_device(rng, cuda, nccl_mesh):
     want, wvalid = sp.hash_long_sequence(sp.shard_sequence(seq, k=32), 32, 2)
     assert all(torch.equal(a, b) for a, b in zip(hashes, want))
     assert torch.equal(valid, wvalid)
+
+
+# ----------------------------------- the binned routes (A2 and C1) ----
+
+
+def _binned_edges(rng, rows, wl, rl, cuda):
+    """(label, idx) edge shapes at 2**wl with ranges of 2**rl."""
+    width = 1 << wl
+    top = min(width + 3, (1 << 31) - 1)
+
+    def rand(n, lo=-3, hi=top):
+        return torch.from_numpy(rng.integers(lo, hi, size=(rows, n))
+                                .astype(np.int32)).to(cuda)
+
+    hot = rand(100_001)
+    hot[:, ::8] = 777
+    return ([(f"n={n}", rand(n)) for n in (1, 7, 1000, 8193, 65_541)]
+            + [("unaligned", rand(65_542)[:, 1:]),
+               ("one range", rand(20_001, width - (1 << rl),
+                                  min(width, (1 << 31) - 1))),
+               ("one value", torch.full((rows, 20_001), 12345,
+                                        dtype=torch.int32, device=cuda)),
+               ("sentinel", torch.full((rows, 20_001),
+                                       width if wl < 31 else -1,
+                                       dtype=torch.int32, device=cuda)),
+               ("hot", hot)])
+
+
+def _bins_match(idx, weight, wl, rl):
+    got = hist_kernel.bin_ranges(idx, weight, wl, rl, 4096)
+    want = hist_kernel.bin_ranges_plain(idx, weight, wl, rl, 4096)
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], want[:3]))
+    total = int(want.starts[-1])
+    rid = torch.repeat_interleave(
+        torch.arange(want.counts.numel(), device=idx.device), want.counts)
+    mask = (1 << rl) - 1
+    assert torch.equal(
+        torch.sort((rid << rl) | (got.stage[:total].long() & mask)).values,
+        torch.sort((rid << rl) | (want.stage[:total].long() & mask)).values)
+
+
+@pytest.mark.parametrize("wl,rows", [(16, 4), (20, 4), (21, 3), (25, 4),
+                                     (27, 1)])
+def test_binned_histogram_vs_plain_and_direct(rng, cuda, wl, rows):
+    """The binned A2 route, forced, against plain and direct atomics on
+    whole tables at the edge shapes, with a gate of 0 and 1 into an
+    accumulating ``out``; one binning and one range launch a call."""
+    for what, idx in _binned_edges(rng, rows, wl, 15, cuda):
+        before = (hist_kernel.BIN_LAUNCHES["histogram"],
+                  hist_kernel.RANGE_LAUNCHES["histogram"])
+        got = hist_kernel._launch(idx, None, wl, None, None, route="binned")
+        assert (hist_kernel.BIN_LAUNCHES["histogram"],
+                hist_kernel.RANGE_LAUNCHES["histogram"]) == (
+                    before[0] + 1, before[1] + 1)
+        want = histogram_rows_plain(idx, None, wl)
+        direct = hist_kernel._launch(idx, None, wl, None, None,
+                                     route="direct")
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(direct, want), what
+        _bins_match(idx, None, wl, 15)
+    base = torch.from_numpy(rng.integers(-2**31, 2**31, size=(rows, 1 << wl),
+                                         dtype=np.int64).astype(np.int32))
+    for g in (0, 1):
+        gate = torch.full((1,), g, dtype=torch.int32, device=cuda)
+        got = hist_kernel._launch(idx, None, wl, gate, base.to(cuda),
+                                  route="binned")
+        want = histogram_rows_plain(idx, None, wl, gate=gate,
+                                    out=base.to(cuda))
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("wl,rows", [(21, 1), (22, 3), (25, 1), (30, 1),
+                                     (31, 1)])
+def test_binned_words_vs_plain_and_direct(rng, cuda, wl, rows):
+    """The binned C1 route, forced, against plain and direct atomics on
+    whole words at the edge shapes, weighted (one row), with a gate of 0
+    and 1 into words that already hold bits."""
+    for what, idx in _binned_edges(rng, rows, wl, 20, cuda):
+        weights = [None]
+        if rows == 1:
+            weights.append(torch.from_numpy(rng.integers(
+                -1, 2, size=idx.shape[1]).astype(np.int32)).to(cuda))
+        for w in weights:
+            got = hist_kernel._words_launch(idx, w, wl, None, None,
+                                            "bloom_words", route="binned")
+            want = hist_kernel._words_plain(idx, w, wl, None, None)
+            direct = hist_kernel._words_launch(idx, w, wl, None, None,
+                                               "bloom_words", route="direct")
+            torch.cuda.synchronize()
+            assert torch.equal(got, want) and torch.equal(direct, want), what
+            _bins_match(idx, w, wl, 20)
+    base = torch.from_numpy(rng.integers(-2**31, 2**31,
+                                         size=(rows, (1 << wl) // 32),
+                                         dtype=np.int64).astype(np.int32))
+    for g in (0, 1):
+        gate = torch.full((1,), g, dtype=torch.int32, device=cuda)
+        got = hist_kernel._words_launch(idx, None, wl, gate, base.to(cuda),
+                                        "bloom_words", route="binned")
+        want = hist_kernel._words_plain(idx, None, wl, gate, base.to(cuda))
+        assert torch.equal(got, want)
+
+
+def test_binned_is_the_rule_on_the_wide_paths(rng, cuda):
+    """The rule bins A2 at 2**20 and C1 at 2**30 for a full batch, and the
+    wrappers take it: one binning and one range launch a call."""
+    idx = torch.randint(0, 1 << 20, (4, 1 << 22), device=cuda,
+                        dtype=torch.int32)
+    before = dict(hist_kernel.ROUTE_LAUNCHES)
+    got = histogram_rows(idx, None, 20)
+    assert hist_kernel.ROUTE_LAUNCHES["binned"] == before["binned"] + 1
+    assert torch.equal(got, histogram_rows_plain(idx, None, 20))
+    stream = torch.randint(0, 1 << 30, (1 << 25,), device=cuda,
+                           dtype=torch.int32)
+    before = dict(hist_kernel.RANGE_LAUNCHES)
+    got = hist_kernel.bloom_words(stream, None, 30)
+    assert hist_kernel.RANGE_LAUNCHES["bloom"] == before["bloom"] + 1
+    assert torch.equal(got, hist_kernel.bloom_words_plain(stream, None, 30))

@@ -141,9 +141,9 @@ def test_private_counts_grid_gives_every_block_enough(rows, n, wl):
 
 
 def test_forced_route_is_checked():
-    """``route=`` takes "private" or "direct" (or None: the rule's); a
-    forced private route needs the counters to fit shared memory. Checked
-    before anything reaches the card."""
+    """``route=`` takes "private", "binned" or "direct" (or None: the
+    rule's); a forced private route needs the counters to fit shared
+    memory. Checked before anything reaches the card."""
     idx = torch.zeros((1, 8), dtype=torch.int32)
     for bad in ("shared", "Private", ""):
         with pytest.raises(ValueError, match="route"):
@@ -153,11 +153,12 @@ def test_forced_route_is_checked():
             hist_kernel._launch(idx, None, wl, None, None, route="private")
     # a forced private route lowers the rule to one entry per counter, and
     # to one block a row below that
-    assert hist_kernel._counts_grid(4, 1000, 12, None) == (0, 0)
-    assert hist_kernel._counts_grid(4, 1000, 12, "private") == (1, 512)
-    assert hist_kernel._counts_grid(4, 40_000, 12, "private") == (9, 512)
-    assert hist_kernel._counts_grid(4, 40_000, 12, "direct") == (0, 0)
-    assert hist_kernel._counts_grid(4, 1 << 20, 12, None) == (66, 512)
+    route = hist_kernel._counts_route
+    assert route(4, 1000, 12, False, None) == ("direct", 0, 0)
+    assert route(4, 1000, 12, False, "private") == ("private", 1, 512)
+    assert route(4, 40_000, 12, False, "private") == ("private", 9, 512)
+    assert route(4, 40_000, 12, False, "direct") == ("direct", 0, 0)
+    assert route(4, 1 << 20, 12, False, None) == ("private", 66, 512)
 
 
 def test_rows_view_is_a_view_or_none():
@@ -226,3 +227,159 @@ def test_bloom_words_rows_vs_numpy(rng, rows):
     for r in range(rows):
         assert np.array_equal(got[r].numpy().view(np.uint32),
                               _words_np(idx[r], 1 << wl))
+
+
+# ------------------------------------------------- the binned route ----
+
+
+def _skewed(rng, rows, n, wl):
+    """Buckets with -1, the sentinel, anything past the width, a hot bucket
+    (every eighth entry) and the top counter of the last range."""
+    width = 1 << wl
+    idx = rng.integers(0, width, size=(rows, n)).astype(np.int64)
+    idx[rng.random((rows, n)) < 0.05] = -1
+    idx[rng.random((rows, n)) < 0.05] = width
+    idx[rng.random((rows, n)) < 0.02] = width + 12345
+    idx[:, ::8] = 12345 % width
+    idx[:, 3::16] = width - 1
+    return idx.astype(np.int32)
+
+
+@pytest.mark.parametrize("rows,wl,n", [(1, 16, 3 * CHUNK + 5), (3, 16, 20_001),
+                                       (4, 17, 9_999), (2, 20, 50_000),
+                                       (1, 25, 4_097)])
+def test_binned_pieces_compose_to_plain(rng, rows, wl, n):
+    """The binning pass's plain version and the range pass's, composed,
+    count what ``histogram_rows_plain`` counts (and ``bin_ranges`` on a CPU
+    tensor is that plain version); at 2**16 also what the JAX
+    ``mxu_histogram_rows`` counts, in interpret mode."""
+    idx = _skewed(rng, rows, n, wl)
+    t = torch.from_numpy(idx)
+    want = histogram_rows_plain(t, None, wl)
+    for per in (1, 1000, 1 << 17):
+        bins = hist_kernel.bin_ranges(t, None, wl, 15, per)
+        assert bins.stage.dtype == torch.int16
+        got = hist_kernel.histogram_ranges_plain(bins, rows, wl)
+        assert torch.equal(got, want)
+    base = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(rows, 1 << wl),
+                                         dtype=np.int64).astype(np.int32))
+    got = hist_kernel.histogram_ranges_plain(bins, rows, wl, out=base.clone())
+    assert torch.equal(got, histogram_rows_plain(t, None, wl, out=base.clone()))
+    if wl == 16:
+        jax = np.asarray(mxu_histogram_rows(jnp.asarray(idx), None, wl,
+                                            interpret=True))
+        assert np.array_equal(want.numpy(), jax)
+
+
+@pytest.mark.parametrize("rows,wl,range_log2", [(4, 20, 15), (1, 16, 15),
+                                                (3, 22, 20), (1, 31, 20)])
+def test_bin_ranges_plain_groups_by_range(rng, rows, wl, range_log2):
+    """Range g = (r << (wl - range_log2)) | (b >> range_log2) holds exactly
+    the valid updates of its row and range, as offsets, in row order; the
+    starts scan the counts and the blocks scan ceil(count / per)."""
+    n, per = 7_001, 300
+    idx = _skewed(rng, rows, n, min(wl, 30))
+    if wl == 31:
+        idx[0, ::5] = rng.integers(1 << 30, (1 << 31) - 1, size=idx[0, ::5].size)
+    bins = hist_kernel.bin_ranges_plain(torch.from_numpy(idx), None, wl,
+                                        range_log2, per)
+    nbins = 1 << (wl - range_log2)
+    counts = bins.counts.numpy()
+    starts = bins.starts.numpy()
+    assert counts.shape == (rows * nbins,) and starts[0] == 0
+    assert np.array_equal(np.diff(starts), counts)
+    assert np.array_equal(np.diff(bins.blocks.numpy()), -(-counts // per))
+    assert bins.per == per and bins.stage.shape == (starts[-1],)
+    stage = bins.stage.numpy().astype(np.int64) & ((1 << range_log2) - 1)
+    for r in range(rows):
+        row = idx[r].astype(np.int64)
+        row = row[(row >= 0) & (row < (1 << wl))]
+        for b in range(nbins):
+            g = r * nbins + b
+            want = row[(row >> range_log2) == b] & ((1 << range_log2) - 1)
+            assert np.array_equal(stage[starts[g]:starts[g + 1]], want)
+
+
+@pytest.mark.parametrize("rows,n,wl,want", [
+    # the 2**20 path: one [4, n] launch a 2**18-read batch, 128 ranges
+    (4, 31_195_136, 20, (1 << 17, 952 + 128)),
+    (4, 25_414_592, 20, (1 << 17, 776 + 128)),
+    (4, 31_195_136, 25, (1 << 17, 952 + 4096)),
+    (1, 124_780_544, 27, (1 << 17, 952 + 4096)),
+    # private widths and too many ranges for one pass: none
+    (4, 31_195_136, 15, (0, 0)),
+    (4, 31_195_136, 26, (0, 0)),
+    (1, 124_780_544, 28, (0, 0)),
+    # too few updates in all: 2**24 is the least
+    (4, (1 << 22) - 1, 20, (0, 0)),
+    (4, 1 << 22, 20, (31_776, 528 + 128)),
+    (4, (1 << 22) - 1, 25, (0, 0)),
+    (1, 1 << 24, 27, (31_776, 528 + 4096)),
+    (0, 100, 20, (0, 0)),
+    (4, 0, 20, (0, 0)),
+])
+def test_binned_counts_grid(rows, n, wl, want):
+    """The histogram's binned route is a pure function of the shapes:
+    (entries a block of the range pass takes, its blocks), or (0, 0)."""
+    assert hist_kernel.binned_counts_grid(rows, n, wl) == want
+
+
+@pytest.mark.parametrize("wl", [10, 15, 16, 20, 24, 25, 26, 30])
+@pytest.mark.parametrize("rows", [1, 4, 64])
+@pytest.mark.parametrize("n", [1000, 1 << 20, 31_195_136])
+def test_binned_counts_grid_bounds(rows, n, wl):
+    per, blocks = hist_kernel.binned_counts_grid(rows, n, wl)
+    nranges = hist_kernel.binned_ranges(rows, wl, 15)
+    if per == 0:
+        assert blocks == 0
+        assert (wl <= 15 or nranges == 0
+                or rows * n < hist_kernel.BINNED_MIN_ENTRIES)
+    else:
+        assert wl > 15 and 0 < nranges <= hist_kernel.BINNED_MAX_RANGES
+        assert per % 8 == 0 and (hist_kernel.BINNED_MIN_RANGE_ENTRIES <= per
+                                 <= hist_kernel.BINNED_RANGE_ENTRIES)
+        # every split of the updates over the ranges has its blocks
+        assert blocks >= -(-rows * n // per) + nranges - 1
+        assert blocks < 2 ** 31
+
+
+def test_route_rule_picks_binned_only_unweighted():
+    """Private up to 2**15; binned above where the shapes pay, unweighted
+    only; direct otherwise."""
+    route = hist_kernel._counts_route
+    assert route(4, 31_195_136, 14, False, None)[0] == "private"
+    assert route(4, 31_195_136, 20, False, None)[0] == "binned"
+    assert route(4, 31_195_136, 20, True, None)[0] == "direct"
+    assert route(4, 1000, 20, False, None)[0] == "direct"
+    assert route(4, 31_195_136, 26, False, None)[0] == "direct"
+    # forced: any n where a binned route exists
+    assert route(4, 1000, 20, False, "binned") == ("binned", 1 << 14, 129)
+
+
+@pytest.mark.parametrize("rows,wl,weighted", [(1, 12, False), (4, 15, False),
+                                              (4, 26, False), (1, 28, False),
+                                              (4, 20, True)])
+def test_binned_route_refused(rows, wl, weighted):
+    """A forced binned route is refused where it has none (widths the
+    private counters serve, too many ranges, weighted counts), before
+    anything reaches the card."""
+    idx = torch.zeros((rows, 8), dtype=torch.int32)
+    w = torch.ones(8, dtype=torch.int32) if weighted else None
+    with pytest.raises(ValueError, match="no binned route"):
+        hist_kernel._launch(idx, w, wl, None, None, route="binned")
+    if not weighted:
+        with pytest.raises(ValueError, match="no binned route"):
+            hist_kernel.bin_ranges(idx, None, wl, 15)
+
+
+def test_bin_ranges_on_cpu_launches_nothing(rng):
+    before = (dict(hist_kernel.BIN_LAUNCHES), dict(hist_kernel.ROUTE_LAUNCHES))
+    idx = torch.from_numpy(_skewed(rng, 2, 1000, 18))
+    bins = hist_kernel.bin_ranges(idx, None, 18, 15)
+    plain = hist_kernel.bin_ranges_plain(idx, None, 18, 15)
+    assert all(torch.equal(a, b) for a, b in zip(bins[:4], plain[:4]))
+    assert histogram_rows(idx, None, 18).shape == (2, 1 << 18)
+    assert (dict(hist_kernel.BIN_LAUNCHES),
+            dict(hist_kernel.ROUTE_LAUNCHES)) == before
+    with pytest.raises(ValueError, match="range_log2"):
+        hist_kernel.bin_ranges(idx, None, 18, 16)

@@ -261,3 +261,23 @@ def test_short_sequence_raises_as_jax(mesh1, engine):
         sp.hash_long_sequence_seeds(torch.from_numpy(short), ("1" + "0" * 40
                                                               + "1",), 1,
                                     engine=engine)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("seeds", [("000000",), ("000000", "110011"),
+                                   ("110011", "000000", "101101")])
+def test_seeds_without_care_positions_vs_jax(rng, mesh1, engine, seeds):
+    """A seed with no care position hashes to 0 in every window, on both
+    engines, alone and mixed with other seeds, as the JAX jnp engine gives
+    it; the valid mask is the strict one."""
+    seq = rng.integers(0, 5, size=(300,), dtype=np.uint8)
+    want, wvalid = _jax_seeds(seq, seeds, 2, mesh1)
+    codes = sp.shard_sequence(torch.from_numpy(seq), k=6)
+    got, valid = sp.hash_long_sequence_seeds(codes, seeds, 2, engine=engine)
+    assert len(got) == len(want) == len(seeds) * 2
+    for g, w in zip(got, want):
+        assert np.array_equal(to_numpy_u64(g), w)
+    assert np.array_equal(valid.numpy(), wvalid)
+    for si, s in enumerate(seeds):
+        if "1" not in s:
+            assert not any(to_numpy_u64(g).any() for g in got[2 * si:2 * si + 2])
