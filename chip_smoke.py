@@ -8,8 +8,9 @@ imports nothing of JAX. Phases, each printing its own lines:
 1. environment: card name and power limit, torch / CUDA / nvcc versions;
 2. build the seven CUDA sources from ``nthash_tpu_torch/csrc`` (one nvcc
    each, all at once) and print each kernel instance's registers and
-   spills (template arguments demangled); no ``seed_hash`` instance may
-   spill;
+   spills (template arguments demangled); no ``seed_hash`` instance and no
+   one-sequence instance may spill; the four one-sequence instances'
+   resident warps a multiprocessor;
 3. golden ntHash2 vectors through the rolling-hash kernel;
 4. each kernel against its plain PyTorch version on the card, exact (the
    hash kernel also on one full main-path batch of 2**18 reads);
@@ -149,7 +150,10 @@ imports nothing of JAX. Phases, each printing its own lines:
    97}, h in {1, 4}, the BASELINE seeds and SEEDS18 (the seed route also
    through B1 over pseudo-reads, where seeds do not fit the entry); their
    hashes and validity equal the route without the flag; both instances
-   timed in turns at 2**27 bases (k=32, h=1) and 2**25 (BASELINE seeds);
+   timed in turns at 2**27 bases (k=32, h=1) and 2**25 (BASELINE seeds)
+   beside the route without the flag and the old pseudo-read route with
+   fwd/rev; after the last phase one ``[share]`` line an instance gives
+   its time against its byte bound;
 27. the facade over 2**25 bases with ~1% N in runs, k=32, h=4, tiles of
    2**22 windows: ``NtHash.__iter__`` over every window (its count against
    ``oracle.nthash_positions``, its hashes against the oracle at 10,000
@@ -371,11 +375,16 @@ def phase_build() -> None:
             elif "spill" in ln or "registers" in ln:
                 print(f"[build] {name} {kernel}: "
                       f"{ln.replace('ptxas info    :', '').strip()}")
-                if name == "seed_hash" and re.search(r"[1-9]\d* bytes spill", ln):
+                if ((name == "seed_hash" or "_sequence_kernel" in kernel)
+                        and re.search(r"[1-9]\d* bytes spill", ln)):
                     spills.append(kernel)
     require(all(cuda_build.BUILD_LOGS.get(name) for name in SOURCES),
             "a source was not built in this run: no ptxas report")
-    require(not spills, f"seed_hash instances spill: {spills}")
+    require(not spills, f"seed_hash or one-sequence instances spill: {spills}")
+    for fr in (False, True):  # k=32 and the BASELINE seeds, h=1
+        print(f"[build] resident warps a multiprocessor, fwd/rev {fr}: "
+              f"kmer_sequence_kernel {kmer_kernel.sequence_resident_warps(K, 1, fr)}, "
+              f"seed_sequence_kernel {sk.sequence_resident_warps(SEEDS, 1, fr)}")
 
 
 #: Itanium codes of the template type arguments the kernels take.
@@ -1462,7 +1471,8 @@ def phase_crossover(gen, dev, card: str) -> None:
         torch.cuda.empty_cache()
 
 
-def old_sequence_route(seq: torch.Tensor, k: int, h: int, seeds=None):
+def old_sequence_route(seq: torch.Tensor, k: int, h: int, seeds=None,
+                       emit_fwd_rev: bool = False):
     """The pseudo-read route of PRs 3-6, rebuilt: the sequence padded by
     k - 1 invalid codes, cut into overlapping rows (``sp.pseudo_reads``),
     cast and transposed (``prepare_codes``), hashed by the read kernel (A1,
@@ -1472,8 +1482,9 @@ def old_sequence_route(seq: torch.Tensor, k: int, h: int, seeds=None):
     pseudo = sp.pseudo_reads(
         torch.nn.functional.pad(seq, (0, k - 1), value=4), k, t)
     tm = prepare_codes(pseudo)
-    planes = (hash_kmers_tm(tm, k, h) if seeds is None
-              else sk.hash_seeds_tm(tm, seeds, h))
+    planes = (hash_kmers_tm(tm, k, h, emit_fwd_rev=emit_fwd_rev)
+              if seeds is None
+              else sk.hash_seeds_tm(tm, seeds, h, emit_fwd_rev=emit_fwd_rev))
     return ([p.T.reshape(-1) for p in planes],
             kmer_torch.window_valid(pseudo.to(torch.int32), k).reshape(-1))
 
@@ -1526,7 +1537,7 @@ def phase_sp(rng, dev, card: str) -> tuple[dict, dict, dict, dict]:
         require(all(torch.equal(a, b) for a, b in zip(got, old))
                 and torch.equal(valid, ovalid), f"{label} != the old route")
         del want, pvalid, old, ovalid
-        span = kmer_kernel.sequence_span(k)
+        span = kmer_kernel.sequence_span(k, seeds=seeds is not None)
         for start in (0, 5 * span - 64, n // 2 - 64, n - 128 - k + 1):
             part = prepare_codes(seq[start:start + 128 + k - 1][None])
             direct = (hash_kmers_tm_plain(part, k, 1) if seeds is None
@@ -2875,16 +2886,21 @@ def phase_fwd_rev(rng, dev, card: str) -> tuple[dict, dict]:
             def plain(x):
                 return sk.hash_seeds_sequence_plain(x, seeds, 1,
                                                     emit_fwd_rev=True)
+        k = K if seeds is None else len(seeds[0])
         t = in_turns({"off": lambda x: run(x, False),
-                      "on": lambda x: run(x, True)}, seq, rounds=2)
+                      "on": lambda x: run(x, True),
+                      "old": lambda x: old_sequence_route(
+                          x, k, 1, seeds, emit_fwd_rev=True)},
+                     seq, rounds=2)
         t_p = timeit(plain, seq, calls=3).seconds_per_call
         s = 1 if seeds is None else len(seeds)
         b_off, b_on = n + 8 * n * s + n, n + 24 * n * s + n
         times[name] = (t["on"], t_p, b_on)
         print(f"[time] {name} {n} bases, h=1: fwd/rev {t['on'] * 1e3:.4f} ms "
               f"(bound {bound_ms(b_on):.4f}), without it "
-              f"{t['off'] * 1e3:.4f} ms (bound {bound_ms(b_off):.4f}), in "
-              f"turns; plain with fwd/rev {t_p * 1e3:.4f} ms [{card}]")
+              f"{t['off'] * 1e3:.4f} ms (bound {bound_ms(b_off):.4f}), the "
+              f"old pseudo-read route with fwd/rev {t['old'] * 1e3:.4f} ms, "
+              f"in turns; plain with fwd/rev {t_p * 1e3:.4f} ms [{card}]")
         del seq
         torch.cuda.empty_cache()
     return errs, times
@@ -4290,6 +4306,11 @@ def main() -> None:
             "bound_by": "bytes",
             "library_ms": None if lib_s is None else lib_s * 1e3})
     print(f"[sp] launches on the one-sequence path: {sp_launches}")
+    for row in kernels:
+        if "_sequence" in row["name"]:
+            print(f"[share] {row['name']}: {row['ms']:.4f} ms against a bound "
+                  f"of {row['bound_ms']:.4f} ms: {row['bound_ms'] / row['ms']:.4f} "
+                  f"of its bound [{smi}]")
     require(all(k["launches"] > 0 for k in kernels),
             "a kernel of the kernels line never launched: "
             f"{[(k['name'], k['launches']) for k in kernels]}")

@@ -109,12 +109,18 @@ def _host(planes: list, windows: int) -> np.ndarray:
 
 def _kernel_tile(chunk: np.ndarray, k: int, num_hashes: int, device):
     """(fwd, rev, hashes, valid) of the windows of ``chunk`` through
-    ``hash_sequence(..., emit_fwd_rev=True)`` on ``device``."""
-    from .ops.kmer_kernel import hash_sequence
+    ``hash_sequence(..., emit_fwd_rev=True)`` on ``device``, or, on a CUDA
+    device where k does not fit the one-sequence entry (decided from the
+    shapes), through the read kernel over pseudo-reads
+    (``hash_sequence_rows``)."""
+    from .ops import kmer_kernel
 
     w = len(chunk) - k + 1
-    outs, valid = hash_sequence(torch.from_numpy(chunk).to(device), k,
-                                num_hashes, emit_fwd_rev=True)
+    codes = torch.from_numpy(chunk).to(device)
+    entry = kmer_kernel.hash_sequence
+    if codes.is_cuda and not kmer_kernel.sequence_fits(k, num_hashes, True):
+        entry = kmer_kernel.hash_sequence_rows
+    outs, valid = entry(codes, k, num_hashes, emit_fwd_rev=True)
     planes = _host(outs, w)
     return (planes[:, num_hashes], planes[:, num_hashes + 1],
             planes[:, :num_hashes], valid[:w].cpu().numpy())

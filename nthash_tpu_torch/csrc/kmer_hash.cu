@@ -65,6 +65,8 @@ using nthash::srol1;
 using nthash::sror1;
 
 constexpr int kThreads = 256;
+constexpr int kPairCopiesLog2 = 3;  // the sequence entry's pair-table copies
+constexpr int kRun = 32;            // ... and its output runs, windows a lane
 
 // tables: [0,5) fwd_in, [5,10) fwd_out, [10,15) rev_in, [15,20) rev_out_r,
 // [20, 19 + num_hashes) nte64 multipliers for hashes 1..num_hashes-1.
@@ -113,50 +115,50 @@ kmer_hash_kernel(const int* __restrict__ codes, int L, long long R, int k,
   }
 }
 
-// The one-sequence entry (hash_sequence): nthash::roll_sequence of roll.cuh
-// with one seed of k care positions (one run, offsets 0 and k), which is the
-// recurrence above. It replaces, for one long sequence, the pseudo-reads of
-// parallel/sp.py (overlapping rows copied from the sequence, transposed to
-// int32, their [t, rows] output planes transposed back): lane l of a warp
-// rolls windows [(j0 + l) s, (j0 + l + 1) s) of the flat uint8 codes after
-// k - 1 warm-up bases, as B2's segments do, staged 32 bases at a time by
-// 16-byte loads into the warp's ring in shared memory (a lane's bases are s
-// bytes from its neighbour's, so one-byte loads from device memory would
-// each touch another line), and its outputs leave through shared memory,
-// 32 windows a lane at a time, as contiguous 256-byte stores. Its bytes
-// (the codes once, 8 * num_hashes + 1 bytes a window written, 16 more with
-// kFwdRev) set its floor on the H100; the roll's serial step and its shared
-// loads keep it above that (PERF.md section 6). kFwdRev (the facade's tiles,
-// api.NtHash) also writes each window's fwd and rev: its output stage holds
-// both, twice the shared memory a warp, and its own instance leaves the
-// canonical-only route as it was.
+// The one-sequence entry (hash_sequence): nthash::seq::kmer_sequence of
+// roll.cuh, the recurrence above with the two taps 0 and k. It replaces, for
+// one long sequence, the pseudo-reads of parallel/sp.py (overlapping rows
+// copied from the sequence, transposed to int32, their [t, rows] output
+// planes transposed back): lane l of a warp rolls windows [(j0 + l) s,
+// (j0 + l + 1) s) of the flat uint8 codes in unrolled chunks of 32 steps,
+// its bases staged one chunk ahead by 16-byte loads into its own ring in
+// shared memory, and its outputs leave through an 8 KB stage a plane as
+// 256-byte runs of 32 windows (roll.cuh says why: the earlier design lost
+// its time in the roll's instruction stream and its one-window writes).
+// Its bytes (the codes once, 8 * num_hashes + 1 bytes a window written, 16
+// more with kFwdRev) set its floor on the H100. kFwdRev (the facade's tiles,
+// api.NtHash) also writes each window's fwd and rev: its stage holds both.
 template <bool kFwdRev>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, kFwdRev ? 3 : 4)
 kmer_sequence_kernel(const unsigned char* __restrict__ seq, long long C, int k,
                      int span, int num_hashes,
-                     const unsigned long long* __restrict__ tables,
-                     const int* __restrict__ meta, int rmask, int vec,
-                     unsigned long long* __restrict__ out,
+                     const unsigned long long* __restrict__ tables, int ring,
+                     unsigned long long* __restrict__ out, long long pitch,
                      bool* __restrict__ valid) {
   extern __shared__ __align__(16) unsigned char sm[];
-  const ulonglong2* pairs;
+  const unsigned char* pairs;
   const unsigned long long* mult;
-  const int2* offs;
-  const int* starts;
-  unsigned char* warps = nthash::load_tables(sm, 1, 1, num_hashes, tables,
-                                             meta, &pairs, &mult, &offs,
-                                             &starts);
+  const int* taps;
+  unsigned char* warps = nthash::seq::load_tables(
+      sm, 1, 1, num_hashes, kPairCopiesLog2, tables, nullptr, &pairs, &mult,
+      &taps);
   __syncthreads();
+  const int lane = threadIdx.x & 31;
   const long long j0 =
       (static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5)) * 32;
   if (j0 * span >= C) return;  // whole warps only
-  unsigned char* ring =
-      warps + (threadIdx.x >> 5) * nthash::sequence_warp_bytes(rmask + 1, kFwdRev ? 2 : 1);
-  unsigned long long* stage =
-      reinterpret_cast<unsigned long long*>(ring + (rmask + 1) * 32);
-  nthash::roll_sequence<kFwdRev>(seq, C, k, span, 1, starts, offs, pairs,
-                                 num_hashes, mult, ring, rmask, stage, j0,
-                                 threadIdx.x & 31, vec != 0, out, valid);
+  unsigned char* mine =
+      warps + (threadIdx.x >> 5) * nthash::seq::warp_bytes(ring, kFwdRev ? 2 : 1, 0, kRun);
+  nthash::seq::kmer_sequence<kFwdRev, kRun>(
+      seq, C, k, span, num_hashes,
+      pairs + ((lane & ((1 << kPairCopiesLog2) - 1)) << 4), 4 + kPairCopiesLog2,
+      mult, reinterpret_cast<unsigned*>(mine), ring,
+      mine + (ring / 4 + 8) * 128, j0, lane, out, pitch, valid);
+}
+
+size_t kmer_sequence_smem(int num_hashes, int warps, int ring, int fwd_rev) {
+  return nthash::seq::tables_bytes(1, 1, num_hashes, kPairCopiesLog2) +
+         warps * nthash::seq::warp_bytes(ring, fwd_rev ? 2 : 1, 0, kRun);
 }
 
 }  // namespace
@@ -197,38 +199,53 @@ int nthash_kmer_hash(int device, const int* codes, int L, long long R, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// seq: [C] uint8 codes device (values above 4 read as 4); out: [num_hashes
-// (+ 2 with fwd_rev), C] uint64; valid: [C] bool; span: windows a thread (a
-// multiple of 32); warps: a block (1-8); ring: rows of a warp's ring (a power
-// of two >= k + 32); tables: the 25 (fwd, rev) pairs (fwd_in[c_in] ^
-// fwd_out[c_out], rev_in[c_in] ^ rev_out_r[c_out] at 5 c_in + c_out), then
-// the num_hashes - 1 nte64 multipliers, as uint64; meta: {0, k, 0, 1} (the
-// run's offsets, the seed's runs), int32; fwd_rev: also write fwd and rev.
+// seq: [C] uint8 codes device, 16-byte aligned (values above 4 read as 4);
+// out: [num_hashes (+ 2 with fwd_rev), pitch] uint64, pitch >= C a multiple
+// of 32 (window w of plane i at out[i * pitch + w]); valid: [C rounded up to
+// 32] bool; span: windows a lane (a multiple of 32); warps: a block (1-8);
+// tables: the 25 (fwd, rev) pairs (fwd_in[c_in] ^ fwd_out[c_out],
+// rev_in[c_in] ^ rev_out_r[c_out] at 5 c_in + c_out), then the num_hashes -
+// 1 nte64 multipliers, as uint64; fwd_rev: also write fwd and rev. Each
+// lane's ring holds 32 ((k - 1) / 32 + 3) bytes.
 int nthash_kmer_sequence(int device, const unsigned char* seq, long long C,
                          int k, int span, int num_hashes, int fwd_rev,
-                         const unsigned long long* tables, const int* meta,
-                         int warps, int ring, unsigned long long* out,
-                         bool* valid, cudaStream_t stream) {
+                         const unsigned long long* tables, int warps,
+                         unsigned long long* out, long long pitch, bool* valid,
+                         cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (span < 32 || span % 32 || warps < 1 || warps > 8 ||
-      ring < k + nthash::kRows || (ring & (ring - 1))) {
+  if (k < 1 || span < 32 || span % 32 || warps < 1 || warps > 8 ||
+      pitch < C || pitch % 32 || reinterpret_cast<uintptr_t>(seq) % 16 ||
+      reinterpret_cast<uintptr_t>(valid) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long threads = (C + span - 1) / span;
   const long long blocks = ((threads + 31) / 32 + warps - 1) / warps;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = nthash::sequence_tables_bytes(1, 1, num_hashes) +
-                      warps * nthash::sequence_warp_bytes(ring, fwd_rev ? 2 : 1);
+  const int ring = 32 * ((k - 1) / 32 + 3);
+  const size_t smem = kmer_sequence_smem(num_hashes, warps, ring, fwd_rev);
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = fwd_rev ? &kmer_sequence_kernel<true> : &kmer_sequence_kernel<false>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec = reinterpret_cast<uintptr_t>(seq) % 16 == 0;
   kernel<<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
-      seq, C, k, span, num_hashes, tables, meta, ring - 1, vec, out, valid);
+      seq, C, k, span, num_hashes, tables, ring, out, pitch, valid);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of `warps` warps a multiprocessor holds at once for the entry at
+// k and num_hashes (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+int nthash_kmer_sequence_occupancy(int k, int num_hashes, int fwd_rev,
+                                   int warps, int* blocks) {
+  const int ring = 32 * ((k - 1) / 32 + 3);
+  const size_t smem = kmer_sequence_smem(num_hashes, warps, ring, fwd_rev);
+  auto kernel = fwd_rev ? &kmer_sequence_kernel<true> : &kmer_sequence_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, warps * 32, smem));
 }
 
 const char* nthash_cuda_error_string(int code) {

@@ -53,10 +53,12 @@
 // from device memory per tap (lines loaded at most k steps earlier, so they
 // hit L1/L2), every care run's four 5-entry tables in shared memory.
 //
-// The one-sequence entry (seed_sequence_kernel): nthash::roll_sequence of
-// roll.cuh over a flat uint8 sequence, every window in one pass (see there);
-// its kFwdRev instance also writes every seed's fwd and rev (the facade's
-// tiles, api.SeedNtHash).
+// The one-sequence entry (seed_sequence_kernel): nthash::seq::seed_sequence
+// of roll.cuh over a flat uint8 sequence, every window in one pass (see
+// there): the codes are staged once a chunk for all seeds, each care run's
+// index words computed once a chunk, each seed rolled from its state parked
+// in shared memory; its kFwdRev instance also writes every seed's fwd and
+// rev (the facade's tiles, api.SeedNtHash).
 //
 // The grids are 1-D with 64-bit indices and every offset is 64-bit (the
 // BASELINE planes pass 2^31 elements at ~2.5M reads per call).
@@ -219,33 +221,56 @@ seed_staged_kernel(const int* __restrict__ codes, int L, long long R, int k,
   }
 }
 
+// Output runs, windows a lane: 32, or 16 without fwd/rev, where a warp's
+// larger stage would cost resident warps (roll.cuh).
+__host__ __device__ constexpr int seed_run(bool fwd_rev) {
+  return fwd_rev ? 32 : 16;
+}
+
+// meta: per run its two tap deltas (b - 32 - off_in, b - 32 - off_out, b =
+// (k - 1) mod 32), then the nseeds + 1 run offsets.
 template <bool kFwdRev>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, kFwdRev ? 1 : 2)
 seed_sequence_kernel(const unsigned char* __restrict__ seq, long long C, int k,
                      int span, int nseeds, int nruns, int num_hashes,
                      const unsigned long long* __restrict__ tables,
-                     const int* __restrict__ meta, int rmask, int vec,
-                     unsigned long long* __restrict__ out,
+                     const int* __restrict__ meta, int ring, int copies_log2,
+                     unsigned long long* __restrict__ out, long long pitch,
                      bool* __restrict__ valid) {
   extern __shared__ __align__(16) unsigned char sm[];
-  const ulonglong2* pairs;
+  const unsigned char* pairs;
   const unsigned long long* mult;
-  const int2* offs;
-  const int* starts;
-  unsigned char* warps = nthash::load_tables(sm, nseeds, nruns, num_hashes,
-                                             tables, meta, &pairs, &mult,
-                                             &offs, &starts);
+  const int* taps;
+  unsigned char* warps = nthash::seq::load_tables(
+      sm, nseeds, nruns, num_hashes, copies_log2, tables, meta, &pairs, &mult,
+      &taps);
   __syncthreads();
+  const int lane = threadIdx.x & 31;
   const long long j0 =
       (static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5)) * 32;
   if (j0 * span >= C) return;  // whole warps only
-  unsigned char* ring =
-      warps + (threadIdx.x >> 5) * nthash::sequence_warp_bytes(rmask + 1, kFwdRev ? 2 : 1);
-  unsigned long long* stage =
-      reinterpret_cast<unsigned long long*>(ring + (rmask + 1) * 32);
-  nthash::roll_sequence<kFwdRev>(seq, C, k, span, nseeds, starts, offs,
-                                 pairs, num_hashes, mult, ring, rmask, stage,
-                                 j0, threadIdx.x & 31, vec != 0, out, valid);
+  unsigned char* mine = warps + (threadIdx.x >> 5) *
+      nthash::seq::warp_bytes(ring, kFwdRev ? 2 : 1, nseeds, seed_run(kFwdRev));
+  unsigned char* stage = mine + (ring / 4 + 8) * 128;
+  nthash::seq::seed_sequence<kFwdRev, seed_run(kFwdRev)>(
+      seq, C, k, span, nseeds, nruns, num_hashes,
+      pairs + ((lane & ((1 << copies_log2) - 1)) << 4), 4 + copies_log2, mult,
+      taps, reinterpret_cast<unsigned*>(mine), ring, stage,
+      reinterpret_cast<unsigned*>(
+          stage + (kFwdRev ? 2 : 1) * nthash::seq::stage_bytes(seed_run(kFwdRev))),
+      j0, lane, out, pitch, valid);
+}
+
+// The sequence entry's pair-table copies: 8 (no bank conflict in a
+// quarter-warp) while they take at most 8 runs' worth, else 1.
+int seed_copies_log2(int nruns) { return nruns <= 8 ? 3 : 0; }
+
+size_t seed_sequence_smem(int nseeds, int nruns, int num_hashes, int warps,
+                          int ring, int fwd_rev) {
+  return nthash::seq::tables_bytes(nseeds, nruns, num_hashes,
+                                   seed_copies_log2(nruns)) +
+         warps * nthash::seq::warp_bytes(ring, fwd_rev ? 2 : 1, nseeds,
+                                         seed_run(fwd_rev));
 }
 
 template <bool kBuckets>
@@ -283,7 +308,7 @@ cudaError_t launch_staged(const int* codes, int L, long long R, int k,
   const long long blocks = ((R + 31) / 32 * nseg + warps - 1) / warps;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const size_t smem =
-      nthash::sequence_tables_bytes(nseeds, nruns, num_hashes) +
+      nthash::staged_tables_bytes(nseeds, nruns, num_hashes) +
       static_cast<size_t>(warps) * (static_cast<size_t>(nseeds) * 32 * 16 +
                                     static_cast<size_t>(ring) * 32);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
@@ -347,38 +372,58 @@ int nthash_seed_hash(int device, const int* codes, int L, long long R, int k,
   return static_cast<int>(err);
 }
 
-// seq: [C] uint8 codes device (values above 4 read as 4); out: [nseeds *
-// (num_hashes + 2 fwd_rev), C] uint64 (with fwd_rev each seed's group is
-// followed by its fwd and rev); valid: [C] bool; span: windows a thread (a
-// multiple of 32); warps a block and ring rows as for nthash_seed_hash;
-// tables and meta as for its staged kernel.
+// seq: [C] uint8 codes device, 16-byte aligned (values above 4 read as 4);
+// out: [nseeds * (num_hashes + 2 fwd_rev), pitch] uint64, pitch >= C a
+// multiple of 32 (with fwd_rev each seed's group is followed by its fwd and
+// rev); valid: [C rounded up to 32] bool; span: windows a lane (a multiple
+// of 32); warps: a block (1-8); tables: per run its 25 (fwd, rev) pairs,
+// then the num_hashes - 1 nte64 multipliers, as uint64; meta as for
+// seed_sequence_kernel. Each lane's ring holds 32 ((k - 1) / 32 + 3) bytes.
 int nthash_seed_sequence(int device, const unsigned char* seq, long long C,
                          int k, int span, int nseeds, int nruns,
                          int num_hashes, int fwd_rev,
                          const unsigned long long* tables, const int* meta,
-                         int warps, int ring, unsigned long long* out,
+                         int warps, unsigned long long* out, long long pitch,
                          bool* valid, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (span < 32 || span % 32 || nseeds < 1 || nruns < nseeds || warps < 1 ||
-      warps > 8 || !valid_ring(ring, k)) {
+  if (k < 1 || span < 32 || span % 32 || nseeds < 1 || nruns < nseeds ||
+      warps < 1 || warps > 8 || pitch < C || pitch % 32 ||
+      reinterpret_cast<uintptr_t>(seq) % 16 ||
+      reinterpret_cast<uintptr_t>(valid) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long threads = (C + span - 1) / span;
   const long long blocks = ((threads + 31) / 32 + warps - 1) / warps;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = nthash::sequence_tables_bytes(nseeds, nruns, num_hashes) +
-                      warps * nthash::sequence_warp_bytes(ring, fwd_rev ? 2 : 1);
+  const int ring = 32 * ((k - 1) / 32 + 3);
+  const size_t smem = seed_sequence_smem(nseeds, nruns, num_hashes, warps,
+                                         ring, fwd_rev);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = fwd_rev ? &seed_sequence_kernel<true> : &seed_sequence_kernel<false>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec = reinterpret_cast<uintptr_t>(seq) % 16 == 0;
   kernel<<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
-      seq, C, k, span, nseeds, nruns, num_hashes, tables, meta, ring - 1, vec,
-      out, valid);
+      seq, C, k, span, nseeds, nruns, num_hashes, tables, meta, ring,
+      seed_copies_log2(nruns), out, pitch, valid);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of `warps` warps a multiprocessor holds at once for the entry at
+// these shapes (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+int nthash_seed_sequence_occupancy(int k, int nseeds, int nruns,
+                                   int num_hashes, int fwd_rev, int warps,
+                                   int* blocks) {
+  const int ring = 32 * ((k - 1) / 32 + 3);
+  const size_t smem = seed_sequence_smem(nseeds, nruns, num_hashes, warps,
+                                         ring, fwd_rev);
+  auto kernel = fwd_rev ? &seed_sequence_kernel<true> : &seed_sequence_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, warps * 32, smem));
 }
 
 const char* nthash_cuda_error_string(int code) {

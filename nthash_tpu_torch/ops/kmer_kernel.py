@@ -51,10 +51,12 @@ FWD_REV_LAUNCHES = 0
 
 #: Shared memory one block may use on the H100 (227 KB).
 MAX_SHARED_BYTES = 232448
+#: Shared memory of a multiprocessor (228 KB), and what each resident block
+#: of it holds back for the system.
+SM_SHARED_BYTES = 233472
+BLOCK_RESERVED_BYTES = 1024
 #: Code rows a staged ring takes at a time (``roll.cuh``'s kRows).
 RING_ROWS_AHEAD = 32
-#: u64 a lane row of the one-sequence entries' output stage (kStagePitch).
-STAGE_PITCH = 33
 
 
 def prepare_codes(codes: torch.Tensor) -> torch.Tensor:
@@ -178,9 +180,12 @@ def _lib() -> ctypes.CDLL:
         seq.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_void_p,
         ]
+        occ = lib.nthash_kmer_sequence_occupancy
+        occ.restype = ctypes.c_int
+        occ.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     return lib
 
 
@@ -317,15 +322,15 @@ def hash_kmers_batch(codes: torch.Tensor, k: int, num_hashes: int = 1):
 
 
 def ring_rows(k: int) -> int:
-    """Rows of a warp's code ring in the staged kernels (``roll.cuh``): the
-    smallest power of two that holds k rows behind the step and the 32
+    """Rows of a warp's code ring in the staged read kernel (``roll.cuh``):
+    the smallest power of two that holds k rows behind the step and the 32
     staged ahead."""
     return 1 << (k + RING_ROWS_AHEAD - 1).bit_length()
 
 
 def tables_bytes(nseeds: int, nruns: int, num_hashes: int) -> int:
-    """Shared bytes of the staged kernels' tables (``roll.cuh``
-    ``sequence_tables_bytes``): 25 16-byte pairs and two offsets a care run,
+    """Shared bytes of the staged read kernel's tables (``roll.cuh``
+    ``staged_tables_bytes``): 25 16-byte pairs and two offsets a care run,
     the nte64 multipliers and the seeds' run offsets, rounded to 16."""
     b = nruns * 25 * 16 + (num_hashes - 1) * 8 + nruns * 8 + (nseeds + 1) * 4
     return -(-b // 16) * 16
@@ -339,37 +344,114 @@ def fit_warps(tables: int, per_warp: int, warps: int) -> int:
     return warps
 
 
+def sequence_ring(k: int) -> int:
+    """Bytes of a lane's code ring in the one-sequence entries (``roll.cuh``
+    ``seq``): the aligned chunks of 32 bases c - M - 1 .. c that chunk c's
+    taps read, M = (k - 1) // 32 + 1."""
+    return 32 * ((k - 1) // 32 + 3)
+
+
+def pair_copies_log2(nruns: int) -> int:
+    """log2 of the copies of each pair table in the one-sequence entries'
+    shared memory: 8 (lane % 8 reads its own, so a quarter-warp's lookups
+    never conflict) up to 8 care runs, else 1 (``seed_hash.cu``
+    ``seed_copies_log2``; the k-mer entry has one run)."""
+    return 3 if nruns <= 8 else 0
+
+
+def sequence_tables_bytes(nseeds: int, nruns: int, num_hashes: int) -> int:
+    """Shared bytes of the one-sequence entries' tables (``roll.cuh``
+    ``seq::tables_bytes``): the pair tables and their copies, the nte64
+    multipliers, two tap deltas a run and the seeds' run offsets, rounded
+    to 16."""
+    b = ((nruns * 25 * 16 << pair_copies_log2(nruns)) + (num_hashes - 1) * 8
+         + (2 * nruns + nseeds + 1) * 4)
+    return -(-b // 16) * 16
+
+
+def sequence_run(emit_fwd_rev: bool = False, seeds: bool = False) -> int:
+    """Windows a lane writes as one run of each output plane (``roll.cuh``
+    ``seq``): 32 (256 bytes), or 16 for the spaced-seed entry without
+    fwd/rev (``seed_hash.cu`` ``seed_run``)."""
+    return 16 if seeds and not emit_fwd_rev else 32
+
+
+def sequence_warp_bytes(k: int, emit_fwd_rev: bool = False,
+                        nseeds: int = 0) -> int:
+    """Shared bytes a warp of the one-sequence entries (``roll.cuh``
+    ``seq::warp_bytes``): its ring (words R / 4 + 8 of 32 lanes), one or
+    two stage planes (32 lanes x :func:`sequence_run` windows x 8 bytes)
+    and, for spaced seeds (``nseeds`` > 0), the seeds' states (16 bytes a
+    seed and lane)."""
+    stage = 256 * sequence_run(emit_fwd_rev, nseeds > 0)
+    return ((sequence_ring(k) // 4 + 8) * 128
+            + (2 if emit_fwd_rev else 1) * stage + nseeds * 512)
+
+
 def sequence_warps(k: int, nseeds: int = 1, nruns: int = 1,
-                   num_hashes: int = 1, emit_fwd_rev: bool = False) -> int:
-    """Warps a block of the one-sequence entries, from the shapes alone: up
-    to 4, each with its ring and its output stage ([32, 33] u64, a second
-    one for ``emit_fwd_rev``); 0 when one warp does not fit beside the
-    tables."""
-    stage = (2 if emit_fwd_rev else 1) * 32 * STAGE_PITCH * 8
-    return fit_warps(tables_bytes(nseeds, nruns, num_hashes),
-                     ring_rows(k) * 32 + stage, 4)
+                   num_hashes: int = 1, emit_fwd_rev: bool = False, *,
+                   seeds: bool = False) -> int:
+    """Warps a block of the one-sequence entries, from the shapes alone:
+    each warp with its ring, stage and, for spaced seeds (``seeds``), the
+    seeds' states beside one copy of the tables a block. Of 8, 4, 2 and 1,
+    the one whose blocks leave the most warps resident in a multiprocessor's
+    shared memory (the larger on a tie); 0 when one warp does not fit."""
+    per_warp = sequence_warp_bytes(k, emit_fwd_rev, nseeds if seeds else 0)
+    tables = sequence_tables_bytes(nseeds, nruns, num_hashes)
+    best, most = 0, 0
+    for warps in (8, 4, 2, 1):
+        smem = tables + warps * per_warp
+        if smem > MAX_SHARED_BYTES:
+            continue
+        resident = warps * min(SM_SHARED_BYTES // (smem + BLOCK_RESERVED_BYTES),
+                               64 // warps)
+        if resident > most:
+            best, most = warps, resident
+    return best
 
 
 def sequence_grid(k: int, nseeds: int = 1, nruns: int = 1,
-                  num_hashes: int = 1,
-                  emit_fwd_rev: bool = False) -> tuple[int, int]:
-    """(warps a block, ring rows) of the one-sequence entries
-    (:func:`sequence_warps`); raises ValueError when one warp does not fit
-    beside the tables (more than ~550 care runs, or k in the thousands)."""
-    ring = ring_rows(k)
-    warps = sequence_warps(k, nseeds, nruns, num_hashes, emit_fwd_rev)
+                  num_hashes: int = 1, emit_fwd_rev: bool = False, *,
+                  seeds: bool = False) -> tuple[int, int]:
+    """(warps a block, ring bytes a lane) of the one-sequence entries
+    (:func:`sequence_warps`, :func:`sequence_ring`); raises ValueError when
+    one warp does not fit beside the tables (several hundred care runs, or
+    k in the thousands)."""
+    warps = sequence_warps(k, nseeds, nruns, num_hashes, emit_fwd_rev,
+                           seeds=seeds)
     if not warps:
         raise ValueError(
             f"{nruns} care runs at k={k} need more than the "
             f"{MAX_SHARED_BYTES} bytes of shared memory a block may use")
-    return warps, ring
+    return warps, sequence_ring(k)
 
 
-def sequence_span(k: int) -> int:
-    """Windows a thread of the one-sequence entries rolls: a multiple of 32
-    (one output stage) of at least 256 and 8k, so that the k - 1 warm-up
-    bases add at most an eighth to the roll."""
-    return 32 * -(-max(256, 8 * k) // 32)
+def sequence_span(k: int, *, seeds: bool = False,
+                  emit_fwd_rev: bool = False) -> int:
+    """Windows a lane of the one-sequence entries rolls: 64 for every 32
+    bases of k (rounded up), 256 for the spaced-seed entry without fwd/rev.
+    A lane rolls 32 ceil(k / 32) warm-up steps first, a third of its steps
+    at 64; but its output streams lie span * 8 bytes apart, and the writes
+    gain more from the denser streams than the roll loses
+    (``seed_kernel_probe.py``'s span sweep). The seed entry without fwd/rev
+    writes the fewest bytes a step and rolls the most (a lookup a care run):
+    it keeps the longer span. The plain versions and the pseudo-read routes
+    cut their rows by the default."""
+    return (256 if seeds and not emit_fwd_rev else 64) * -(-k // 32)
+
+
+def sequence_resident_warps(k: int, num_hashes: int = 1,
+                            emit_fwd_rev: bool = False) -> int:
+    """Warps of :func:`hash_sequence`'s kernel a multiprocessor of the
+    current GPU holds at once, at the rule's warps a block
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs a GPU."""
+    warps, _ = sequence_grid(k, 1, 1, num_hashes, emit_fwd_rev)
+    lib = _lib()
+    blocks = ctypes.c_int(0)
+    cuda_build.check(lib, lib.nthash_kmer_sequence_occupancy(
+        k, num_hashes, int(emit_fwd_rev), warps, ctypes.byref(blocks)),
+        "kmer_hash sequence occupancy")
+    return blocks.value * warps
 
 
 def sequence_codes(codes: torch.Tensor) -> torch.Tensor:
@@ -422,11 +504,10 @@ def hash_sequence_plain(codes: torch.Tensor, k: int, num_hashes: int = 1, *,
 
 
 @lru_cache(maxsize=32)
-def _sequence_tables(k: int, num_hashes: int, device: torch.device
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(tables int64, meta int32) of ``nthash_kmer_sequence``: the 25
-    (fwd, rev) pairs of the one care run [0, k), then the nte64
-    multipliers; the run's offsets (0, k) and the seed's runs (0, 1)."""
+def _sequence_tables(k: int, num_hashes: int,
+                     device: torch.device) -> torch.Tensor:
+    """The tables of ``nthash_kmer_sequence``, int64: the 25 (fwd, rev)
+    pairs of the one care run [0, k), then the nte64 multipliers."""
     tabs = plane_tables(k)
     vals = []
     for ci in range(5):
@@ -434,8 +515,44 @@ def _sequence_tables(k: int, num_hashes: int, device: torch.device
             vals += [tabs.fwd_in[ci] ^ tabs.fwd_out[co],
                      tabs.rev_in[ci] ^ tabs.rev_out_r[co]]
     vals += [nte64_multiplier(i, k) for i in range(1, num_hashes)]
-    return (u64.tensor(vals, device),
-            torch.tensor([0, k, 0, 1], dtype=torch.int32, device=device))
+    return u64.tensor(vals, device)
+
+
+def sequence_outputs(planes: int, c: int, device) -> tuple[torch.Tensor,
+                                                           torch.Tensor]:
+    """(out [planes, C rounded up to 32] int64, valid [C rounded up to 32]
+    bool) for the one-sequence entries, which write whole runs of windows
+    and 32 valid bytes at a time; the callers keep the first C columns."""
+    pitch = -(-c // 32) * 32
+    return (torch.empty((planes, pitch), dtype=torch.int64, device=device),
+            torch.empty(pitch, dtype=torch.bool, device=device))
+
+
+def sequence_fits(k: int, num_hashes: int = 1,
+                  emit_fwd_rev: bool = False) -> bool:
+    """Whether a k-mer of size ``k`` fits the one-sequence entry's shared
+    memory (:func:`sequence_warps`), from the shapes alone; where it does
+    not, :func:`hash_sequence` raises on a CUDA tensor and
+    :func:`hash_sequence_rows` takes the read kernel instead."""
+    return sequence_warps(k, 1, 1, num_hashes, emit_fwd_rev) > 0
+
+
+def hash_sequence_rows(codes: torch.Tensor, k: int, num_hashes: int = 1, *,
+                       emit_fwd_rev: bool = False):
+    """:func:`hash_sequence`'s outputs through the read kernel over
+    pseudo-reads: :func:`sequence_rows` cut by ``sequence_span(k)``, then
+    :func:`hash_kmers_tm_auto` (B2 for such k) and the planes back in
+    sequence order. For k that do not fit the one-sequence entry
+    (:func:`sequence_fits`); identical outputs, one more copy and two
+    transposes. On a CPU tensor the read kernel's plain versions run."""
+    _check_sequence(k, num_hashes)
+    codes = sequence_codes(codes)
+    c = codes.shape[0]
+    rows = sequence_rows(codes, k, sequence_span(k))
+    planes = hash_kmers_tm_auto(prepare_codes(rows), k, num_hashes,
+                                emit_fwd_rev=emit_fwd_rev)
+    return ([p.T.reshape(-1)[:c] for p in planes],
+            window_valid(rows.to(torch.int32), k).reshape(-1)[:c])
 
 
 def aligned(codes: torch.Tensor) -> torch.Tensor:
@@ -478,19 +595,18 @@ def hash_sequence(codes: torch.Tensor, k: int, num_hashes: int = 1, *,
     if c == 0:
         raise ValueError("the sequence is empty")
     dev = codes.device
-    warps, ring = sequence_grid(k, 1, 1, num_hashes, emit_fwd_rev)
-    out = torch.empty((num_hashes + (2 if emit_fwd_rev else 0), c),
-                      dtype=torch.int64, device=dev)
-    valid = torch.empty(c, dtype=torch.bool, device=dev)
+    warps, _ = sequence_grid(k, 1, 1, num_hashes, emit_fwd_rev)
+    out, valid = sequence_outputs(num_hashes + (2 if emit_fwd_rev else 0), c,
+                                  dev)
     lib = _lib()
-    tables, meta = _sequence_tables(k, num_hashes, dev)
     status = lib.nthash_kmer_sequence(
         dev.index, aligned(codes).data_ptr(), c, k, sequence_span(k),
-        num_hashes, int(emit_fwd_rev), tables.data_ptr(), meta.data_ptr(),
-        warps, ring, out.data_ptr(), valid.data_ptr(),
+        num_hashes, int(emit_fwd_rev),
+        _sequence_tables(k, num_hashes, dev).data_ptr(), warps,
+        out.data_ptr(), out.shape[1], valid.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, status, "kmer_hash sequence launch")
     SEQUENCE_LAUNCHES += 1
     FWD_REV_LAUNCHES += emit_fwd_rev
-    return list(out.unbind(0)), valid
+    return list(out[:, :c].unbind(0)), valid[:c]

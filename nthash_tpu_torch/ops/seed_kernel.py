@@ -45,6 +45,7 @@ from .kmer_kernel import (
     ring_rows,
     sequence_codes,
     sequence_grid,
+    sequence_outputs,
     sequence_rows,
     sequence_span,
     sequence_warps,
@@ -285,8 +286,12 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_void_p,
         ]
+        occ = lib.nthash_seed_sequence_occupancy
+        occ.restype = ctypes.c_int
+        occ.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return lib
 
 
@@ -461,6 +466,10 @@ def hash_seeds_sequence_plain(codes: torch.Tensor, seeds: Sequence[str],
     return out, res.valid.reshape(-1)[:c]
 
 
+def _nruns(seeds: tuple[str, ...]) -> int:
+    return sum(len(t) for t in _all_taps(seeds))
+
+
 def sequence_fits(seeds: Sequence[str], num_hashes_per_seed: int = 1,
                   emit_fwd_rev: bool = False) -> bool:
     """Whether ``seeds`` fit the one-sequence entry's shared memory
@@ -468,9 +477,42 @@ def sequence_fits(seeds: Sequence[str], num_hashes_per_seed: int = 1,
     not, :func:`hash_seeds_sequence` raises on a CUDA tensor and
     :func:`hash_seeds_sequence_rows` takes the read kernel instead."""
     seeds = tuple(seeds)
-    nruns = sum(len(t) for t in _all_taps(seeds))
-    return sequence_warps(len(seeds[0]), len(seeds), nruns,
-                          num_hashes_per_seed, emit_fwd_rev) > 0
+    return sequence_warps(len(seeds[0]), len(seeds), _nruns(seeds),
+                          num_hashes_per_seed, emit_fwd_rev, seeds=True) > 0
+
+
+def sequence_resident_warps(seeds: Sequence[str], num_hashes_per_seed: int = 1,
+                            emit_fwd_rev: bool = False) -> int:
+    """Warps of :func:`hash_seeds_sequence`'s kernel a multiprocessor of the
+    current GPU holds at once, at the rule's warps a block
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs a GPU."""
+    seeds = tuple(seeds)
+    k, nruns = len(seeds[0]), _nruns(seeds)
+    warps, _ = sequence_grid(k, len(seeds), nruns, num_hashes_per_seed,
+                             emit_fwd_rev, seeds=True)
+    lib = _lib()
+    blocks = ctypes.c_int(0)
+    cuda_build.check(lib, lib.nthash_seed_sequence_occupancy(
+        k, len(seeds), nruns, num_hashes_per_seed, int(emit_fwd_rev), warps,
+        ctypes.byref(blocks)), "seed_hash sequence occupancy")
+    return blocks.value * warps
+
+
+@lru_cache(maxsize=32)
+def _sequence_meta(seeds: tuple[str, ...], device: torch.device
+                   ) -> torch.Tensor:
+    """meta of ``nthash_seed_sequence``, int32: per run its two tap deltas
+    b - 32 - off_in and b - 32 - off_out (b = (k - 1) % 32: where the tap
+    reads in the lane's ring relative to the chunk staged last), then the
+    S + 1 run offsets."""
+    k = len(seeds[0])
+    runs = [t for taps in _all_taps(seeds) for t in taps]
+    starts = [0]
+    for taps in _all_taps(seeds):
+        starts.append(starts[-1] + len(taps))
+    b = (k - 1) % 32
+    deltas = [b - 32 - o for t in runs for o in (t.off_in, t.off_out)]
+    return torch.tensor(deltas + starts, dtype=torch.int32, device=device)
 
 
 def hash_seeds_sequence_rows(codes: torch.Tensor, seeds: Sequence[str],
@@ -568,22 +610,22 @@ def hash_seeds_sequence(codes: torch.Tensor, seeds: Sequence[str],
     if c == 0:
         raise ValueError("the sequence is empty")
     dev = codes.device
-    nruns = sum(len(t) for t in _all_taps(seeds))
-    warps, ring = sequence_grid(k, len(seeds), nruns, num_hashes_per_seed,
-                                emit_fwd_rev)
+    nruns = _nruns(seeds)
+    warps, _ = sequence_grid(k, len(seeds), nruns, num_hashes_per_seed,
+                             emit_fwd_rev, seeds=True)
     per_seed = num_hashes_per_seed + (2 if emit_fwd_rev else 0)
-    out = torch.empty((len(seeds) * per_seed, c), dtype=torch.int64,
-                      device=dev)
-    valid = torch.empty(c, dtype=torch.bool, device=dev)
+    out, valid = sequence_outputs(len(seeds) * per_seed, c, dev)
     lib = _lib()
-    tables, meta = _pair_kernel_tables(seeds, num_hashes_per_seed, dev)
+    tables, _ = _pair_kernel_tables(seeds, num_hashes_per_seed, dev)
     status = lib.nthash_seed_sequence(
-        dev.index, aligned(codes).data_ptr(), c, k, sequence_span(k),
+        dev.index, aligned(codes).data_ptr(), c, k,
+        sequence_span(k, seeds=True, emit_fwd_rev=emit_fwd_rev),
         len(seeds), nruns, num_hashes_per_seed, int(emit_fwd_rev),
-        tables.data_ptr(), meta.data_ptr(), warps, ring, out.data_ptr(),
-        valid.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        tables.data_ptr(), _sequence_meta(seeds, dev).data_ptr(), warps,
+        out.data_ptr(), out.shape[1], valid.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, status, "seed_hash sequence launch")
     SEQUENCE_LAUNCHES += 1
     FWD_REV_LAUNCHES += emit_fwd_rev
-    return list(out.unbind(0)), valid
+    return list(out[:, :c].unbind(0)), valid[:c]

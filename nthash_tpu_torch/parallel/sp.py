@@ -41,6 +41,7 @@ from typing import Sequence
 
 import torch
 
+from ..ops import kmer_kernel, seed_kernel
 from ..ops.kmer_kernel import hash_sequence, hash_sequence_plain
 from ..ops.seed_kernel import (
     hash_seeds_sequence,
@@ -168,12 +169,17 @@ def hash_long_sequence(codes: torch.Tensor, k: int, num_hashes: int,
     Returns (list of ``num_hashes`` int64 [C] tensors, valid [C] bool), this
     rank's windows: entry w of hash i is nte64 hash i of the window starting
     at base rC + w; the sequence's trailing k - 1 windows, which would run
-    off its end, are masked invalid.
+    off its end, are masked invalid. On a CUDA tensor a k that does not fit
+    the one-pass entry (``kmer_kernel.sequence_fits``) takes the read
+    kernel over pseudo-reads (``kmer_kernel.hash_sequence_rows``).
     """
     _spanned(mesh, n_devices)
     check_chunk(codes.shape[0], k)
     fn = (hash_sequence if resolve_engine(engine, codes.device) == "kernel"
           else hash_sequence_plain)
+    if codes.is_cuda and fn is hash_sequence \
+            and not kmer_kernel.sequence_fits(k, num_hashes):
+        fn = kmer_kernel.hash_sequence_rows
     return _hash_chunk(lambda x: fn(x, k, num_hashes), codes, k, mesh)
 
 
@@ -189,17 +195,24 @@ def hash_long_sequence_seeds(codes: torch.Tensor, seeds: Sequence[str],
     default 128, shapes nothing). Returns (list of S*H int64 [C] tensors in
     reference hash_arr order, valid [C]) for this rank's windows. A seed
     with no care position hashes to 0, as in the JAX package's jnp engine
-    (``seed_kernel.with_empty_seeds``).
+    (``seed_kernel.with_empty_seeds``). On a CUDA tensor seeds that do not
+    fit the one-pass entry (``seed_kernel.sequence_fits``) take B1 over
+    pseudo-reads (``seed_kernel.hash_seeds_sequence_rows``), as the
+    facade's tiles do.
     """
     _spanned(mesh, n_devices)
     seeds = tuple(seeds)
     k = check_seeds(seeds)
     check_chunk(codes.shape[0], k)
-    fn = (hash_seeds_sequence
-          if resolve_engine(engine, codes.device) == "kernel"
-          else hash_seeds_sequence_plain)
+    kernel = resolve_engine(engine, codes.device) == "kernel"
+
+    def hash_care(x, care):
+        fn = hash_seeds_sequence if kernel else hash_seeds_sequence_plain
+        if kernel and x.is_cuda and not seed_kernel.sequence_fits(
+                care, num_hashes_per_seed):
+            fn = seed_kernel.hash_seeds_sequence_rows
+        return fn(x, care, num_hashes_per_seed)
+
     return _hash_chunk(
-        lambda x: with_empty_seeds(lambda y, care: fn(y, care,
-                                                      num_hashes_per_seed),
-                                   x, seeds, num_hashes_per_seed),
+        lambda x: with_empty_seeds(hash_care, x, seeds, num_hashes_per_seed),
         codes, k, mesh)

@@ -771,15 +771,23 @@ def test_seed_route_by_shapes(rng, cuda):
         seed_kernel._launch(tm, wide, 1000, 1, False, None, 11, "staged")
 
 
-SEQ_LENGTHS = [4096, 100_003, 8192 + 17, 300, 31, 1]
+#: One base, a chunk of 32 and one either side, the spans of k <= 32 (64,
+#: and 256 for seeds without fwd/rev) and one either side, 300, a multiple
+#: of the span, neither a multiple of the span nor of 32, and a prime.
+SEQ_LENGTHS = [1, 31, 32, 33, 63, 64, 65, 255, 256, 257, 300, 4096,
+               8192 + 17, 100_003]
+#: Four seeds, 46 care runs: one of 41 runs, one of a single run.
+FOUR_SEEDS = ("10" * 40 + "1", "1" * 81, "11" + "0" * 77 + "11",
+              "1" * 40 + "0" + "1" * 40)
 
 
 @pytest.mark.parametrize("h", [1, 4])
-@pytest.mark.parametrize("k", [1, 5, 32, 33, 100])
+@pytest.mark.parametrize("k", [1, 2, 5, 31, 32, 33, 64, 97, 100, 4064])
 @pytest.mark.parametrize("length", SEQ_LENGTHS)
 def test_hash_sequence_vs_plain(rng, cuda, length, k, h):
     """Lengths a multiple of the span, prime, neither a multiple of the
-    span nor of 32, shorter than one span and than k; codes above 4."""
+    span nor of 32, one chunk and one either side, shorter than one span
+    and than k; k either side of a chunk; codes above 4."""
     seq = torch.from_numpy(rng.integers(0, 8, size=length, dtype=np.uint8))
     before = kmer_kernel.SEQUENCE_LAUNCHES
     got, valid = kmer_kernel.hash_sequence(seq.to(cuda), k, h)
@@ -793,7 +801,7 @@ def test_hash_sequence_vs_plain(rng, cuda, length, k, h):
 @pytest.mark.parametrize("h", [1, 3])
 @pytest.mark.parametrize("seeds", [
     ("10101", "11011"), ("1",), ("0110", "1001", "1111"),
-    ("110100110011001011", "111111000000111111"), (MANY_RUNS,)])
+    ("110100110011001011", "111111000000111111"), (MANY_RUNS,), FOUR_SEEDS])
 @pytest.mark.parametrize("length", SEQ_LENGTHS)
 def test_hash_seeds_sequence_vs_plain(rng, cuda, length, seeds, h):
     seq = torch.from_numpy(rng.integers(0, 8, size=length, dtype=np.uint8))
@@ -807,9 +815,10 @@ def test_hash_seeds_sequence_vs_plain(rng, cuda, length, seeds, h):
     assert torch.equal(valid.cpu(), wvalid)
 
 
-def test_sequence_entries_take_any_integer_view(rng, cuda):
-    """int32 codes with negatives and values above 4, and a uint8 view that
-    starts one byte into its storage (not 16-byte aligned)."""
+@pytest.mark.parametrize("offset", [1, 3, 8, 15])
+def test_sequence_entries_take_any_integer_view(rng, cuda, offset):
+    """int32 codes with negatives and values above 4, and uint8 views that
+    start ``offset`` bytes into their storage (not 16-byte aligned)."""
     raw = rng.integers(-3, 9, size=5001).astype(np.int32)
     as_u8 = torch.from_numpy(np.where((raw < 0) | (raw > 4), 4, raw)
                              .astype(np.uint8))
@@ -820,8 +829,14 @@ def test_sequence_entries_take_any_integer_view(rng, cuda):
             (seed_kernel.hash_seeds_sequence(x, ("10101", "11011"), 1),
              seed_kernel.hash_seeds_sequence_plain(as_u8, ("10101", "11011"),
                                                    1)),
-            (kmer_kernel.hash_sequence(as_u8.to(cuda)[1:], 9, 1),
-             kmer_kernel.hash_sequence_plain(as_u8[1:], 9, 1))):
+            (kmer_kernel.hash_sequence(as_u8.to(cuda)[offset:], 9, 1),
+             kmer_kernel.hash_sequence_plain(as_u8[offset:], 9, 1)),
+            (seed_kernel.hash_seeds_sequence(as_u8.to(cuda)[offset:],
+                                             (MANY_RUNS,), 1,
+                                             emit_fwd_rev=True),
+             seed_kernel.hash_seeds_sequence_plain(as_u8[offset:],
+                                                   (MANY_RUNS,), 1,
+                                                   emit_fwd_rev=True))):
         assert all(torch.equal(g.cpu(), w) for g, w in zip(got[0], want[0]))
         assert torch.equal(got[1].cpu(), want[1])
 
@@ -911,7 +926,7 @@ def test_packed_many_small_batches(tmp_path, rng, cuda, threads):
 
 
 @pytest.mark.parametrize("h", [1, 4])
-@pytest.mark.parametrize("k", [1, 5, 32, 97])
+@pytest.mark.parametrize("k", [1, 2, 5, 31, 32, 33, 64, 97])
 @pytest.mark.parametrize("length", SEQ_LENGTHS)
 def test_hash_sequence_fwd_rev_vs_plain(rng, cuda, length, k, h):
     """The fwd/rev instance of the one-sequence entry against its plain
@@ -934,7 +949,7 @@ def test_hash_sequence_fwd_rev_vs_plain(rng, cuda, length, k, h):
 
 @pytest.mark.parametrize("seeds", [
     ("10101", "11011"), ("1",), ("0110", "1001", "1111"),
-    ("110100110011001011", "111111000000111111"), (MANY_RUNS,)])
+    ("110100110011001011", "111111000000111111"), (MANY_RUNS,), FOUR_SEEDS])
 @pytest.mark.parametrize("length", SEQ_LENGTHS)
 def test_hash_seeds_sequence_fwd_rev_vs_plain(rng, cuda, length, seeds):
     seq = torch.from_numpy(rng.integers(0, 8, size=length, dtype=np.uint8))
@@ -949,6 +964,112 @@ def test_hash_seeds_sequence_fwd_rev_vs_plain(rng, cuda, length, seeds):
         assert len(got) == len(seeds) * 4
         assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
         assert torch.equal(valid.cpu(), wvalid)
+
+
+def _n_runs_at_edges(rng, length: int, span: int) -> np.ndarray:
+    """Codes 0-7 with runs of 4 (N) across chunk and segment edges: two
+    bases either side of every 32nd base up to 200 and of every span edge,
+    a run of k-crossing length over the third segment edge, and 1% more."""
+    codes = rng.integers(0, 8, size=length, dtype=np.uint8)
+    edges = list(range(32, min(length, 200), 32)) + list(
+        range(span, length, span))
+    for e in edges:
+        codes[max(e - 2, 0):e + 2] = 4
+    if 3 * span < length:
+        codes[3 * span - 40:3 * span + 70] = 4
+    codes[rng.integers(0, length, size=length // 100)] = 4
+    return codes
+
+
+@pytest.mark.parametrize("fwd_rev", [False, True])
+@pytest.mark.parametrize("k", [1, 5, 31, 32, 33, 97])
+def test_hash_sequence_n_runs_at_edges(rng, cuda, k, fwd_rev):
+    """Runs of N across chunk and segment edges: hashes and validity ==
+    plain, the windows past the end invalid."""
+    span = kmer_kernel.sequence_span(k)
+    seq = torch.from_numpy(_n_runs_at_edges(rng, 5 * span + 77, span))
+    got, valid = kmer_kernel.hash_sequence(seq.to(cuda), k, 2,
+                                           emit_fwd_rev=fwd_rev)
+    want, wvalid = kmer_kernel.hash_sequence_plain(seq, k, 2,
+                                                   emit_fwd_rev=fwd_rev)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert torch.equal(valid.cpu(), wvalid)
+    assert not bool(valid[seq.shape[0] - k + 1:].any())
+
+
+@pytest.mark.parametrize("fwd_rev", [False, True])
+@pytest.mark.parametrize("seeds", [("10101", "11011"), (MANY_RUNS,),
+                                   FOUR_SEEDS])
+def test_hash_seeds_sequence_n_runs_at_edges(rng, cuda, seeds, fwd_rev):
+    span = kmer_kernel.sequence_span(len(seeds[0]), seeds=True,
+                                     emit_fwd_rev=fwd_rev)
+    seq = torch.from_numpy(_n_runs_at_edges(rng, 5 * span + 77, span))
+    got, valid = seed_kernel.hash_seeds_sequence(seq.to(cuda), seeds, 2,
+                                                 emit_fwd_rev=fwd_rev)
+    want, wvalid = seed_kernel.hash_seeds_sequence_plain(
+        seq, seeds, 2, emit_fwd_rev=fwd_rev)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert torch.equal(valid.cpu(), wvalid)
+
+
+@pytest.mark.parametrize("k", [4065, 5000, 7000])
+def test_long_sequence_past_the_old_cap(rng, cuda, k):
+    """``sp.hash_long_sequence`` at k an entry with a ring of power-of-two rows refused (4,065,
+    5,000: now the entry) and past the entry's shared memory (7,000: the
+    read kernel over pseudo-reads, ``hash_sequence_rows``): no raise, ==
+    the plain route on the CPU."""
+    seq = torch.from_numpy(rng.integers(0, 6, size=k + 3000,
+                                        dtype=np.uint8))
+    codes = sp.shard_sequence(seq, k=k)
+    entry = kmer_kernel.sequence_fits(k, 2)
+    assert entry == (k < 7000)
+    before = kmer_kernel.SEQUENCE_LAUNCHES
+    got, valid = sp.hash_long_sequence(codes.to(cuda), k, 2)
+    assert kmer_kernel.SEQUENCE_LAUNCHES == before + entry
+    want, wvalid = sp.hash_long_sequence(codes, k, 2, engine="torch")
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert torch.equal(valid.cpu(), wvalid)
+
+
+@pytest.mark.parametrize("k", [4100, 7000])
+def test_nthash_kernel_engine_large_k(rng, cuda, k):
+    """``NtHash(engine="kernel")`` on the card at k = 4,100 (the entry) and
+    7,000 (``hash_sequence_rows``) == the same class on the CPU (the plain
+    route): every position, hash, fwd and rev."""
+    from nthash_tpu_torch import NtHash
+
+    seq = rng.integers(0, 4, size=k + 600, dtype=np.uint8)
+    seq[k + 300 + rng.integers(0, 300, size=3)] = 4   # windows past 300 hold N
+
+    def walk(device):
+        it = NtHash(seq, 3, k, engine="kernel", device=device)
+        rows = []
+        while it.roll():
+            rows.append((it.get_pos(), it.get_forward_hash(),
+                         it.get_reverse_hash(), it.hashes().copy()))
+        return rows
+
+    got, want = walk(cuda), walk("cpu")
+    assert len(got) == len(want) > 0
+    for (p, f, r, h), (wp, wf, wr, wh) in zip(got, want):
+        assert p == wp and f == wf and r == wr and np.array_equal(h, wh)
+
+
+def test_seeds_past_the_entry_on_card(rng, cuda):
+    """``sp.hash_long_sequence_seeds`` with seeds ``sequence_fits`` rejects
+    (1,200 care runs) takes B1 over pseudo-reads on the card: no raise, ==
+    the plain route."""
+    seeds = ("10" * 1200,)
+    assert not seed_kernel.sequence_fits(seeds, 1)
+    seq = torch.from_numpy(rng.integers(0, 6, size=6000, dtype=np.uint8))
+    codes = sp.shard_sequence(seq, k=2400)
+    before = seed_kernel.SEQUENCE_LAUNCHES
+    got, valid = sp.hash_long_sequence_seeds(codes.to(cuda), seeds, 1)
+    assert seed_kernel.SEQUENCE_LAUNCHES == before
+    want, wvalid = sp.hash_long_sequence_seeds(codes, seeds, 1,
+                                               engine="torch")
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert torch.equal(valid.cpu(), wvalid)
 
 
 BLIND_SEEDS = [("10101", "11011"), ("110100110011001011",
@@ -1122,7 +1243,8 @@ def test_nccl_fused_count_vs_one_device(rng, cuda, nccl_mesh):
     assert torch.equal(valid, wv) and torch.equal(sk.rows, one.rows)
 
 
-def test_nccl_union_and_sequence_vs_one_device(rng, cuda, nccl_mesh):
+@pytest.mark.parametrize("k", [1, 32, 97])
+def test_nccl_union_and_sequence_vs_one_device(rng, cuda, nccl_mesh, k):
     from nthash_tpu_torch.parallel.mesh import SEQ_AXIS, device_mesh
 
     words = torch.from_numpy(rng.integers(-2**31, 2**31, size=1 << 15,
@@ -1132,11 +1254,11 @@ def test_nccl_union_and_sequence_vs_one_device(rng, cuda, nccl_mesh):
     seq = torch.from_numpy(rng.integers(0, 5, size=100_003,
                                         dtype=np.uint8)).to(cuda)
     seq_mesh = device_mesh(1, SEQ_AXIS)
-    chunk = sp.shard_sequence(seq, seq_mesh, k=32)
+    chunk = sp.shard_sequence(seq, seq_mesh, k=k)
     before = kmer_kernel.SEQUENCE_LAUNCHES
-    hashes, valid = sp.hash_long_sequence(chunk, 32, 2, seq_mesh)
+    hashes, valid = sp.hash_long_sequence(chunk, k, 2, seq_mesh)
     assert kmer_kernel.SEQUENCE_LAUNCHES == before + 1
-    want, wvalid = sp.hash_long_sequence(sp.shard_sequence(seq, k=32), 32, 2)
+    want, wvalid = sp.hash_long_sequence(sp.shard_sequence(seq, k=k), k, 2)
     assert all(torch.equal(a, b) for a, b in zip(hashes, want))
     assert torch.equal(valid, wvalid)
 

@@ -244,22 +244,66 @@ def test_engine_rejects_short_and_bad_k():
 
 
 def test_sequence_rules():
-    """Span: a multiple of 32, at least 256 and 8k. Ring: the smallest power
-    of two >= k + 32. Grid: up to 4 warps beside one warp's ring and output
-    stage; ValueError where one warp does not fit."""
-    for k in (1, 5, 31, 32, 33, 64, 100, 1000):
+    """Span: 64 windows for every 32 bases of k (256 for the seed entry
+    without fwd/rev), the 32 ceil(k / 32) warm-up steps half of them (an
+    eighth). Ring: the aligned chunks of 32
+    bases c - M - 1 .. c, M = ceil(k / 32), a lane. Grid: 1 to 8 warps
+    beside the tables; ValueError where one warp does not fit, now past k
+    = 6,784 (a ring of power-of-two rows of 32 lanes stopped at 4,064)."""
+    for k in (1, 5, 31, 32, 33, 64, 100, 1000, 4064, 4065):
         span = kmer_kernel.sequence_span(k)
-        assert span % 32 == 0 and span >= max(256, 8 * k) > span - 32
-        ring = kmer_kernel.ring_rows(k)
-        assert ring >= k + 32 and ring & (ring - 1) == 0 and ring // 2 < k + 32
+        m = -(-k // 32)
+        assert span % 64 == 0 and span == 64 * m and 32 * m * 2 == span
+        assert kmer_kernel.sequence_span(k, seeds=True, emit_fwd_rev=True) \
+            == span
+        seeds = kmer_kernel.sequence_span(k, seeds=True)
+        assert seeds == 256 * m and 32 * m * 8 == seeds
+        ring = kmer_kernel.sequence_ring(k)
+        assert ring % 32 == 0 and k + 64 <= ring < k + 96
         warps, r = kmer_kernel.sequence_grid(k)
-        assert r == ring and warps in (1, 2, 4)
-    assert kmer_kernel.sequence_grid(32) == (4, 64)
-    assert kmer_kernel.sequence_grid(4064) == (1, 4096)
+        assert r == ring and warps in (1, 2, 4, 8)
+    assert kmer_kernel.sequence_grid(32) == (8, 96)
+    assert kmer_kernel.sequence_grid(4064) == (1, 4128)
+    assert kmer_kernel.sequence_grid(4065) == (1, 4160)
+    assert kmer_kernel.sequence_grid(6784) == (1, 6848)
     with pytest.raises(ValueError, match="shared memory"):
-        kmer_kernel.sequence_grid(4065)
+        kmer_kernel.sequence_grid(6785)
     with pytest.raises(ValueError, match="shared memory"):
         kmer_kernel.sequence_grid(1000, 1, 500, 1)
+
+
+@pytest.mark.parametrize("emit_fwd_rev,limit", [(False, 6784), (True, 6528)])
+def test_sequence_fits(emit_fwd_rev, limit):
+    """k fits the one-sequence entry up to the last k whose one warp fits
+    beside the tables (h = 1): k = 4,064 and 4,065, which a ring of
+    power-of-two rows split, both fit; past the limit the wrappers' callers
+    take ``hash_sequence_rows``. More hashes take more table bytes."""
+    fits = kmer_kernel.sequence_fits
+    assert fits(4064, 1, emit_fwd_rev) and fits(4065, 1, emit_fwd_rev)
+    assert fits(limit, 1, emit_fwd_rev) and not fits(limit + 1, 1,
+                                                     emit_fwd_rev)
+    assert fits(limit, 1, emit_fwd_rev) == (
+        kmer_kernel.sequence_warps(limit, 1, 1, 1, emit_fwd_rev) > 0)
+    assert not fits(limit + 1, 64, emit_fwd_rev)
+    assert not fits(100_000, 1, emit_fwd_rev)
+
+
+@pytest.mark.parametrize("h", [1, 3])
+@pytest.mark.parametrize("k,length", [(1, 40), (9, 700), (33, 1100),
+                                      (100, 3000)])
+def test_hash_sequence_rows_is_the_plain_route(rng, k, length, h):
+    """``hash_sequence_rows`` (the read kernel over pseudo-reads, here its
+    plain versions) gives ``hash_sequence_plain``'s outputs, fwd/rev too."""
+    seq = torch.from_numpy(rng.integers(0, 7, size=(length,),
+                                        dtype=np.uint8))
+    for fr in (False, True):
+        got, valid = kmer_kernel.hash_sequence_rows(seq, k, h,
+                                                    emit_fwd_rev=fr)
+        want, wvalid = kmer_kernel.hash_sequence_plain(seq, k, h,
+                                                       emit_fwd_rev=fr)
+        assert len(got) == len(want)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert torch.equal(valid, wvalid)
 
 
 def test_sequence_codes_dtypes(rng):
@@ -328,22 +372,46 @@ def test_hash_sequence_fwd_rev_vs_jax(rng, k, h):
 
 
 def test_sequence_grid_fwd_rev_stage():
-    """The fwd/rev route's warp holds a second output stage: the same warps
-    where they fit, fewer where the second stage crowds them out (500 care
-    runs of tables), and the route without the flag keeps its grid."""
-    stage = 32 * kmer_kernel.STAGE_PITCH * 8
-    assert kmer_kernel.sequence_grid(32) == (4, 64)
-    assert kmer_kernel.sequence_grid(32, emit_fwd_rev=True) == (4, 64)
-    assert kmer_kernel.sequence_grid(4064, emit_fwd_rev=True) == (1, 4096)
+    """The fwd/rev route's warp holds a second stage plane, spaced seeds
+    their states (and, without fwd/rev, runs of 16 windows, not 32): the
+    warps a block are those of 8, 4, 2, 1 that fit beside the tables and
+    leave the most warps resident in a multiprocessor's shared memory (the
+    larger on a tie); the route without the flag keeps its grid; 560 care
+    runs of tables leave no room."""
+    assert kmer_kernel.sequence_run() == 32
+    assert kmer_kernel.sequence_run(True, seeds=True) == 32
+    assert kmer_kernel.sequence_run(False, seeds=True) == 16
+    assert kmer_kernel.sequence_grid(32) == (8, 96)
+    assert kmer_kernel.sequence_grid(32, emit_fwd_rev=True) == (2, 96)
+    assert kmer_kernel.sequence_grid(4064, emit_fwd_rev=True) == (1, 4128)
+    assert kmer_kernel.sequence_grid(5, 2, 5, 1, True, seeds=True) == (8, 96)
     assert kmer_kernel.sequence_warps(32, 1, 500, 1) == 2
     assert kmer_kernel.sequence_warps(32, 1, 500, 1, emit_fwd_rev=True) == 1
-    for k, nruns in ((1, 1), (97, 1), (1000, 1), (32, 500), (32, 550)):
-        one = kmer_kernel.sequence_warps(k, 1, nruns, 1)
-        two = kmer_kernel.sequence_warps(k, 1, nruns, 1, emit_fwd_rev=True)
-        tables = kmer_kernel.tables_bytes(1, nruns, 1)
-        ring = kmer_kernel.ring_rows(k)
-        assert one == kmer_kernel.fit_warps(tables, ring * 32 + stage, 4)
-        assert two == kmer_kernel.fit_warps(tables, ring * 32 + 2 * stage, 4)
-        assert two <= one
+
+    def resident(tables, per_warp, warps):
+        smem = tables + warps * per_warp
+        if smem > kmer_kernel.MAX_SHARED_BYTES:
+            return 0
+        return warps * min(233472 // (smem + 1024), 64 // warps)
+
+    for k, nseeds, nruns in ((1, 1, 1), (97, 1, 1), (1000, 1, 1),
+                             (32, 1, 500), (32, 1, 550), (5, 2, 5),
+                             (81, 4, 46)):
+        tables = kmer_kernel.sequence_tables_bytes(nseeds, nruns, 1)
+        ring = (kmer_kernel.sequence_ring(k) // 4 + 8) * 128
+        for fr, seeds, per_warp in (
+                (False, False, ring + 8192), (True, False, ring + 2 * 8192),
+                (False, True, ring + 4096 + 512 * nseeds),
+                (True, True, ring + 2 * 8192 + 512 * nseeds)):
+            got = kmer_kernel.sequence_warps(k, nseeds, nruns, 1, fr,
+                                             seeds=seeds)
+            best = max(resident(tables, per_warp, w) for w in (8, 4, 2, 1))
+            assert got in (0, 1, 2, 4, 8)
+            if not got:
+                assert best == 0
+                continue
+            assert resident(tables, per_warp, got) == best
+            assert all(resident(tables, per_warp, w) < best
+                       for w in (8, 4, 2, 1) if w > got)
     with pytest.raises(ValueError, match="care runs"):
         kmer_kernel.sequence_grid(32, 1, 560, 1, emit_fwd_rev=True)

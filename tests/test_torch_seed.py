@@ -17,7 +17,7 @@ import torch
 from nthash_tpu import oracle
 from nthash_tpu.ops import kmer_pallas, seed_jnp, seed_pallas
 from nthash_tpu_torch.constants import encode_ascii
-from nthash_tpu_torch.ops import seed_kernel, seed_torch
+from nthash_tpu_torch.ops import kmer_kernel, seed_kernel, seed_torch
 from nthash_tpu_torch.ops.kmer_kernel import prepare_codes
 from nthash_tpu_torch.ops.seed_kernel import (
     hash_seeds_batch,
@@ -373,9 +373,17 @@ def test_seeds_sequence_fwd_rev_vs_jax(rng, name):
 
 def test_sequence_fits():
     """Where the seeds fit the one-sequence entry, decided from the shapes:
-    the BASELINE seeds do, 600 care runs do not (then the facade takes B1
-    over pseudo-reads)."""
+    the BASELINE seeds do, 600 care runs do not (then the facade and
+    ``sp.hash_long_sequence_seeds`` take B1 over pseudo-reads), nor do
+    1,200, nor a seed of k = 7,000; four seeds of 41 care runs do, and a
+    seed of k = 6,784, the k-mer entry's limit."""
     assert seed_kernel.sequence_fits(BASELINE, 3, True)
     many = ("10" * 600,)
     assert not seed_kernel.sequence_fits(many, 1, False)
     assert not seed_kernel.sequence_fits(many, 1, True)
+    assert not seed_kernel.sequence_fits(("10" * 1200,), 1, False)
+    assert seed_kernel.sequence_fits(("10" * 40 + "1",) * 4, 1, True)
+    wide = ("1" + "0" * 6782 + "1",)
+    assert kmer_kernel.sequence_fits(len(wide[0]))
+    assert seed_kernel.sequence_fits(wide)
+    assert not seed_kernel.sequence_fits(("1" + "0" * 6998 + "1",))

@@ -281,3 +281,43 @@ def test_seeds_without_care_positions_vs_jax(rng, mesh1, engine, seeds):
     for si, s in enumerate(seeds):
         if "1" not in s:
             assert not any(to_numpy_u64(g).any() for g in got[2 * si:2 * si + 2])
+
+
+def test_hash_sequence_rows_vs_jax(rng, mesh1):
+    """k = 4,100 on a short sequence: the read kernel over pseudo-reads
+    (``kmer_kernel.hash_sequence_rows``; on the CPU its plain versions), the
+    route ``sp.hash_long_sequence`` takes on a CUDA tensor for a k past the
+    one-pass entry's shared memory, against the JAX package's jnp engine;
+    and the port's sp route on the CPU."""
+    k, h = 4100, 2
+    seq = rng.integers(0, 6, size=(k + 300,), dtype=np.uint8)
+    want, wvalid = _jax_kmers(seq, k, h, mesh1)
+    codes = sp.shard_sequence(torch.from_numpy(seq), k=k)
+    got, valid = kmer_kernel.hash_sequence_rows(codes, k, h)
+    assert len(got) == h
+    for g, w in zip(got, want):
+        assert np.array_equal(to_numpy_u64(g), w)
+    assert np.array_equal(valid.numpy(), wvalid)
+    got, valid = sp.hash_long_sequence(codes, k, h, engine="kernel")
+    assert all(np.array_equal(to_numpy_u64(g), w) for g, w in zip(got, want))
+    assert np.array_equal(valid.numpy(), wvalid)
+
+
+def test_seeds_past_the_entry_vs_jax(rng, mesh1):
+    """Seeds that ``seed_kernel.sequence_fits`` rejects (k = 8,000, two care
+    runs each): ``sp.hash_long_sequence_seeds`` and the route it takes for
+    them on a CUDA tensor (``hash_seeds_sequence_rows``, B1 over
+    pseudo-reads; here its plain versions) against the JAX package."""
+    seeds = ("1" + "0" * 7998 + "1", "11" + "0" * 7996 + "11")
+    assert not seed_kernel.sequence_fits(seeds, 2)
+    k = len(seeds[0])
+    seq = rng.integers(0, 6, size=(k + 200,), dtype=np.uint8)
+    want, wvalid = _jax_seeds(seq, seeds, 2, mesh1)
+    codes = sp.shard_sequence(torch.from_numpy(seq), k=k)
+    for got, valid in (sp.hash_long_sequence_seeds(codes, seeds, 2,
+                                                   engine="kernel"),
+                       seed_kernel.hash_seeds_sequence_rows(codes, seeds, 2)):
+        assert len(got) == 4
+        assert all(np.array_equal(to_numpy_u64(g), w)
+                   for g, w in zip(got, want))
+        assert np.array_equal(valid.numpy(), wvalid)
