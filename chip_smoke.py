@@ -8,9 +8,12 @@ imports nothing of JAX. Phases, each printing its own lines:
 1. environment: card name and power limit, torch / CUDA / nvcc versions;
 2. build the seven CUDA sources from ``nthash_tpu_torch/csrc`` (one nvcc
    each, all at once) and print each kernel instance's registers and
-   spills (template arguments demangled); no ``seed_hash`` instance and no
-   one-sequence instance may spill; the four one-sequence instances'
-   resident warps a multiprocessor;
+   spills (template arguments demangled); no ``seed_hash`` instance, no
+   one-sequence instance and no partition instance may spill; the four
+   one-sequence instances' resident warps a multiprocessor; the merge's
+   cluster pass's shared bytes and the clusters of 2, 4 and 8 blocks
+   resident at once (each must be at least one), the resident blocks of
+   ``partition_bounds_kernel`` and of each grouped merge pass;
 3. golden ntHash2 vectors through the rolling-hash kernel;
 4. each kernel against its plain PyTorch version on the card, exact (the
    hash kernel also on one full main-path batch of 2**18 reads);
@@ -37,7 +40,12 @@ imports nothing of JAX. Phases, each printing its own lines:
    against its plain version on the main path's own batches, and whether
    the overflow flag fired;
 10. timings at 2**20: each partition kernel, its plain version, its bound
-   and ``torch.sort``; the sub-histograms by both routes; the partitioned
+   and its library call (``torch.sort`` for the tile sort,
+   ``torch.searchsorted`` over the prepared row maxima for the table, with
+   the table's sector floor); the same at the 2**30 plan on the Bloom
+   path's buckets of the 1M reads (four batches of [1, 64, 16384, 128],
+   every kernel first checked against its plain version on batch 0); the
+   sub-histograms by both routes; the partitioned
    against the rule's histogram per batch at 2**20..2**30; the histogram
    at full width over all 1M reads, binned and direct; the fused step
    beside the old partitioned route, in turns; ``count_file``, and one traced ``count_file`` for the
@@ -105,7 +113,8 @@ imports nothing of JAX. Phases, each printing its own lines:
    against ``sort_tiles_plain`` at tiles of 128 ints up to 2**15, in chunks
    of one, two and 64 tiles, on random 21- and 31-bit keys, all-equal keys,
    all-sentinel tiles, sorted and reversed input, and the merge rounds up
-   to a sorted chunk;
+   to a sorted chunk (chunks of up to 256 tiles: every launch
+   ``part_kernel.merge_plan`` picks);
 21. their timings in one call with their yardsticks: per batch at 2**20,
    the presence words of the windows by private words, by direct atomics,
    and the sub-histograms (A2) of the same windows; the direct route on the
@@ -375,12 +384,24 @@ def phase_build() -> None:
             elif "spill" in ln or "registers" in ln:
                 print(f"[build] {name} {kernel}: "
                       f"{ln.replace('ptxas info    :', '').strip()}")
-                if ((name == "seed_hash" or "_sequence_kernel" in kernel)
+                if ((name == "seed_hash" or "_sequence_kernel" in kernel
+                     or name == "partition")
                         and re.search(r"[1-9]\d* bytes spill", ln)):
                     spills.append(kernel)
     require(all(cuda_build.BUILD_LOGS.get(name) for name in SOURCES),
             "a source was not built in this run: no ptxas report")
-    require(not spills, f"seed_hash or one-sequence instances spill: {spills}")
+    require(not spills, "seed_hash, one-sequence or partition instances "
+            f"spill: {spills}")
+    res = pk.merge_resources()
+    span = pk.MERGE_MAX_SPAN
+    print(f"[build] partition: sort_span_kernel<4, true> (the merge's cluster "
+          f"pass) {(span + span // 2) * 4} bytes of dynamic shared memory a "
+          f"block (the tile and the half it receives), "
+          f"512 threads; clusters resident at once by size {res['clusters']}; "
+          f"resident blocks a multiprocessor {res['blocks']} (256 threads, no "
+          "dynamic shared memory)")
+    require(all(n > 0 for n in res["clusters"].values()),
+            f"a merge cluster size cannot be resident: {res['clusters']}")
     for fr in (False, True):  # k=32 and the BASELINE seeds, h=1
         print(f"[build] resident warps a multiprocessor, fwd/rev {fr}: "
               f"kmer_sequence_kernel {kmer_kernel.sequence_resident_warps(K, 1, fr)}, "
@@ -932,27 +953,79 @@ def time_prepared(prepare, fn, calls: int = 5) -> float:
     return statistics.median(samples)
 
 
-def phase_wide_timings(codes, path, pipe, batches, dev, card: str) -> dict:
-    """Phase 10: timings at 2**20, per 2**18-read batch and over 1M reads
-    (the sum over the four batches of each batch's median)."""
-    tag = f"[{card}]"
-    p_log2, sub_log2, rows, cap = pk.plan(WIDE)
+def plan_batches(codes: np.ndarray, dev) -> list:
+    """The Bloom path's buckets of every main-path batch at 2**30 (its
+    codes, ``emit_buckets=30``), as one row padded to the 2**30 plan's
+    chunks: [1, 64, 16384, 128] a batch, as C3 partitions them."""
+    _, _, rows, _ = pk.plan(pk.PART_MAX_WIDTH_LOG2)
+    out = []
+    for tm in bloom_tms(codes, dev):
+        b = torch.stack([x.reshape(-1) for x in hash_kmers_tm(
+            tm, K, H, emit_buckets=pk.PART_MAX_WIDTH_LOG2)]).reshape(1, -1)
+        out.append(pk._pad_chunks(b, 1 << pk.PART_MAX_WIDTH_LOG2,
+                                  rows * pk.LANES))
+        del tm, b
+    return out
+
+
+def merge_rounds(chunk: int, tile: int) -> list:
+    """The merge rounds after tiles of ``tile`` ints: 2 tile .. chunk."""
+    rounds, k = [], 2 * tile
+    while k <= chunk:
+        rounds.append(k)
+        k *= 2
+    return rounds
+
+
+def searchsorted_inputs(srt: torch.Tensor, sub_log2: int, p_log2: int):
+    """The library call's inputs for the partition table, prepared once:
+    the row maxima [R G, rows] and the queries [R G, P], contiguous."""
+    r, g, rows = srt.shape[:3]
+    lastq = (srt[..., pk.LANES - 1] >> sub_log2).reshape(r * g, rows)
+    queries = torch.arange(1 << p_log2, dtype=torch.int32, device=srt.device)
+    return lastq.contiguous(), queries.expand(r * g, -1).contiguous()
+
+
+def add_time(tot: dict, name: str, i: int, k_s: float, p_s: float,
+             lib_s: float | None, nbytes: int, where: str, tag: str) -> None:
+    """Add batch i's kernel, plain and library seconds and bytes to
+    tot[name] (library None: no such call); print batch 0's."""
+    row = tot.setdefault(name, [0.0, 0.0, None if lib_s is None else 0.0,
+                                0.0])
+    row[0] += k_s
+    row[1] += p_s
+    if lib_s is not None:
+        row[2] += lib_s
+    row[3] += nbytes
+    if i == 0:
+        lib = "" if lib_s is None else f", library {lib_s * 1e3:.4f} ms"
+        print(f"[time] {name} {where}: kernel {k_s * 1e3:.4f} ms, plain "
+              f"{p_s * 1e3:.4f} ms{lib}, bound {bound_ms(nbytes):.4f} ms {tag}")
+
+
+def print_totals(tot: dict, where: str, tag: str) -> None:
+    for name, (k_s, p_s, lib_s, nbytes) in tot.items():
+        lib = "" if lib_s is None else f", library {lib_s * 1e3:.4f} ms"
+        print(f"[time] {name} {where + ' ' if where else ''}over {N_READS} "
+              f"reads: kernel {k_s * 1e3:.4f} ms, plain {p_s * 1e3:.4f} ms"
+              f"{lib}, bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e9:.4f} GB) "
+              f"{tag}")
+
+
+def time_partition_plan(batches: list, wl: int, tag: str) -> dict:
+    """Each partition kernel over the batches padded to the plan for 2**wl,
+    its plain version, its bound and the library call (``torch.sort`` for
+    the tile sort, ``torch.searchsorted`` over the prepared row maxima for
+    the table): name -> [kernel, plain, library or None, bytes] in seconds
+    summed over the batches (each batch's median), batch 0 printed."""
+    p_log2, sub_log2, rows, cap = pk.plan(wl)
     p = 1 << p_log2
-    tot = {}   # name -> [kernel, plain, library or None, bytes] over 1M reads
+    tot = {}
+    where = f"at the 2**{wl} plan"
 
     def add(name, i, k_s, p_s, lib_s, nbytes):
-        row = tot.setdefault(name, [0.0, 0.0, None if lib_s is None else 0.0,
-                                    0.0])
-        row[0] += k_s
-        row[1] += p_s
-        if lib_s is not None:
-            row[2] += lib_s
-        row[3] += nbytes
-        if i == 0:
-            lib = "" if lib_s is None else f", library {lib_s * 1e3:.4f} ms"
-            print(f"[time] {name} batch 0: kernel {k_s * 1e3:.4f} ms, plain "
-                  f"{p_s * 1e3:.4f} ms{lib}, bound {bound_ms(nbytes):.4f} ms "
-                  f"{tag}")
+        add_time(tot, name, i, k_s, p_s, lib_s, nbytes,
+                 f"{where} {tuple(batches[0].shape)}", tag)
 
     for i, chunks in enumerate(batches):
         r, g = chunks.shape[:2]
@@ -964,11 +1037,7 @@ def phase_wide_timings(codes, path, pipe, batches, dev, card: str) -> dict:
             .seconds_per_call,
             timeit(lambda x: torch.sort(x.view(r * g, -1), dim=-1), chunks)
             .seconds_per_call, 2 * nbytes)
-        rounds = []
-        k = 2 * tile
-        while k <= rows * pk.LANES:
-            rounds.append(k)
-            k *= 2
+        rounds = merge_rounds(rows * pk.LANES, tile)
 
         def merges(x):
             for k in rounds:
@@ -982,21 +1051,67 @@ def phase_wide_timings(codes, path, pipe, batches, dev, card: str) -> dict:
         add("merge_phase", i, time_prepared(tiles.clone, merges),
             timeit(merges_plain, tiles).seconds_per_call, None,
             2 * nbytes * len(rounds))
+        del tiles
         srt = pk._sorted(chunks)
         fb, _ = pk.partition_bounds(srt, sub_log2, p_log2, cap)
+        lastq, queries = searchsorted_inputs(srt, sub_log2, p_log2)
         add("partition_bounds", i,
             timeit(lambda x: pk.partition_bounds(x, sub_log2, p_log2, cap),
                    srt).seconds_per_call,
             timeit(lambda x: pk.partition_bounds_plain(x, sub_log2, p_log2,
                                                        cap), srt)
-            .seconds_per_call, None, (r * g * rows + r * g * p + 2) * 4)
-        wins = pk.windows(srt, fb, p_log2, sub_log2, cap)
+            .seconds_per_call,
+            timeit(lambda a, q: torch.searchsorted(a, q, side="left"),
+                   lastq, queries).seconds_per_call,
+            (r * g * rows + r * g * p + 2) * 4)
+        del lastq, queries
         add("windows", i,
             timeit(lambda x: pk.windows(x, fb, p_log2, sub_log2, cap), srt)
             .seconds_per_call,
             timeit(lambda x: pk.partition_windows_plain(
                 x, fb, p_log2, sub_log2, cap_rows=cap), srt).seconds_per_call,
-            None, nbytes + wins.numel() * 4)
+            None, nbytes + r * p * g * cap * pk.LANES * 4)
+        del srt, fb
+        torch.cuda.empty_cache()
+    chunks = sum(b.shape[0] * b.shape[1] for b in batches)
+    print_totals(tot, where, tag)
+    print(f"[time] partition_bounds at the 2**{wl} plan: sector floor "
+          f"{bound_ms(chunks * (rows * 32 + p * 4)):.4f} ms (a 32-byte sector "
+          f"a row maximum, {chunks} chunks of {rows} rows, P {p}) {tag}")
+    return tot
+
+
+def phase_wide_timings(codes, path, pipe, batches, dev, card: str,
+                       errs: dict) -> dict:
+    """Phase 10: timings at 2**20, per 2**18-read batch and over 1M reads
+    (the sum over the four batches of each batch's median); the partition
+    kernels also at the 2**30 plan (the Bloom path's buckets), checked
+    against their plain versions on batch 0 first."""
+    tag = f"[{card}]"
+    tot = time_partition_plan(batches, WIDE, tag)
+    widest = plan_batches(codes, dev)
+    p_log2, sub_log2, _, cap = pk.plan(pk.PART_MAX_WIDTH_LOG2)
+    fired = int(check_partition_kernels(widest[0], sub_log2, p_log2, cap,
+                                        errs)[0])
+    print(f"[check] partition kernels == plain at the 2**30 plan on batch 0 "
+          f"of the Bloom path's buckets {tuple(widest[0].shape)} (overflow "
+          f"flag {fired})")
+    torch.cuda.empty_cache()
+    time_partition_plan(widest, pk.PART_MAX_WIDTH_LOG2, tag)
+    del widest
+    torch.cuda.empty_cache()
+    p_log2, sub_log2, rows, cap = pk.plan(WIDE)
+    p = 1 << p_log2
+    sub_tot = {}
+
+    def add(name, i, k_s, p_s, lib_s, nbytes):
+        add_time(sub_tot, name, i, k_s, p_s, lib_s, nbytes, "batch 0", tag)
+
+    for i, chunks in enumerate(batches):
+        r, g = chunks.shape[:2]
+        srt = pk._sorted(chunks)
+        fb, _ = pk.partition_bounds(srt, sub_log2, p_log2, cap)
+        wins = pk.windows(srt, fb, p_log2, sub_log2, cap)
         flat = wins.reshape(r * p, -1)
         spare = (torch.where((flat >= 0) & (flat < (1 << sub_log2)),
                              flat.long(), 1 << sub_log2)
@@ -1019,13 +1134,9 @@ def phase_wide_timings(codes, path, pipe, batches, dev, card: str) -> dict:
         add(f"histogram (sub-histograms at 2**{sub_log2}, {r * p} rows, "
             "direct atomics forced)", i, sub["direct"], t_plain, None,
             sub_bytes)
-        del tiles, srt, fb, wins, flat, spare
+        del srt, fb, wins, flat, spare
         torch.cuda.empty_cache()
-    for name, (k_s, p_s, lib_s, nbytes) in tot.items():
-        lib = "" if lib_s is None else f", library {lib_s * 1e3:.4f} ms"
-        print(f"[time] {name} over {N_READS} reads: kernel {k_s * 1e3:.4f} ms, "
-              f"plain {p_s * 1e3:.4f} ms{lib}, bound {bound_ms(nbytes):.4f} ms "
-              f"({nbytes / 1e9:.4f} GB) {tag}")
+    print_totals(sub_tot, "", tag)
 
     # does partitioning pay on this card? the whole partitioned histogram
     # against the direct one at full width, on one batch's buckets
@@ -2106,7 +2217,7 @@ def phase_redesign_checks(codes: np.ndarray, gen, dev) -> dict:
     kinds = ("random 21-bit", "random 31-bit", "all equal", "all sentinel",
              "sorted", "reversed")
     for rows, g in ((1, 5), (2, 8), (8, 3), (16, 4), (64, 8), (128, 8),
-                    (256, 8), (512, 8), (16384, 2)):
+                    (256, 8), (512, 8), (16384, 2), (65536, 1)):
         shape = (2, g, rows, pk.LANES)
         for kind in kinds:
             if kind == "random 31-bit":
@@ -4120,7 +4231,7 @@ def main() -> None:
                                            part_errs)
         refs[WIDE] = pipe.sketch.rows.clone()    # == the plain count
         wide = run("10 timings at 2**20", phase_wide_timings, codes, path,
-                   pipe, batches, dev, smi)
+                   pipe, batches, dev, smi, part_errs)
         del pipe, batches
         torch.cuda.empty_cache()
         errs = run("11 edge shapes", phase_edges, gen, dev)

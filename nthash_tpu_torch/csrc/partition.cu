@@ -7,8 +7,8 @@
 //                    ascending, or in the direction its parity inside the
 //                    chunk gives when the chunk is wider than one tile;
 //   merge_phase      _merge_phase_kernel (A3c): one bitonic merge round per
-//                    doubling, strides >= n through device memory (one
-//                    launch each), strides < n by the tile network (one launch);
+//                    doubling, in 1 + ceil(s / 6) passes over the array for
+//                    a round with s strides of a tile and more;
 //   partition_bounds the first-row table that _sort_kernel fuses
 //                    (part_pallas.py:259-265) or XLA's searchsorted builds
 //                    (:374-381), plus check_overflow (:466-495), as two flags;
@@ -33,15 +33,41 @@
 // memory is only a padded (conflict-free) transpose between three register
 // layouts, 19 barriers a tile. Direction is folded into the data (a
 // descending run is kept complemented), so a compare-exchange is one min and
-// one max. See the note above sort_span_kernel. merge_phase's global strides
-// are bound by bytes (each reads and writes the whole array once); its
-// strides below a tile are one launch of the same tile network.
-// partition_bounds reads O(chunks * P * log(rows)) row maxima; windows is a
-// coalesced copy (each window row is one 512-byte segment), bound by bytes.
-// None of the TPU's scaffolding is carried over: no monotone-f32 bitcast, no
-// lane/sublane rolls, no chunk grouping or VMEM blocks.
+// one max. See the note above sort_span_kernel.
+//
+// A merge round is bound by bytes: each pass reads and writes the whole
+// array once, so the design counts passes. The strides of a tile and more
+// go through device memory in grouped passes of up to six strides, each
+// thread holding the 2^g elements that g strides link (merge_strides_kernel;
+// one pass of 1 to 5 strides costs about as much as one of 1, 88% of the
+// byte rate), and the strides below a tile run in one pass of the tile
+// network. Where the strides of a tile and more number one more than a
+// multiple of six, the last of them runs in the tile network's pass instead,
+// between the two blocks of a thread-block cluster through each other's
+// shared memory (cluster_strides), which saves a pass: a round of the 2^20
+// plan (two tiles a chunk) is one pass, where one launch a stride made it
+// two. The cluster stops there because a stride exchanged between two SMs
+// costs 0.86 ms per 1M reads at the 2^30 plan against 1.44 ms for a whole
+// grouped pass, and clusters of 4 and 8 tiles add that for every further
+// stride (partition_probe.py, NVIDIA H100 80GB HBM3, 700.00 W). The six
+// rounds of the 2^30 plan (64 tiles a chunk) take 11 passes where they took
+// 27. merge_plan (ops/part_kernel.py) picks the launches.
+//
+// partition_bounds reads each row maximum once and writes each table entry
+// once: the maxima of a sorted chunk ascend, so row r owns the entries
+// (max[r - 1], max[r]] >> sub_log2, found by a search in shared memory, and
+// a window misses part of its partition iff some run of cap equal maxima
+// lies in [0, P). The maxima lie 512 bytes apart, a 32-byte sector each
+// from device memory, and that gather bounds it: PyTorch's own strided copy
+// of the same maxima takes as long. windows is a coalesced copy (each
+// window row is one 512-byte segment), bound by bytes. None of the TPU's
+// scaffolding is carried over: no monotone-f32 bitcast, no lane/sublane
+// rolls, no chunk grouping or VMEM blocks.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -51,6 +77,8 @@ constexpr int kMaxTile = 1 << 15;  // ints per tile: 64 to each of 512 threads
 constexpr long long kMaxChunk = 1LL << 30;  // chunk indices fit 32 bits
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 1 << 20;
+
+bool pow2(long long v) { return v > 0 && (v & (v - 1)) == 0; }
 
 long long blocks_for(long long work, int threads) {
   long long b = (work + threads - 1) / threads;
@@ -160,21 +188,86 @@ __device__ __forceinline__ void shuffle_stage(int (&v)[kPerThread], int mask,
   }
 }
 
+// Strides S C/2 .. S of a merge round across the C blocks of a cluster,
+// each holding one span of S = 64 T ints, v[r] = element r T + t. For the
+// exchange the span sits in shared memory as quads, v[4 q .. 4 q + 3] of
+// thread t at x[q T + t] (16-byte words, so that every access across the
+// cluster moves 512 bytes a warp), with S / 2 ints after it to receive. The
+// partner of an element across stride S m is the same element of block
+// rank ^ m; direction is folded into the data, so the block whose rank has
+// bit m clear keeps the smaller of each pair. Of the pairs between two
+// blocks, the lower block does those of quads q < 8 and the upper block
+// the rest. No block waits on a remote load: each pushes the quads its
+// partner needs into the partner's `recv`, and after a cluster barrier
+// compares them with its own, keeps its result and pushes the partner's
+// into the partner's span; a cluster barrier before the first stride and
+// after each half. v is dead meanwhile (reloaded after), so the exchange
+// takes no register from the network. (Kept in registers, with the
+// exchange areas alone in shared memory, it spilled and was no faster; as
+// 4-byte words, or waiting on remote loads, it was slower.)
+template <int T>
+__device__ __forceinline__ void cluster_strides(int (&v)[kPerThread],
+                                                int* s) {
+  constexpr int kQuads = kPerThread / 4;
+  constexpr int kHalf = kQuads / 2;
+  int4* x = reinterpret_cast<int4*>(s) + threadIdx.x;
+  int4* recv = reinterpret_cast<int4*>(s) + kQuads * T + threadIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+#pragma unroll
+  for (int q = 0; q < kQuads; ++q) {
+    x[q * T] = make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  }
+  cluster.sync();
+  for (unsigned m = cluster.num_blocks() >> 1; m > 0; m >>= 1) {
+    const bool upper = (rank & m) != 0;
+    const int4* send = x + (upper ? 0 : kHalf * T);
+    int4* into = cluster.map_shared_rank(recv, rank ^ m);
+#pragma unroll
+    for (int h = 0; h < kHalf; ++h) into[h * T] = send[h * T];
+    cluster.sync();
+    int4* mine = x + (upper ? kHalf * T : 0);
+    int4* theirs = cluster.map_shared_rank(mine, rank ^ m);
+#pragma unroll
+    for (int h = 0; h < kHalf; ++h) {
+      const int4 a = mine[h * T];
+      const int4 b = recv[h * T];
+      const int4 lo = make_int4(min(a.x, b.x), min(a.y, b.y), min(a.z, b.z),
+                                min(a.w, b.w));
+      const int4 hi = make_int4(max(a.x, b.x), max(a.y, b.y), max(a.z, b.z),
+                                max(a.w, b.w));
+      mine[h * T] = upper ? hi : lo;
+      theirs[h * T] = upper ? lo : hi;
+    }
+    cluster.sync();
+  }
+#pragma unroll
+  for (int q = 0; q < kQuads; ++q) {
+    const int4 w = x[q * T];
+    v[4 * q] = w.x;
+    v[4 * q + 1] = w.y;
+    v[4 * q + 2] = w.z;
+    v[4 * q + 3] = w.w;
+  }
+  __syncthreads();  // before the network's transposes reuse the memory
+}
+
 // One block per span of S = 2048 << WB ints of `in` (in may equal out):
 // rounds k_lo..k_hi of the network restricted to strides below `tile` (a
 // power of two from 128 up, tile <= S, S a multiple of tile; tile == S
 // unless tile < 2048). k_lo == 2 sorts every tile (k_hi == tile); k_lo ==
-// k_hi > tile finishes a merge round whose strides >= tile were done in
-// device memory. cmask = chunk - 1 (below 2^30): an element's index inside
-// its chunk.
-template <int WB>
+// k_hi finishes merge round k_lo from stride min(k_lo, tile) / 2 down, its
+// higher strides done before: in device memory or, with kCluster, by the
+// cluster's blocks in this launch (strides S C/2 .. S, tile == S). cmask =
+// chunk - 1 (below 2^30): an element's index inside its chunk.
+template <int WB, bool kCluster>
 __global__ void __launch_bounds__(32 << WB)
 sort_span_kernel(const int* in, int* out, long long total, unsigned cmask,
                  int tile, unsigned k_lo, unsigned k_hi) {
   constexpr int T = 32 << WB;
   constexpr int S = T * kPerThread;
   constexpr int TOP = 5 + WB;  // the strided layout's registers span bits TOP..TOP+5
-  extern __shared__ int s[];
+  extern __shared__ __align__(16) int s[];
   const int t = threadIdx.x;
   const long long first = static_cast<long long>(blockIdx.x) * S;
   const int left = total - first < S ? static_cast<int>(total - first) : S;
@@ -206,6 +299,7 @@ sort_span_kernel(const int* in, int* out, long long total, unsigned cmask,
     for (int r = 0; r < kPerThread; ++r) {
       if ((cfirst + r * T + t) & cmask & k_lo) v[r] = ~v[r];
     }
+    if constexpr (kCluster) cluster_strides<T>(v, s);
   } else {
     // A full sort of one tile per span may take its input in any order, so
     // the coalesced (strided) load is read as if it were blocked; with
@@ -305,12 +399,12 @@ cudaError_t launch_span(const int* in, int* out, long long total,
   constexpr int bytes = (S + S / 64) * static_cast<int>(sizeof(int));
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        sort_span_kernel<WB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        sort_span_kernel<WB, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
   }
-  sort_span_kernel<WB><<<static_cast<unsigned>((total + S - 1) / S), 32 << WB,
-                         bytes, stream>>>(
+  sort_span_kernel<WB, false><<<static_cast<unsigned>((total + S - 1) / S),
+                                32 << WB, bytes, stream>>>(
       in, out, total, static_cast<unsigned>(chunk - 1), tile,
       static_cast<unsigned>(k_lo), static_cast<unsigned>(k_hi));
   return cudaGetLastError();
@@ -335,63 +429,236 @@ cudaError_t launch_tiles(const int* in, int* out, long long total,
   }
 }
 
-// One compare-exchange stride j >= tile of round k, in device memory.
+// The cluster instance: tiles of kMaxTile ints, `cluster` blocks a cluster;
+// its shared memory holds the tile (padded for the transposes, or as quads
+// for the exchange) and the half tile it receives.
+constexpr int kClusterWB = 4;
+constexpr int kClusterBytes =
+    (kMaxTile + kMaxTile / 2) * static_cast<int>(sizeof(int));
+
+cudaLaunchConfig_t cluster_config(long long total, int cluster,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(total / kMaxTile));
+  cfg.blockDim = dim3(32 << kClusterWB);
+  cfg.dynamicSmemBytes = kClusterBytes;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+cudaError_t launch_cluster(int* x, long long total, long long chunk,
+                           long long k, int cluster, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      sort_span_kernel<kClusterWB, true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kClusterBytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(total, cluster, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, sort_span_kernel<kClusterWB, true>,
+                           static_cast<const int*>(x), x, total,
+                           static_cast<unsigned>(chunk - 1), kMaxTile,
+                           static_cast<unsigned>(k), static_cast<unsigned>(k));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// ---- the merge's strides through device memory ----
+//
+// Strides j 2^(G-1), ..., j of round k in one pass: a thread takes the 2^G
+// elements a hypercube of those strides links, W adjacent ints each (one
+// 4W-byte load; neighbouring threads on neighbouring addresses), runs the G
+// strides in registers, and writes them back: 16-byte loads up to G = 4,
+// 8-byte at 5, 4-byte at 6 (64 ints a thread). Every pair lies inside one
+// k-block, so one direction serves the thread.
+
+template <int W>
+struct Words;
+template <>
+struct Words<1> {
+  using T = int;
+};
+template <>
+struct Words<2> {
+  using T = int2;
+};
+template <>
+struct Words<4> {
+  using T = int4;
+};
+
+__device__ __forceinline__ void exchange(int& a, int& b, bool asc) {
+  const int lo = min(a, b);
+  const int hi = max(a, b);
+  a = asc ? lo : hi;
+  b = asc ? hi : lo;
+}
+
+__device__ __forceinline__ void exchange(int2& a, int2& b, bool asc) {
+  exchange(a.x, b.x, asc);
+  exchange(a.y, b.y, asc);
+}
+
+__device__ __forceinline__ void exchange(int4& a, int4& b, bool asc) {
+  exchange(a.x, b.x, asc);
+  exchange(a.y, b.y, asc);
+  exchange(a.z, b.z, asc);
+  exchange(a.w, b.w, asc);
+}
+
+template <int G, int W>
 __global__ void __launch_bounds__(kThreads)
-merge_stride_kernel(int* x, long long pairs, long long chunk, long long k,
-                    long long j) {
+merge_strides_kernel(int* __restrict__ x, long long items, long long chunk,
+                     long long k, int lj) {
+  using V = typename Words<W>::T;
+  constexpr int N = 1 << G;
+  const long long j = 1LL << lj;
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
-       t < pairs; t += step) {
-    const long long i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-    const int a = x[i];
-    const int b = x[i + j];
-    const bool asc = ((i & (chunk - 1)) & k) == 0;
-    if ((a > b) == asc) {
-      x[i] = b;
-      x[i + j] = a;
+       t < items; t += step) {
+    // the first element: W t with G zero bits put in at bit lj
+    const long long q = t * W;
+    const long long base = ((q >> lj) << (lj + G)) | (q & (j - 1));
+    const bool asc = (base & (chunk - 1) & k) == 0;
+    V v[N];
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      v[e] = *reinterpret_cast<const V*>(x + base + e * j);
+    }
+#pragma unroll
+    for (int b = G - 1; b >= 0; --b) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        if ((e & (1 << b)) == 0) exchange(v[e], v[e | (1 << b)], asc);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      *reinterpret_cast<V*>(x + base + e * j) = v[e];
     }
   }
 }
 
-// Number of rows of a sorted chunk whose last (largest) entry, shifted right
-// by sub_log2, is below q. The row maxima ascend, so a binary search.
-__device__ int rows_below(const int* last, int rows, int sub_log2, int q) {
-  int lo = 0, hi = rows;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if ((last[static_cast<long long>(mid) * kLanes] >> sub_log2) < q) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
+// Ints a thread takes at each point of a pass of g strides.
+constexpr int words_for(int g) { return g <= 4 ? 4 : g == 5 ? 2 : 1; }
+
+constexpr int kMaxGroup = 6;
+
+// ---- the partition table and the window check ----
+
+constexpr int kBoundsThreads = 256;
+constexpr int kBoundsPerThread = 1;
+constexpr int kBoundsRows = kBoundsThreads * kBoundsPerThread;
+constexpr int kBoundsHalo = kBoundsThreads / 8;  // rows past a block staged
+
+__global__ void flags_init_kernel(int* flags) {
+  flags[0] = 0;
+  flags[1] = 1;
 }
 
-// One thread per (chunk, partition): fb = rows wholly below partition p, and
-// the window check: p's entries end on row end = rows_below(p + 1) (for the
-// last partition that counts rows below P, so trailing pad sentinels never
-// trip it), and a cap-row window misses some iff end - fb + 1 > cap. Any
-// miss sets flags = {1, 0}; the caller zeroes flags[0] and sets flags[1] = 1.
-__global__ void __launch_bounds__(kThreads)
-partition_bounds_kernel(const int* __restrict__ srt, long long chunks,
-                        int rows, int sub_log2, int parts, int cap,
+// Rows g0 .. g0 + 255 of the sorted chunks (global row g = c rows + r) a
+// block, one a thread; their maxima q[g] = srt[g, 127] >> sub_log2, with
+// the row before the block and up to 32 rows after it, are staged in
+// shared memory by one round of loads (more rows a block measured slower:
+// the loads, a 32-byte sector each, bound the kernel). The maxima of a chunk ascend, so
+// fb[c, p] (the rows whose maximum is below p) is the first row r with
+// q[r] >= p: row r owns the entries p in (q[r - 1], q[r]] of [0, P), and
+// the chunk's last row's successor (rows) the entries above its maximum.
+// The block writes the entries its rows own, each found by a search over
+// its maxima, neighbouring threads on neighbouring entries. Partition p < P
+// spans rows fb[p] .. fb[p] + n_p (n_p rows have maximum p; the last
+// partition ends where the maxima reach P, so trailing pad sentinels never
+// count), and a cap-row window misses some iff n_p >= cap: iff some row r
+// of a chunk has q[r] == q[r + cap - 1] in [0, P). Any miss sets flags =
+// {1, 0}, one write a block; flags_init_kernel set {0, 1} before.
+__global__ void __launch_bounds__(kBoundsThreads)
+partition_bounds_kernel(const int* __restrict__ srt, long long total_rows,
+                        int rows_log2, int sub_log2, int parts, int cap,
                         int* __restrict__ fb, int* __restrict__ flags) {
-  const long long total = chunks * parts;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long q = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       q < total; q += step) {
-    const long long c = q / parts;
-    const int p = static_cast<int>(q - c * parts);
-    const int* last = srt + c * rows * kLanes + (kLanes - 1);
-    const int start = rows_below(last, rows, sub_log2, p);
-    const int end = rows_below(last, rows, sub_log2, p + 1);
-    fb[q] = start;
-    if (end - start + 1 > cap) {
-      flags[0] = 1;
-      flags[1] = 0;
+  constexpr int kLoads =
+      (kBoundsRows + kBoundsHalo + kBoundsThreads - 1) / kBoundsThreads;
+  __shared__ int staged[1 + kBoundsRows + kBoundsHalo];
+  int* q = staged + 1;  // q[-1]: the row before the block
+  const int t = threadIdx.x;
+  const long long g0 = static_cast<long long>(blockIdx.x) * kBoundsRows;
+  const int n = static_cast<int>(
+      min(static_cast<long long>(kBoundsRows), total_rows - g0));
+  const int reach = n + static_cast<int>(min(
+      static_cast<long long>(kBoundsHalo), total_rows - g0 - n));
+  const long long rmask = (1LL << rows_log2) - 1;
+  const auto maximum = [&](long long row) {
+    return __ldg(srt + row * kLanes + (kLanes - 1)) >> sub_log2;
+  };
+  {
+    int v[kLoads];
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int row = t + i * kBoundsThreads;
+      v[i] = row < reach ? maximum(g0 + row) : 0;
+    }
+    const int before = t == 0 && g0 > 0 ? maximum(g0 - 1) : 0;
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int row = t + i * kBoundsThreads;
+      if (row < reach) q[row] = v[i];
+    }
+    if (t == 0) q[-1] = before;
+  }
+  __syncthreads();
+  bool over = false;
+#pragma unroll
+  for (int i = 0; i < kBoundsPerThread; ++i) {
+    const int row = t + i * kBoundsThreads;
+    if (row >= n) break;
+    const long long r = (g0 + row) & rmask;
+    const int v = q[row];
+    if (cap < 1) {
+      over = true;
+    } else if (v >= 0 && v < parts && r + cap - 1 <= rmask) {
+      const long long h = row + static_cast<long long>(cap) - 1;
+      over |= v == (h < reach ? q[h] : maximum(g0 + h));
+    }
+  }
+  if (__syncthreads_or(over) && t == 0) {
+    flags[0] = 1;
+    flags[1] = 0;
+  }
+  const long long c_last = (g0 + n - 1) >> rows_log2;
+  for (long long c = g0 >> rows_log2; c <= c_last; ++c) {
+    const long long c0 = c << rows_log2;  // the chunk's first global row
+    const long long c1 = c0 + rmask + 1;
+    const int a = static_cast<int>(max(c0, g0) - g0);  // its rows in q: [a, b)
+    const int b = static_cast<int>(min(c1, g0 + n) - g0);
+    // the entries this block owns of the chunk: [lo, hi)
+    int lo = 0;
+    if (c0 < g0) {
+      const int prev = q[-1];
+      lo = prev < 0 ? 0 : prev >= parts ? parts : prev + 1;
+    }
+    int hi = parts;
+    if (c1 > g0 + n) {
+      const int last = q[b - 1];
+      hi = last < 0 ? 0 : last >= parts ? parts : last + 1;
+    }
+    int* row = fb + c * parts;
+    for (int p = lo + t; p < hi; p += kBoundsThreads) {
+      int l = a, h = b;
+      while (l < h) {
+        const int m = (l + h) >> 1;
+        if (q[m] < p) {
+          l = m + 1;
+        } else {
+          h = m;
+        }
+      }
+      row[p] = static_cast<int>(g0 + l - c0);
     }
   }
 }
@@ -439,37 +706,116 @@ int nthash_sort_tiles(int device, const int* in, int* out, long long total,
       launch_tiles(in, out, total, chunk, tile, 2, tile, stream));
 }
 
-// x: [total] int32 device, every tile-sized run sorted in alternating
-// directions up to round k / 2. Runs round k (2 * tile <= k <= chunk) in
-// place: strides k/2 .. tile through device memory, then the strides below
-// tile by one launch of the tile network.
-int nthash_merge_phase(int device, int* x, long long total, long long chunk,
-                       int tile, long long k, cudaStream_t stream) {
+// x: [total] int32 device, 16-byte aligned, total a multiple of chunk, every
+// run of 2 j 2^(g-1) ints a bitonic sequence. Runs strides j 2^(g-1), ...,
+// j of round k in place, in one pass: 1 <= g <= 6, j >= 4, j 2^g <= k <=
+// chunk <= 2^30, all powers of two.
+int nthash_merge_strides(int device, int* x, long long total, long long chunk,
+                         long long k, long long j, int g,
+                         cudaStream_t stream) {
+  if (g < 1 || g > kMaxGroup || j < 4 || !pow2(j) || !pow2(k) ||
+      !pow2(chunk) || (j << g) > k || k > chunk || chunk > kMaxChunk ||
+      total % chunk || reinterpret_cast<unsigned long long>(x) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long pairs = total / 2;
-  for (long long j = k / 2; j >= tile; j /= 2) {
-    merge_stride_kernel<<<static_cast<unsigned>(blocks_for(pairs, kThreads)),
-                          kThreads, 0, stream>>>(x, pairs, chunk, k, j);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (total == 0) return 0;
+  const long long items = (total >> g) / words_for(g);
+  const unsigned blocks = static_cast<unsigned>(blocks_for(items, kThreads));
+  const int lj = 63 - __builtin_clzll(static_cast<unsigned long long>(j));
+  switch (g) {
+    case 1: merge_strides_kernel<1, words_for(1)><<<blocks, kThreads, 0, stream>>>(x, items, chunk, k, lj); break;
+    case 2: merge_strides_kernel<2, words_for(2)><<<blocks, kThreads, 0, stream>>>(x, items, chunk, k, lj); break;
+    case 3: merge_strides_kernel<3, words_for(3)><<<blocks, kThreads, 0, stream>>>(x, items, chunk, k, lj); break;
+    case 4: merge_strides_kernel<4, words_for(4)><<<blocks, kThreads, 0, stream>>>(x, items, chunk, k, lj); break;
+    case 5: merge_strides_kernel<5, words_for(5)><<<blocks, kThreads, 0, stream>>>(x, items, chunk, k, lj); break;
+    default: merge_strides_kernel<6, words_for(6)><<<blocks, kThreads, 0, stream>>>(x, items, chunk, k, lj); break;
   }
-  return static_cast<int>(
-      launch_tiles(x, x, total, chunk, tile, k, k, stream));
+  return static_cast<int>(cudaGetLastError());
 }
 
-// srt: [chunks, rows, 128] sorted int32 device; fb: [chunks, parts] int32
-// out; flags: int32[2] device, {0, 1} on entry, {1, 0} after any window of
-// cap rows misses part of its partition.
+// x: [total] int32 device, total a multiple of chunk, every run of k ints a
+// bitonic sequence after round k's strides above span * cluster. Runs the
+// rest of round k (2 <= k <= chunk <= 2^30) in place, in one pass of the
+// tile network over spans of `span` ints (2,048 <= span <= 2^15): with
+// cluster == 1 the strides below min(k, span); with cluster in {2, 4, 8}
+// (span == 2^15, span * cluster <= k) first the strides span * cluster / 2
+// .. span across each cluster's blocks.
+int nthash_merge_span(int device, int* x, long long total, long long chunk,
+                      long long k, int span, int cluster,
+                      cudaStream_t stream) {
+  if (span < 2048 || span > kMaxTile || !pow2(span) || k < 2 || !pow2(k) ||
+      !pow2(chunk) || k > chunk || total % chunk ||
+      (cluster != 1 && (cluster != 2 && cluster != 4 && cluster != 8)) ||
+      (cluster > 1 && (span != kMaxTile || span * cluster > k))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (total == 0) return 0;
+  if (cluster > 1) {
+    return static_cast<int>(launch_cluster(x, total, chunk, k, cluster, stream));
+  }
+  return static_cast<int>(launch_tiles(x, x, total, chunk, span, k, k, stream));
+}
+
+// Clusters of `cluster` blocks of the merge's cluster instance that the card
+// holds at once (cudaOccupancyMaxActiveClusters), in *active.
+int nthash_merge_clusters(int device, int cluster, int* active) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(sort_span_kernel<kClusterWB, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kClusterBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(static_cast<long long>(kMaxTile) * cluster * 132,
+                     cluster, nullptr, &attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      active, sort_span_kernel<kClusterWB, true>, &cfg));
+}
+
+// Resident blocks a multiprocessor (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// of partition_bounds_kernel (which == 0) or the grouped pass of `which`
+// strides (1..6), in *blocks.
+int nthash_partition_blocks(int device, int which, int* blocks) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  switch (which) {
+    case 0: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, partition_bounds_kernel, kBoundsThreads, 0); break;
+    case 1: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, merge_strides_kernel<1, words_for(1)>, kThreads, 0); break;
+    case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, merge_strides_kernel<2, words_for(2)>, kThreads, 0); break;
+    case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, merge_strides_kernel<3, words_for(3)>, kThreads, 0); break;
+    case 4: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, merge_strides_kernel<4, words_for(4)>, kThreads, 0); break;
+    case 5: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, merge_strides_kernel<5, words_for(5)>, kThreads, 0); break;
+    case 6: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, merge_strides_kernel<6, words_for(6)>, kThreads, 0); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// srt: [chunks, rows, 128] sorted int32 device (rows a power of two); fb:
+// [chunks, parts] int32 out; flags: int32[2] device out, {1, 0} if any
+// window of cap rows misses part of its partition, else {0, 1}.
 int nthash_partition_bounds(int device, const int* srt, long long chunks,
                             int rows, int sub_log2, int parts, int cap,
                             int* fb, int* flags, cudaStream_t stream) {
+  if (rows < 1 || !pow2(rows) || parts < 1 || sub_log2 < 0 || sub_log2 > 30) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  flags_init_kernel<<<1, 1, 0, stream>>>(flags);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 0) return static_cast<int>(err);
+  const long long total_rows = chunks * rows;
   partition_bounds_kernel<<<static_cast<unsigned>(
-                                blocks_for(chunks * parts, kThreads)),
-                            kThreads, 0, stream>>>(
-      srt, chunks, rows, sub_log2, parts, cap, fb, flags);
+                                (total_rows + kBoundsRows - 1) / kBoundsRows),
+                            kBoundsThreads, 0, stream>>>(
+      srt, total_rows, 31 - __builtin_clz(static_cast<unsigned>(rows)),
+      sub_log2, parts, cap, fb, flags);
   return static_cast<int>(cudaGetLastError());
 }
 

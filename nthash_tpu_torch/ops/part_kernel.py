@@ -56,9 +56,18 @@ _PLANS = {
     28: (13, 2), 29: (13, 2), 30: (13, 2),
 }
 
+#: The merge's span kernel holds 2**11..2**15 ints a block (the tile
+#: network's spans).
+MERGE_MIN_SPAN = 1 << 11
+MERGE_MAX_SPAN = 1 << 15
+#: Most strides one grouped pass through device memory runs (64 ints a
+#: thread in registers at six).
+MERGE_MAX_GROUP = 6
+MAX_CHUNK = 1 << 30
+
 #: Kernel launches made through this module in this process, by kernel.
-#: ``merge_phase`` counts one per merge round (its strides through device
-#: memory are further launches of the same round).
+#: ``merge_phase`` counts one per merge round (its grouped passes through
+#: device memory are further launches of the same round).
 LAUNCHES = {"sort_tiles": 0, "merge_phase": 0, "partition_bounds": 0,
             "windows": 0}
 
@@ -218,13 +227,37 @@ def _lib() -> ctypes.CDLL:
         for fn, args in (
             (lib.nthash_sort_max_tile, []),
             (lib.nthash_sort_tiles, [i, vp, vp, ll, ll, i, vp]),
-            (lib.nthash_merge_phase, [i, vp, ll, ll, i, ll, vp]),
+            (lib.nthash_merge_strides, [i, vp, ll, ll, ll, ll, i, vp]),
+            (lib.nthash_merge_span, [i, vp, ll, ll, ll, i, i, vp]),
             (lib.nthash_partition_bounds, [i, vp, ll, i, i, i, i, vp, vp, vp]),
+            (lib.nthash_merge_clusters, [i, i, vp]),
+            (lib.nthash_partition_blocks, [i, i, vp]),
             (lib.nthash_windows, [i, vp, vp, ll, i, i, i, i, i, vp, vp]),
         ):
             fn.restype = ctypes.c_int
             fn.argtypes = args
     return lib
+
+
+def merge_resources(device: int = 0) -> dict:
+    """What the card holds at once of the redesigned kernels:
+    ``{"clusters": {C: clusters of C merge blocks}, "blocks": {kernel:
+    resident blocks a multiprocessor}}`` (CUDA's occupancy queries)."""
+    lib = _lib()
+    n = ctypes.c_int(0)
+    out = {"clusters": {}, "blocks": {}}
+    for c in (2, 4, 8):
+        cuda_build.check(lib, lib.nthash_merge_clusters(device, c,
+                                                        ctypes.byref(n)),
+                         "cluster occupancy")
+        out["clusters"][c] = n.value
+    for which in range(MERGE_MAX_GROUP + 1):
+        cuda_build.check(lib, lib.nthash_partition_blocks(
+            device, which, ctypes.byref(n)), "occupancy")
+        name = (f"grouped pass of {which}" if which
+                else "partition_bounds_kernel")
+        out["blocks"][name] = n.value
+    return out
 
 
 def _stream(dev) -> int:
@@ -250,36 +283,102 @@ def sort_tiles(chunks: torch.Tensor) -> tuple[torch.Tensor, int]:
     return out, tile
 
 
+def merge_plan(chunk: int, k: int) -> tuple[tuple[tuple[int, int], ...],
+                                            int, int]:
+    """The launches of bitonic merge round ``k`` over chunks of ``chunk``
+    ints (powers of two, 2 <= k <= chunk <= 2**30): (passes, span, cluster).
+
+    Each pass (j, g) runs strides j, j/2, ..., j >> (g - 1) in one pass
+    through device memory (at most ``MERGE_MAX_GROUP`` strides, split
+    evenly, the highest first); then one launch of the tile network over
+    spans of ``span`` ints runs every stride below min(k, span) inside each
+    span, after stride ``span`` across the two blocks of a thread-block
+    cluster where ``cluster`` is 2. Every stride k/2 .. 1 runs once, in
+    descending order.
+
+    The cluster takes one stride, and only where that saves a pass (the
+    strides of a span and more number one more than a multiple of
+    ``MERGE_MAX_GROUP``): on the card a stride exchanged between two
+    blocks' shared memory costs more than half of what a whole grouped pass
+    costs, and each further stride in a cluster of 4 or 8 as much again
+    (``partition_probe.py``, PERF.md).
+    """
+    if not (_pow2(chunk) and _pow2(k) and 2 <= k <= chunk <= MAX_CHUNK):
+        raise ValueError(
+            f"merge round {k} of chunks of {chunk}: need powers of two with "
+            f"2 <= k <= chunk <= 2**30")
+    span = min(max(k, MERGE_MIN_SPAN), MERGE_MAX_SPAN)
+    wide = max(0, (k // span).bit_length() - 1)  # strides of a span and more
+    cluster = 2 if wide % MERGE_MAX_GROUP == 1 else 1
+    strides = [(k // 2) >> i for i in range(wide - (cluster > 1))]
+    passes = []
+    left = -(-len(strides) // MERGE_MAX_GROUP)
+    i = 0
+    while left:
+        g = -(-(len(strides) - i) // left)
+        passes.append((strides[i], g))
+        i += g
+        left -= 1
+    return tuple(passes), span, cluster
+
+
+def _pow2(v: int) -> bool:
+    return v > 0 and v & (v - 1) == 0
+
+
 def merge_phase(x: torch.Tensor, tile: int, k: int) -> None:
     """Kernel A3c: bitonic merge round ``k`` of every chunk of ``x`` in
-    place (``2 * tile <= k <= chunk``): strides of a tile and more through
-    device memory, the rest by one launch of the tile network."""
+    place (``2 * tile <= k <= chunk``; every tile-sized run sorted in
+    alternating directions up to round k / 2). The launches are
+    :func:`merge_plan`'s: a grouped pass through device memory for every
+    six strides of 2**15 and more, then one pass of the tile network over
+    each tile (after stride 2**15 across a cluster of two tiles where that
+    saves a pass). Raises for a tensor that is not a contiguous, 16-byte
+    aligned int32 [R, G, rows, 128]."""
     lib = _lib()
+    _, _, rows = _check_chunks(x)
+    chunk = rows * LANES
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("merge_phase needs a contiguous, 16-byte aligned "
+                         "tensor")
+    if not (_pow2(tile) and LANES <= tile and 2 * tile <= k):
+        raise ValueError(f"merge round {k} after tiles of {tile}: need a "
+                         f"power-of-two tile of at least {LANES} and "
+                         "2 * tile <= k")
+    passes, span, cluster = merge_plan(chunk, k)
+    if not x.numel():
+        return
     dev = x.device
-    cuda_build.check(lib, lib.nthash_merge_phase(
-        dev.index, x.data_ptr(), x.numel(), x.shape[2] * LANES, tile, k,
-        _stream(dev)), "merge_phase launch")
+    stream = _stream(dev)
+    for j, g in passes:
+        cuda_build.check(lib, lib.nthash_merge_strides(
+            dev.index, x.data_ptr(), x.numel(), chunk, k, j >> (g - 1), g,
+            stream), "merge_phase launch")
+    cuda_build.check(lib, lib.nthash_merge_span(
+        dev.index, x.data_ptr(), x.numel(), chunk, k, span, cluster, stream),
+        "merge_phase launch")
     LAUNCHES["merge_phase"] += 1
 
 
 def partition_bounds(sorted_idx: torch.Tensor, sub_log2: int, p_log2: int,
                      cap_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel for the partition table and the window check: (fb int32
-    [R, G, P], flags int32 [2] = (overflow, no overflow)) on the device."""
+    [R, G, P], flags int32 [2] = (overflow, no overflow)) on the device,
+    views of one buffer; the kernel sets the flags, so the host writes
+    nothing."""
     lib = _lib()
     r, g, rows = _check_chunks(sorted_idx)
     dev = sorted_idx.device
     p = 1 << p_log2
-    fb = torch.empty((r, g, p), dtype=torch.int32, device=dev)
-    flags = torch.zeros(2, dtype=torch.int32, device=dev)
-    flags[1] = 1
+    n = r * g * p
+    out = torch.empty(n + 2, dtype=torch.int32, device=dev)
+    cuda_build.check(lib, lib.nthash_partition_bounds(
+        dev.index, sorted_idx.data_ptr(), r * g, rows, sub_log2, p, cap_rows,
+        out.data_ptr(), out.data_ptr() + 4 * n, _stream(dev)),
+        "partition_bounds launch")
     if r * g:
-        cuda_build.check(lib, lib.nthash_partition_bounds(
-            dev.index, sorted_idx.data_ptr(), r * g, rows, sub_log2, p,
-            cap_rows, fb.data_ptr(), flags.data_ptr(), _stream(dev)),
-            "partition_bounds launch")
         LAUNCHES["partition_bounds"] += 1
-    return fb, flags
+    return out[:n].view(r, g, p), out[n:]
 
 
 def windows(sorted_idx: torch.Tensor, fb: torch.Tensor, p_log2: int,

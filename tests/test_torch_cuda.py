@@ -704,6 +704,176 @@ def test_sort_64_tile_chunks(cuda):
     assert torch.equal(got, pk._sort_plain(x))
 
 
+def test_sorted_2_30_plan_odd_chunks(cuda):
+    """The 2**30 plan's chunks with R * G = 9, not a multiple of 8: every
+    round by merge_plan's launches (a two-tile cluster in the first round,
+    then grouped passes of 2 to 6 strides)."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randint(0, (1 << 30) + 1, (3, 3, 16384, 128), device=cuda,
+                      generator=gen, dtype=torch.int64).int()
+    before = pk.LAUNCHES["merge_phase"]
+    got = pk._sorted(x)
+    assert pk.LAUNCHES["merge_phase"] == before + 6
+    torch.cuda.synchronize()
+    assert torch.equal(got, pk._sort_plain(x))
+
+
+@pytest.mark.parametrize("kind", ["random21", "random31", "equal",
+                                  "sentinel", "sorted", "reversed"])
+@pytest.mark.parametrize("rows", [512, 1024, 4096, 16384, 32768, 65536])
+def test_merge_phase_every_plan(cuda, rows, kind):
+    """merge_phase at every round of chunks of 2 to 256 tiles of 2**15, so
+    through every launch the plan picks (a cluster of two tiles alone and
+    after a pass, grouped passes of 2 to 6 strides, and 4 + 4 at 2**23), on
+    the tile sort's hard inputs; each round exact against
+    merge_phase_plain."""
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    shape = (1, max(1, 65536 // rows), rows, 128)
+    if kind == "random31":
+        x = torch.randint(0, (1 << 31) - 1, shape, device=cuda, generator=gen,
+                          dtype=torch.int64).int()
+    elif kind == "equal":
+        x = torch.full(shape, 77, dtype=torch.int32, device=cuda)
+    elif kind == "sentinel":
+        x = torch.full(shape, 1 << 20, dtype=torch.int32, device=cuda)
+    else:
+        x = torch.randint(0, (1 << 20) + 1, shape, device=cuda, generator=gen,
+                          dtype=torch.int32)
+        if kind != "random21":
+            x = x.reshape(-1).sort(descending=kind == "reversed").values \
+                .reshape(shape)
+    got, tile = pk.sort_tiles(x)
+    seen = set()
+    k = 2 * tile
+    while k <= rows * 128:
+        passes, _, cluster = pk.merge_plan(rows * 128, k)
+        seen.add((tuple(g for _, g in passes), cluster))
+        want = pk.merge_phase_plain(got, k)
+        before = pk.LAUNCHES["merge_phase"]
+        pk.merge_phase(got, tile, k)
+        assert pk.LAUNCHES["merge_phase"] == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (k, passes, cluster)
+        k *= 2
+    assert torch.equal(got, pk._sort_plain(x))
+    assert rows < 65536 or seen == {
+        ((), 2), ((2,), 1), ((3,), 1), ((4,), 1), ((5,), 1), ((6,), 1),
+        ((6,), 2), ((4, 4), 1)}
+
+
+def test_merge_phase_refuses(cuda):
+    x = torch.zeros((1, 1, 512, 128), dtype=torch.int32, device=cuda)
+    off = torch.zeros(x.numel() + 4, dtype=torch.int32,
+                      device=cuda)[1:x.numel() + 1].view(x.shape)
+    for bad in (x[..., :64], x[:, :, ::2], off):   # lanes, strides, offset
+        with pytest.raises(ValueError):
+            pk.merge_phase(bad, 1 << 15, 1 << 16)
+    with pytest.raises(ValueError):
+        pk.merge_phase(x, 1 << 15, 1 << 15)   # k below 2 * tile
+    with pytest.raises(ValueError):
+        pk.merge_phase(x, 1 << 15, 1 << 17)   # k above the chunk
+    lib = pk._lib()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for args in ((1 << 16, 1 << 15, 1 << 15, 1),   # stride above k / 2
+                 (1 << 16, 1 << 16, 2, 1),         # stride below 4
+                 (1 << 16, 1 << 16, 1 << 8, 7)):   # seven strides
+        chunk, k, j, g = args
+        assert lib.nthash_merge_strides(0, x.data_ptr(), x.numel(), chunk, k,
+                                        j, g, stream) != 0
+    assert lib.nthash_merge_span(0, x.data_ptr(), x.numel(), 1 << 16,
+                                 1 << 16, 1 << 15, 4, stream) != 0
+
+
+def _bounded_chunks(rng, kind, rows, p_log2, sub_log2, run=0, r=2, g=2,
+                    at=None):
+    """Sorted chunks [r, g, rows, 128] whose row maxima follow ``kind``:
+    each row's values share its maximum's partition, so sorting keeps every
+    row's maximum's partition (tests/test_torch_part.py::_chunks_of)."""
+    parts = 1 << p_log2
+    qs = np.empty((r * g, rows), np.int64)
+    for i in range(r * g):
+        if kind == "random":
+            qs[i] = np.sort(rng.integers(0, parts + 1, size=rows))
+        elif kind == "sentinel":
+            qs[i] = parts
+        elif kind == "equal":
+            qs[i] = min(77 >> sub_log2, parts - 1)
+        elif kind == "mostly_sentinel":
+            qs[i] = parts
+            qs[i, :1] = rng.integers(0, parts)
+        elif kind == "empty":
+            qs[i] = np.minimum(3 * np.arange(rows), parts)
+        else:
+            s = min(rows, parts) // 8 if at is None else at
+            base = np.arange(rows) * 2
+            base[s:s + run] = base[s]
+            base[s + run:] += 1
+            qs[i] = np.minimum(base, parts)
+    vals = (qs[..., None] << sub_log2) + rng.integers(
+        0, 1 << sub_log2, size=(r * g, rows, 128))
+    vals = np.where(qs[..., None] >= parts, parts << sub_log2, vals)
+    vals = np.sort(vals.reshape(r * g, -1), axis=-1)
+    return torch.from_numpy(vals.astype(np.int32).reshape(r, g, rows, 128))
+
+
+@pytest.mark.parametrize("kind", ["random", "sentinel", "equal",
+                                  "mostly_sentinel", "empty"])
+@pytest.mark.parametrize("p_log2", [0, 6, 13])
+@pytest.mark.parametrize("rows", [1, 2, 64, 512, 16384])
+def test_partition_bounds_kernel_edges(rng, cuda, rows, p_log2, kind):
+    """The table and flags exact against plain, P > rows included, at caps
+    0 (every window misses), 1, 3 and 6; R * G = 3 and 4."""
+    for g in (2, 3):
+        x = _bounded_chunks(rng, kind, rows, p_log2, 4, g=g).to(cuda)
+        for cap in (0, 1, 3, 6):
+            before = pk.LAUNCHES["partition_bounds"]
+            fb, flags = pk.partition_bounds(x, 4, p_log2, cap)
+            assert pk.LAUNCHES["partition_bounds"] == before + 1
+            want_fb, want_flags = pk.partition_bounds_plain(x, 4, p_log2, cap)
+            torch.cuda.synchronize()
+            assert fb.shape == want_fb.shape and torch.equal(fb, want_fb)
+            assert torch.equal(flags, want_flags), (g, cap)
+
+
+@pytest.mark.parametrize("cap", [3, 6])
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+@pytest.mark.parametrize("rows", [64, 512, 16384])
+def test_partition_bounds_runs_at_cap(rng, cuda, rows, cap, delta):
+    """A run of cap - 1 equal maxima fits its window, cap and cap + 1 do
+    not; the run sits inside a block of 256 rows or across the rows 255 |
+    256 of two."""
+    for at in [None] + ([256 - cap // 2] if rows > 256 else []):
+        x = _bounded_chunks(rng, "run", rows, 13, 4, run=cap + delta,
+                            at=at).to(cuda)
+        fb, flags = pk.partition_bounds(x, 4, 13, cap)
+        want_fb, want_flags = pk.partition_bounds_plain(x, 4, 13, cap)
+        torch.cuda.synchronize()
+        assert want_flags.tolist() == ([0, 1] if delta < 0 else [1, 0])
+        assert torch.equal(fb, want_fb) and torch.equal(flags, want_flags)
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_partition_bounds_long_runs(rng, cuda, delta):
+    """A window of 200 rows: the run check reads past the 32 rows a block
+    stages after its own, for a run across two blocks."""
+    x = _bounded_chunks(rng, "run", 16384, 13, 4, run=200 + delta,
+                        at=1024 - 100).to(cuda)
+    fb, flags = pk.partition_bounds(x, 4, 13, 200)
+    want_fb, want_flags = pk.partition_bounds_plain(x, 4, 13, 200)
+    torch.cuda.synchronize()
+    assert want_flags.tolist() == ([0, 1] if delta < 0 else [1, 0])
+    assert torch.equal(fb, want_fb) and torch.equal(flags, want_flags)
+
+
+def test_partition_bounds_no_chunks(cuda):
+    """No chunk: an empty table, flags (0, 1), and no table launch."""
+    x = torch.zeros((0, 3, 64, 128), dtype=torch.int32, device=cuda)
+    before = pk.LAUNCHES["partition_bounds"]
+    fb, flags = pk.partition_bounds(x, 4, 6, 3)
+    assert pk.LAUNCHES["partition_bounds"] == before
+    assert fb.shape == (0, 3, 64) and flags.tolist() == [0, 1]
+
+
 # The staged seed kernel (B1/B3) and the one-sequence entries.
 
 MANY_RUNS = "10" * 40 + "1"             # 41 care runs of one base, k = 81
