@@ -7,7 +7,9 @@ Counterpart of ``nthash_tpu/__main__.py``. Commands:
   threshold, the kernels on ``--device`` above it.
 - ``count``: stream a FASTA/FASTQ file through the hash-and-sketch pipeline;
   print totals, throughput and the devices it ran on (the process group's
-  world size when one was formed, else 1).
+  world size when one was formed, else 1). ``--trace DIR`` runs the count
+  under ``utils/profiling.trace``: one Chrome trace in DIR with the
+  stream's spans (parse, wait, copy, step) beside the device's rows.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+from contextlib import nullcontext
 
 
 def _cmd_hash(args) -> int:
@@ -37,7 +40,7 @@ def _cmd_count(args) -> int:
     import torch
 
     from .models.pipeline import PipelineConfig, ReadHashingPipeline
-    from .utils import metrics
+    from .utils import metrics, profiling
 
     metrics.configure_logging()
     pipe = ReadHashingPipeline(
@@ -46,17 +49,20 @@ def _cmd_count(args) -> int:
         device=args.device,
     )
     where = f"on {pipe.n_devices} device(s) ({pipe.device})"
+    traced = profiling.trace(args.trace) if args.trace else nullcontext()
     t0 = time.perf_counter()
     if args.fused:
-        reads = pipe.count_file(args.file, batch_size=args.batch_size,
-                                threads=args.threads)
+        with traced:
+            reads = pipe.count_file(args.file, batch_size=args.batch_size,
+                                    threads=args.threads)
         total = int(pipe.sketch.rows[0].sum(dtype=torch.int64))
         dt = time.perf_counter() - t0
         print(f"{reads} reads, {total} valid {args.k}-mers in {dt:.2f}s "
               f"({reads / max(dt, 1e-9):.3g} reads/s) {where}")
         return 0
-    total = pipe.run_file(args.file, batch_size=args.batch_size,
-                          threads=args.threads)
+    with traced:
+        total = pipe.run_file(args.file, batch_size=args.batch_size,
+                              threads=args.threads)
     dt = time.perf_counter() - t0
     print(f"{total} valid {args.k}-mers in {dt:.2f}s "
           f"({total / max(dt, 1e-9):.3g} k-mers/s) {where}")
@@ -91,6 +97,9 @@ def main(argv=None) -> int:
                     help="byte-range shard parse threads (native parser)")
     pc.add_argument("--device", default="cuda",
                     help="torch device to count on (default: cuda)")
+    pc.add_argument("--trace", metavar="DIR",
+                    help="write a Chrome trace of the count, the program's "
+                    "spans beside the device's rows, to DIR/trace.<pid>.json")
     pc.set_defaults(fn=_cmd_count)
 
     args = p.parse_args(argv)

@@ -22,6 +22,8 @@ from collections import deque
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 class PinnedBuffers:
     """At most ``count`` page-locked host buffers, lent and reused in turn.
@@ -50,6 +52,8 @@ class PinnedBuffers:
         self._closed = False
 
     def _take(self, nbytes: int) -> torch.Tensor:
+        """A buffer of at least ``nbytes``; where none is free, the wait
+        for one runs inside the span ``nthash.pinned.wait``."""
         event = None
         with self._cv:
             while True:
@@ -62,9 +66,11 @@ class PinnedBuffers:
                 if self._copying:
                     buf, event = self._copying.popleft()
                     break
-                self._cv.wait()
-        if event is not None:
-            event.synchronize()   # the card has read this buffer
+                with span("nthash.pinned.wait"):
+                    self._cv.wait()
+        if event is not None and not event.query():
+            with span("nthash.pinned.wait"):
+                event.synchronize()   # the card has read this buffer
         if buf is None or buf.numel() < nbytes:
             buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
         with self._cv:

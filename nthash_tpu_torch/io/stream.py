@@ -19,7 +19,10 @@ Counterpart of ``nthash_tpu/io/stream.py``:
 The parser writes each batch straight into the array it yields, which
 comes from ``alloc(shape)`` where the caller passes one (the pipeline's
 pinned host buffers, ``io/pinned.py``) and is a new numpy array otherwise;
-no yielded array is written again.
+no yielded array is written again. The work of making batch n (its
+array, its parse) runs inside the span ``nthash.parse#n`` (``#shard.n`` in
+a shard's worker; ``utils/profiling.numbered``), on the thread that parses;
+one more span, numbered past the last batch, finds the end of the input.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import Iterator
 import numpy as np
 
 from ..constants import CODE_N
+from ..utils.profiling import numbered
 
 
 def sniff_read_length(path, sample: int = 1024) -> int:
@@ -120,34 +124,52 @@ def stream_code_batches(
         )
 
     shape = (batch_size, length)
-    buf = _new_batch(alloc, shape)
-    fill = 0
-
-    def flush(n):
-        if n < batch_size:
-            buf[n:] = CODE_N
-        return buf, n
-
     if native:
         from .native_loader import NativeFastxParser, sniff_format
 
         fmt = sniff_format(path) if start_offset else 0
         with NativeFastxParser(path, start_offset, None, fmt) as p:
-            while True:
-                n, longest = p.next_batch_into(buf[fill:])
-                if longest > length and on_long == "error":
-                    raise _too_long(path, longest, length)
-                fill += n
-                if fill == batch_size:
-                    yield flush(fill) + ((p.tell(),) if with_offsets else ())
-                    buf, fill = _new_batch(alloc, shape), 0
-                elif n == 0:
-                    break
-            if fill:
-                yield flush(fill) + ((p.tell(),) if with_offsets else ())
+            batches = _native_batches(p, shape, alloc, path, length, on_long,
+                                      with_offsets)
+            for _, item in numbered(batches, "nthash.parse"):
+                yield item
         return
+    batches = _numpy_batches(path, shape, alloc, length, on_long)
+    for _, item in numbered(batches, "nthash.parse"):
+        yield item
+
+
+def _native_batches(p, shape, alloc, path, length, on_long,
+                    with_offsets=False) -> Iterator[tuple]:
+    """The batches of ``shape`` one native parser ``p`` fills, as
+    (codes, n) or (codes, n, offset), the last padded with invalid rows."""
+    batch_size = shape[0]
+    buf, fill = _new_batch(alloc, shape), 0
+
+    def flush():
+        buf[fill:] = CODE_N
+        return (buf, fill) + ((p.tell(),) if with_offsets else ())
+
+    while True:
+        n, longest = p.next_batch_into(buf[fill:])
+        if longest > length and on_long == "error":
+            raise _too_long(path, longest, length)
+        fill += n
+        if fill == batch_size:
+            yield flush()
+            buf, fill = _new_batch(alloc, shape), 0
+        elif n == 0:
+            break
+    if fill:
+        yield flush()
+
+
+def _numpy_batches(path, shape, alloc, length, on_long) -> Iterator[tuple]:
+    """:func:`_native_batches` by the numpy reader (no offsets)."""
     from .fasta import ASCII_TO_CODE, read_fastx
 
+    batch_size = shape[0]
+    buf, fill = _new_batch(alloc, shape), 0
     for _, seq in read_fastx(path):
         if len(seq) > length and on_long == "error":
             raise _too_long(path, len(seq), length)
@@ -156,10 +178,11 @@ def stream_code_batches(
         buf[fill, len(arr):] = CODE_N
         fill += 1
         if fill == batch_size:
-            yield flush(fill)
+            yield buf, fill
             buf, fill = _new_batch(alloc, shape), 0
     if fill:
-        yield flush(fill)
+        buf[fill:] = CODE_N
+        yield buf, fill
 
 
 #: Rows :func:`pack_codes` packs at a time: its temporaries stay in cache,
@@ -285,7 +308,7 @@ def stream_code_batches_parallel(
     cancel = threading.Event()
     _DONE = object()
 
-    def worker(start, end):
+    def worker(shard, start, end):
         def put(item):
             while not cancel.is_set():
                 try:
@@ -301,28 +324,18 @@ def stream_code_batches_parallel(
 
         try:
             with NativeFastxParser(path, start, end, fmt) as p:
-                buf, fill = _new_batch(alloc, shape), 0
-                while True:
-                    n, longest = p.next_batch_into(buf[fill:])
-                    if longest > length and on_long == "error":
-                        raise _too_long(path, longest, length)
-                    fill += n
-                    if fill == batch_size:
-                        if not ship(buf, fill):
-                            return
-                        buf, fill = _new_batch(alloc, shape), 0
-                    elif n == 0:
-                        break
-                if fill:
-                    buf[fill:] = CODE_N
-                    ship(buf, fill)
+                batches = _native_batches(p, shape, alloc, path, length,
+                                          on_long)
+                for _, (buf, n) in numbered(batches, "nthash.parse", shard):
+                    if not ship(buf, n):
+                        return
         except BaseException as e:
             put(e)
         finally:
             put(_DONE)
 
     workers = [
-        threading.Thread(target=worker, args=(bounds[i], bounds[i + 1]),
+        threading.Thread(target=worker, args=(i, bounds[i], bounds[i + 1]),
                          daemon=True)
         for i in range(threads)
     ]

@@ -16,6 +16,14 @@ stream (``io/pinned.py``); on the CPU nothing is copied or pinned.
 The sketch is updated in place: every step adds its counts into
 ``pipeline.sketch.rows`` (``rows += counts``) instead of building a new
 tensor.
+
+While a ``torch.profiler`` runs, the consumer's work on batch n of a stream
+is named on its timeline (``utils/profiling.span``): ``nthash.stream.wait#n``
+(waiting for the parse; the last one, past the last batch, for the end of
+the stream), ``nthash.copy#n`` (the host side of the copy) and
+``nthash.step#n`` (hash, count and merge), and ``nthash.checkpoint`` a
+checkpoint written. The serial parse numbers its batches alike
+(``nthash.parse#n``, ``io/stream.py``), so one batch's spans share n.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from ..io.pinned import PinnedBuffers
 from ..ops.kmer_kernel import hash_kmers_tm_auto
 from ..parallel import dp
 from ..parallel.mesh import all_reduce_sum, device_mesh, size_and_rank
+from ..utils.profiling import numbered, span
 from . import sketch as cms
 
 
@@ -179,13 +188,16 @@ class ReadHashingPipeline:
             with_offsets=with_offsets, alloc=alloc)
         return src if stage is None else (stage(item) for item in src)
 
-    def _to_device(self, pool, *arrays) -> tuple[torch.Tensor, ...]:
-        """Host arrays of one item -> uint8 tensors on the device: one
+    def _to_device(self, pool, *arrays,
+                   n: int | None = None) -> tuple[torch.Tensor, ...]:
+        """Host arrays of item ``n`` -> uint8 tensors on the device: one
         asynchronous copy from ``pool``'s pinned buffer, or none at all on
-        the CPU."""
-        if pool is None:
-            return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
-        return pool.to_device(*arrays)
+        the CPU; inside the span ``nthash.copy#n``."""
+        with span("nthash.copy", n):
+            if pool is None:
+                return tuple(torch.from_numpy(a).to(self.device)
+                             for a in arrays)
+            return pool.to_device(*arrays)
 
     def step(self, codes):
         """Hash this rank's block of one [B, L] batch (B divisible by the
@@ -235,9 +247,10 @@ class ReadHashingPipeline:
                                  pool, pack=False)
         counts = []
         with Prefetcher(src, depth=prefetch) as pf, pool or nullcontext():
-            for batch, _ in pf:
-                (codes,) = self._to_device(pool, batch)
-                _, valid = self.step(codes)
+            for n, (batch, _) in numbered(iter(pf), "nthash.stream.wait"):
+                (codes,) = self._to_device(pool, batch, n=n)
+                with span("nthash.step", n):
+                    _, valid = self.step(codes)
                 counts.append(valid.sum(dtype=torch.int64))
         total = (torch.stack(counts).sum() if counts
                  else torch.zeros((), dtype=torch.int64, device=self.device))
@@ -311,37 +324,38 @@ class ReadHashingPipeline:
         def save_ckpt(offset):
             if not writes:
                 return
-            checkpoint.save(checkpoint_path, {
-                "rows": self.sketch.rows,
-                "reads": np.int64(total),
-                "offset": np.int64(offset),
-            }, context=ctx)
+            with span("nthash.checkpoint"):
+                checkpoint.save(checkpoint_path, {
+                    "rows": self.sketch.rows,
+                    "reads": np.int64(total),
+                    "offset": np.int64(offset),
+                }, context=ctx)
 
         pool = self._pool(threads, prefetch)
         src_it = self._host_batches(
             path, batch_size, read_length, threads, pool, cfg.pack_h2d,
             start_offset=start_offset, with_offsets=with_ckpt)
-        done = 0
         offset = start_offset
         with Prefetcher(src_it, depth=prefetch) as pf, pool or nullcontext():
-            for item in pf:
-                batch, n = item[0], item[1]
+            for n, item in numbered(iter(pf), "nthash.stream.wait"):
+                batch, reads = item[0], item[1]
                 if cfg.pack_h2d:
                     packed, nmask, length = batch
-                    packed, nmask = self._to_device(pool, packed, nmask)
-                    dp.fused_count_packed(
-                        dp.shard_reads(packed, self.mesh),
-                        dp.shard_reads(nmask, self.mesh), self.sketch, cfg.k,
-                        length, self.mesh)
+                    packed, nmask = self._to_device(pool, packed, nmask, n=n)
+                    with span("nthash.step", n):
+                        dp.fused_count_packed(
+                            dp.shard_reads(packed, self.mesh),
+                            dp.shard_reads(nmask, self.mesh), self.sketch,
+                            cfg.k, length, self.mesh)
                 else:
-                    (codes,) = self._to_device(pool, batch)
-                    dp.fused_count(dp.shard_reads(codes, self.mesh),
-                                   self.sketch, cfg.k, self.mesh)
-                total += n
-                done += 1
+                    (codes,) = self._to_device(pool, batch, n=n)
+                    with span("nthash.step", n):
+                        dp.fused_count(dp.shard_reads(codes, self.mesh),
+                                       self.sketch, cfg.k, self.mesh)
+                total += reads
                 if with_ckpt:
                     offset = item[2]
-                    if checkpoint_every and done % checkpoint_every == 0:
+                    if checkpoint_every and (n + 1) % checkpoint_every == 0:
                         save_ckpt(offset)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -53,6 +53,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import span
 from . import cuda_build
 
 MIN_WIDTH_LOG2 = 10
@@ -393,41 +394,47 @@ def _bin_args(idx, weight, width_log2, range_log2):
 
 def _bin_launch(idx, weight, width_log2, range_log2, per, gate) -> Bins:
     """Launch the binning pass on validated idx [R, N] (R * N > 0): scratch
-    from ``torch.empty``, the stage sized for every update."""
+    from ``torch.empty``, the stage sized for every update; inside the
+    span ``nthash.bin``."""
     rows, n = idx.shape
     nranges = binned_ranges(rows, width_log2, range_log2)
     dev = idx.device
-    meta = torch.empty(4 * nranges + 2, dtype=torch.int64, device=dev)
-    stage = torch.empty(rows * n, dtype=_stage_dtype(range_log2), device=dev)
-    name = "histogram" if range_log2 == COUNTS_RANGE_LOG2 else "bloom"
-    lib = _lib() if name == "histogram" else _bloom_lib()
-    args = [dev.index, idx.contiguous().data_ptr(), rows, n]
-    if name == "bloom":
-        args.append(None if weight is None else weight.contiguous().data_ptr())
-    status = getattr(lib, f"nthash_{name}_bin")(
-        *args, width_log2, per, meta.data_ptr(), stage.data_ptr(),
-        None if gate is None else gate.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(lib, status, f"{name} binning launch")
-    BIN_LAUNCHES[name] += 1
-    return Bins(meta[:nranges], meta[nranges:2 * nranges + 1],
-                meta[3 * nranges + 1:], stage, per)
+    with span("nthash.bin"):
+        meta = torch.empty(4 * nranges + 2, dtype=torch.int64, device=dev)
+        stage = torch.empty(rows * n, dtype=_stage_dtype(range_log2),
+                            device=dev)
+        name = "histogram" if range_log2 == COUNTS_RANGE_LOG2 else "bloom"
+        lib = _lib() if name == "histogram" else _bloom_lib()
+        args = [dev.index, idx.contiguous().data_ptr(), rows, n]
+        if name == "bloom":
+            args.append(None if weight is None
+                        else weight.contiguous().data_ptr())
+        status = getattr(lib, f"nthash_{name}_bin")(
+            *args, width_log2, per, meta.data_ptr(), stage.data_ptr(),
+            None if gate is None else gate.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        cuda_build.check(lib, status, f"{name} binning launch")
+        BIN_LAUNCHES[name] += 1
+        return Bins(meta[:nranges], meta[nranges:2 * nranges + 1],
+                    meta[3 * nranges + 1:], stage, per)
 
 
 def _ranges_launch(name: str, bins: Bins, blocks: int, out: torch.Tensor,
                    gate) -> None:
     """Launch the range pass of library ``name`` ("histogram" or "bloom")
     over a binning pass's ``bins`` (kernel route): ``blocks`` blocks of
-    ``bins.per`` staged entries, added or OR-ed into ``out``."""
+    ``bins.per`` staged entries, added or OR-ed into ``out``; inside the
+    span ``nthash.ranges``."""
     dev = out.device
-    lib = _lib() if name == "histogram" else _bloom_lib()
-    status = getattr(lib, f"nthash_{name}_ranges")(
-        dev.index, bins.stage.data_ptr(), bins.counts.data_ptr(),
-        bins.counts.numel(), bins.per, blocks, out.data_ptr(),
-        None if gate is None else gate.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(lib, status, f"{name} range launch")
-    RANGE_LAUNCHES[name] += 1
+    with span("nthash.ranges"):
+        lib = _lib() if name == "histogram" else _bloom_lib()
+        status = getattr(lib, f"nthash_{name}_ranges")(
+            dev.index, bins.stage.data_ptr(), bins.counts.data_ptr(),
+            bins.counts.numel(), bins.per, blocks, out.data_ptr(),
+            None if gate is None else gate.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        cuda_build.check(lib, status, f"{name} range launch")
+        RANGE_LAUNCHES[name] += 1
 
 
 def bin_ranges(idx: torch.Tensor, weight: torch.Tensor | None,
@@ -587,15 +594,17 @@ def histogram_rows(idx: torch.Tensor, weight: torch.Tensor | None,
     A CUDA tensor goes through the CUDA kernels (``csrc/histogram.cu``), by
     private counters, binned ranges or direct atomics as
     :func:`private_counts_grid` and :func:`binned_counts_grid` pick; a CPU
-    tensor through :func:`histogram_rows_plain`.
+    tensor through :func:`histogram_rows_plain`; either inside the span
+    ``nthash.histogram`` (``utils/profiling.span``).
     """
-    idx2, w = _rows_and_weight(idx, weight, width_log2)
-    _check_extras(idx2, 1 << width_log2, gate, out)
-    if idx2.is_cuda:
-        return _launch(idx2, w, width_log2, gate, out)
-    if idx2.device.type == "cpu":
-        return histogram_rows_plain(idx, weight, width_log2, gate=gate,
-                                    out=out)
+    with span("nthash.histogram"):
+        idx2, w = _rows_and_weight(idx, weight, width_log2)
+        _check_extras(idx2, 1 << width_log2, gate, out)
+        if idx2.is_cuda:
+            return _launch(idx2, w, width_log2, gate, out)
+        if idx2.device.type == "cpu":
+            return histogram_rows_plain(idx, weight, width_log2, gate=gate,
+                                        out=out)
     raise ValueError(f"no histogram route for device {idx2.device}")
 
 
@@ -812,10 +821,13 @@ def _words_launch(idx, weight, width_log2, gate, out, name, route=None):
 
 
 def _words_route(idx, weight, width_log2, gate, out, name):
-    if idx.is_cuda:
-        return _words_launch(idx, weight, width_log2, gate, out, name)
-    if idx.device.type == "cpu":
-        return _words_plain(idx, weight, width_log2, gate, out)
+    """The presence words' launch or plain version, inside the span
+    ``nthash.bloom``."""
+    with span("nthash.bloom"):
+        if idx.is_cuda:
+            return _words_launch(idx, weight, width_log2, gate, out, name)
+        if idx.device.type == "cpu":
+            return _words_plain(idx, weight, width_log2, gate, out)
     raise ValueError(f"no presence-word route for device {idx.device}")
 
 

@@ -29,6 +29,7 @@ import torch
 
 from .. import u64
 from ..constants import nte64_multiplier
+from ..utils.profiling import span
 from . import cuda_build
 from .kmer_torch import (
     hash_kmers,
@@ -230,19 +231,22 @@ def hash_kmers_tm(codes_tm: torch.Tensor, k: int, num_hashes: int = 1, *,
       int64 canonical + extensions (+ fwd, rev), or int32 buckets.
 
     A CUDA tensor goes through the CUDA kernel (``csrc/kmer_hash.cu``), a
-    CPU tensor through :func:`hash_kmers_tm_plain`.
+    CPU tensor through :func:`hash_kmers_tm_plain`; either inside the span
+    ``nthash.hash`` (``utils/profiling.span``).
     """
     global LAUNCHES
-    check_args(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets)
-    if codes_tm.is_cuda:
-        out = _launch(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets,
-                      codes_tm.shape[0] - k + 1)
-        LAUNCHES += codes_tm.shape[1] > 0  # an empty batch launches nothing
-        return out
-    if codes_tm.device.type == "cpu":
-        return hash_kmers_tm_plain(codes_tm, k, num_hashes,
-                                   emit_fwd_rev=emit_fwd_rev,
-                                   emit_buckets=emit_buckets)
+    with span("nthash.hash"):
+        check_args(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets)
+        if codes_tm.is_cuda:
+            out = _launch(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets,
+                          codes_tm.shape[0] - k + 1)
+            # an empty batch launches nothing
+            LAUNCHES += codes_tm.shape[1] > 0
+            return out
+        if codes_tm.device.type == "cpu":
+            return hash_kmers_tm_plain(codes_tm, k, num_hashes,
+                                       emit_fwd_rev=emit_fwd_rev,
+                                       emit_buckets=emit_buckets)
     raise ValueError(f"no kmer_hash route for device {codes_tm.device}")
 
 
@@ -257,21 +261,23 @@ def hash_kmers_tm_long(codes_tm: torch.Tensor, k: int, num_hashes: int = 1, *,
     the JAX package (whose kernel needs it for its history ring).
 
     A CUDA tensor goes through the CUDA kernel (``csrc/kmer_hash.cu``), a
-    CPU tensor through :func:`hash_kmers_tm_long_plain`.
+    CPU tensor through :func:`hash_kmers_tm_long_plain`; either inside the
+    span ``nthash.hash``.
     """
     global LONG_LAUNCHES
-    check_args(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets)
-    tile = resolve_time_tile(k, time_tile)
-    if codes_tm.is_cuda:
-        out = _launch(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets,
-                      min(tile, codes_tm.shape[0] - k + 1))
-        LONG_LAUNCHES += codes_tm.shape[1] > 0
-        return out
-    if codes_tm.device.type == "cpu":
-        return hash_kmers_tm_long_plain(codes_tm, k, num_hashes,
-                                        time_tile=tile,
-                                        emit_fwd_rev=emit_fwd_rev,
-                                        emit_buckets=emit_buckets)
+    with span("nthash.hash"):
+        check_args(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets)
+        tile = resolve_time_tile(k, time_tile)
+        if codes_tm.is_cuda:
+            out = _launch(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets,
+                          min(tile, codes_tm.shape[0] - k + 1))
+            LONG_LAUNCHES += codes_tm.shape[1] > 0
+            return out
+        if codes_tm.device.type == "cpu":
+            return hash_kmers_tm_long_plain(codes_tm, k, num_hashes,
+                                            time_tile=tile,
+                                            emit_fwd_rev=emit_fwd_rev,
+                                            emit_buckets=emit_buckets)
     raise ValueError(f"no kmer_hash route for device {codes_tm.device}")
 
 

@@ -28,6 +28,7 @@ from ..models import sketch as cms
 from ..ops.kmer_kernel import hash_kmers_tm_auto, prepare_codes
 from ..ops.kmer_torch import hash_kmers, window_valid_tm
 from ..ops.unpack_kernel import unpack_codes_tm
+from ..utils.profiling import span
 from .mesh import all_reduce_sum, size_and_rank
 
 ENGINES = ("kernel", "torch")
@@ -77,8 +78,10 @@ def _counted(sketch: cms.CountMinSketch, mesh, count) -> cms.CountMinSketch:
 
 def _merge(sketch: cms.CountMinSketch, counts: torch.Tensor,
            mesh) -> cms.CountMinSketch:
-    """``sketch.rows += sum of counts over the mesh``, in place."""
-    sketch.rows.add_(all_reduce_sum(counts, mesh))
+    """``sketch.rows += sum of counts over the mesh``, in place, inside the
+    span ``nthash.allreduce``."""
+    with span("nthash.allreduce"):
+        sketch.rows.add_(all_reduce_sum(counts, mesh))
     return sketch
 
 

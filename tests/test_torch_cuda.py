@@ -1548,3 +1548,73 @@ def test_binned_is_the_rule_on_the_wide_paths(rng, cuda):
     got = hist_kernel.bloom_words(stream, None, 30)
     assert hist_kernel.RANGE_LAUNCHES["bloom"] == before["bloom"] + 1
     assert torch.equal(got, hist_kernel.bloom_words_plain(stream, None, 30))
+
+
+def _host_spans(fn):
+    """The ``nthash.`` host rows recorded over ``fn()`` and a sync."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.name.startswith("nthash.")
+            and e.device_type != DeviceType.CUDA]
+
+
+def test_layer_spans_on_card(tmp_path, rng, cuda):
+    """On the card one ``nthash.hash`` and one ``nthash.histogram`` a
+    batch (the planes are views of one output: one launch); the binned
+    route's two host steps inside the histogram's span; count_file's
+    copy and step a batch."""
+    tms = [prepare_codes(_codes(rng, 512).to(cuda)) for _ in range(3)]
+    sketch = cms.CountMinSketch.zeros(4, 20, cuda)
+    names = _host_spans(lambda: [fused_count_step(tm, sketch, 21)
+                                 for tm in tms])
+    assert names.count("nthash.hash") == 3
+    assert names.count("nthash.histogram") == 3
+    idx = torch.from_numpy(rng.integers(0, 1 << 20, (2, 4096),
+                                        dtype=np.int32)).to(cuda)
+    names = _host_spans(lambda: hist_kernel._launch(idx, None, 20, None,
+                                                    None, route="binned"))
+    assert names == ["nthash.bin", "nthash.ranges"]
+    path = tmp_path / "reads.fq"
+    seqs = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (600, 80))]
+    with open(path, "wb") as f:
+        for s in seqs:
+            f.write(b"@r\n" + s.tobytes() + b"\n+\n" + b"I" * 80 + b"\n")
+    pipe = ReadHashingPipeline(PipelineConfig(k=21, num_hashes=2,
+                                              sketch_width_log2=14), cuda)
+    names = _host_spans(lambda: pipe.count_file(path, batch_size=256))
+    for span in ("nthash.copy", "nthash.step"):
+        assert sorted(n for n in names if n.startswith(span + "#")) == [
+            f"{span}#{i}" for i in range(3)]
+    assert names.count("nthash.hash") == 3
+
+
+def test_pinned_wait_span_on_card(tmp_path, cuda):
+    """A producer that finds no free pinned buffer waits inside
+    ``nthash.pinned.wait``, on its own thread, until the consumer copies
+    the buffer it holds."""
+    import json
+    import threading
+    import time
+
+    from nthash_tpu_torch.io.pinned import PinnedBuffers
+
+    with profiling.trace(tmp_path / "tr"), PinnedBuffers(cuda, 1) as pool:
+        held = pool.arrays((64,))
+        got = []
+        t = threading.Thread(target=lambda: got.append(pool.arrays((64,))))
+        t.start()
+        time.sleep(0.05)
+        pool.to_device(*held)
+        t.join(timeout=30)
+        assert not t.is_alive() and got
+        torch.cuda.synchronize()
+    (out,) = (tmp_path / "tr").glob("trace.*.json")
+    waits = [e for e in json.loads(out.read_text())["traceEvents"]
+             if e.get("name") == "nthash.pinned.wait"]
+    assert waits and all(e["tid"] != threading.get_native_id()
+                         for e in waits)

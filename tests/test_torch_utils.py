@@ -42,46 +42,6 @@ def test_configure_logging(caplog):
             metrics.logger.removeHandler(h)
 
 
-def test_counters_match_jax(monkeypatch):
-    from nthash_tpu.utils import metrics as jmetrics
-
-    got = metrics.Counters(started_at=100.0)
-    want = jmetrics.Counters(started_at=100.0)
-    monkeypatch.setattr(metrics.time, "time", lambda: 102.0)
-    monkeypatch.setattr(jmetrics.time, "time", lambda: 102.0)
-    for c in (got, want):
-        c.observe_batch(reads=10, windows=300, valid=250, num_hashes=4,
-                        bytes_in=1500)
-        c.observe_batch(reads=5, windows=150, valid=149)
-    assert got.rates() == want.rates() == {
-        "reads_per_s": 7.5, "kmers_per_s": 199.5, "hashes_per_s": 574.5}
-    fields = ("reads", "batches", "windows", "valid_kmers",
-              "skipped_windows", "hashes", "bytes_in", "started_at")
-    assert [getattr(got, f) for f in fields] == \
-        [getattr(want, f) for f in fields] == \
-        [15, 2, 450, 399, 51, 1149, 1500, 100.0]
-
-
-def test_counters_log(caplog):
-    c = metrics.Counters()
-    c.observe_batch(reads=3, windows=10, valid=7)
-    with caplog.at_level(logging.INFO, logger="nthash_tpu_torch"):
-        c.log()
-    assert "reads=3 batches=1 valid_kmers=7 skipped=3" in caplog.text
-
-
-def test_throughput_matches_jax():
-    from nthash_tpu.utils import profiling as jprofiling
-
-    t = profiling.Timing(0.25, (0.25, 0.5, 0.1))
-    assert t.per_second(10) == 40.0
-    want = jprofiling.throughput(jprofiling.Timing(0.25, 3), windows=1000,
-                                 num_hashes=4)
-    assert profiling.throughput(t, windows=1000, num_hashes=4) == want == {
-        "seconds_per_call": 0.25, "kmers_per_s": 4000.0,
-        "hashes_per_s": 16000.0}
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     import json
 
