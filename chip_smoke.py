@@ -3465,13 +3465,23 @@ BIN_WORD_EDGES = ((21, 1), (21, 3), (25, 1), (30, 1), (31, 1))
 #: route refuses: the private widths and too many ranges for one pass.
 BIN_REFUSED = (("A2", 15, 4), ("A2", 26, 4), ("A2", 30, 1), ("C1", 16, 1),
                ("C1", 20, 1), ("C1", 21, 4096))
+#: (width_log2, rows) of the clustered route's checks and timings: 4 rows
+#: at 2**26..2**28 (ranges of 2**16..2**18 counters) and one row at 2**28.
+BIN_CLUSTERED = ((26, 4), (27, 4), (28, 4), (28, 1))
+#: (width_log2, rows) where a forced clustered route is refused: the private
+#: widths, the binned route's, past 2**18-counter ranges.
+CLUSTERED_REFUSED = ((15, 4), (25, 4), (26, 2), (29, 4), (30, 4))
 #: (kernel, width_log2, rows) of the sweep that sets BINNED_MIN_ENTRIES and
 #: BINNED_MIN_WORD_ENTRIES: every width the rule bins at the path's rows
-#: (A2 with 4 rows, C1 with one), and the ends of the other row counts.
-BIN_SWEEP = (tuple(("A2", wl, 4) for wl in range(16, 26))
-             + (("A2", 16, 1), ("A2", 22, 1), ("A2", 27, 1))
+#: (A2 with 4 rows, binned to 2**25 and clustered to 2**28; C1 with one),
+#: and the ends of the other row counts.
+BIN_SWEEP = (tuple(("A2", wl, 4) for wl in range(16, 29))
+             + (("A2", 16, 1), ("A2", 22, 1), ("A2", 27, 1), ("A2", 28, 1),
+                ("A2", 30, 1))
              + tuple(("C1", wl, 1) for wl in range(21, 32))
              + (("C1", 21, 4), ("C1", 26, 4)))
+#: The count-min cell's genome: E. coli K-12 MG1655's length.
+GENOME = 4_641_652
 
 
 @contextlib.contextmanager
@@ -3485,6 +3495,31 @@ def direct_rule():
         yield
     finally:
         hist_kernel.binned_counts_grid, hist_kernel.binned_words_grid = saved
+
+
+def binned_route(rows: int, wl: int) -> str:
+    """The histogram's binned route at these shapes, to force it: "binned"
+    (ranges of 2**15) or "clustered" (2**16..2**18)."""
+    rl = hist_kernel.counts_range_log2(rows, wl)
+    return "binned" if rl == hist_kernel.COUNTS_RANGE_LOG2 else "clustered"
+
+
+def genome_reads(gen, n: int, dev) -> torch.Tensor:
+    """uint8 [n, L] codes of n reads from a random genome of ``GENOME``
+    bases, at uniform starts on either strand, with 0.25% substitutions: the
+    count-min cell's kind of traffic, where a k-mer recurs ~6 times a batch
+    of 2**18 reads (``make_codes``'s reads share no k-mer)."""
+    genome = torch.randint(0, 4, (GENOME,), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    start = torch.randint(0, GENOME - L + 1, (n, 1), generator=gen,
+                          device=dev)
+    reads = genome[start + torch.arange(L, device=dev)]
+    minus = torch.rand(n, generator=gen, device=dev) < 0.5
+    reads = torch.where(minus[:, None], (3 - reads).flip(1), reads)
+    sub = torch.rand((n, L), generator=gen, device=dev) < 0.0025
+    shift = torch.randint(1, 4, (n, L), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    return torch.where(sub, (reads + shift) % 4, reads)
 
 
 def bins_err(idx, weight, wl: int, rl: int, per: int = 4096) -> float:
@@ -3553,13 +3588,14 @@ def phase_binned_checks(codes: np.ndarray, gen, dev) -> dict:
     errs = dict.fromkeys(("bin_ranges_counts", "histogram_ranges",
                           "bin_ranges_words", "bloom_ranges"), 0.0)
     fills = []
-    counted = {"A2": 0, "C1": 0, "bins": 0}
+    counted = {"A2": 0, "A2 clustered": 0, "C1": 0, "bins": 0}
 
     def clone(t):
         return None if t is None else t.clone()
 
     def hist_same(idx, wl, what, gate=None, out=None):
-        got = hist_by("binned", idx, None, wl, gate, clone(out))
+        got = hist_by(binned_route(idx.shape[0], wl), idx, None, wl, gate,
+                      clone(out))
         want = histogram_rows_plain(idx, None, wl, gate=gate, out=clone(out))
         direct = hist_by("direct", idx, None, wl, gate, clone(out))
         torch.cuda.synchronize()
@@ -3567,7 +3603,8 @@ def phase_binned_checks(codes: np.ndarray, gen, dev) -> dict:
                                        max_abs_err(got, want))
         require(torch.equal(got, want) and torch.equal(direct, want),
                 f"binned histogram != plain != direct: {what}")
-        counted["A2"] += 1
+        counted["A2" if hist_kernel.counts_range_log2(idx.shape[0], wl) == 15
+                else "A2 clustered"] += 1
 
     def words_same(idx, weight, wl, what, gate=None, out=None):
         got = words_by("binned", idx, weight, wl, gate, clone(out))
@@ -3582,8 +3619,8 @@ def phase_binned_checks(codes: np.ndarray, gen, dev) -> dict:
         counted["C1"] += 1
 
     def bins_same(idx, weight, wl, rl, what):
-        name = ("bin_ranges_counts" if rl == hist_kernel.COUNTS_RANGE_LOG2
-                else "bin_ranges_words")
+        name = ("bin_ranges_words" if rl == hist_kernel.WORDS_RANGE_LOG2
+                else "bin_ranges_counts")
         err = bins_err(idx, weight, wl, rl)
         errs[name] = max(errs[name], err)
         require(err == 0, f"bin_ranges != plain by {err}: {what}")
@@ -3620,6 +3657,29 @@ def phase_binned_checks(codes: np.ndarray, gen, dev) -> dict:
         gated(hist_same, edge_streams(gen, rows, wl, 15, dev)[4][1], wl,
               1 << wl)
         torch.cuda.empty_cache()
+    # the clustered route: the count-min cell's batch at 4 x 2**28 by the
+    # rule, then the edge shapes forced, at every clustered width
+    cell = hist_kernel.rows_view(hash_kmers_tm(
+        prepare_codes(genome_reads(gen, BATCH, dev)), K, H, emit_buckets=28))
+    require(hist_kernel._counts_route(H, cell.shape[1], 28, False, None)[0]
+            == "clustered", "the rule gives the 4 x 2**28 batch no "
+            "clustered route")
+    got = histogram_rows(cell, None, 28)
+    require(torch.equal(got, histogram_rows_plain(cell, None, 28)),
+            "the rule's clustered histogram of a genomic batch at 4 x 2**28 "
+            "!= plain")
+    counted["A2 clustered"] += 1
+    del got, cell
+    torch.cuda.empty_cache()
+    for wl, rows in BIN_CLUSTERED:
+        rl = hist_kernel.counts_range_log2(rows, wl)
+        for what, idx in edge_streams(gen, rows, wl, rl, dev):
+            hist_same(idx, wl, f"{what}, [{rows}, n] at 2**{wl}")
+            bins_same(idx, None, wl, rl, f"{what}, [{rows}, n] at 2**{wl}")
+            torch.cuda.empty_cache()
+        gated(hist_same, edge_streams(gen, rows, wl, rl, dev)[4][1], wl,
+              1 << wl)
+        torch.cuda.empty_cache()
     for wl, rows in BIN_WORD_EDGES:
         streams = edge_streams(gen, rows, wl, 20, dev)
         for what, idx in streams:
@@ -3645,16 +3705,26 @@ def phase_binned_checks(codes: np.ndarray, gen, dev) -> dict:
             continue
         raise AssertionError(f"a binned {kernel} at 2**{wl} x {rows} rows "
                              "was not refused")
+    for wl, rows in CLUSTERED_REFUSED:
+        idx = torch.zeros((rows, 8), dtype=torch.int32, device=dev)
+        try:
+            hist_by("clustered", idx, None, wl)
+        except ValueError:
+            continue
+        raise AssertionError(f"a clustered A2 at 2**{wl} x {rows} rows was "
+                             "not refused")
     low = min(fills)
     require(low[0] < 0.5, f"every C1 compare was saturated: {low}")
     print(f"[binned] exact (torch.equal, whole tables): A2 binned == plain "
-          f"== direct in {counted['A2']} compares, C1 in {counted['C1']} "
+          f"== direct in {counted['A2']} compares, A2 clustered in "
+          f"{counted['A2 clustered']} (widths {list(BIN_CLUSTERED)}), C1 in "
+          f"{counted['C1']} "
           f"(lowest fill {low[0]:.6f}: {low[1]}; highest "
           f"{max(fills)[0]:.6f}), bin_ranges == plain (counts, starts, "
           f"blocks; each range's offsets as a multiset) in "
           f"{counted['bins']}; widths A2 {[w for w, _ in BIN_HIST_EDGES]}, C1 "
           f"{[w for w, _ in BIN_WORD_EDGES]}; refused where there is none: "
-          f"{list(BIN_REFUSED)}")
+          f"{list(BIN_REFUSED)}, clustered {list(CLUSTERED_REFUSED)}")
     return errs
 
 
@@ -3668,6 +3738,77 @@ def prepared_in_turns(prepare, fns: dict, rounds: int = 2) -> dict:
         for name in (names if i % 2 == 0 else names[::-1]):
             got[name].append(time_prepared(prepare, fns[name]))
     return {name: statistics.mean(v) for name, v in got.items()}
+
+
+def time_clustered(codes: np.ndarray, gen, dev, tag: str) -> None:
+    """Phase 31, the clustered route: at each ``BIN_CLUSTERED`` shape, on
+    batch 0's buckets of the 1M reads and of a genomic batch
+    (``genome_reads``), the route and direct atomics into one accumulating
+    table in turns, the binning pass and the range pass alone, the plain
+    version and the bound (every index read once, every touched counter
+    read and written once); then phase 23's two skewed streams at 4 x
+    2**28."""
+    batches = {"reads": torch.from_numpy(codes[:BATCH]).to(dev),
+               "genomic": genome_reads(gen, BATCH, dev)}
+    for wl, rows in BIN_CLUSTERED:
+        rl = hist_kernel.counts_range_log2(rows, wl)
+        out = torch.zeros((rows, 1 << wl), dtype=torch.int32, device=dev)
+        for label, reads in batches.items():
+            idx = hist_kernel.rows_view(hash_kmers_tm(
+                prepare_codes(reads), K, H, emit_buckets=wl)).reshape(rows, -1)
+            n = idx.shape[1]
+            per, blocks = hist_kernel.binned_counts_grid(rows, n, wl)
+            require(per > 0 and binned_route(rows, wl) == "clustered",
+                    f"no clustered route at [{rows}, {n}] x 2**{wl}")
+            routes = in_turns({r: (lambda x, r=r: hist_by(r, x, None, wl,
+                                                          out=out))
+                               for r in ("clustered", "direct")}, idx)
+            bins = hist_kernel.bin_ranges(idx, None, wl, rl, per)
+            t_bin = timeit(lambda x: hist_kernel.bin_ranges(x, None, wl, rl,
+                                                            per),
+                           idx).seconds_per_call
+            t_ranges = time_prepared(lambda: bins, lambda b: (
+                hist_kernel._ranges_launch("histogram", b, blocks, out,
+                                           None)))
+            t_plain = timeit(lambda x: histogram_rows_plain(x, None, wl),
+                             idx).seconds_per_call
+            valid = idx[(idx >= 0) & (idx < (1 << wl))].long()
+            rid = torch.arange(rows, device=dev)[:, None].expand(rows, n)
+            touched = torch.unique(
+                (rid[(idx >= 0) & (idx < (1 << wl))] << wl) | valid).numel()
+            nbytes = idx.numel() * 4 + touched * 8
+            print(f"[time] clustered A2, [{rows}, {n}] at 2**{wl} (ranges "
+                  f"of 2**{rl}, {blocks} blocks of {per} entries), batch 0 "
+                  f"of the {label}, {touched} counters touched: clustered "
+                  f"{routes['clustered'] * 1e3:.4f} ms, direct "
+                  f"{routes['direct'] * 1e3:.4f} ms, in turns; binning "
+                  f"{t_bin * 1e3:.4f} ms, range pass {t_ranges * 1e3:.4f} ms; "
+                  f"plain {t_plain * 1e3:.4f} ms; bound "
+                  f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e9:.4f} GB) {tag}")
+            del idx, bins, valid, rid
+            torch.cuda.empty_cache()
+        del out
+        torch.cuda.empty_cache()
+    bucks = hist_kernel.rows_view(hash_kmers_tm(
+        prepare_codes(batches["reads"]), K, H, emit_buckets=28))
+    n = bucks.shape[1]
+    for label, idx in (("(a) every entry one value",
+                        torch.full_like(bucks, 12345)),
+                       ("(b) one eighth of the entries one value",
+                        bucks.clone().index_fill_(
+                            1, torch.arange(0, n, 8, device=dev), 12345))):
+        got = in_turns({r: (lambda x, r=r: hist_by(r, x, None, 28))
+                        for r in ("clustered", "direct")}, idx)
+        require(torch.equal(hist_by("clustered", idx, None, 28),
+                            hist_by("direct", idx, None, 28)),
+                f"skewed stream {label} at 2**28: clustered != direct")
+        print(f"[time] skewed stream at 2**28, batch 0's [{H}, {n}] buckets, "
+              f"{label}: clustered {got['clustered'] * 1e3:.4f} ms, direct "
+              f"{got['direct'] * 1e3:.4f} ms, in turns (results equal) {tag}")
+        del idx
+        torch.cuda.empty_cache()
+    del bucks, batches
+    torch.cuda.empty_cache()
 
 
 def phase_binned_timings(codes: np.ndarray, gen, dev, card: str) -> dict:
@@ -3877,6 +4018,8 @@ def phase_binned_timings(codes: np.ndarray, gen, dev, card: str) -> dict:
     del tms
     torch.cuda.empty_cache()
 
+    time_clustered(codes, gen, dev, tag)
+
     # the rule's constants: updates a call from which binned beats direct,
     # at every width where the rule bins
     lost = []
@@ -3886,6 +4029,9 @@ def phase_binned_timings(codes: np.ndarray, gen, dev, card: str) -> dict:
         by = hist_by if kernel == "A2" else words_by
         grid = (hist_kernel.binned_counts_grid if kernel == "A2"
                 else hist_kernel.binned_words_grid)
+        route = binned_route(rows, wl) if kernel == "A2" else "binned"
+        rl = (hist_kernel.counts_range_log2(rows, wl) if kernel == "A2"
+              else hist_kernel.WORDS_RANGE_LOG2)
         cells = []
         for total in (1 << 22, 1 << 23, 1 << 24, 1 << 25):
             x = torch.randint(0, min(1 << wl, (1 << 31) - 1),
@@ -3894,23 +4040,23 @@ def phase_binned_timings(codes: np.ndarray, gen, dev, card: str) -> dict:
             got = prepared_in_turns(
                 lambda x=x: (table.zero_(), x)[1],
                 {r: (lambda y, r=r: by(r, y, None, wl, out=table))
-                 for r in ("binned", "direct")})
-            rule = "binned" if grid(rows, total // rows, wl)[0] else "direct"
-            if rule == "binned" and got["binned"] >= got["direct"]:
+                 for r in (route, "direct")})
+            rule = route if grid(rows, total // rows, wl)[0] else "direct"
+            if rule == route and got[route] >= got["direct"]:
                 lost.append(f"{kernel} [{rows}, n] at 2**{wl}, 2**"
                             f"{total.bit_length() - 1}")
             cells.append(f"2**{total.bit_length() - 1}: "
-                         f"{got['binned'] * 1e3:.4f} / "
+                         f"{got[route] * 1e3:.4f} / "
                          f"{got['direct'] * 1e3:.4f} ({rule})")
             del x
         print(f"[time] sweep, {kernel} [{rows}, n] at 2**{wl} (ranges "
-              f"{hist_kernel.binned_ranges(rows, wl, 15 if kernel == 'A2' else 20)}"
-              f"), updates a call: binned / direct ms, in turns (the rule's "
+              f"{hist_kernel.binned_ranges(rows, wl, rl)} of 2**{rl}), "
+              f"updates a call: {route} / direct ms, in turns (the rule's "
               f"route): {'; '.join(cells)} {tag}")
         del table
         torch.cuda.empty_cache()
     print(f"[time] sweep: {len(BIN_SWEEP)} shapes x 4 sizes; where the rule "
-          f"bins, binned lost at {lost or 'none'} {tag}")
+          f"bins (binned or clustered), it lost at {lost or 'none'} {tag}")
     return res
 
 

@@ -6,11 +6,13 @@ for what it computes rather than for the TPU's matrix unit:
 
 - :func:`histogram_rows` is ``mxu_histogram_rows`` and :func:`histogram` is
   ``mxu_histogram``; the kernel is ``csrc/histogram.cu`` (replaces the
-  Pallas ``_hist_kernel``). It has three routes, private counters in
-  shared memory, binned (the updates grouped by range of 2**15 counters,
-  then each range counted in shared memory) or direct atomics, and
-  :func:`private_counts_grid` and :func:`binned_counts_grid` pick one from
-  the shapes alone;
+  Pallas ``_hist_kernel``). It has four routes: private counters in
+  shared memory; binned (the updates grouped by range of 2**15 counters,
+  then each range counted in shared memory); clustered (where those ranges
+  are more than one pass takes: ranges of 2**16..2**18 counters, each slice
+  of a range's updates clustered into one count an offset in a hash table
+  in shared memory); or direct atomics. :func:`private_counts_grid` and
+  :func:`binned_counts_grid` pick one from the shapes alone;
 - :func:`bloom_words` is ``mxu_bloom_words`` and :func:`bloom_words_rows` is
   ``mxu_bloom_words_rows``; the kernel is ``csrc/bloom.cu`` (replaces
   ``_bloom_kernel`` and ``_bloom_rows_kernel``), in the same
@@ -19,10 +21,11 @@ for what it computes rather than for the TPU's matrix unit:
   direct atomics, and :func:`private_words_grid` and
   :func:`binned_words_grid` pick one from the shapes alone.
 
-Both binned routes share one binning pass, ``csrc/bin.cuh``
+The binned and clustered routes share one binning pass, ``csrc/bin.cuh``
 (:func:`bin_ranges`); its plain version :func:`bin_ranges_plain` and the
-range passes' :func:`histogram_ranges_plain` and :func:`bloom_ranges_plain`
-compose to :func:`histogram_rows_plain` and :func:`bloom_words_plain`.
+range passes' :func:`histogram_ranges_plain` (both histogram routes) and
+:func:`bloom_ranges_plain` compose to :func:`histogram_rows_plain` and
+:func:`bloom_words_plain`.
 
 Each source note says what bounds its kernel on the H100.
 
@@ -62,7 +65,7 @@ MAX_WIDTH_LOG2 = 30
 #: Kernel launches made by :func:`histogram_rows` in this process, and the
 #: same launches by route.
 LAUNCHES = 0
-ROUTE_LAUNCHES = {"private": 0, "direct": 0, "binned": 0}
+ROUTE_LAUNCHES = {"private": 0, "direct": 0, "binned": 0, "clustered": 0}
 #: Widest row whose counters a block keeps in shared memory: 2**15 int32
 #: counters are 128 KB of the 227 KB a block may use.
 PRIVATE_COUNTS_MAX_WIDTH_LOG2 = 15
@@ -81,6 +84,15 @@ PRIVATE_TARGET_THREADS = 132 * 1024
 #: KB), each range's table in one block's shared memory.
 COUNTS_RANGE_LOG2 = 15
 WORDS_RANGE_LOG2 = 20
+#: The histogram's clustered route: where the rows hold more than
+#: ``BINNED_MAX_RANGES`` ranges of 2**15 counters, ranges of up to 2**18
+#: counters (4 rows at 2**28 in 4,096 ranges), each counted a slice at a
+#: time in a hash table in a block's shared memory that clusters equal
+#: offsets into one count; a block's slice is at most
+#: ``CLUSTERED_RANGE_ENTRIES`` staged entries, so that its table of at most
+#: 2**15 slots (128 KB) stays half full and a 14-bit count never wraps.
+CLUSTERED_MAX_RANGE_LOG2 = 18
+CLUSTERED_RANGE_ENTRIES = (1 << 14) - 8
 #: Most ranges (all rows together) one binning pass takes: its blocks keep
 #: a count, a rank and a base per range of their row in shared memory.
 BINNED_MAX_RANGES = 4096
@@ -88,11 +100,12 @@ BINNED_MAX_RANGES = 4096
 #: (the histogram's, then the presence words'): below it the passes' fixed
 #: costs (five launches, a block a range, the scratch) outweigh what they
 #: save. ``chip_smoke.py`` phase 31 sweeps 2**22..2**25 updates at every
-#: width the rule bins (A2 with 4 rows at 2**16..2**25 and one row at 2**16,
-#: 2**22, 2**27; C1 with one row at 2**21..2**31 and 4 rows at 2**21,
-#: 2**26) on an NVIDIA H100 80GB HBM3 at 700 W: A2 binned wins from 2**24
-#: at every width and C1 from 2**25 (from fewer where the table is past
-#: the L2). Each constant is the least that wins at every swept width.
+#: width the rule bins (A2 with 4 rows at 2**16..2**28 and one row at 2**16,
+#: 2**22, 2**27, 2**28, 2**30; C1 with one row at 2**21..2**31 and 4 rows at
+#: 2**21, 2**26) on an NVIDIA H100 80GB HBM3 at 700 W: A2 binned and
+#: clustered win from 2**24 at every width and C1 from 2**25 (from fewer
+#: where the table is past the L2). Each constant is the least that wins at
+#: every swept width.
 #: With at most ``BINNED_MAX_RANGES`` ranges that is at least 4,096 updates
 #: a range.
 BINNED_MIN_ENTRIES = 1 << 24
@@ -101,7 +114,8 @@ BINNED_MIN_WORD_ENTRIES = 1 << 25
 BINNED_RANGE_ENTRIES = 1 << 17
 BINNED_MIN_RANGE_ENTRIES = 1 << 14
 #: Launches of the binning pass and of the range pass that follows it, by
-#: the library that ran them (``histogram``: A2, ``bloom``: C1 and C2).
+#: the library that ran them (``histogram``: A2's binned and clustered
+#: routes, ``bloom``: C1 and C2).
 BIN_LAUNCHES = {"histogram": 0, "bloom": 0}
 RANGE_LAUNCHES = {"histogram": 0, "bloom": 0}
 
@@ -230,15 +244,17 @@ def _lib() -> ctypes.CDLL:
 
 def _bind_binned(lib: ctypes.CDLL, name: str) -> None:
     """argtypes of a library's two binned entry points, ``nthash_<name>_bin``
-    and ``nthash_<name>_ranges``."""
+    and ``nthash_<name>_ranges`` (the histogram's take the range's log2,
+    the presence words' a weight)."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = getattr(lib, f"nthash_{name}_bin")
     fn.restype = i
-    fn.argtypes = ([i, p, ll, ll] + ([p] if name == "bloom" else [])
-                   + [i, ll, p, p, p, p])
+    fn.argtypes = ([i, p, ll, ll] + ([p, i] if name == "bloom" else [i, i])
+                   + [ll, p, p, p, p])
     fn = getattr(lib, f"nthash_{name}_ranges")
     fn.restype = i
-    fn.argtypes = [i, p, p, i, ll, ll, p, p, p]
+    fn.argtypes = ([i, p, p, i] + ([i] if name == "histogram" else [])
+                   + [ll, ll, p, p, p])
 
 
 def _private_count_threads(width_log2: int) -> int:
@@ -291,6 +307,7 @@ class Bins(NamedTuple):
     blocks: torch.Tensor  #: int64 [nranges + 1], scan of ceil(counts / per)
     stage: torch.Tensor   #: offsets b & (2**range_log2 - 1), grouped by range
     per: int              #: staged entries a block of the range pass takes
+    range_log2: int       #: log2 of the buckets one range holds
 
 
 def binned_ranges(rows: int, width_log2: int, range_log2: int) -> int:
@@ -304,44 +321,70 @@ def binned_ranges(rows: int, width_log2: int, range_log2: int) -> int:
     return nranges if nranges <= BINNED_MAX_RANGES else 0
 
 
-def _range_grid(total: int, nranges: int) -> tuple[int, int]:
+def _range_grid(total: int, nranges: int,
+                range_log2: int) -> tuple[int, int]:
     """(entries a block of the range pass takes, blocks to launch) for
-    ``total`` updates over ``nranges`` ranges. ``per`` splits the updates
-    over four blocks for each of the H100's 132 multiprocessors, within
-    [``BINNED_MIN_RANGE_ENTRIES``, ``BINNED_RANGE_ENTRIES``], rounded up to
-    whole 16-byte loads. Range g takes ceil(count / per) blocks, so
-    ceil(total / per) + nranges blocks cover any split of ``total`` over
-    the ranges; the blocks past the last range's return at once."""
-    per = min(BINNED_RANGE_ENTRIES,
-              max(BINNED_MIN_RANGE_ENTRIES, total // (4 * 132)))
-    per = -(-per // 8) * 8
+    ``total`` updates over ``nranges`` ranges of 2**range_log2 buckets.
+    ``per`` is ``CLUSTERED_RANGE_ENTRIES`` on the clustered route; else it
+    splits the updates over four blocks for each of the H100's 132
+    multiprocessors, within [``BINNED_MIN_RANGE_ENTRIES``,
+    ``BINNED_RANGE_ENTRIES``], rounded up to whole 16-byte loads. Range g
+    takes ceil(count / per) blocks, so ceil(total / per) + nranges blocks
+    cover any split of ``total`` over the ranges; the blocks past the last
+    range's return at once."""
+    if COUNTS_RANGE_LOG2 < range_log2 <= CLUSTERED_MAX_RANGE_LOG2:
+        per = CLUSTERED_RANGE_ENTRIES
+    else:
+        per = min(BINNED_RANGE_ENTRIES,
+                  max(BINNED_MIN_RANGE_ENTRIES, total // (4 * 132)))
+        per = -(-per // 8) * 8
     return per, -(-total // per) + nranges
 
 
 def _binned_grid(rows, n, width_log2, range_log2):
     nranges = binned_ranges(rows, width_log2, range_log2)
-    least = (BINNED_MIN_ENTRIES if range_log2 == COUNTS_RANGE_LOG2
-             else BINNED_MIN_WORD_ENTRIES)
+    least = (BINNED_MIN_WORD_ENTRIES if range_log2 == WORDS_RANGE_LOG2
+             else BINNED_MIN_ENTRIES)
     if n < 1 or not nranges or rows * n < least:
         return 0, 0
-    return _range_grid(rows * n, nranges)
+    return _range_grid(rows * n, nranges, range_log2)
+
+
+def counts_range_log2(rows: int, width_log2: int) -> int:
+    """log2 of the counters one range of the histogram's binned routes
+    holds for ``rows`` rows at width 2**width_log2: the least of 15 (the
+    binned route, every counter of a range in a block's shared memory) and
+    16..18 (the clustered route, a hash table there) whose ranges the
+    binning pass takes (:func:`binned_ranges`), or 0 where none does (the
+    private widths, and 4 rows past 2**28)."""
+    for range_log2 in range(COUNTS_RANGE_LOG2, CLUSTERED_MAX_RANGE_LOG2 + 1):
+        if binned_ranges(rows, width_log2, range_log2):
+            return range_log2
+    return 0
 
 
 def binned_counts_grid(rows: int, n: int,
                        width_log2: int) -> tuple[int, int]:
-    """The histogram's binned route for idx [rows, n], from the shapes
-    alone: (entries a block of the range pass takes, blocks of the range
-    pass), or (0, 0) where it does not apply.
+    """The histogram's binned or clustered route for idx [rows, n], from
+    the shapes alone: (entries a block of the range pass takes, blocks of
+    the range pass), or (0, 0) where neither applies.
 
-    It applies above the private counters' widths (from 2**16) where the
-    rows' ranges of 2**15 counters number at most ``BINNED_MAX_RANGES``
-    (with 4 rows up to 2**25) and the call brings at least
-    ``BINNED_MIN_ENTRIES`` updates. Weighted counts never take it (:func:`histogram_rows`): the main
-    path counts unweighted buckets, and staging a weight beside each offset
-    would double the stage's bytes for the one caller that passes one
+    One binning pass, its range read from the shapes
+    (:func:`counts_range_log2`): ranges of 2**15 counters (the binned
+    route: with 4 rows from 2**16 up to 2**25), else of 2**16..2**18
+    counters, each counted a slice at a time in a hash table (the clustered
+    route: with 4 rows 2**26..2**28, with one 2**28..2**30). Either needs at
+    least ``BINNED_MIN_ENTRIES`` updates a call (``chip_smoke.py`` phase
+    31's sweep: the clustered route too wins from 2**24 at every width it
+    serves). Weighted counts never take it (:func:`histogram_rows`): the
+    main path counts unweighted buckets, and staging a weight beside each
+    offset would double the stage's bytes for the one caller that passes one
     (``models/sketch.update``'s 0/1 validity).
     """
-    return _binned_grid(rows, n, width_log2, COUNTS_RANGE_LOG2)
+    range_log2 = counts_range_log2(rows, width_log2)
+    if not range_log2:
+        return 0, 0
+    return _binned_grid(rows, n, width_log2, range_log2)
 
 
 def bin_ranges_plain(idx: torch.Tensor, weight: torch.Tensor | None,
@@ -369,7 +412,7 @@ def bin_ranges_plain(idx: torch.Tensor, weight: torch.Tensor | None,
     stage = (b[keep] & ((1 << range_log2) - 1))[order]
     return Bins(counts, torch.cat([zero, counts.cumsum(0)]),
                 torch.cat([zero, ((counts + per - 1) // per).cumsum(0)]),
-                stage.to(_stage_dtype(range_log2)), per)
+                stage.to(_stage_dtype(range_log2)), per, range_log2)
 
 
 def _stage_dtype(range_log2: int) -> torch.dtype:
@@ -377,9 +420,12 @@ def _stage_dtype(range_log2: int) -> torch.dtype:
 
 
 def _bin_args(idx, weight, width_log2, range_log2):
-    if range_log2 not in (COUNTS_RANGE_LOG2, WORDS_RANGE_LOG2):
-        raise ValueError(f"range_log2 must be {COUNTS_RANGE_LOG2} or "
-                         f"{WORDS_RANGE_LOG2}, got {range_log2}")
+    if not (COUNTS_RANGE_LOG2 <= range_log2 <= CLUSTERED_MAX_RANGE_LOG2
+            or range_log2 == WORDS_RANGE_LOG2):
+        raise ValueError(
+            f"range_log2 must be in [{COUNTS_RANGE_LOG2}, "
+            f"{CLUSTERED_MAX_RANGE_LOG2}] or {WORDS_RANGE_LOG2}, got "
+            f"{range_log2}")
     idx, weight = _rows_and_weight(idx, weight, width_log2, MIN_WIDTH_LOG2,
                                    BLOOM_MAX_WIDTH_LOG2)
     if weight is not None and (idx.shape[0] != 1 or weight.dim() != 1):
@@ -403,20 +449,22 @@ def _bin_launch(idx, weight, width_log2, range_log2, per, gate) -> Bins:
         meta = torch.empty(4 * nranges + 2, dtype=torch.int64, device=dev)
         stage = torch.empty(rows * n, dtype=_stage_dtype(range_log2),
                             device=dev)
-        name = "histogram" if range_log2 == COUNTS_RANGE_LOG2 else "bloom"
+        name = "bloom" if range_log2 == WORDS_RANGE_LOG2 else "histogram"
         lib = _lib() if name == "histogram" else _bloom_lib()
         args = [dev.index, idx.contiguous().data_ptr(), rows, n]
         if name == "bloom":
-            args.append(None if weight is None
-                        else weight.contiguous().data_ptr())
+            args += [None if weight is None
+                     else weight.contiguous().data_ptr(), width_log2]
+        else:
+            args += [width_log2, range_log2]
         status = getattr(lib, f"nthash_{name}_bin")(
-            *args, width_log2, per, meta.data_ptr(), stage.data_ptr(),
+            *args, per, meta.data_ptr(), stage.data_ptr(),
             None if gate is None else gate.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         cuda_build.check(lib, status, f"{name} binning launch")
         BIN_LAUNCHES[name] += 1
         return Bins(meta[:nranges], meta[nranges:2 * nranges + 1],
-                    meta[3 * nranges + 1:], stage, per)
+                    meta[3 * nranges + 1:], stage, per, range_log2)
 
 
 def _ranges_launch(name: str, bins: Bins, blocks: int, out: torch.Tensor,
@@ -428,9 +476,12 @@ def _ranges_launch(name: str, bins: Bins, blocks: int, out: torch.Tensor,
     dev = out.device
     with span("nthash.ranges"):
         lib = _lib() if name == "histogram" else _bloom_lib()
+        args = [dev.index, bins.stage.data_ptr(), bins.counts.data_ptr(),
+                bins.counts.numel()]
+        if name == "histogram":
+            args.append(bins.range_log2)
         status = getattr(lib, f"nthash_{name}_ranges")(
-            dev.index, bins.stage.data_ptr(), bins.counts.data_ptr(),
-            bins.counts.numel(), bins.per, blocks, out.data_ptr(),
+            *args, bins.per, blocks, out.data_ptr(),
             None if gate is None else gate.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         cuda_build.check(lib, status, f"{name} range launch")
@@ -443,8 +494,9 @@ def bin_ranges(idx: torch.Tensor, weight: torch.Tensor | None,
     """The binning pass of the binned routes: the valid updates of idx
     [R, ...] grouped by range of 2**range_log2 buckets, with no sort.
 
-    ``range_log2`` is 15 (the histogram's ranges, an int16 stage, launched
-    from ``csrc/histogram.cu``) or 20 (the presence words', int32, from
+    ``range_log2`` is 15 (the histogram's binned route, an int16 stage),
+    16..18 (its clustered route, int32), both launched from
+    ``csrc/histogram.cu``, or 20 (the presence words', int32, from
     ``csrc/bloom.cu``); ``weight`` (int32 [N], one row only) drops the
     updates whose weight is 0. Returns :class:`Bins`; on the kernel route
     the stage has R * N entries, of which the first ``starts[-1]`` are
@@ -463,7 +515,7 @@ def bin_ranges(idx: torch.Tensor, weight: torch.Tensor | None,
             return Bins(zeros[:nranges], zeros[:nranges + 1],
                         zeros[nranges + 1:], torch.empty(
                             0, dtype=_stage_dtype(range_log2),
-                            device=idx2.device), per)
+                            device=idx2.device), per, range_log2)
         return _bin_launch(idx2, w, width_log2, range_log2, per, None)
     if idx2.device.type == "cpu":
         return bin_ranges_plain(idx2, w, width_log2, range_log2, per)
@@ -477,19 +529,19 @@ def _range_ids(bins: Bins) -> torch.Tensor:
         torch.arange(counts.numel(), device=counts.device), counts)
 
 
-def _staged_buckets(bins: Bins, range_log2: int) -> torch.Tensor:
+def _staged_buckets(bins: Bins) -> torch.Tensor:
     """Each staged update as its flat index row * width + b, int64."""
     total = int(bins.starts[-1])
-    off = bins.stage[:total].to(torch.int64) & ((1 << range_log2) - 1)
-    return (_range_ids(bins) << range_log2) | off
+    off = bins.stage[:total].to(torch.int64) & ((1 << bins.range_log2) - 1)
+    return (_range_ids(bins) << bins.range_log2) | off
 
 
 def histogram_ranges_plain(bins: Bins, rows: int, width_log2: int, *,
                            out: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version of the binned histogram's range pass: each
-    staged offset counted at its range's counters, into ``out`` (int32
-    [rows, 2**width_log2], zeroed when not given)."""
-    flat = _staged_buckets(bins, COUNTS_RANGE_LOG2)
+    """Plain PyTorch version of the binned and clustered histogram's range
+    pass: each staged offset counted at its range's counters, into ``out``
+    (int32 [rows, 2**width_log2], zeroed when not given)."""
+    flat = _staged_buckets(bins)
     if out is None:
         out = torch.zeros((rows, 1 << width_log2), dtype=torch.int32,
                           device=flat.device)
@@ -498,32 +550,40 @@ def histogram_ranges_plain(bins: Bins, rows: int, width_log2: int, *,
     return out
 
 
+def _binned_kind(range_log2: int) -> str:
+    return "binned" if range_log2 == COUNTS_RANGE_LOG2 else "clustered"
+
+
 def _counts_route(rows, n, width_log2, weighted, route):
     """(route, a, b) of :func:`_launch`: "private" with (blocks per row,
-    threads), "binned" with :func:`binned_counts_grid`'s (per, blocks), or
-    "direct"; the rule's, or the ``route`` forced (a forced private route
-    takes the rule's grid at one entry per counter, and one block a row
-    below that; a forced binned route takes its grid at any n, and there is
-    none for weighted counts or where :func:`binned_ranges` has none)."""
+    threads), "binned" or "clustered" with :func:`binned_counts_grid`'s
+    (per, blocks), or "direct"; the rule's, or the ``route`` forced (a
+    forced private route takes the rule's grid at one entry per counter,
+    and one block a row below that; a forced binned or clustered route
+    takes its grid at any n, and there is none for weighted counts or where
+    :func:`counts_range_log2` gives the other one or none)."""
     if route is None:
         blocks, threads = private_counts_grid(rows, n, width_log2)
         if blocks:
             return "private", blocks, threads
         per, grid = ((0, 0) if weighted else
                      binned_counts_grid(rows, n, width_log2))
-        return ("binned", per, grid) if per else ("direct", 0, 0)
+        if not per:
+            return "direct", 0, 0
+        return _binned_kind(counts_range_log2(rows, width_log2)), per, grid
     if route == "direct":
         return "direct", 0, 0
-    if route == "binned":
-        nranges = binned_ranges(rows, width_log2, COUNTS_RANGE_LOG2)
-        if weighted or not nranges:
+    if route in ("binned", "clustered"):
+        range_log2 = counts_range_log2(rows, width_log2)
+        if weighted or not range_log2 or _binned_kind(range_log2) != route:
             raise ValueError(
-                f"no binned route for {'weighted ' if weighted else ''}"
+                f"no {route} route for {'weighted ' if weighted else ''}"
                 f"counts of {rows} row(s) at width 2**{width_log2}")
-        return ("binned",) + _range_grid(rows * n, nranges)
+        return (route,) + _range_grid(
+            rows * n, binned_ranges(rows, width_log2, range_log2), range_log2)
     if route != "private":
-        raise ValueError("route must be 'direct', 'private' or 'binned', "
-                         f"got {route!r}")
+        raise ValueError("route must be 'direct', 'private', 'binned' or "
+                         f"'clustered', got {route!r}")
     if width_log2 > PRIVATE_COUNTS_MAX_WIDTH_LOG2:
         raise ValueError(
             f"no private route at width 2**{width_log2}: the counters do "
@@ -535,8 +595,8 @@ def _counts_route(rows, n, width_log2, weighted, route):
 
 def _launch(idx, weight, width_log2, gate, out, route=None):
     """Launch ``csrc/histogram.cu`` on validated idx [R, N]. ``route``
-    ("direct", "private" or "binned") overrides the rule's choice, for the
-    tests and the smoke run."""
+    ("direct", "private", "binned" or "clustered") overrides the rule's
+    choice, for the tests and the smoke run."""
     global LAUNCHES
     rows, n = idx.shape
     kind, a, b = _counts_route(rows, n, width_log2, weight is not None, route)
@@ -547,8 +607,9 @@ def _launch(idx, weight, width_log2, gate, out, route=None):
     if rows == 0 or n == 0:
         return out
     idx = idx.contiguous()
-    if kind == "binned":
-        bins = _bin_launch(idx, None, width_log2, COUNTS_RANGE_LOG2, a, gate)
+    if kind in ("binned", "clustered"):
+        bins = _bin_launch(idx, None, width_log2,
+                           counts_range_log2(rows, width_log2), a, gate)
         _ranges_launch("histogram", bins, b, out, gate)
     else:
         if weight is not None:
@@ -592,8 +653,10 @@ def histogram_rows(idx: torch.Tensor, weight: torch.Tensor | None,
     There is no ``weight_bits``: every int32 weight is exact.
 
     A CUDA tensor goes through the CUDA kernels (``csrc/histogram.cu``), by
-    private counters, binned ranges or direct atomics as
-    :func:`private_counts_grid` and :func:`binned_counts_grid` pick; a CPU
+    private counters, binned ranges (each range's counters, or a hash table
+    of a slice of its updates, in a block's shared memory) or direct
+    atomics as :func:`private_counts_grid` and
+    :func:`binned_counts_grid` pick; a CPU
     tensor through :func:`histogram_rows_plain`; either inside the span
     ``nthash.histogram`` (``utils/profiling.span``).
     """
@@ -691,7 +754,7 @@ def bloom_ranges_plain(bins: Bins, rows: int, width_log2: int, *,
     """Plain PyTorch version of the binned presence words' range pass: the
     bit of each staged offset set in its range's words, OR-ed into ``out``
     (int32 [rows, 2**width_log2 / 32], zeroed when not given)."""
-    flat = _staged_buckets(bins, WORDS_RANGE_LOG2)
+    flat = _staged_buckets(bins)
     if out is None:
         out = torch.zeros((rows, (1 << width_log2) // PACK),
                           dtype=torch.int32, device=flat.device)
@@ -776,7 +839,7 @@ def _words_route_of(rows, n, width_log2, route):
         if not nranges:
             raise ValueError(f"no binned route for {rows} row(s) at width "
                              f"2**{width_log2}")
-        return ("binned",) + _range_grid(rows * n, nranges)
+        return ("binned",) + _range_grid(rows * n, nranges, WORDS_RANGE_LOG2)
     if route != "private":
         raise ValueError("route must be 'direct', 'private' or 'binned', "
                          f"got {route!r}")

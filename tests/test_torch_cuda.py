@@ -1533,6 +1533,50 @@ def test_binned_words_vs_plain_and_direct(rng, cuda, wl, rows):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("wl,rows", [(26, 4), (27, 4), (28, 4), (28, 1)])
+def test_clustered_histogram_vs_plain(rng, cuda, wl, rows):
+    """The clustered A2 route at 4 x 2**26..2**28 and 1 x 2**28, forced,
+    against plain on whole tables at the edge shapes (n below the 4,096
+    ranges, a row off a 16-byte boundary, every update in the last range,
+    every update one value, sentinel-only rows, a hot counter); one binning,
+    one range pass and one ``ROUTE_LAUNCHES["clustered"]`` a call; a gate
+    of 0 and 1 into an accumulating ``out``; and the rule's own choice for
+    a call of 2**24 updates."""
+    rl = hist_kernel.counts_range_log2(rows, wl)
+    assert 16 <= rl <= 18
+    for what, idx in _binned_edges(rng, rows, wl, rl, cuda):
+        before = (hist_kernel.BIN_LAUNCHES["histogram"],
+                  hist_kernel.RANGE_LAUNCHES["histogram"],
+                  hist_kernel.ROUTE_LAUNCHES["clustered"])
+        got = hist_kernel._launch(idx, None, wl, None, None,
+                                  route="clustered")
+        assert (hist_kernel.BIN_LAUNCHES["histogram"],
+                hist_kernel.RANGE_LAUNCHES["histogram"],
+                hist_kernel.ROUTE_LAUNCHES["clustered"]) == tuple(
+                    b + 1 for b in before), what
+        want = histogram_rows_plain(idx, None, wl)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), what
+        del got, want
+    base = torch.randint(-2**31, 2**31 - 1, (rows, 1 << wl), device=cuda,
+                         dtype=torch.int32)
+    for g in (0, 1):
+        gate = torch.full((1,), g, dtype=torch.int32, device=cuda)
+        got = hist_kernel._launch(idx, None, wl, gate, base.clone(),
+                                  route="clustered")
+        want = histogram_rows_plain(idx, None, wl, gate=gate,
+                                    out=base.clone())
+        assert torch.equal(got, want)
+        del got, want
+    del base
+    idx = torch.randint(0, 1 << wl, (rows, (1 << 24) // rows), device=cuda,
+                        dtype=torch.int32)
+    before = hist_kernel.ROUTE_LAUNCHES["clustered"]
+    got = histogram_rows(idx, None, wl)
+    assert hist_kernel.ROUTE_LAUNCHES["clustered"] == before + 1
+    assert torch.equal(got, histogram_rows_plain(idx, None, wl))
+
+
 def test_binned_is_the_rule_on_the_wide_paths(rng, cuda):
     """The rule bins A2 at 2**20 and C1 at 2**30 for a full batch, and the
     wrappers take it: one binning and one range launch a call."""

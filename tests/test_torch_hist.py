@@ -272,7 +272,9 @@ def test_binned_pieces_compose_to_plain(rng, rows, wl, n):
 
 
 @pytest.mark.parametrize("rows,wl,range_log2", [(4, 20, 15), (1, 16, 15),
-                                                (3, 22, 20), (1, 31, 20)])
+                                                (3, 22, 20), (1, 31, 20),
+                                                (4, 26, 16), (4, 27, 17),
+                                                (4, 28, 18), (1, 30, 18)])
 def test_bin_ranges_plain_groups_by_range(rng, rows, wl, range_log2):
     """Range g = (r << (wl - range_log2)) | (b >> range_log2) holds exactly
     the valid updates of its row and range, as offsets, in row order; the
@@ -306,15 +308,24 @@ def test_bin_ranges_plain_groups_by_range(rng, rows, wl, range_log2):
     (4, 25_414_592, 20, (1 << 17, 776 + 128)),
     (4, 31_195_136, 25, (1 << 17, 952 + 4096)),
     (1, 124_780_544, 27, (1 << 17, 952 + 4096)),
-    # private widths and too many ranges for one pass: none
+    # past 4,096 ranges of 2**15: the clustered route, 4,096 ranges of
+    # 2**16..2**18 counters, 2**14 - 8 entries a block of its range pass
+    (4, 31_195_136, 26, (16_376, 7620 + 4096)),
+    (1, 124_780_544, 28, (16_376, 7620 + 4096)),
+    (4, 31_195_136, 27, (16_376, 7620 + 4096)),
+    (4, 31_195_136, 28, (16_376, 7620 + 4096)),
+    (1, 124_780_544, 30, (16_376, 7620 + 4096)),
+    # private widths and too many ranges even of 2**18: none
     (4, 31_195_136, 15, (0, 0)),
-    (4, 31_195_136, 26, (0, 0)),
-    (1, 124_780_544, 28, (0, 0)),
+    (4, 31_195_136, 29, (0, 0)),
+    (4, 31_195_136, 30, (0, 0)),
     # too few updates in all: 2**24 is the least
     (4, (1 << 22) - 1, 20, (0, 0)),
     (4, 1 << 22, 20, (31_776, 528 + 128)),
     (4, (1 << 22) - 1, 25, (0, 0)),
     (1, 1 << 24, 27, (31_776, 528 + 4096)),
+    (4, (1 << 22) - 1, 28, (0, 0)),
+    (4, 1 << 22, 28, (16_376, 1025 + 4096)),
     (0, 100, 20, (0, 0)),
     (4, 0, 20, (0, 0)),
 ])
@@ -329,15 +340,21 @@ def test_binned_counts_grid(rows, n, wl, want):
 @pytest.mark.parametrize("n", [1000, 1 << 20, 31_195_136])
 def test_binned_counts_grid_bounds(rows, n, wl):
     per, blocks = hist_kernel.binned_counts_grid(rows, n, wl)
-    nranges = hist_kernel.binned_ranges(rows, wl, 15)
+    rl = hist_kernel.counts_range_log2(rows, wl)
+    nranges = hist_kernel.binned_ranges(rows, wl, rl) if rl else 0
     if per == 0:
         assert blocks == 0
         assert (wl <= 15 or nranges == 0
                 or rows * n < hist_kernel.BINNED_MIN_ENTRIES)
     else:
         assert wl > 15 and 0 < nranges <= hist_kernel.BINNED_MAX_RANGES
-        assert per % 8 == 0 and (hist_kernel.BINNED_MIN_RANGE_ENTRIES <= per
-                                 <= hist_kernel.BINNED_RANGE_ENTRIES)
+        assert per % 8 == 0
+        if rl == 15:
+            assert (hist_kernel.BINNED_MIN_RANGE_ENTRIES <= per
+                    <= hist_kernel.BINNED_RANGE_ENTRIES)
+        else:  # a hash table of 2**15 slots stays half full
+            assert 15 < rl <= 18 and per == hist_kernel.CLUSTERED_RANGE_ENTRIES
+            assert 2 * per <= 1 << 15 and per < (1 << 14) - 1
         # every split of the updates over the ranges has its blocks
         assert blocks >= -(-rows * n // per) + nranges - 1
         assert blocks < 2 ** 31
@@ -351,7 +368,7 @@ def test_route_rule_picks_binned_only_unweighted():
     assert route(4, 31_195_136, 20, False, None)[0] == "binned"
     assert route(4, 31_195_136, 20, True, None)[0] == "direct"
     assert route(4, 1000, 20, False, None)[0] == "direct"
-    assert route(4, 31_195_136, 26, False, None)[0] == "direct"
+    assert route(4, 31_195_136, 26, False, None)[0] == "clustered"
     # forced: any n where a binned route exists
     assert route(4, 1000, 20, False, "binned") == ("binned", 1 << 14, 129)
 
@@ -382,4 +399,83 @@ def test_bin_ranges_on_cpu_launches_nothing(rng):
     assert (dict(hist_kernel.BIN_LAUNCHES),
             dict(hist_kernel.ROUTE_LAUNCHES)) == before
     with pytest.raises(ValueError, match="range_log2"):
-        hist_kernel.bin_ranges(idx, None, 18, 16)
+        hist_kernel.bin_ranges(idx, None, 18, 19)
+
+
+# ------------------------------------------------ the clustered route ----
+
+
+@pytest.mark.parametrize("rows,wl,range_log2", [(1, 17, 16), (3, 18, 16),
+                                                (2, 19, 17), (4, 20, 17),
+                                                (1, 20, 18), (2, 21, 18)])
+def test_clustered_pieces_compose_to_plain(rng, rows, wl, range_log2):
+    """The binning pass at ranges of 2**16..2**18 (an int32 stage) and the
+    range pass's plain version, composed, count what
+    ``histogram_rows_plain`` counts, into zeros and into an ``out`` that
+    accumulates; every split of a range over blocks (``per``) alike."""
+    idx = _skewed(rng, rows, 30_001, wl)
+    idx[:, 5::11] = (1 << wl) - (1 << range_log2) + 7  # the last range
+    t = torch.from_numpy(idx)
+    want = histogram_rows_plain(t, None, wl)
+    for per in (8, 1000, 1 << 20):
+        bins = hist_kernel.bin_ranges(t, None, wl, range_log2, per)
+        assert bins.stage.dtype == torch.int32
+        assert bins.range_log2 == range_log2
+        assert bins.counts.numel() == rows << (wl - range_log2)
+        assert torch.equal(hist_kernel.histogram_ranges_plain(bins, rows, wl),
+                           want)
+    base = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(rows, 1 << wl),
+                                         dtype=np.int64).astype(np.int32))
+    got = hist_kernel.histogram_ranges_plain(bins, rows, wl, out=base.clone())
+    assert torch.equal(got, histogram_rows_plain(t, None, wl, out=base.clone()))
+
+
+@pytest.mark.parametrize("rows,n,wl,weighted,kind,range_log2", [
+    # one main-path batch at the clustered widths: 4,096 ranges each
+    (4, 31_195_136, 26, False, "clustered", 16),
+    (4, 31_195_136, 27, False, "clustered", 17),
+    (4, 31_195_136, 28, False, "clustered", 18),
+    (1, 124_780_544, 28, False, "clustered", 16),
+    (1, 124_780_544, 29, False, "clustered", 17),
+    (1, 124_780_544, 30, False, "clustered", 18),
+    (16, 1 << 22, 26, False, "clustered", 18),
+    # ranges of 2**15 where they number at most 4,096
+    (4, 31_195_136, 25, False, "binned", 15),
+    (2, 31_195_136, 26, False, "binned", 15),
+    # past 2**18-counter ranges, weighted, too few updates: direct
+    (4, 31_195_136, 29, False, "direct", 0),
+    (4, 31_195_136, 30, False, "direct", 0),
+    (4, 31_195_136, 28, True, "direct", 18),
+    (1, 124_780_544, 30, True, "direct", 18),
+    (4, (1 << 22) - 1, 28, False, "direct", 18),
+    (1, (1 << 24) - 1, 30, False, "direct", 18),
+])
+def test_clustered_route_rule(rows, n, wl, weighted, kind, range_log2):
+    """The rule reads the route and its range from the shapes: the least
+    range of 2**15..2**18 counters that makes at most 4,096 ranges, the
+    clustered route above 2**15; direct atomics for weighted counts, past
+    2**18-counter ranges and under ``BINNED_MIN_ENTRIES`` updates."""
+    assert hist_kernel.counts_range_log2(rows, wl) == range_log2
+    got = hist_kernel._counts_route(rows, n, wl, weighted, None)
+    assert got[0] == kind
+    if kind == "clustered":
+        assert got[1:] == hist_kernel.binned_counts_grid(rows, n, wl)
+        assert got[1] == hist_kernel.CLUSTERED_RANGE_ENTRIES
+
+
+@pytest.mark.parametrize("rows,wl,weighted", [(1, 12, False), (4, 15, False),
+                                              (4, 25, False), (2, 26, False),
+                                              (4, 29, False), (4, 30, False),
+                                              (4, 28, True), (1, 30, True)])
+def test_clustered_route_refused(rows, wl, weighted):
+    """A forced clustered route is refused where it has none (the private
+    widths, widths the 2**15-counter ranges serve, past 2**18-counter
+    ranges, weighted counts), before anything reaches the card; where it
+    has one, any n takes it."""
+    idx = torch.zeros((rows, 8), dtype=torch.int32)
+    w = torch.ones(8, dtype=torch.int32) if weighted else None
+    with pytest.raises(ValueError, match="no clustered route"):
+        hist_kernel._launch(idx, w, wl, None, None, route="clustered")
+    route = hist_kernel._counts_route
+    assert route(4, 1000, 28, False, "clustered") == (
+        "clustered", (1 << 14) - 8, 1 + 4096)
