@@ -32,16 +32,25 @@ def generator(seed: int, device) -> torch.Generator:
     return g
 
 
+def make_genome(data: dict, seed: int,
+                device) -> tuple[torch.Tensor, torch.Generator]:
+    """uint8 [genome_length] codes 0-3, the first draw of the seed's
+    generator, and that generator, where ``make_reads`` goes on to draw the
+    reads: the genome a seed's reads come from."""
+    g = generator(seed, device)
+    genome = torch.randint(0, 4, (data["genome_length"],), generator=g,
+                           device=device, dtype=torch.uint8)
+    return genome, g
+
+
 def make_reads(data: dict, seed: int, device) -> torch.Tensor:
     """uint8 [reads, read_length] codes, per the configuration's ``data``
     (``genome_length``, ``reads``, ``read_length``, ``substitution_rate``,
-    ``n_rate``)."""
-    g = generator(seed, device)
+    ``n_rate``), sequenced from ``make_genome``'s genome."""
     size, n, length = data["genome_length"], data["reads"], data["read_length"]
     if size < length:
         raise ValueError(f"genome ({size}) shorter than a read ({length})")
-    genome = torch.randint(0, 4, (size,), generator=g, device=device,
-                           dtype=torch.uint8)
+    genome, g = make_genome(data, seed, device)
     out = torch.empty((n, length), dtype=torch.uint8, device=device)
     offs = torch.arange(length, device=device)
     for s in range(0, n, CHUNK):

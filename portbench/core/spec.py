@@ -9,12 +9,40 @@ mix's ``path`` name the driver that runs the program
 plain reference that judges it (``portbench/reference/<structure>.py``).
 Every metric is read by ``portbench/metrics/<name>.py``. So a cell, a
 configuration, a mix or a metric is added by adding files and entries.
+
+A cell of a new structure brings, each in a file of its own:
+
+- the driver, ``drivers/<structure>_<path>.py``: ``Driver(ctx)`` builds the
+  program's object from ``ctx.batches()`` (or ``ctx.fastq``) and the
+  configuration; ``one_pass()`` runs one pass over the reads (returning
+  the reads it counted, or None); ``state()`` gives the tensor compared;
+  ``close()`` drops the program's state;
+- the reference, ``reference/<structure>.py``, plain PyTorch from the
+  definition, importing nothing of the program: ``zeros(ctx)``,
+  ``add_pass(ctx, state, bits=64)`` (``bits=32`` is the control),
+  ``expected(ctx)``, ``compare(ctx, state, one_pass, passes)`` (each number
+  beside its limit), ``describe(ctx, state)``, ``distinct_touched(ctx)``
+  (the cells a pass's batches touch, for a scatter's roofline) and
+  ``SMALL``, the configuration's keys at the CPU tests' size;
+- the fault plan, ``tests/faults/<structure>_<path>.py``:
+  ``plant(monkeypatch, cell, fault)`` breaks the driver's timed path for
+  each of ``tests/small.FAULTS`` through ``monkeypatch.setattr``, finding
+  the driver's module from ``cell`` and not by a fixed name;
+- a roofline reader for each kernel layer it adds,
+  ``metrics/<kernel>_roofline.<path>.py``: ``read(ctx)``, and beside it
+  ``KERNELS``, the kernels it times, and ``SPAN``, the program's span
+  around their launches, which the card test of the spans checks them
+  against;
+- in ``BENCHMARK.json``, its configuration, its cell, and the cell's name
+  in the ``workloads`` of every metric the cell reports (the shared
+  resident readers, and its own rooflines).
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import re
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -86,7 +114,7 @@ def module(kind: str, name: str):
     if not path.exists():
         raise FileNotFoundError(f"no {kind} file {path}")
     spec = importlib.util.spec_from_file_location(
-        f"portbench_{kind}_{name.replace('.', '_')}", path)
+        re.sub(r"[./]", "_", f"portbench_{kind}_{name}"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     _modules[kind, name] = mod

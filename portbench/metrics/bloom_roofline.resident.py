@@ -9,6 +9,8 @@ from portbench.core import readers
 KERNELS = ("bloom_rows_kernel", "bloom_rows_private_kernel",
            "bloom_ranges_kernel", "bin_count_kernel", "bin_scan_kernel",
            "bin_scatter_kernel")
+#: The program's span around the layer's launches.
+SPAN = "nthash.bloom"
 
 
 def read(ctx):

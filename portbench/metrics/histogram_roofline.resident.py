@@ -9,6 +9,8 @@ from portbench.core import readers
 KERNELS = ("histogram_rows_kernel", "histogram_rows_private_kernel",
            "histogram_ranges_kernel", "bin_count_kernel", "bin_scan_kernel",
            "bin_scatter_kernel")
+#: The program's span around the layer's launches.
+SPAN = "nthash.histogram"
 
 
 def read(ctx):

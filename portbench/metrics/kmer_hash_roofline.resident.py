@@ -6,6 +6,8 @@ the card's memory rate, over the kernels' device time."""
 from portbench.core import bounds
 
 KERNELS = ("kmer_hash_kernel",)
+#: The program's span around the layer's launches.
+SPAN = "nthash.hash"
 
 
 def read(ctx):

@@ -13,6 +13,10 @@ import torch
 
 from portbench.core import nthash_ref as ref
 
+#: The configuration's keys at the size the CPU tests run
+#: (``tests/small.py``): the filter stays wider than the bits the reads set.
+SMALL = {"width_log2": 18}
+
 
 def zeros(ctx) -> torch.Tensor:
     return torch.zeros((1 << ctx.config["width_log2"]) // ref.PACK,

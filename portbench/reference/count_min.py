@@ -12,6 +12,10 @@ import torch
 
 from portbench.core import nthash_ref as ref
 
+#: The configuration's keys at the size the CPU tests run
+#: (``tests/small.py``): the rows stay wider than the buckets the reads fill.
+SMALL = {"width_log2": 14}
+
 
 def zeros(ctx) -> torch.Tensor:
     cfg = ctx.config

@@ -13,100 +13,11 @@ import time
 import pytest
 import torch
 
-from nthash_tpu_torch.models import bloom as bloom_mod
-from nthash_tpu_torch.models import pipeline
-from nthash_tpu_torch.parallel import dp
 from portbench.core import harness, spec
-from portbench.tests.small import FILE_CELL, small
+from portbench.tests.small import FAULTS, FILE_CELL, break_path, run, small
 
 ONE_CARD = [w["name"] for w in spec.benchmark()["workloads"]
             if w["chips"] == 1] + [FILE_CELL["name"]]
-
-
-def run(cell, driver=None, seed=2**31 + 99):
-    return harness.run_cell(small(cell), seed, 0.2, False, device="cpu",
-                            t_start=time.time(), driver=driver)
-
-
-def altered(fn):
-    """The hash kernel's first bucket moved to another bucket."""
-    def wrapped(*args, **kwargs):
-        out = fn(*args, **kwargs)
-        first = out[0]
-        first[0, 0] = 1 if int(first[0, 0]) == 0 else 0
-        return out
-    return wrapped
-
-
-def from_call(planted, sound, first: int):
-    """``planted`` from call ``first`` on, ``sound`` before it."""
-    calls = [0]
-
-    def fn(*args, **kwargs):
-        calls[0] += 1
-        return (planted if calls[0] > first else sound)(*args, **kwargs)
-    return fn
-
-
-def break_path(monkeypatch, cell, fault, window_only=False):
-    """Plant ``fault`` in the program's timed path of ``cell``; with
-    ``window_only``, in the calls after the warm-up pass alone (each pass
-    makes one call a batch)."""
-    name = f"{cell.structure}_{cell.path}"
-    drv = spec.module("drivers", name)
-    batch = cell.traffic["batch_size"]
-    warm = -(-cell.config["reads"] // batch) if window_only else 0
-    monkeypatch = Gated(monkeypatch, warm)
-    if name == "count_min_file":
-        orig = dp.fused_count
-        planted = {
-            "unchanged": lambda codes, sketch, k, mesh=None: sketch,
-            "half": lambda codes, sketch, k, mesh=None: orig(
-                codes[:codes.shape[0] // 2], sketch, k, mesh),
-        }
-        if fault in planted:
-            monkeypatch.setattr(dp, "fused_count", planted[fault])
-        else:
-            monkeypatch.setattr(pipeline, "hash_kmers_tm_auto",
-                                altered(pipeline.hash_kmers_tm_auto))
-    elif name == "count_min_resident":
-        orig = drv.fused_count_step
-        planted = {
-            "unchanged": lambda tm, sketch, k: sketch,
-            "half": lambda tm, sketch, k: orig(
-                tm[:, :tm.shape[1] // 2].contiguous(), sketch, k),
-        }
-        if fault in planted:
-            monkeypatch.setattr(drv, "fused_count_step", planted[fault])
-        else:
-            monkeypatch.setattr(pipeline, "hash_kmers_tm_auto",
-                                altered(pipeline.hash_kmers_tm_auto))
-    elif name == "bloom_resident":
-        orig = bloom_mod.insert_from_buckets
-        planted = {
-            "unchanged": lambda bf, buckets, **kw: bf,
-            "half": lambda bf, buckets, **kw: orig(
-                bf, [b[:, :b.shape[1] // 2] for b in buckets], **kw),
-        }
-        if fault in planted:
-            monkeypatch.setattr(bloom_mod, "insert_from_buckets",
-                                planted[fault])
-        else:
-            monkeypatch.setattr(drv, "hash_kmers_tm_auto",
-                                altered(drv.hash_kmers_tm_auto))
-    else:
-        raise AssertionError(f"no fault plan for driver {name}")
-
-
-class Gated:
-    """A monkeypatch whose planted functions start after ``first`` calls."""
-
-    def __init__(self, monkeypatch, first: int):
-        self.mp, self.first = monkeypatch, first
-
-    def setattr(self, target, name, planted):
-        sound = getattr(target, name)
-        self.mp.setattr(target, name, from_call(planted, sound, self.first))
 
 
 @pytest.mark.parametrize("cell", ONE_CARD)
@@ -125,11 +36,13 @@ def test_control_is_not_correct(cell):
 
 @pytest.mark.parametrize("window_only", [False, True],
                          ids=["every_call", "window_only"])
-@pytest.mark.parametrize("fault", ["unchanged", "half", "altered"])
+@pytest.mark.parametrize("fault", FAULTS)
 @pytest.mark.parametrize("cell", ONE_CARD)
 def test_fault_is_not_correct(monkeypatch, cell, fault, window_only):
     """The fault in every call, and in the window's calls alone: a fault
-    that spares the warm-up must still show in the state compared."""
+    that spares the warm-up must still show in the state compared. Each
+    driver's plan is ``portbench/tests/faults/<driver>.py``: a driver
+    without one fails here."""
     break_path(monkeypatch, small(cell), fault, window_only)
     assert not run(cell)["correct"]
 

@@ -1,7 +1,12 @@
 """The read generator: the same seed gives the same reads, another seed
-others, at the same sizes; the reads come from the genome's two strands
-with the stated error and N rates; the FASTQ holds them."""
+others, at the same sizes, and the reads of two seeds stay bit for bit
+those the generator gave before ``make_genome`` was factored out; the reads
+come from the genome's two strands with the stated error and N rates; the
+FASTQ holds them."""
 
+import hashlib
+
+import pytest
 import torch
 
 from portbench.core import reads
@@ -19,13 +24,22 @@ def test_same_seed_same_reads():
     assert not torch.equal(a, c)
 
 
+@pytest.mark.parametrize("seed, sha256", [
+    (2**31 + 5,
+     "074b161930e21f695aef19fe871becb31581d534aad9b841a411f38f30f8f710"),
+    (2**40 + 3,
+     "d7dfbb43aa09ac32cbc5fa3c9ee28c3eed2faf845390a4e5d51b2d2a96bb362f"),
+])
+def test_reads_pinned(seed, sha256):
+    r = reads.make_reads(DATA, seed, "cpu")
+    assert hashlib.sha256(r.numpy().tobytes()).hexdigest() == sha256
+
+
 def test_rates_and_strands():
     data = dict(DATA, reads=20000, substitution_rate=0.0, n_rate=0.0)
     r = reads.make_reads(data, 3, "cpu")
     assert int(r.max()) <= 3
-    g = reads.generator(3, "cpu")
-    genome = torch.randint(0, 4, (data["genome_length"],), generator=g,
-                           dtype=torch.uint8)
+    genome, _ = reads.make_genome(data, 3, "cpu")
     text = bytes(genome.tolist())
     plus = sum(bytes(x.tolist()) in text for x in r[:200])
     minus = sum(bytes((3 - x).flip(0).tolist()) in text for x in r[:200])

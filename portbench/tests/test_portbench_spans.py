@@ -166,9 +166,10 @@ def test_harness_reads_both_metrics(cell):
 
 def test_no_reading_from_a_program_without_spans(monkeypatch):
     """A program before the spans: nothing read, no window traced."""
+    cell = small(ONE_CARD[0])
     monkeypatch.delattr(profiling, "span")
     monkeypatch.setattr(spec, "module", None)    # no driver may be built
-    ctx = harness.Context(small(ONE_CARD[0]), 1, torch.device("cpu"))
+    ctx = harness.Context(cell, 1, torch.device("cpu"))
     ctx.trace = trace.Trace(1.0, 0.0)
     assert spans.of(ctx) is None
 
@@ -191,15 +192,22 @@ def test_window_traced_once_a_run(monkeypatch):
 
 
 def layer_kernels(cell):
-    """Span name -> the kernel list of the roofline reader that reads it,
-    for the layers ``cell``'s readers report."""
-    kernels = {"nthash.hash": "kmer_hash_roofline.resident"}
-    for m in spec.cell(cell).per_layer:
-        if m["name"] == "histogram_roofline.resident":
-            kernels["nthash.histogram"] = m["name"]
-        if m["name"] == "bloom_roofline.resident":
-            kernels["nthash.bloom"] = m["name"]
-    return {s: spec.module("metrics", m).KERNELS for s, m in kernels.items()}
+    """Span name -> the kernel list of the roofline reader that reads it:
+    each of ``cell``'s per-layer readers that names both its ``SPAN`` and
+    its ``KERNELS``."""
+    readers = [spec.module("metrics", m["name"])
+               for m in spec.cell(cell).per_layer]
+    return {r.SPAN: r.KERNELS for r in readers
+            if hasattr(r, "SPAN") and hasattr(r, "KERNELS")}
+
+
+@pytest.mark.parametrize("cell, spans_read", [
+    ("cms_short_resident", {"nthash.hash", "nthash.histogram"}),
+    ("bloom_short_resident", {"nthash.hash", "nthash.bloom"})])
+def test_layer_kernels_by_the_readers(cell, spans_read):
+    got = layer_kernels(cell)
+    assert set(got) == spans_read
+    assert got["nthash.hash"] == ("kmer_hash_kernel",)
 
 
 @pytest.mark.cuda

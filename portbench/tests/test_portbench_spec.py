@@ -1,8 +1,9 @@
-"""BENCHMARK.json against the files the harness finds by name, and the
-rules the harness keeps: every metric's ``moves`` is an end-to-end metric
-that each of its cells reports, every cell reports set-up, another
-end-to-end metric and a per-layer one, and no module of the benchmark
-imports JAX or the JAX package (top-level names compared whole)."""
+"""BENCHMARK.json against the files the harness and its tests find by
+name, and the rules the harness keeps: every metric's ``moves`` is an
+end-to-end metric that each of its cells reports, every cell reports
+set-up, another end-to-end metric and a per-layer one, and no module of
+the benchmark imports JAX or the JAX package (top-level names compared
+whole)."""
 
 import ast
 import re
@@ -34,6 +35,9 @@ def test_cell_files_and_reports(cell):
     c = spec.cell(cell)
     assert (spec.HERE / "drivers" / f"{c.structure}_{c.path}.py").exists()
     assert (spec.HERE / "reference" / f"{c.structure}.py").exists()
+    assert (spec.HERE / "tests" / "faults" / f"{c.structure}_{c.path}.py"
+            ).exists()
+    assert set(spec.module("reference", c.structure).SMALL) <= set(c.config)
     e2e = {m["name"] for m in c.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2 and c.per_layer
     for m in c.per_layer:
