@@ -6,7 +6,7 @@ Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and nvcc; it
 imports nothing of JAX. Phases, each printing its own lines:
 
 1. environment: card name and power limit, torch / CUDA / nvcc versions;
-2. build the seven CUDA sources from ``nthash_tpu_torch/csrc`` (one nvcc
+2. build the eight CUDA sources from ``nthash_tpu_torch/csrc`` (one nvcc
    each, all at once) and print each kernel instance's registers and
    spills (template arguments demangled); no ``seed_hash`` instance, no
    one-sequence instance and no partition instance may spill; the four
@@ -220,7 +220,16 @@ imports nothing of JAX. Phases, each printing its own lines:
    plain versions, bounds and yardsticks; phase 23's skewed streams; the
    fused step at 2**20 and the Bloom step at 2**30 by the rule and without
    a binned route; the sweep of updates a call that sets
-   ``hist_kernel.BINNED_MIN_ENTRIES`` and ``BINNED_MIN_WORD_ENTRIES``.
+   ``hist_kernel.BINNED_MIN_ENTRIES`` and ``BINNED_MIN_WORD_ENTRIES``;
+32. screening at the ``screen_short_resident`` cell's shape (run after
+   phase 31): a 2**28-bit filter of a 4,641,652-base genome under the
+   cell's four spaced seeds (k=32, 4 hashes each), built through B1 and
+   ``insert_from_buckets``, against the plain hash -> plain insert and
+   with every genome window hitting; one batch of 2**18 genome reads
+   through ``bloom.screen_reads`` (one B1 launch, one probe launch), B1's
+   16 bucket planes against ``hash_seeds_tm_plain`` and the probe's
+   counts against ``probe_counts_plain``; both kernels timed with their
+   plain versions and byte bounds, and ``screen_reads`` whole.
 
 A failed check raises, so the exit code is not 0. The line before the last
 is the kernels' JSON record; the last line is ``{"ok": true, "device": ...}``.
@@ -279,6 +288,7 @@ from nthash_tpu_torch.ops import (
     hist_kernel,
     kmer_kernel,
     kmer_torch,
+    probe_kernel,
     seed_torch,
     unpack_kernel,
 )
@@ -359,7 +369,7 @@ def phase_env() -> tuple[str, str]:
 
 
 SOURCES = ("kmer_hash", "histogram", "partition", "seed_hash", "bloom",
-           "unpack", "blind")
+           "unpack", "blind", "probe")
 #: Updates in phase 17's widest checks: five per thread of the largest grid
 GRID_STRIDE_N = 5 * (1 << 20) + 3
 
@@ -3504,14 +3514,16 @@ def binned_route(rows: int, wl: int) -> str:
     return "binned" if rl == hist_kernel.COUNTS_RANGE_LOG2 else "clustered"
 
 
-def genome_reads(gen, n: int, dev) -> torch.Tensor:
-    """uint8 [n, L] codes of n reads from a random genome of ``GENOME``
-    bases, at uniform starts on either strand, with 0.25% substitutions: the
-    count-min cell's kind of traffic, where a k-mer recurs ~6 times a batch
-    of 2**18 reads (``make_codes``'s reads share no k-mer)."""
-    genome = torch.randint(0, 4, (GENOME,), generator=gen, device=dev,
-                           dtype=torch.uint8)
-    start = torch.randint(0, GENOME - L + 1, (n, 1), generator=gen,
+def genome_reads(gen, n: int, dev, genome=None) -> torch.Tensor:
+    """uint8 [n, L] codes of n reads from ``genome`` (by default a random
+    one of ``GENOME`` bases), at uniform starts on either strand, with 0.25%
+    substitutions: the count-min cell's kind of traffic, where a k-mer
+    recurs ~6 times a batch of 2**18 reads (``make_codes``'s reads share no
+    k-mer)."""
+    if genome is None:
+        genome = torch.randint(0, 4, (GENOME,), generator=gen, device=dev,
+                               dtype=torch.uint8)
+    start = torch.randint(0, genome.shape[0] - L + 1, (n, 1), generator=gen,
                           device=dev)
     reads = genome[start + torch.arange(L, device=dev)]
     minus = torch.rand(n, generator=gen, device=dev) < 0.5
@@ -4060,6 +4072,134 @@ def phase_binned_timings(codes: np.ndarray, gen, dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------- screening (phase 32) ----
+
+#: The screening cell's configuration (portbench/configs/
+#: ecoli_screen_seeds_k32.json): four spaced seeds of k=32 with 26 care
+#: positions each, 4 hashes a seed, a 2**28-bit filter of the genome.
+SCREEN_SEEDS = ("11101111110111011011101111110111",
+                "11110111011110111101111011101111",
+                "11111011111011100111011111011111",
+                "11011110111101111110111101111011")
+SCREEN_H, SCREEN_WL = 4, 28
+#: Genome windows a row of the filter's build, as the screening cell's.
+SCREEN_ROW = 256
+SCREEN_N_RATE = 0.001
+
+
+def phase_screen(gen, dev, card: str) -> dict:
+    """Phase 32: screening at the cell's shape. The filter of a genome of
+    ``GENOME`` bases, built as the cell builds it (rows of ``SCREEN_ROW``
+    windows through B1 to buckets at 2**28, then ``insert_from_buckets``),
+    against the plain hash -> plain insert, and with no false negative:
+    the genome's own windows all hit under every seed. One batch of 2**18
+    reads of that genome (0.25% substitutions, 0.1% N) through
+    ``screen_reads``, with its launches (one B1, one probe); B1's buckets
+    against ``hash_seeds_tm_plain`` and the probe's counts against
+    ``probe_counts_plain`` on them, exactly. Timings of both kernels, their
+    plain versions and byte bounds, and of ``screen_reads`` whole."""
+    tag = f"[{card}]"
+    errs = {"seed_hash_screen": 0.0, "bloom_probe": 0.0}
+    s, wl = len(SCREEN_SEEDS), SCREEN_WL
+    args = (SCREEN_SEEDS, SCREEN_H)
+    genome = torch.randint(0, 4, (GENOME,), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    rows = prepare_codes(kmer_kernel.sequence_rows(genome, K, SCREEN_ROW))
+    reset_launches()
+    sk.LAUNCHES = sk.LONG_LAUNCHES = 0
+    bf = bloom.BloomFilter.zeros(wl, device=dev)
+    bloom.insert_from_buckets(
+        bf, sk.hash_seeds_tm_auto(rows, *args, emit_buckets=wl),
+        emitted_width_log2=wl)
+    build = {"seed_hash": sk.LAUNCHES, "seed_hash_long": sk.LONG_LAUNCHES,
+             **hist_kernel.BLOOM_LAUNCHES,
+             "bin_ranges_words": hist_kernel.BIN_LAUNCHES["bloom"],
+             "bloom_ranges": hist_kernel.RANGE_LAUNCHES["bloom"]}
+    want = torch.zeros_like(bf.words)
+    for b in sk.hash_seeds_tm_plain(rows, *args, emit_buckets=wl):
+        hist_kernel.bloom_words_plain(b, None, wl, out=want)
+    require(torch.equal(bf.words, want),
+            "the screening filter != plain hash -> plain insert")
+    del want
+    own = bloom.screen_reads(bf, rows, *args)
+    windows = GENOME - K + 1
+    require(bool((own.sum(1) == windows).all()),
+            f"a false negative: the genome's {windows} windows hit "
+            f"{own.sum(1).tolist()} times by seed")
+    fill = fill_of(bf.words)
+    print(f"[screen] filter of {GENOME} bases at 2**{wl}, {s} seeds x "
+          f"{SCREEN_H} hashes: == plain hash -> plain insert, fill "
+          f"{fill:.6f}; every genome window hits under every seed; build "
+          f"launches {build}")
+    del rows, own
+
+    reads = genome_reads(gen, BATCH, dev, genome)
+    reads = reads.masked_fill(torch.rand(reads.shape, generator=gen,
+                                         device=dev) < SCREEN_N_RATE, 4)
+    tm = prepare_codes(reads)
+    del genome, reads
+    sk.LAUNCHES = sk.LONG_LAUNCHES = probe_kernel.LAUNCHES = 0
+    sk.ROUTE_LAUNCHES.update({"staged": 0, "global": 0})
+    counts = bloom.screen_reads(bf, tm, *args)
+    torch.cuda.synchronize()
+    launches = {"seed_hash": sk.LAUNCHES, "seed_hash_long": sk.LONG_LAUNCHES,
+                "staged": sk.ROUTE_LAUNCHES["staged"],
+                "bloom_probe": probe_kernel.LAUNCHES}
+    require(launches == {"seed_hash": 1, "seed_hash_long": 0, "staged": 1,
+                         "bloom_probe": 1},
+            f"screen_reads must launch B1 (staged) once and the probe once "
+            f"a batch: {launches}")
+    buckets = sk.hash_seeds_tm(tm, *args, emit_buckets=wl)
+    same_outputs(errs, "seed_hash_screen", buckets,
+                 sk.hash_seeds_tm_plain(tm, *args, emit_buckets=wl),
+                 f"B1 buckets at 2**{wl}, [{L}, {BATCH}]")
+    same_outputs(errs, "bloom_probe", [counts],
+                 [probe_kernel.probe_counts_plain(buckets, bf.words, s,
+                                                  SCREEN_H, wl)],
+                 f"probe counts at 2**{wl}, [{s}, {BATCH}]")
+    w = L - K + 1
+    valid = int((buckets[0] < (1 << wl)).sum())
+    share = [round(int(c) / valid, 6) for c in counts.sum(1)]
+    print(f"[screen] one batch of {BATCH} genome reads x {L} bp "
+          f"({SCREEN_N_RATE:.1%} N): launches {launches}; B1's "
+          f"{s * SCREEN_H} bucket planes [{w}, {BATCH}] == plain, the probe's "
+          f"counts == plain; hits a valid window by seed {share} "
+          f"({valid} valid windows of {w * BATCH})")
+    del counts
+
+    acc = torch.zeros((s, BATCH), dtype=torch.int32, device=dev)
+    times = {
+        "seed_hash_screen": (
+            timeit(lambda c: sk.hash_seeds_tm(c, *args, emit_buckets=wl),
+                   tm).seconds_per_call,
+            timeit(lambda c: sk.hash_seeds_tm_plain(c, *args,
+                                                    emit_buckets=wl),
+                   tm, calls=3).seconds_per_call,
+            4 * L * BATCH + 4 * w * BATCH * s * SCREEN_H),
+        "bloom_probe": (
+            timeit(lambda b: probe_kernel.probe_counts(
+                b, bf.words, s, SCREEN_H, wl, out=acc), buckets,
+                device=dev).seconds_per_call,
+            timeit(lambda b: probe_kernel.probe_counts_plain(
+                b, bf.words, s, SCREEN_H, wl), buckets, calls=3,
+                device=dev).seconds_per_call,
+            4 * w * BATCH * s * SCREEN_H + 2 * 4 * s * BATCH
+            + bf.words.numel() * 4),
+    }
+    del buckets
+    torch.cuda.empty_cache()
+    t_screen = timeit(lambda c: bloom.screen_reads(bf, c, *args, out=acc),
+                      tm).seconds_per_call
+    for name, (k_s, p_s, nbytes) in times.items():
+        print(f"[time] {name} one batch [{L}, {BATCH}], {s} seeds x "
+              f"{SCREEN_H} hashes at 2**{wl}: kernel {k_s * 1e3:.4f} ms, "
+              f"plain {p_s * 1e3:.4f} ms, bound {bound_ms(nbytes):.4f} ms "
+              f"({nbytes / 1e9:.4f} GB) {tag}")
+    print(f"[time] screen_reads one batch: {t_screen * 1e3:.4f} ms, "
+          f"{BATCH * L / t_screen:.6e} bases/s {tag}")
+    return {"launches": launches, "errs": errs, "times": times}
+
+
 # ------------------------------------------------- multi-GPU (phase 30) ----
 
 #: Phase 18's filters that phase 30 unions across ranks.
@@ -4416,6 +4556,7 @@ def main() -> None:
                           codes, gen, dev)
         binned = run("31 binned routes' timings", phase_binned_timings, codes,
                      gen, dev, smi)
+        screen = run("32 screening", phase_screen, gen, dev, smi)
         run("30 multi-GPU", phase_distributed, rng, codes, path, tmp,
             wide_ref, filters, seq_keep, dev, smi)
         del codes, wide_ref, filters, seq_keep
@@ -4562,6 +4703,20 @@ def main() -> None:
             "plain_ms": p_s * 1e3, "bound_ms": bound_ms(nbytes),
             "bound_by": "bytes",
             "library_ms": None if lib_s is None else lib_s * 1e3})
+    for name, replaces in (
+            ("seed_hash_screen", "nthash_tpu/ops/seed_pallas.py:105"),
+            ("bloom_probe", "nthash_tpu/models/bloom.py:162")):
+        k_s, p_s, nbytes = screen["times"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": ("nthash_tpu_torch/csrc/seed_hash.cu"
+                       if name.startswith("seed") else
+                       "nthash_tpu_torch/csrc/probe.cu"),
+            "replaces": replaces,
+            "launches": screen["launches"][name.removesuffix("_screen")],
+            "max_abs_err": screen["errs"][name], "ms": k_s * 1e3,
+            "plain_ms": p_s * 1e3, "bound_ms": bound_ms(nbytes),
+            "bound_by": "bytes", "library_ms": None})
     print(f"[sp] launches on the one-sequence path: {sp_launches}")
     for row in kernels:
         if "_sequence" in row["name"]:

@@ -24,10 +24,15 @@ a wide filter in VMEM nor scatter; ``ops/part_kernel.py``'s
 path.
 
 ``insert`` and ``insert_from_buckets`` OR into ``bf.words`` in place and
-return the same filter; ``merge`` returns a new one. Queries are a gather
-and a bit test in plain PyTorch. ``union_across`` ORs the ranks' words of a
-process group together: one all-gather, then an OR-fold over the ranks, as
-in the JAX package (NCCL has no bitwise all-reduce).
+return the same filter; ``merge`` returns a new one. ``contains`` is a
+gather and a bit test in plain PyTorch. Screening reads, as BioBloom
+Tools' categorizer does with multiple spaced seeds, is ``screen_reads``:
+the seed kernels emit buckets at the filter's width and
+``hits_from_buckets`` counts, per seed and read, the windows whose bits
+are all set (``ops/probe_kernel.py``, ``csrc/probe.cu`` on the card).
+``union_across`` ORs the ranks' words of a process group together: one
+all-gather, then an OR-fold over the ranks, as in the JAX package (NCCL
+has no bitwise all-reduce).
 
 False-positive tuning: m = 2**width_log2 bits, optimal h ~= (m/n) ln 2.
 """
@@ -39,6 +44,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import seed_kernel
 from ..ops.hist_kernel import (
     BLOOM_MAX_WIDTH_LOG2,
     BLOOM_MIN_WIDTH_LOG2,
@@ -49,6 +55,8 @@ from ..ops.hist_kernel import (
     rows_view,
     word_index,
 )
+from ..ops.probe_kernel import probe_counts
+from ..ops.seed_torch import check_seeds
 from ..parallel.mesh import all_gather
 
 
@@ -137,6 +145,17 @@ def insert(bf: BloomFilter, hashes: torch.Tensor, valid: torch.Tensor,
     return bf
 
 
+def emitted_width(bf: BloomFilter, emitted_width_log2: int | None) -> int:
+    """The filter's width_log2; a ValueError if the buckets' emitted width
+    (None: not given) is another."""
+    width_log2 = bf.width.bit_length() - 1
+    if emitted_width_log2 is not None and emitted_width_log2 != width_log2:
+        raise ValueError(
+            f"buckets were emitted at width 2**{emitted_width_log2} but the "
+            f"filter width is 2**{width_log2}")
+    return width_log2
+
+
 def insert_from_buckets(bf: BloomFilter, buckets, *,
                         emitted_width_log2: int | None = None) -> BloomFilter:
     """Ingest pre-bucketed indices from the fused hash kernels, in place.
@@ -154,11 +173,7 @@ def insert_from_buckets(bf: BloomFilter, buckets, *,
     (``ops.hist_kernel.rows_view``); other tensors take one launch each.
     Neither copies the buckets. Returns ``bf``, its words updated.
     """
-    width_log2 = bf.width.bit_length() - 1
-    if emitted_width_log2 is not None and emitted_width_log2 != width_log2:
-        raise ValueError(
-            f"buckets were emitted at width 2**{emitted_width_log2} but the "
-            f"filter width is 2**{width_log2}")
+    width_log2 = emitted_width(bf, emitted_width_log2)
     if width_log2 > MAX_WIDTH_LOG2:
         raise ValueError(
             f"buckets are emitted at widths up to 2**{MAX_WIDTH_LOG2}; "
@@ -178,6 +193,56 @@ def contains(bf: BloomFilter, hashes: torch.Tensor,
     # int32 ``>>`` is arithmetic: a word with bit 31 set shifts in ones,
     # so the bit is masked after the shift
     return (((got >> bit_index(b)) & 1) != 0).all(dim=-1)
+
+
+def hits_from_buckets(bf: BloomFilter, buckets, *, num_seeds: int,
+                      num_hashes: int, emitted_width_log2: int,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """Per seed, the windows of each read whose every bucket's bit is set.
+
+    buckets: int32 [S * h, W, R], or that list of [W, R] views, from
+    ``seed_kernel.hash_seeds_tm(..., emit_buckets=width_log2)`` in its
+    seed-major order (``num_seeds`` S, ``num_hashes`` h a seed), read
+    where they lie. ``emitted_width_log2`` must be the filter's width:
+    buckets emitted narrower would probe their sentinel as a real bit.
+    A window holding an invalid base carries the sentinel and counts for no
+    seed. ``out``: int32 [S, R] added into in place (each row's reads
+    adjacent; the rows may be a slice of a wider tensor), else a new one.
+    Returns ``out``; the probe kernel (``ops/probe_kernel.probe_counts``)
+    on the card, its plain version on the CPU.
+    """
+    return probe_counts(buckets, bf.words, num_seeds, num_hashes,
+                        emitted_width(bf, emitted_width_log2), out=out)
+
+
+def screen_reads(bf: BloomFilter, codes_tm: torch.Tensor, seeds,
+                 num_hashes_per_seed: int,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """Screen time-major reads against the filter under spaced seeds.
+
+    Every window of codes_tm [L, R] (``ops/kmer_kernel.prepare_codes``) is
+    hashed under each of ``seeds`` (``num_hashes_per_seed`` hashes a seed)
+    to buckets at the filter's width by
+    ``seed_kernel.hash_seeds_tm_auto``, then probed by
+    :func:`hits_from_buckets`. Returns int32 [S, R], added into ``out``:
+    per seed, the windows of each read whose bits are all set. Reads
+    shorter than k (L < k) have no window and add nothing. A read's score
+    (its hits over its windows) and the threshold it is held to are the
+    caller's.
+    """
+    seeds = tuple(seeds)
+    k = check_seeds(seeds)
+    width_log2 = bf.width.bit_length() - 1
+    if out is None:
+        out = torch.zeros((len(seeds), codes_tm.shape[1]), dtype=torch.int32,
+                          device=bf.words.device)
+    if codes_tm.shape[0] < k:
+        return out
+    buckets = seed_kernel.hash_seeds_tm_auto(
+        codes_tm, seeds, num_hashes_per_seed, emit_buckets=width_log2)
+    return hits_from_buckets(bf, buckets, num_seeds=len(seeds),
+                             num_hashes=num_hashes_per_seed,
+                             emitted_width_log2=width_log2, out=out)
 
 
 def merge(a: BloomFilter, b: BloomFilter) -> BloomFilter:

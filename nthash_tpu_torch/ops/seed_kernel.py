@@ -17,7 +17,8 @@ XOR of independently rotated per-base seeds over the care positions, so for
 each maximal care run [s, e) rolling the window by one base is two edge
 updates (taps at offsets k - e and k - s behind the newest base). Each
 wrapper launches the kernel for a CUDA tensor and runs its plain version for
-a CPU tensor; there is no other route, and a failed launch raises. Any R
+a CPU tensor; there is no other route, and a failed launch raises. Either
+runs inside the span ``nthash.seed`` (``utils/profiling.span``). Any R
 works (no TPU read padding). ``ops/seed_torch.py`` is the independent
 direct reference the tests hold both routes to.
 """
@@ -32,6 +33,7 @@ import torch
 
 from .. import u64
 from ..constants import COMP_CODE, SROL_PERIOD, nte64_multiplier, srol_seed
+from ..utils.profiling import span
 from . import cuda_build
 from .kmer_kernel import (
     MAX_SHARED_BYTES,
@@ -365,17 +367,20 @@ def hash_seeds_tm(codes_tm: torch.Tensor, seeds: Sequence[str],
     """
     global LAUNCHES
     seeds = tuple(seeds)
-    k = _check(codes_tm, seeds, num_hashes_per_seed, emit_fwd_rev,
-               emit_buckets)
-    if codes_tm.is_cuda:
-        out = _launch(codes_tm, seeds, k, num_hashes_per_seed, emit_fwd_rev,
-                      emit_buckets, codes_tm.shape[0] - k + 1)
-        LAUNCHES += codes_tm.shape[1] > 0  # an empty batch launches nothing
-        return out
-    if codes_tm.device.type == "cpu":
-        return hash_seeds_tm_plain(codes_tm, seeds, num_hashes_per_seed,
-                                   emit_fwd_rev=emit_fwd_rev,
-                                   emit_buckets=emit_buckets)
+    with span("nthash.seed"):
+        k = _check(codes_tm, seeds, num_hashes_per_seed, emit_fwd_rev,
+                   emit_buckets)
+        if codes_tm.is_cuda:
+            out = _launch(codes_tm, seeds, k, num_hashes_per_seed,
+                          emit_fwd_rev, emit_buckets,
+                          codes_tm.shape[0] - k + 1)
+            # an empty batch launches nothing
+            LAUNCHES += codes_tm.shape[1] > 0
+            return out
+        if codes_tm.device.type == "cpu":
+            return hash_seeds_tm_plain(codes_tm, seeds, num_hashes_per_seed,
+                                       emit_fwd_rev=emit_fwd_rev,
+                                       emit_buckets=emit_buckets)
     raise ValueError(f"no seed_hash route for device {codes_tm.device}")
 
 
@@ -393,19 +398,22 @@ def hash_seeds_tm_long(codes_tm: torch.Tensor, seeds: Sequence[str],
     """
     global LONG_LAUNCHES
     seeds = tuple(seeds)
-    k = _check(codes_tm, seeds, num_hashes_per_seed, emit_fwd_rev,
-               emit_buckets)
-    tile = resolve_time_tile(k, time_tile)
-    if codes_tm.is_cuda:
-        out = _launch(codes_tm, seeds, k, num_hashes_per_seed, emit_fwd_rev,
-                      emit_buckets, min(tile, codes_tm.shape[0] - k + 1))
-        LONG_LAUNCHES += codes_tm.shape[1] > 0
-        return out
-    if codes_tm.device.type == "cpu":
-        return hash_seeds_tm_long_plain(codes_tm, seeds, num_hashes_per_seed,
-                                        time_tile=tile,
-                                        emit_fwd_rev=emit_fwd_rev,
-                                        emit_buckets=emit_buckets)
+    with span("nthash.seed"):
+        k = _check(codes_tm, seeds, num_hashes_per_seed, emit_fwd_rev,
+                   emit_buckets)
+        tile = resolve_time_tile(k, time_tile)
+        if codes_tm.is_cuda:
+            out = _launch(codes_tm, seeds, k, num_hashes_per_seed,
+                          emit_fwd_rev, emit_buckets,
+                          min(tile, codes_tm.shape[0] - k + 1))
+            LONG_LAUNCHES += codes_tm.shape[1] > 0
+            return out
+        if codes_tm.device.type == "cpu":
+            return hash_seeds_tm_long_plain(codes_tm, seeds,
+                                            num_hashes_per_seed,
+                                            time_tile=tile,
+                                            emit_fwd_rev=emit_fwd_rev,
+                                            emit_buckets=emit_buckets)
     raise ValueError(f"no seed_hash route for device {codes_tm.device}")
 
 
@@ -596,16 +604,23 @@ def hash_seeds_sequence(codes: torch.Tensor, seeds: Sequence[str],
     fit a block, :func:`sequence_fits`), a CPU tensor through
     :func:`hash_seeds_sequence_plain`.
     """
-    global SEQUENCE_LAUNCHES, FWD_REV_LAUNCHES
     seeds = tuple(seeds)
-    k = _check_sequence(seeds, num_hashes_per_seed)
-    codes = sequence_codes(codes)
-    if not codes.is_cuda:
+    with span("nthash.seed"):
+        k = _check_sequence(seeds, num_hashes_per_seed)
+        codes = sequence_codes(codes)
+        if codes.is_cuda:
+            return _launch_sequence(codes, seeds, k, num_hashes_per_seed,
+                                    emit_fwd_rev)
         if codes.device.type == "cpu":
             return hash_seeds_sequence_plain(codes, seeds,
                                              num_hashes_per_seed,
                                              emit_fwd_rev=emit_fwd_rev)
-        raise ValueError(f"no seed_hash route for device {codes.device}")
+    raise ValueError(f"no seed_hash route for device {codes.device}")
+
+
+def _launch_sequence(codes, seeds, k, num_hashes_per_seed, emit_fwd_rev):
+    """One launch of ``seed_hash.cu``'s one-sequence entry."""
+    global SEQUENCE_LAUNCHES, FWD_REV_LAUNCHES
     c = codes.shape[0]
     if c == 0:
         raise ValueError("the sequence is empty")

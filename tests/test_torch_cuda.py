@@ -24,6 +24,7 @@ from nthash_tpu_torch.io.stream import pack_codes
 from nthash_tpu_torch.ops import (
     hist_kernel,
     kmer_kernel,
+    probe_kernel,
     seed_kernel,
     unpack_kernel,
 )
@@ -1662,3 +1663,105 @@ def test_pinned_wait_span_on_card(tmp_path, cuda):
              if e.get("name") == "nthash.pinned.wait"]
     assert waits and all(e["tid"] != threading.get_native_id()
                          for e in waits)
+
+
+#: The screening configuration's spaced seeds (26 care positions each).
+SCREEN_SEEDS = ("11101111110111011011101111110111",
+                "11110111011110111101111011101111",
+                "11111011111011100111011111011111",
+                "11011110111101111110111101111011")
+
+
+def _screen_filter(genome, seeds, h, wl):
+    """A filter of ``genome``'s windows under ``seeds``, built as the
+    screening cell builds it: rows of 256 windows through the seed kernels
+    to buckets, then ``insert_from_buckets``."""
+    bf = bloom.BloomFilter.zeros(wl, device=genome.device)
+    rows = prepare_codes(kmer_kernel.sequence_rows(genome, len(seeds[0]),
+                                                   256))
+    return bloom.insert_from_buckets(
+        bf, seed_kernel.hash_seeds_tm_auto(rows, seeds, h, emit_buckets=wl),
+        emitted_width_log2=wl)
+
+
+def test_probe_kernel_at_the_cell_width(cuda):
+    """One batch of the screening cell: 2^18 reads of 150 bp, half of them
+    windows of a genome of E. coli's length and half random, 0.1% N, 4
+    seeds x 4 hashes against a 2^28-bit filter of the genome. The probe
+    kernel's counts equal the plain version's on the same buckets,
+    max_abs_err 0."""
+    wl, h = 28, 4
+    g = torch.Generator(device=cuda).manual_seed(2**31 + 21)
+    genome = torch.randint(0, 4, (4641652,), generator=g, device=cuda,
+                           dtype=torch.uint8)
+    bf = _screen_filter(genome, SCREEN_SEEDS, h, wl)
+    n = 1 << 18
+    starts = torch.randint(0, genome.shape[0] - 150 + 1, (n, 1), generator=g,
+                           device=cuda)
+    reads = genome[starts + torch.arange(150, device=cuda)]
+    reads[1::2] = torch.randint(0, 4, (n // 2, 150), generator=g,
+                                device=cuda, dtype=torch.uint8)
+    reads[torch.rand((n, 150), generator=g, device=cuda) < 0.001] = 4
+    buckets = seed_kernel.hash_seeds_tm_auto(prepare_codes(reads),
+                                             SCREEN_SEEDS, h, emit_buckets=wl)
+    before = probe_kernel.LAUNCHES
+    got = probe_kernel.probe_counts(buckets, bf.words, 4, h, wl)
+    assert probe_kernel.LAUNCHES == before + 1
+    want = probe_kernel.probe_counts_plain(buckets, bf.words, 4, h, wl)
+    torch.cuda.synchronize()
+    assert int((got - want).abs().max()) == 0
+    genomic, rand = got[:, 0::2].float().mean(), got[:, 1::2].float().mean()
+    assert genomic > 100 and rand < 1
+
+
+@pytest.mark.parametrize("h", [1, 2, 3, 4, 5, 8, 9])
+@pytest.mark.parametrize("s", [1, 3])
+def test_probe_kernel_vs_plain(rng, cuda, s, h):
+    """One to nine hashes a seed, each test stopping at the first zero bit,
+    into a column slice of a wider tensor, with the sentinel, -1 and buckets
+    past the width among the planes and words with bit 31 set; planes that
+    are not views of one output take the stacked copy."""
+    wl, w, r = 14, 37, 1001
+    bits = rng.random(((1 << wl) // 32, 32)) < 0.85
+    words = torch.from_numpy((bits * (1 << np.arange(32, dtype=np.int64)))
+                             .sum(1).astype(np.uint32).view(np.int32))
+    planes = rng.integers(0, 1 << wl, (s * h, w, r)).astype(np.int32)
+    planes[rng.random(planes.shape) < 0.01] = 1 << wl
+    planes[rng.random(planes.shape) < 0.01] = -1
+    planes[rng.random(planes.shape) < 0.01] = (1 << wl) + 3
+    planes = torch.from_numpy(planes)
+    want = probe_kernel.probe_counts_plain(planes, words, s, h, wl)
+    assert int(want.sum()) > 0
+    wide = torch.full((s, r + 200), 7, dtype=torch.int32, device=cuda)
+    view = wide[:, 100:100 + r]
+    got = probe_kernel.probe_counts(planes.to(cuda), words.to(cuda), s, h,
+                                    wl, out=view)
+    assert got is view
+    copied = probe_kernel.probe_counts(
+        [p.clone() for p in planes.to(cuda)], words.to(cuda), s, h, wl)
+    torch.cuda.synchronize()
+    assert torch.equal(view.cpu(), 7 + want)
+    assert bool((wide[:, :100] == 7).all() and (wide[:, 100 + r:] == 7).all())
+    assert torch.equal(copied.cpu(), want)
+
+
+@pytest.mark.parametrize("seeds, h, wl", [(SCREEN_SEEDS, 4, 20),
+                                          (("10101", "11011"), 3, 12)])
+def test_screen_reads_cuda_vs_cpu(rng, cuda, seeds, h, wl):
+    """``screen_reads`` on the card (B1, then the probe kernel) counts what
+    its CPU route counts, over a filter built on the card that equals the
+    one built on the CPU."""
+    genome = torch.from_numpy(rng.integers(0, 4, 5000, dtype=np.uint8))
+    starts = rng.integers(0, 5000 - 150 + 1, 333)
+    reads = genome[torch.from_numpy(starts[:, None] + np.arange(150))]
+    reads[torch.from_numpy(rng.random(reads.shape) < 0.01)] = 4
+    on_card = _screen_filter(genome.to(cuda), seeds, h, wl)
+    on_cpu = _screen_filter(genome, seeds, h, wl)
+    assert torch.equal(on_card.words.cpu(), on_cpu.words)
+    before = probe_kernel.LAUNCHES, seed_kernel.LAUNCHES
+    got = bloom.screen_reads(on_card, prepare_codes(reads.to(cuda)), seeds, h)
+    assert (probe_kernel.LAUNCHES, seed_kernel.LAUNCHES) == (before[0] + 1,
+                                                              before[1] + 1)
+    want = bloom.screen_reads(on_cpu, prepare_codes(reads), seeds, h)
+    assert torch.equal(got.cpu(), want)
+    assert int(want.sum()) > 0

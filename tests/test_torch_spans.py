@@ -20,6 +20,7 @@ from nthash_tpu_torch.models.pipeline import (
     ReadHashingPipeline,
     fused_count_step,
 )
+from nthash_tpu_torch.ops import seed_kernel
 from nthash_tpu_torch.ops.kmer_kernel import hash_kmers_tm_auto, prepare_codes
 from nthash_tpu_torch.parallel import dp
 from nthash_tpu_torch.utils import profiling
@@ -30,7 +31,8 @@ ROOT = Path(__file__).resolve().parents[1]
 SPANS = {"nthash.hash", "nthash.histogram", "nthash.bloom", "nthash.bin",
          "nthash.ranges", "nthash.parse", "nthash.pinned.wait",
          "nthash.stream.wait", "nthash.copy", "nthash.step",
-         "nthash.allreduce", "nthash.checkpoint"}
+         "nthash.allreduce", "nthash.checkpoint", "nthash.seed",
+         "nthash.probe"}
 
 
 def spans_of(fn, *args, **kwargs):
@@ -118,6 +120,51 @@ def test_insert_from_buckets_records_bloom():
     names = spans_of(bloom.insert_from_buckets, bf, buckets,
                      emitted_width_log2=14)
     assert names == ["nthash.bloom"] * 3
+
+
+SEEDS = ("110111011", "101111101")
+
+
+def screening_filter():
+    """A filter of 2**12 bits holding one batch's spaced-seed windows."""
+    bf = bloom.BloomFilter.zeros(12, device="cpu")
+    (tm,) = batches(1)
+    return bloom.insert_from_buckets(
+        bf, seed_kernel.hash_seeds_tm_auto(tm, SEEDS, 2, emit_buckets=12))
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_screen_reads_spans_a_batch(n):
+    """One ``nthash.seed`` (the seed kernel) and one ``nthash.probe`` a
+    batch, nothing else."""
+    bf = screening_filter()
+
+    def screen():
+        for tm in batches(n):
+            bloom.screen_reads(bf, tm, SEEDS, 2)
+    names = spans_of(screen)
+    assert names.count("nthash.seed") == n
+    assert names.count("nthash.probe") == n
+    assert len(names) == 2 * n
+
+
+@pytest.mark.parametrize("route", ["hash_seeds_tm", "hash_seeds_tm_long",
+                                   "hash_seeds_sequence"])
+def test_seed_wrappers_record_seed(route):
+    (tm,) = batches(1)
+    arg = tm[:, 0] if route == "hash_seeds_sequence" else tm
+    assert spans_of(getattr(seed_kernel, route), arg, SEEDS) == \
+        ["nthash.seed"]
+
+
+def test_screen_reads_records_nothing_without_profiler(monkeypatch):
+    def refused(name):
+        raise AssertionError(f"record_function({name!r}) while off")
+
+    bf = screening_filter()
+    monkeypatch.setattr(torch.profiler, "record_function", refused)
+    (tm,) = batches(1)
+    assert int(bloom.screen_reads(bf, tm, SEEDS, 2).sum()) > 0
 
 
 def test_worker_thread_span_in_trace(tmp_path):
