@@ -395,13 +395,13 @@ def phase_build() -> None:
                 print(f"[build] {name} {kernel}: "
                       f"{ln.replace('ptxas info    :', '').strip()}")
                 if ((name == "seed_hash" or "_sequence_kernel" in kernel
-                     or name == "partition")
+                     or name == "partition" or "bin_scatter_kernel" in kernel)
                         and re.search(r"[1-9]\d* bytes spill", ln)):
                     spills.append(kernel)
     require(all(cuda_build.BUILD_LOGS.get(name) for name in SOURCES),
             "a source was not built in this run: no ptxas report")
-    require(not spills, "seed_hash, one-sequence or partition instances "
-            f"spill: {spills}")
+    require(not spills, "seed_hash, one-sequence, partition or binning "
+            f"scatter instances spill: {spills}")
     res = pk.merge_resources()
     span = pk.MERGE_MAX_SPAN
     print(f"[build] partition: sort_span_kernel<4, true> (the merge's cluster "
@@ -544,7 +544,8 @@ def reset_part_launches() -> None:
 def reset_hist_launches() -> None:
     hist_kernel.LAUNCHES = 0
     for counts in (hist_kernel.ROUTE_LAUNCHES, hist_kernel.BIN_LAUNCHES,
-                   hist_kernel.RANGE_LAUNCHES):
+                   hist_kernel.RANGE_LAUNCHES,
+                   hist_kernel.SCATTER_ROUTE_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -881,6 +882,7 @@ def phase_main_wide(codes: np.ndarray, path: Path, dev, errs: dict):
                 "histogram": hist_kernel.LAUNCHES}
     routes = dict(hist_kernel.ROUTE_LAUNCHES)
     bins = dict(hist_kernel.BIN_LAUNCHES)
+    bodies = dict(hist_kernel.SCATTER_ROUTE_LAUNCHES)
     parts = dict(pk.LAUNCHES)
     launches["bin_ranges_counts"] = bins["histogram"]
     launches["histogram_ranges"] = hist_kernel.RANGE_LAUNCHES["histogram"]
@@ -892,13 +894,15 @@ def phase_main_wide(codes: np.ndarray, path: Path, dev, errs: dict):
     for s in range(0, N_READS, BATCH):
         n = min(BATCH, N_READS - s) * (L - K + 1)
         want_routes[hist_kernel._counts_route(H, n, WIDE, False, None)[0]] += 1
+    want_body = hist_kernel.scatter_body(WIDE, hist_kernel.COUNTS_RANGE_LOG2)
     require(not any(parts.values()) and routes == want_routes
             and bins["histogram"] == routes["binned"]
-            == launches["histogram_ranges"],
+            == launches["histogram_ranges"] == bodies[want_body]
+            == sum(bodies.values()),
             f"the 2**20 path must count by the rule's route ({want_routes}), "
-            f"binning once a binned launch, with no partition kernel: "
-            f"partition launches {parts}, histogram by route {routes}, "
-            f"binning passes {bins}")
+            f"binning once a binned launch by the {want_body} scatter, with "
+            f"no partition kernel: partition launches {parts}, histogram by "
+            f"route {routes}, binning passes {bins}, scatters {bodies}")
     want = torch.zeros((H, 1 << WIDE), dtype=torch.int64, device=dev)
     for s in range(0, codes.shape[0], BATCH):
         tm = prepare_codes(torch.from_numpy(codes[s:s + BATCH]).to(dev))
@@ -1853,7 +1857,8 @@ def bloom_build(tms, wl: int, dev):
 def reset_launches() -> None:
     kmer_kernel.LAUNCHES = kmer_kernel.LONG_LAUNCHES = 0
     for counts in (pk.LAUNCHES, hist_kernel.BLOOM_LAUNCHES,
-                   hist_kernel.BIN_LAUNCHES, hist_kernel.RANGE_LAUNCHES):
+                   hist_kernel.BIN_LAUNCHES, hist_kernel.RANGE_LAUNCHES,
+                   hist_kernel.SCATTER_ROUTE_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -1889,16 +1894,22 @@ def phase_bloom_path(codes: np.ndarray, dev, errs: dict
         binned = sum(hist_kernel._words_route_of(
             1, H * tm.shape[1] * (tm.shape[0] - K + 1), wl, None)[0]
             == "binned" for tm in tms)
+        bodies = dict(hist_kernel.SCATTER_ROUTE_LAUNCHES)
+        want_bodies = dict.fromkeys(bodies, 0)
+        if binned:
+            want_bodies[hist_kernel.scatter_body(
+                wl, hist_kernel.WORDS_RANGE_LOG2)] = binned
         require(launches["kmer_hash"] > 0
                 and launches["bloom_words"] == len(tms)
                 and not launches["bloom_words_rows"]
                 and not any(launches[k] for k in PART_KERNELS)
                 and launches["bin_ranges_words"] == binned
-                == launches["bloom_ranges"],
+                == launches["bloom_ranges"] and bodies == want_bodies,
                 f"the 2**{wl} Bloom path must take one bloom_words call a "
                 f"batch, binned on the {binned} batches where the rule bins "
-                f"(one binning and one range pass each), and no partition "
-                f"kernel: {launches}")
+                f"(one binning and one range pass each, the scatter by the "
+                f"rule's body: {want_bodies}, took {bodies}), and no "
+                f"partition kernel: {launches}")
         for name in total:
             if name != "bloom_words_rows":
                 total[name] += launches[name]
@@ -3469,7 +3480,7 @@ def reset_blind_launches() -> None:
 #: (width_log2, rows) of phase 31's edge shapes: the histogram's binned
 #: widths (up to the most ranges one pass takes: 4 rows at 2**25, one at
 #: 2**27) and the presence words' (up to 2**31).
-BIN_HIST_EDGES = ((16, 4), (20, 4), (21, 4), (25, 4), (27, 1))
+BIN_HIST_EDGES = ((16, 4), (20, 4), (21, 4), (24, 4), (25, 4), (27, 1))
 BIN_WORD_EDGES = ((21, 1), (21, 3), (25, 1), (30, 1), (31, 1))
 #: (kernel, width_log2, rows) with no binned route, which a forced binned
 #: route refuses: the private widths and too many ranges for one pass.
@@ -3536,15 +3547,21 @@ def genome_reads(gen, n: int, dev, genome=None) -> torch.Tensor:
 
 def bins_err(idx, weight, wl: int, rl: int, per: int = 4096) -> float:
     """``bin_ranges`` against ``bin_ranges_plain``: the largest difference
-    of the counts, the starts, the range pass's block prefix and each
-    range's offsets compared as multisets (the order inside a range is
-    free; both sorted by range, then offset). 0 when all are equal."""
+    of the counts, the starts, the range pass's block prefix, each range's
+    cursor against the next range's start, and each range's offsets
+    compared as multisets (the order inside a range is free; both sorted by
+    range, then offset). 0 when all are equal."""
     got = hist_kernel.bin_ranges(idx, weight, wl, rl, per)
     want = hist_kernel.bin_ranges_plain(idx, weight, wl, rl, per)
     def diff(a, b):
         return 0.0 if torch.equal(a, b) else max_abs_err(a, b)
 
-    err = max(diff(a, b) for a, b in zip(got[:3], want[:3]))
+    nranges = got.counts.numel()
+    meta = torch.empty(0, dtype=torch.int64, device=idx.device).set_(
+        got.counts.untyped_storage())
+    cursors = meta[2 * nranges + 1:3 * nranges + 1]
+    err = max([diff(a, b) for a, b in zip(got[:3], want[:3])]
+              + [diff(cursors, want.starts[1:])])
     if err:
         return err
     total = int(want.starts[-1])
@@ -3823,6 +3840,73 @@ def time_clustered(codes: np.ndarray, gen, dev, tag: str) -> None:
     torch.cuda.empty_cache()
 
 
+#: Kernels the binning pass may launch (whole words; the device's memsets
+#: aside): the benchmark's roofline readers find its time by these names.
+BIN_KERNELS = re.compile(r"\bbin_(count|scan|scatter)_kernel\b")
+#: A2's binned route at 2**20 over the 1M reads, as the path launches it,
+#: before the whole-sector scatter (this script's phase 31 on an NVIDIA
+#: H100 80GB HBM3 at 700 W); that width bins by the other scatter body.
+A2_BINNED_BEFORE_MS = 2.4763
+
+
+def time_cell_scatter(gen, dev, tag: str) -> None:
+    """Phase 31, the binning pass at the benchmark cells' shapes: one
+    genomic batch of 2**18 reads (``genome_reads``) hashed at k=32 into 4
+    hashes, as the count-min cell's [4, n] buckets at 2**28 (ranges of 2**18)
+    and the Bloom cell's one stream at 2**30 (ranges of 2**20). Each pass
+    against its plain version (exact), then 10 passes under the profiler:
+    every one by the "sectors" scatter, no kernel but the three named ones,
+    and each kernel's device time a batch; the scatter beside its byte bound
+    (every index read once, every valid update staged once) and its share
+    of it."""
+    tm = prepare_codes(genome_reads(gen, BATCH, dev))
+    for label, wl, rl, rows in (("count-min cell", 28, 18, H),
+                                ("Bloom cell", 30, 20, 1)):
+        idx = hist_kernel.rows_view(hash_kmers_tm(
+            tm, K, H, emit_buckets=wl)).reshape(rows, -1)
+        n = idx.shape[1]
+        grid = (hist_kernel.binned_counts_grid if rl < 20
+                else hist_kernel.binned_words_grid)
+        per = grid(rows, n, wl)[0]
+        require(per > 0, f"no binned route at [{rows}, {n}] x 2**{wl}")
+        require(hist_kernel.scatter_body(wl, rl) == "sectors",
+                f"the rule gives [{rows}, n] at 2**{wl} no sectors scatter")
+        err = bins_err(idx, None, wl, rl, per)
+        require(err == 0, f"bin_ranges != plain by {err} at the {label}'s "
+                "shape")
+        valid = int(((idx >= 0) & (idx < (1 << wl))).sum())
+        passes = 10
+        before = dict(hist_kernel.SCATTER_ROUTE_LAUNCHES)
+        tr = trace_device(lambda: [hist_kernel.bin_ranges(idx, None, wl, rl,
+                                                          per)
+                                   for _ in range(passes)], device=dev)
+        took = {k: v - before[k]
+                for k, v in hist_kernel.SCATTER_ROUTE_LAUNCHES.items()}
+        require(took == {"sectors": passes, "runs": 0},
+                f"{label}: scatters by body {took}, want {passes} sectors")
+        others = [name for name in tr.by_name
+                  if not BIN_KERNELS.search(name) and "Memset" not in name
+                  and not name.startswith("nthash.")]  # the span's own row
+        require(not others, f"the binning pass launched {others}")
+        per_kernel = {k: sum(t for name, (t, _) in tr.by_name.items()
+                             if re.search(rf"\bbin_{k}_kernel\b", name))
+                      / passes * 1e3 for k in ("count", "scan", "scatter")}
+        nbytes = idx.numel() * 4 + valid * 4
+        bound = bound_ms(nbytes)
+        print(f"[time] binning pass at the {label}'s shape, [{rows}, {n}] at "
+              f"2**{wl} (ranges of 2**{rl}), one genomic batch of {BATCH} "
+              f"reads, device time a batch over {passes} traced passes: "
+              f"bin_scatter_kernel {per_kernel['scatter']:.4f} ms (sectors "
+              f"body), bound {bound:.4f} ms ({nbytes / 1e9:.4f} GB), "
+              f"{100 * bound / per_kernel['scatter']:.1f}% of it; "
+              f"bin_count_kernel {per_kernel['count']:.4f} ms, "
+              f"bin_scan_kernel {per_kernel['scan']:.4f} ms {tag}")
+        del idx
+        torch.cuda.empty_cache()
+    del tm
+    torch.cuda.empty_cache()
+
+
 def phase_binned_timings(codes: np.ndarray, gen, dev, card: str) -> dict:
     """Phase 31, timings in one call, in turns, each line with the card's
     name and power limit: over the 1M reads (four batches), A2 at 2**20 as
@@ -3838,6 +3922,7 @@ def phase_binned_timings(codes: np.ndarray, gen, dev, card: str) -> dict:
     kernels line."""
     tag = f"[{card}]"
     res = {}
+    time_cell_scatter(gen, dev, tag)
 
     def add(name, k_s, p_s, lib_s, nbytes):
         row = res.setdefault(name, [0.0, 0.0, 0.0, 0])
@@ -3887,7 +3972,8 @@ def phase_binned_timings(codes: np.ndarray, gen, dev, card: str) -> dict:
     del rows_out
     print(f"[time] A2 at 2**{WIDE} as the path launches it ([{H}, n] a "
           f"batch, into the sketch's rows), over {N_READS} reads: binned "
-          f"{routes['binned'] * 1e3:.4f} ms, direct atomics (the old route) "
+          f"{routes['binned'] * 1e3:.4f} ms ({A2_BINNED_BEFORE_MS} ms before "
+          f"the whole-sector scatter), direct atomics (the old route) "
           f"{routes['direct'] * 1e3:.4f} ms, in turns; of the binned route "
           f"the binning pass {res['bin_ranges_counts'][0] * 1e3:.4f} ms and "
           f"the range pass {res['histogram_ranges'][0] * 1e3:.4f} ms; plain "

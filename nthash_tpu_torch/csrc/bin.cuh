@@ -29,15 +29,30 @@
 //   2. bin_scan_kernel (one block): the exclusive scan of the range counts
 //      (each range's first stage position, and its cursor), and of the
 //      range pass's blocks per range, ceil(count / per);
-//   3. bin_scatter_kernel: a block holds its slice in registers, ranks each
-//      entry within its range by a shared atomicAdd, sorts the slice by
-//      range in shared memory, reserves one run per non-empty range with
-//      one atomicAdd on the range's cursor, and writes each run out by
-//      consecutive threads. Its blocks are of 1,024 threads where the
-//      ranges are many (C1 at 2^30: 1,024; A2's clustered route at 4 x
-//      2^28: 1,024 a row), 512 where they are few (A2 at 2^20: 32 a row):
-//      the longer a block's runs, the fewer sectors of the stage are
-//      written in part.
+//   3. bin_scatter_kernel, by one of two bodies, chosen by the ranges a row
+//      (nbins) and the stage's entry size:
+//      "sectors", for more than 256 ranges a row where a 32-byte sector of
+//      carried entries a range fits the shared memory (int32 stage: up to
+//      1,024 ranges; uint16: up to 512): the count-min cell (4 x 2^28 in
+//      ranges of 2^18) and the Bloom cell (2^30 in ranges of 2^20). A
+//      persistent block an SM owns every bpr-th tile of one row. It holds
+//      a tile in registers, counts it by range in shared memory, claims
+//      each range's whole 32-byte sectors with one atomicAdd on the range's
+//      sector counter, sorts the tile by range behind the entries it
+//      carried from its last tile, writes only the claimed whole sectors
+//      (on 32-byte boundaries of the range's slice) and carries the rest,
+//      fewer than a sector a range, to its next tile. The next tile's loads
+//      are in flight while it writes. Its leftovers, and claims past a
+//      slice's whole sectors, fill the slice's head and top sectors at the
+//      end.
+//      "runs", elsewhere (PipelineConfig()'s 2^20: 32 ranges a row): a
+//      block a tile, in registers, ranks each entry within its range by a
+//      shared atomicAdd (one histogram a warp where the ranges are few),
+//      sorts the tile by range in shared memory, reserves one run a range
+//      with one atomicAdd on the range's cursor, and writes the runs out
+//      by consecutive threads; 512 threads where the ranges are few, else
+//      1,024. With few ranges the runs are long, and with more than 1,024
+//      the carries do not fit.
 // Entries of one range may land in any order: an int32 add mod 2^32 is
 // commutative, and an OR is commutative and idempotent, so the range pass
 // that follows is exact whatever the order.
@@ -57,9 +72,31 @@
 // route and the words). A hot range or a hot bucket costs shared atomics
 // inside one block, not serialised atomics on one address of the L2.
 //
+// What bounded the scatter on the H100 (one batch of 2^18 genome reads at
+// either cell's shape, 124.8M indices, 0.98 GB, a byte bound of 0.293 ms):
+// the "runs" body took 0.71 ms. Dropping its stores took it to 0.42 ms;
+// replacing the cursor atomics by bases loaded with the tile left it
+// unchanged or slower; 8K tiles at two blocks an SM, 0.84 ms. So the
+// stores cost 0.28 ms, and what they wait on is the sectors that two
+// blocks write at different times: a range's run of ~16 entries (64
+// bytes) starts and ends inside sectors that the runs of other tiles
+// finish later. Writing each tile contiguously instead, 0.51 ms; confining
+// the same stores to 16 MB, 0.48 ms; padding every run to whole sectors
+// (22% more bytes), 0.50 ms against 0.74 for the same spread with shared
+// sectors. Overlapping the loads (a TMA ring, two blocks an SM, an L2
+// prefetch) and longer runs (32K tiles) each moved it by under 5%, and
+// every sector shared between two writes even a few microseconds apart
+// (a range's carried entries written before its tile's) cost more than
+// they saved. The "sectors" body writes each sector once, whole: 0.52-0.54
+// ms at both shapes. Of that, by ablation, the loads, counts, claims and
+// scan take 0.29 ms, the placing atomics 0.05, the write-out's shared loads
+// most of the rest and its stores 0.065.
+//
 // Scratch (meta, stage) comes from the caller; the kernels allocate
-// nothing. meta holds 4 * nranges + 2 unsigned 64-bit words: counts
-// [nranges], starts [nranges + 1], cursors [nranges], blocks [nranges + 1].
+// nothing. meta holds 6 * nranges + 2 unsigned 64-bit words: counts
+// [nranges], starts [nranges + 1], cursors [nranges], blocks [nranges + 1],
+// then the "sectors" body's claims: sectors [nranges] and leftover slots
+// [nranges] a range.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -78,6 +115,8 @@ constexpr long long kChunk = static_cast<long long>(kThreads) * kPerThread;
 constexpr int kCountChunks = 4;     // chunks a count block covers
 constexpr int kMaxRanges = 4096;    // ranges one pass takes, all rows
 constexpr int kGroupedMaxBins = 256;  // most bins with one histogram a warp
+constexpr int kSectorMaxCarried = 8192;  // most bins * sector entries a
+                                         // whole-sector scatter carries
 constexpr int kScanThreads = 1024;
 constexpr long long kMaxBlocksY = 65535;
 
@@ -334,6 +373,224 @@ bin_scatter_kernel(const int* __restrict__ idx, long long R, long long N,
   }
 }
 
+// Exclusive scan of one int a thread over a block of kT threads: returns
+// the sum of x over the threads before this one; the total is left in
+// tmp[kT / 32] (tmp: kT / 32 + 1 ints). Two barriers.
+template <int kT>
+__device__ __forceinline__ int scan_one(int x, int* tmp) {
+  constexpr int kWarps = kT / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = x;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc += y;
+  }
+  if (lane == 31) tmp[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < kWarps ? tmp[lane] : 0;
+    int winc = w;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, winc, off);
+      if (lane >= off) winc += y;
+    }
+    if (lane < kWarps) tmp[lane] = winc - w;
+    if (lane == kWarps - 1) tmp[kWarps] = winc;
+  }
+  __syncthreads();
+  return tmp[warp] + inc - x;
+}
+
+// A range's place in the whole-sector scatter's write-out, one 16-byte
+// shared load: its stage offset (from the sorted tile's index) and where
+// its claimed and its whole sectors end in the sorted tile.
+struct alignas(16) RunPlace {
+  u64 off;
+  int lim, cut;
+};
+
+// Shared memory of the whole-sector bin_scatter_kernel<T, kT> for `nbins`
+// bins (at most kT, more than kGroupedMaxBins: one histogram) and sectors
+// of `sector` entries, in bytes: the runs' places [nbins] (RunPlace); the
+// sorted tile with the carried entries [kT * kPerThread + (sector - 1) *
+// nbins], the histogram [nbins] and the scan's [kT / 32 + 1] (ints); the
+// carried entries [nbins][sector - 1] (T).
+template <typename T, int kT>
+__host__ __device__ __forceinline__ size_t sector_shared_bytes(int nbins,
+                                                               int sector) {
+  const size_t carry = static_cast<size_t>(sector - 1) * nbins;
+  return sizeof(RunPlace) * nbins +
+         sizeof(int) * (static_cast<size_t>(kT) * kPerThread + carry +
+                        static_cast<size_t>(nbins) + kT / 32 + 1) +
+         sizeof(T) * carry;
+}
+
+// Range g's slice [s, e) of the stage, cut into whole sectors of `sector`
+// entries: [a, a + sector * cap) starts on a 32-byte boundary (`lead` is
+// the stage's first entry's place in its sector); the rest, the head
+// [s, min(a, e)) and the top, is filled by the leftover slots: slot p at
+// s + p in the head, then downwards from e - 1.
+struct Slice {
+  u64 s = 0, e = 0, a = 0, cap = 0;
+  Slice() = default;
+  __device__ __forceinline__ Slice(const u64* starts, int g, int sector,
+                                   int lead) {
+    s = starts[g];
+    e = starts[g + 1];
+    const u64 v = static_cast<u64>(sector);
+    a = (s + lead + v - 1) / v * v - lead;
+    const u64 z = (e + lead) / v * v;  // the last boundary, counted from lead
+    cap = z > a + lead ? (z - a - lead) / v : 0;
+  }
+  __device__ __forceinline__ u64 leftover(u64 p) const {
+    const u64 h = (a < e ? a : e) - s;
+    return p < h ? s + p : e - 1 - (p - h);
+  }
+};
+
+// The whole-sector scatter, for more than kGroupedMaxBins and at most kT
+// ranges a row. A persistent block owns every bpr-th tile of one row (bpr
+// blocks a row), kT * kPerThread entries a tile, kPerThread a thread in
+// registers; thread i owns range i of the row. Per range it carries fewer
+// than `sector` entries (32 bytes of the stage) from tile to tile, so that
+// it writes only whole sectors, each claimed by one atomicAdd on the
+// range's sector counter (`claims`, the first [nranges]) and each on a
+// 32-byte boundary of the range's slice (Slice). What its tiles leave over,
+// and a claim past the slice's whole sectors (at most two sectors a range),
+// takes leftover slots (`claims` + nranges): the head and top sectors,
+// written in part, once per block and range. Each range's cursor gains its
+// entries, so the cursors end at the next range's start. A tile runs
+//   1. each entry counted by range (a shared atomicAdd, no result);
+//   2. per range: carried + counted entries, their whole sectors claimed
+//      (the claim's result waits in a register through the scan), a scan
+//      of one range a thread gives each range's start in the sorted tile;
+//   3. the carried entries first in each range, then each counted entry
+//      placed by an atomicAdd on its range's cursor;
+//   4. the next tile's loads issued into the same registers; claims past
+//      the slice to leftover slots;
+//   5. the runs written out by consecutive threads (whole sectors, stores
+//      to one range contiguous), the remainder carried in shared memory;
+//   6. after its last tile, the carries to leftover slots.
+template <typename T, int kT>
+__global__ void __launch_bounds__(kT, 1)
+bin_scatter_kernel(const int* __restrict__ idx, long long R, long long N,
+                   const int* __restrict__ weight, unsigned width, int shift,
+                   int nbins, const u64* __restrict__ starts,
+                   u64* __restrict__ cursors, u64* __restrict__ claims,
+                   int sector, T* __restrict__ stage,
+                   const int* __restrict__ gate) {
+  constexpr int kTile = kT * kPerThread;
+  if (gate && *gate == 0) return;
+  const long long row_tiles = (N + kTile - 1) / kTile;
+  const int bpr = static_cast<int>(gridDim.x / R);  // blocks a row
+  const long long r = blockIdx.x / bpr;
+  long long j = blockIdx.x % bpr;
+  if (r >= R || j >= row_tiles) return;
+  const long long nranges = R * nbins;
+  const int keep = sector - 1;
+  extern __shared__ __align__(16) RunPlace place[];  // [nbins]
+  int* sorted = reinterpret_cast<int*>(place + nbins);  // [kTile + keep nbins]
+  int* hist = sorted + kTile + keep * nbins;  // [nbins]
+  int* tmp = hist + nbins;                    // [kT / 32 + 1]
+  T* carry = reinterpret_cast<T*>(tmp + kT / 32 + 1);  // [nbins][keep]
+  const int t = threadIdx.x;
+  const bool owner = t < nbins;  // of range t of the row
+  const unsigned mask = (1u << shift) - 1;
+  const int lead = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(stage) / sizeof(T)) % sector);
+  int carried = 0;  // entries range t carries
+  Slice sl;
+
+  if (owner) {
+    hist[t] = 0;
+    sl = Slice(starts, static_cast<int>(r * nbins + t), sector, lead);
+  }
+  const long long g = r * nbins + t;  // range t's index over all rows
+  int v[kPerThread];
+  load_chunk<kT>(idx + r * N, weight, N, j * kTile, v);
+  __syncthreads();
+  for (;;) {
+    // 1. count
+#pragma unroll
+    for (int e = 0; e < kPerThread; ++e) {
+      const unsigned b = static_cast<unsigned>(v[e]);
+      if (b < width) atomicAdd(hist + (b >> shift), 1);
+    }
+    __syncthreads();
+    // 2. claim each range's whole sectors; each range's start in `sorted`
+    int all = 0, whole = 0;
+    u64 f = 0;
+    if (owner) {
+      const int run = hist[t];
+      all = carried + run;
+      whole = all / sector;
+      if (run) atomicAdd(cursors + g, static_cast<u64>(run));
+      if (whole) f = atomicAdd(claims + g, static_cast<u64>(whole));
+    }
+    const int s0 = scan_one<kT>(all, tmp);
+    const int nvalid = tmp[kT / 32];
+    // 3. carried entries first, then the cursors
+    if (owner) {
+      for (int e = 0; e < carried; ++e) {
+        sorted[s0 + e] = static_cast<int>(
+            (static_cast<unsigned>(t) << shift) | carry[t * keep + e]);
+      }
+      hist[t] = s0 + carried;
+      const u64 ok = f >= sl.cap ? 0 : min(static_cast<u64>(whole), sl.cap - f);
+      place[t] = {sl.a + f * sector - static_cast<u64>(s0),
+                  s0 + sector * static_cast<int>(ok), s0 + sector * whole};
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < kPerThread; ++e) {
+      const unsigned b = static_cast<unsigned>(v[e]);
+      if (b < width) {
+        sorted[atomicAdd(hist + (b >> shift), 1)] = static_cast<int>(b);
+      }
+    }
+    __syncthreads();
+    // 4. the next tile in flight; claims past the slice to leftover slots
+    j += bpr;
+    if (j < row_tiles) load_chunk<kT>(idx + r * N, weight, N, j * kTile, v);
+    if (owner) {
+      hist[t] = 0;
+      carried = all - sector * whole;
+      const RunPlace w = place[t];
+      if (w.cut > w.lim) {
+        const u64 p = atomicAdd(claims + nranges + g,
+                                static_cast<u64>(w.cut - w.lim));
+        for (int k = w.lim; k < w.cut; ++k) {
+          stage[sl.leftover(p + (k - w.lim))] =
+              static_cast<T>(static_cast<unsigned>(sorted[k]) & mask);
+        }
+      }
+    }
+    // 5. whole sectors out, the rest carried
+#pragma unroll 4
+    for (int k = t; k < nvalid; k += kT) {
+      const unsigned b = static_cast<unsigned>(sorted[k]);
+      const unsigned bin = b >> shift;
+      const RunPlace w = place[bin];
+      if (k < w.lim) {
+        stage[w.off + static_cast<unsigned>(k)] = static_cast<T>(b & mask);
+      } else if (k >= w.cut) {
+        carry[bin * keep + (k - w.cut)] = static_cast<T>(b & mask);
+      }
+    }
+    __syncthreads();
+    if (j >= row_tiles) break;
+  }
+  // 6. the row done: the carries to leftover slots
+  if (owner && carried) {
+    const u64 p = atomicAdd(claims + nranges + g, static_cast<u64>(carried));
+    for (int e = 0; e < carried; ++e) {
+      stage[sl.leftover(p + e)] = carry[t * keep + e];
+    }
+  }
+}
+
 // Range pass: the range of block j (largest g with blocks[g] <= j), or -1
 // past the last block; found by one thread, shared with the block.
 __device__ __forceinline__ int range_of_block(const u64* __restrict__ blocks,
@@ -435,17 +692,60 @@ template <typename T, int kT>
 int scatter(const int* idx, long long R, long long N, const int* weight,
             unsigned width, int shift, int nbins, unsigned by, u64* cursors,
             T* stage, const int* gate, cudaStream_t stream) {
+  void (*kernel)(const int*, long long, long long, const int*, unsigned, int,
+                 int, u64*, T*, const int*) = bin_scatter_kernel<T, kT>;
   const size_t bytes = scatter_shared_bytes<kT>(nbins);
   cudaError_t err = cudaFuncSetAttribute(
-      bin_scatter_kernel<T, kT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long per = static_cast<long long>(kT) * kPerThread;
-  bin_scatter_kernel<T, kT><<<dim3(static_cast<unsigned>((N + per - 1) / per),
-                                   by),
-                              kT, bytes, stream>>>(idx, R, N, weight, width,
-                                                   shift, nbins, cursors,
-                                                   stage, gate);
+  kernel<<<dim3(static_cast<unsigned>((N + per - 1) / per), by), kT, bytes,
+           stream>>>(idx, R, N, weight, width, shift, nbins, cursors, stage,
+                     gate);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the whole-sector bin_scatter_kernel<T, kWideThreads> over idx
+// [R, N]: as many blocks as are resident at once on the device's SMs, a
+// whole number a row (at least one, at most the row's tiles), sectors of 32
+// bytes.
+template <typename T>
+int scatter_sectors(const int* idx, long long R, long long N,
+                    const int* weight, unsigned width, int shift, int nbins,
+                    const u64* starts, u64* cursors, u64* claims, T* stage,
+                    const int* gate, cudaStream_t stream) {
+  void (*kernel)(const int*, long long, long long, const int*, unsigned, int,
+                 int, const u64*, u64*, u64*, int, T*, const int*) =
+      bin_scatter_kernel<T, kWideThreads>;
+  const int sector = 32 / static_cast<int>(sizeof(T));
+  const size_t bytes = sector_shared_bytes<T, kWideThreads>(nbins, sector);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0, resident = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                        kWideThreads, bytes);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long row_tiles = (N + kWideThreads * kPerThread - 1) /
+                              (kWideThreads * kPerThread);
+  long long per_row =
+      static_cast<long long>(sms) * (resident > 0 ? resident : 1) / R;
+  if (per_row > row_tiles) per_row = row_tiles;
+  if (per_row < 1) per_row = 1;
+  const long long blocks = per_row * R;
+  err = cudaMemsetAsync(claims, 0, sizeof(u64) * 2 * R * nbins, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(blocks), kWideThreads, bytes, stream>>>(
+      idx, R, N, weight, width, shift, nbins, starts, cursors, claims, sector,
+      stage, gate);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -480,6 +780,12 @@ int bin_ranges(const int* idx, long long R, long long N, const int* weight,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   u64* cursors = meta + 2 * nranges + 1;
+  if (nbins > kGroupedMaxBins && nbins <= kWideThreads &&
+      nbins * (32 / static_cast<long long>(sizeof(T))) <= kSectorMaxCarried) {
+    return scatter_sectors<T>(
+        idx, R, N, weight, width, shift, static_cast<int>(nbins),
+        meta + nranges, cursors, meta + 4 * nranges + 2, stage, gate, stream);
+  }
   return nbins > kGroupedMaxBins
              ? scatter<T, kWideThreads>(idx, R, N, weight, width, shift,
                                         static_cast<int>(nbins), by, cursors,

@@ -45,8 +45,10 @@
 // indices' bytes, read twice, and the stage's, written and read once, in
 // place of one read-modify-write of a random DRAM sector per update. At
 // 2^30, per 1M reads (476M updates, one call a batch, into zeroed words):
-// binned 4.6934 ms (binning 3.0980, range pass 1.2873) against direct
-// 20.7227 ms in turns, bytes 0.7286 ms (chip_smoke.py phase 31).
+// binned 4.3431 ms (binning 2.5918, range pass 1.4525) against direct
+// 20.8668 ms in turns, bytes 0.7286 ms (chip_smoke.py phase 31); the
+// binning's scatter writes whole 32-byte sectors there (bin.cuh's "sectors"
+// body: 1,024 ranges of an int32 stage).
 //
 // Direct atomics (bloom_rows_kernel): a grid-stride loop, one global atomic
 // OR (a fire-and-forget RED) per valid update. For rows whose words do not
@@ -269,7 +271,7 @@ int nthash_bloom_words_rows(int device, const int* idx, long long R, long long N
 
 // The binned route's binning pass (bin.cuh) over idx [R, N] int32 device
 // (weight: nullptr or [N] int32 device, R == 1; zero weights dropped) into
-// meta (4 * R * 2^(width_log2 - 20) + 2 unsigned 64-bit device words) and
+// meta (6 * R * 2^(width_log2 - 20) + 2 unsigned 64-bit device words) and
 // stage (R * N uint32 device), `per` staged entries a block of the range
 // pass; width_log2 in [21, 31], R * 2^(width_log2 - 20) <= 4,096. Launches
 // on `stream` of `device`; returns cudaGetLastError().

@@ -56,7 +56,8 @@
 // range of 1 MB that the slices in flight share, not into 4 GiB. What bounds
 // it: the table's probes, claims and adds in shared memory (1.25 of the
 // range pass's 2.08 ms there, by ablation), then the merge atomics (0.46),
-// and the binning pass beside it (0.99). Holding 16 offsets a thread and
+// and the binning pass beside it (0.72: its scatter writes whole sectors,
+// bin.cuh's "sectors" body, 0.99 before). Holding 16 offsets a thread and
 // claiming their slots before waiting on any was slower (2.38 ms), as were
 // tables of 2^14 slots (two blocks a multiprocessor) and one slice a range
 // with 16-bit counts beside the keys. Counting each range in the
@@ -81,14 +82,14 @@
 // [4, n] launch a batch, private 0.7384 ms and direct 6.6382 ms against
 // 0.5687 ms for the bytes at 3.35 TB/s; the 2^20 plan's sub-histograms (512
 // rows at 2^13) private 1.0495 ms, direct 4.5484 ms, bytes 0.8802 ms; at
-// full width 2^20, one [4, n] launch a batch, binned 2.4674 ms (binning
-// 2.0097, range pass 0.4636) against direct 4.2063 ms in turns, bytes
+// full width 2^20, one [4, n] launch a batch, binned 2.4685 ms (binning
+// 2.0241, range pass 0.5230) against direct 4.2014 ms in turns, bytes
 // 0.5884 ms (phase 31). At 4 x 2^28, one [4, n] launch of 2^18 reads
 // (124.8M updates): on reads from a random genome of E. coli's length
-// (27.7M counters touched) clustered 3.0271 ms (binning 0.9063, range pass
-// 2.1820) against direct 8.9151 ms in turns, bound 0.2152 ms; on the smoke
+// (27.7M counters touched) clustered 2.8547 ms (binning 0.7244, range pass
+// 2.1848) against direct 8.9155 ms in turns, bound 0.2152 ms; on the smoke
 // run's independent random reads (86.8M touched: few repeats to cluster)
-// 5.2766 against 6.7815 ms (phase 31). A hot bucket costs the direct route
+// 5.1663 against 6.7830 ms (phase 31). A hot bucket costs the direct route
 // most: on one batch at 2^20, direct 12.1965 ms with every eighth entry one
 // value and 86.7354 ms with all of them one value (atomics on one address
 // serialise), binned 0.6678 and 1.0575 ms; at 4 x 2^28 with all of them one
@@ -374,7 +375,7 @@ int nthash_histogram_rows(int device, const int* idx, long long R, long long N,
 }
 
 // The binned routes' binning pass (bin.cuh) over idx [R, N] int32 device
-// into meta (4 * R * 2^(width_log2 - range_log2) + 2 unsigned 64-bit device
+// into meta (6 * R * 2^(width_log2 - range_log2) + 2 unsigned 64-bit device
 // words) and stage (R * N device entries: uint16 for ranges of 2^15
 // counters, the binned route; uint32 for 2^16..2^18, the clustered route),
 // `per` staged entries a block of the range pass; width_log2 in

@@ -22,10 +22,12 @@ for what it computes rather than for the TPU's matrix unit:
   :func:`binned_words_grid` pick one from the shapes alone.
 
 The binned and clustered routes share one binning pass, ``csrc/bin.cuh``
-(:func:`bin_ranges`); its plain version :func:`bin_ranges_plain` and the
-range passes' :func:`histogram_ranges_plain` (both histogram routes) and
-:func:`bloom_ranges_plain` compose to :func:`histogram_rows_plain` and
-:func:`bloom_words_plain`.
+(:func:`bin_ranges`), whose scatter has two bodies (:func:`scatter_body`:
+whole 32-byte sectors of the stage where a row has more than 256 ranges
+and their carries fit, else a run a range a tile); its plain version
+:func:`bin_ranges_plain` and the range passes' :func:`histogram_ranges_plain`
+(both histogram routes) and :func:`bloom_ranges_plain` compose to
+:func:`histogram_rows_plain` and :func:`bloom_words_plain`.
 
 Each source note says what bounds its kernel on the H100.
 
@@ -118,6 +120,19 @@ BINNED_MIN_RANGE_ENTRIES = 1 << 14
 #: routes, ``bloom``: C1 and C2).
 BIN_LAUNCHES = {"histogram": 0, "bloom": 0}
 RANGE_LAUNCHES = {"histogram": 0, "bloom": 0}
+#: The binning pass's scatter has two bodies, chosen by ``scatter_body``
+#: as ``csrc/bin.cuh`` chooses them: "sectors" (a persistent block a
+#: multiprocessor that carries each range's remainder from tile to tile and
+#: writes only whole 32-byte sectors of the stage) and "runs" (a block a
+#: tile, each range's run at its cursor). Launches of each in this process.
+SCATTER_ROUTE_LAUNCHES = {"sectors": 0, "runs": 0}
+#: The "sectors" body takes more than this many ranges a row (fewer: each
+#: tile's runs are long and one histogram a warp pays) ...
+SCATTER_GROUPED_MAX_BINS = 256
+#: ... and at most this many carried entries (ranges a row times the
+#: entries of a 32-byte sector) in its shared memory.
+SCATTER_MAX_CARRIED = 8192
+SECTOR_BYTES = 32
 
 PACK = 32  # buckets per packed word
 BLOOM_MIN_WIDTH_LOG2 = 12  # the layout tiles the width in 4,096-bucket blocks
@@ -419,6 +434,18 @@ def _stage_dtype(range_log2: int) -> torch.dtype:
     return torch.int16 if range_log2 <= COUNTS_RANGE_LOG2 else torch.int32
 
 
+def scatter_body(width_log2: int, range_log2: int) -> str:
+    """The scatter body ``csrc/bin.cuh`` runs for rows of 2**width_log2
+    buckets in ranges of 2**range_log2: "sectors" where a row has more than
+    ``SCATTER_GROUPED_MAX_BINS`` ranges and their carried entries (a sector
+    of the stage's entries a range) fit ``SCATTER_MAX_CARRIED``, else
+    "runs"."""
+    nbins = 1 << (width_log2 - range_log2)
+    sector = SECTOR_BYTES // _stage_dtype(range_log2).itemsize
+    return ("sectors" if SCATTER_GROUPED_MAX_BINS < nbins
+            and nbins * sector <= SCATTER_MAX_CARRIED else "runs")
+
+
 def _bin_args(idx, weight, width_log2, range_log2):
     if not (COUNTS_RANGE_LOG2 <= range_log2 <= CLUSTERED_MAX_RANGE_LOG2
             or range_log2 == WORDS_RANGE_LOG2):
@@ -446,7 +473,8 @@ def _bin_launch(idx, weight, width_log2, range_log2, per, gate) -> Bins:
     nranges = binned_ranges(rows, width_log2, range_log2)
     dev = idx.device
     with span("nthash.bin"):
-        meta = torch.empty(4 * nranges + 2, dtype=torch.int64, device=dev)
+        # counts, starts, cursors, blocks, then the scatter's claims
+        meta = torch.empty(6 * nranges + 2, dtype=torch.int64, device=dev)
         stage = torch.empty(rows * n, dtype=_stage_dtype(range_log2),
                             device=dev)
         name = "bloom" if range_log2 == WORDS_RANGE_LOG2 else "histogram"
@@ -463,8 +491,10 @@ def _bin_launch(idx, weight, width_log2, range_log2, per, gate) -> Bins:
             torch.cuda.current_stream(dev).cuda_stream)
         cuda_build.check(lib, status, f"{name} binning launch")
         BIN_LAUNCHES[name] += 1
+        SCATTER_ROUTE_LAUNCHES[scatter_body(width_log2, range_log2)] += 1
         return Bins(meta[:nranges], meta[nranges:2 * nranges + 1],
-                    meta[3 * nranges + 1:], stage, per, range_log2)
+                    meta[3 * nranges + 1:4 * nranges + 2], stage, per,
+                    range_log2)
 
 
 def _ranges_launch(name: str, bins: Bins, blocks: int, out: torch.Tensor,
@@ -503,8 +533,8 @@ def bin_ranges(idx: torch.Tensor, weight: torch.Tensor | None,
     written, each range's in any order.
 
     A CUDA tensor goes through ``csrc/bin.cuh``'s three kernels (a count by
-    range, a scan, a scatter; no host sync), a CPU tensor through
-    :func:`bin_ranges_plain`.
+    range, a scan, a scatter by :func:`scatter_body`'s body; no host sync),
+    a CPU tensor through :func:`bin_ranges_plain`.
     """
     idx2, w = _bin_args(idx, weight, width_log2, range_log2)
     if idx2.is_cuda:

@@ -1450,6 +1450,10 @@ def _binned_edges(rng, rows, wl, rl, cuda):
     hot[:, ::8] = 777
     return ([(f"n={n}", rand(n)) for n in (1, 7, 1000, 8193, 65_541)]
             + [("unaligned", rand(65_542)[:, 1:]),
+               # more tiles a row than the scatter's blocks hold in their
+               # rings at once (132 SMs x 2 slots of 16K), each row off a
+               # 16-byte boundary: the loop wraps, with a head and a tail
+               ("unaligned, wrapping", rand(6_000_002)[:, 1:]),
                ("one range", rand(20_001, width - (1 << rl),
                                   min(width, (1 << 31) - 1))),
                ("one value", torch.full((rows, 20_001), 12345,
@@ -1461,9 +1465,20 @@ def _binned_edges(rng, rows, wl, rl, cuda):
 
 
 def _bins_match(idx, weight, wl, rl):
+    """The kernel's binning pass, by the rule's scatter body
+    (``SCATTER_ROUTE_LAUNCHES``), against the plain one: counts, starts and
+    blocks equal, every range's cursor ended at the next range's start, each
+    range's offsets equal as a multiset."""
+    before = dict(hist_kernel.SCATTER_ROUTE_LAUNCHES)
     got = hist_kernel.bin_ranges(idx, weight, wl, rl, 4096)
+    before[hist_kernel.scatter_body(wl, rl)] += 1
+    assert hist_kernel.SCATTER_ROUTE_LAUNCHES == before
     want = hist_kernel.bin_ranges_plain(idx, weight, wl, rl, 4096)
     assert all(torch.equal(a, b) for a, b in zip(got[:3], want[:3]))
+    nranges = got.counts.numel()
+    meta = torch.empty(0, dtype=torch.int64, device=idx.device).set_(
+        got.counts.untyped_storage())
+    assert torch.equal(meta[2 * nranges + 1:3 * nranges + 1], want.starts[1:])
     total = int(want.starts[-1])
     rid = torch.repeat_interleave(
         torch.arange(want.counts.numel(), device=idx.device), want.counts)
@@ -1473,8 +1488,8 @@ def _bins_match(idx, weight, wl, rl):
         torch.sort((rid << rl) | (want.stage[:total].long() & mask)).values)
 
 
-@pytest.mark.parametrize("wl,rows", [(16, 4), (20, 4), (21, 3), (25, 4),
-                                     (27, 1)])
+@pytest.mark.parametrize("wl,rows", [(16, 4), (20, 4), (21, 3), (24, 4),
+                                     (25, 4), (27, 1)])
 def test_binned_histogram_vs_plain_and_direct(rng, cuda, wl, rows):
     """The binned A2 route, forced, against plain and direct atomics on
     whole tables at the edge shapes, with a gate of 0 and 1 into an
@@ -1576,6 +1591,39 @@ def test_clustered_histogram_vs_plain(rng, cuda, wl, rows):
     got = histogram_rows(idx, None, wl)
     assert hist_kernel.ROUTE_LAUNCHES["clustered"] == before + 1
     assert torch.equal(got, histogram_rows_plain(idx, None, wl))
+
+
+def _genome_batch(cuda, seed=2024, n=1 << 18, length=150):
+    """uint8 [n, length] codes of reads from a random genome of E. coli's
+    length (4,641,652 bases), at uniform starts on either strand, with 0.25%
+    substitutions: the benchmark cells' kind of batch."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    genome = torch.randint(0, 4, (4_641_652,), generator=gen, device=cuda,
+                           dtype=torch.uint8)
+    start = torch.randint(0, genome.numel() - length + 1, (n, 1),
+                          generator=gen, device=cuda)
+    reads = genome[start + torch.arange(length, device=cuda)]
+    minus = torch.rand(n, generator=gen, device=cuda) < 0.5
+    reads = torch.where(minus[:, None], (3 - reads).flip(1), reads)
+    sub = torch.rand((n, length), generator=gen, device=cuda) < 0.0025
+    shift = torch.randint(1, 4, (n, length), generator=gen, device=cuda,
+                          dtype=torch.uint8)
+    return torch.where(sub, (reads + shift) % 4, reads)
+
+
+@pytest.mark.parametrize("wl,rows,rl", [(28, 4, 18), (30, 1, 20)])
+def test_bin_ranges_at_the_cells_shapes(cuda, wl, rows, rl):
+    """The binning pass at the benchmark cells' shapes, on one batch of
+    2**18 genome reads hashed at k=32 into 4 hashes: the count-min cell's
+    [4, n] buckets at 2**28 (ranges of 2**18 counters) and the Bloom cell's
+    one stream at 2**30 (ranges of 2**20 bits), against the plain pass."""
+    tm = prepare_codes(_genome_batch(cuda))
+    idx = hist_kernel.rows_view(hash_kmers_tm(tm, 32, 4, emit_buckets=wl))
+    del tm
+    idx = idx.reshape(rows, -1)
+    assert idx.shape[1] == (1 << 20) * 119 // rows
+    assert hist_kernel.scatter_body(wl, rl) == "sectors"
+    _bins_match(idx, None, wl, rl)
 
 
 def test_binned_is_the_rule_on_the_wide_paths(rng, cuda):

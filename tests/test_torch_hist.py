@@ -402,6 +402,40 @@ def test_bin_ranges_on_cpu_launches_nothing(rng):
         hist_kernel.bin_ranges(idx, None, 18, 19)
 
 
+@pytest.mark.parametrize("wl,range_log2,body", [
+    (20, 15, "runs"),      # 32 ranges a row: PipelineConfig()'s 2**20
+    (23, 15, "runs"),      # 256: the most the grouped histograms take
+    (24, 15, "sectors"),   # 512 with an int16 stage: 8192 carried entries
+    (25, 15, "runs"),      # 1024 with an int16 stage: too many carried
+    (26, 16, "sectors"),   # the clustered route's 1024 a row, int32
+    (28, 18, "sectors"),   # the count-min cell, 4 x 2**28
+    (29, 20, "sectors"),
+    (30, 20, "sectors"),   # the Bloom cell's 2**30
+    (31, 20, "runs"),      # 2048 ranges of an int32 stage
+    (28, 16, "runs"),      # 4096
+    (21, 20, "runs")])     # 2
+def test_scatter_body_rule(wl, range_log2, body):
+    """The binning pass's scatter body by the ranges a row and the stage's
+    entry size, as ``csrc/bin.cuh`` picks it: whole sectors past the
+    grouped histograms' 256 ranges, where a sector of carried entries a
+    range fits its shared memory."""
+    assert hist_kernel.scatter_body(wl, range_log2) == body
+
+
+def test_scatter_route_launches_stay_zero_on_cpu(rng):
+    """CPU tensors take the plain versions: no scatter body counts a
+    launch, whatever the rule would pick on the card."""
+    before = dict(hist_kernel.SCATTER_ROUTE_LAUNCHES)
+    for rows, wl, range_log2 in ((4, 20, 15), (2, 24, 15), (1, 30, 20)):
+        idx = torch.from_numpy(_skewed(rng, rows, 5000, wl))
+        hist_kernel.bin_ranges(idx, None, wl, range_log2)
+    histogram_rows(torch.from_numpy(_skewed(rng, 4, 5000, 24)), None, 24)
+    hist_kernel.bloom_words(torch.from_numpy(_skewed(rng, 1, 5000, 30))[0],
+                            None, 30)
+    assert dict(hist_kernel.SCATTER_ROUTE_LAUNCHES) == before
+    assert set(before) == {"sectors", "runs"}
+
+
 # ------------------------------------------------ the clustered route ----
 
 
