@@ -8,7 +8,9 @@ CPU). This times one tile both ways at 2**4 .. 2**16 windows (k=32, h=1,
 the CLI's defaults; medians of 3 host timings, the kernel's host->device and
 device->host copies included) and prints where the kernel starts to win:
 ``nthash_tpu_torch.api.AUTO_DEVICE_THRESHOLD_CPU`` is that number for
-``--device cpu`` (``chip_smoke.py`` phase 28 measures the card's).
+``--device cpu``; ``--device cuda`` measures the card's
+(``AUTO_DEVICE_THRESHOLD``: 64 windows on an NVIDIA H100 80GB HBM3 at
+700 W; CHANGES.md, readings behind the comments).
 
     python examples/facade_threshold_torch.py [--device cuda|cpu]
 """

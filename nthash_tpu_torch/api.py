@@ -67,11 +67,12 @@ ENGINES = ("auto", "oracle", "kernel")
 
 #: Sequence length (bases) from which "auto" hashes a tile with the kernel
 #: on a CUDA device; below it the host oracle avoids a launch and two copies
-#: for tiny inputs. Measured on an NVIDIA H100 80GB HBM3 at 700 W by
-#: ``chip_smoke.py`` phase 28 (one tile through the oracle and through the
-#: kernel, the copies included, at 2**4..2**16 windows, k=32, h=1): the
-#: kernel wins from 64 windows on, 0.1813 against 0.2209 ms (PERF.md
-#: section 6).
+#: for tiny inputs. Measured on an NVIDIA H100 80GB HBM3 at 700 W (one
+#: tile through the oracle and through the kernel, the copies included, at
+#: 2**4..2**16 windows, k=32, h=1): the kernel wins from 64 windows on,
+#: 0.1813 against 0.2209 ms (CHANGES.md, readings behind the
+#: comments; ``examples/facade_threshold_torch.py --device cuda`` measures
+#: it).
 AUTO_DEVICE_THRESHOLD = 64
 #: The same for ``device="cpu"``, where the "kernel" engine is the kernels'
 #: plain PyTorch versions: a CPU number, measured on an 8-core CPU by

@@ -46,23 +46,23 @@
 // place of one read-modify-write of a random DRAM sector per update. At
 // 2^30, per 1M reads (476M updates, one call a batch, into zeroed words):
 // binned 4.3431 ms (binning 2.5918, range pass 1.4525) against direct
-// 20.8668 ms in turns, bytes 0.7286 ms (chip_smoke.py phase 31); the
-// binning's scatter writes whole 32-byte sectors there (bin.cuh's "sectors"
-// body: 1,024 ranges of an int32 stage).
+// 20.8668 ms in turns, bytes 0.7286 ms (CHANGES.md, readings behind
+// the comments); the binning's scatter writes whole 32-byte sectors there
+// (bin.cuh's "sectors" body: 1,024 ranges of an int32 stage).
 //
-// Direct atomics (bloom_rows_kernel): a grid-stride loop, one global atomic
-// OR (a fire-and-forget RED) per valid update. For rows whose words do not
-// fit a block's shared memory and calls too small to pay for the binned
-// passes, or whose entries are too few to pay for a merge. What bounds it:
-// the L2's atomic unit, and badly so where the addresses are few. Blocks
-// are scheduled x first, so all threads resident at one moment work on one
-// row; with 128 rows of 256 words (the 2^20 plan's windows, 187M entries a
-// batch) they hit 1 KB of words. Measured by chip_smoke.py (phase 21) on an
-// NVIDIA H100 80GB HBM3 at 700.00 W, one batch: direct 15.7602 ms as the
-// windows are, 25.0571 ms with each row's entries shuffled (no two
-// neighbours of a warp stay neighbours, the row is as hot), 0.9217 ms with
-// the rows interleaved in runs of 256 entries (the same neighbours, all 128
-// rows in flight at once); private words 0.2542 ms, against 0.2235 ms for
+// Direct atomics (bloom_rows_kernel): a grid-stride loop, one global atomic OR
+// (a fire-and-forget RED) per valid update. For rows whose words do not fit a
+// block's shared memory and calls too small to pay for the binned passes, or
+// whose entries are too few to pay for a merge. What bounds it: the L2's
+// atomic unit, and badly so where the addresses are few. Blocks are scheduled
+// x first, so all threads resident at one moment work on one row; with 128
+// rows of 256 words (the 2^20 plan's windows, 187M entries a batch) they hit
+// 1 KB of words. Measured with the private route on an NVIDIA H100 80GB HBM3
+// at 700.00 W (CHANGES.md, readings behind the comments), one batch: direct
+// 15.7602 ms as the windows are, 25.0571 ms with each row's entries shuffled
+// (no two neighbours of a warp stay neighbours, the row is as hot), 0.9217 ms
+// with the rows interleaved in runs of 256 entries (the same neighbours, all
+// 128 rows in flight at once); private words 0.2542 ms, against 0.2235 ms for
 // its bytes at 3.35 TB/s. So it is the few hot addresses, not collisions
 // inside a warp, that the private words remove.
 //

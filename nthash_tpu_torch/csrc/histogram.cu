@@ -77,25 +77,25 @@
 // Blocks are scheduled x first, so every thread resident at one moment
 // works on one row: at 2^14 on 64 KB of counters.
 //
-// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W, per 1M
-// reads of 150 bp at k = 32 and 4 hashes (476M updates): at 2^14, one
-// [4, n] launch a batch, private 0.7384 ms and direct 6.6382 ms against
-// 0.5687 ms for the bytes at 3.35 TB/s; the 2^20 plan's sub-histograms (512
-// rows at 2^13) private 1.0495 ms, direct 4.5484 ms, bytes 0.8802 ms; at
-// full width 2^20, one [4, n] launch a batch, binned 2.4685 ms (binning
-// 2.0241, range pass 0.5230) against direct 4.2014 ms in turns, bytes
-// 0.5884 ms (phase 31). At 4 x 2^28, one [4, n] launch of 2^18 reads
-// (124.8M updates): on reads from a random genome of E. coli's length
-// (27.7M counters touched) clustered 2.8547 ms (binning 0.7244, range pass
-// 2.1848) against direct 8.9155 ms in turns, bound 0.2152 ms; on the smoke
-// run's independent random reads (86.8M touched: few repeats to cluster)
-// 5.1663 against 6.7830 ms (phase 31). A hot bucket costs the direct route
-// most: on one batch at 2^20, direct 12.1965 ms with every eighth entry one
-// value and 86.7354 ms with all of them one value (atomics on one address
-// serialise), binned 0.6678 and 1.0575 ms; at 4 x 2^28 with all of them one
-// value direct 87.8002 ms, clustered 2.6636 ms. The sort-partitioned
-// histogram overflows its windows there and falls back to the full-width
-// launch (17.17 and 91.29 ms when that was direct).
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W as each route came in
+// (CHANGES.md, readings behind the comments), per 1M reads of 150
+// bp at k = 32 and 4 hashes (476M updates): at 2^14, one [4, n] launch a
+// batch, private 0.7384 ms and direct 6.6382 ms against 0.5687 ms for the
+// bytes at 3.35 TB/s; the 2^20 plan's sub-histograms (512 rows at 2^13)
+// private 1.0495 ms, direct 4.5484 ms, bytes 0.8802 ms; at full width 2^20,
+// one [4, n] launch a batch, binned 2.4685 ms (binning 2.0241, range pass
+// 0.5230) against direct 4.2014 ms in turns, bytes 0.5884 ms. At 4 x 2^28, one
+// [4, n] launch of 2^18 reads (124.8M updates): on reads from a random genome
+// of E. coli's length (27.7M counters touched) clustered 2.8547 ms (binning
+// 0.7244, range pass 2.1848) against direct 8.9155 ms in turns, bound 0.2152
+// ms; on independent random reads (86.8M touched: few repeats to cluster)
+// 5.1663 against 6.7830 ms. A hot bucket costs the direct route most: on one
+// batch at 2^20, direct 12.1965 ms with every eighth entry one value and
+// 86.7354 ms with all of them one value (atomics on one address serialise),
+// binned 0.6678 and 1.0575 ms; at 4 x 2^28 with all of them one value direct
+// 87.8002 ms, clustered 2.6636 ms. The sort-partitioned histogram overflows
+// its windows there and falls back to the full-width launch (17.17 and 91.29
+// ms when that was direct).
 //
 // The optional `gate` (one device int) lets a caller choose between two
 // launches on the device, as the TPU path's lax.cond does: where *gate == 0

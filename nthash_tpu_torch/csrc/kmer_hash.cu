@@ -234,20 +234,6 @@ int nthash_kmer_sequence(int device, const unsigned char* seq, long long C,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of `warps` warps a multiprocessor holds at once for the entry at
-// k and num_hashes (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-int nthash_kmer_sequence_occupancy(int k, int num_hashes, int fwd_rev,
-                                   int warps, int* blocks) {
-  const int ring = 32 * ((k - 1) / 32 + 3);
-  const size_t smem = kmer_sequence_smem(num_hashes, warps, ring, fwd_rev);
-  auto kernel = fwd_rev ? &kmer_sequence_kernel<true> : &kmer_sequence_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, kernel, warps * 32, smem));
-}
-
 const char* nthash_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

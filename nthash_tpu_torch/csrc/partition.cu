@@ -21,37 +21,37 @@
 //
 // What bounds them on the H100. The sort is bound by its compare-exchanges,
 // not by bytes: a tile of 2^15 ints takes 120 strides of 2^14
-// compare-exchanges, and integer min/max run at half the card's
-// instruction rate. Over the four batches of 1M reads (3,808 tiles a batch)
-// it takes 6.2199 ms, where the bytes would take 1.1469 ms and torch.sort
-// takes 38.9282 ms (chip_smoke.py phase 10, NVIDIA H100 80GB HBM3, 700.00 W);
-// run as one pass over shared memory per stride, each ending in a
-// __syncthreads, the same network took 25.9783 ms (the same phase at the
-// commit before this kernel). It keeps the tile in registers, 64 ints to
-// each of 512 threads: most strides are min/max between a thread's own
-// registers, a few go through __shfl_xor_sync inside a warp, and shared
-// memory is only a padded (conflict-free) transpose between three register
-// layouts, 19 barriers a tile. Direction is folded into the data (a
-// descending run is kept complemented), so a compare-exchange is one min and
-// one max. See the note above sort_span_kernel.
+// compare-exchanges, and integer min/max run at half the card's instruction
+// rate. Over the four batches of 1M reads (3,808 tiles a batch) it takes
+// 6.2199 ms, where the bytes would take 1.1469 ms and torch.sort takes
+// 38.9282 ms (NVIDIA H100 80GB HBM3, 700.00 W; CHANGES.md, readings behind the
+// comments); run as one pass over shared memory per stride, each ending in a
+// __syncthreads, the same network took 25.9783 ms (the same run of the commit
+// before this kernel). It keeps the tile in registers, 64 ints to each of 512
+// threads: most strides are min/max between a thread's own registers, a few go
+// through __shfl_xor_sync inside a warp, and shared memory is only a padded
+// (conflict-free) transpose between three register layouts, 19 barriers a
+// tile. Direction is folded into the data (a descending run is kept
+// complemented), so a compare-exchange is one min and one max. See the note
+// above sort_span_kernel.
 //
-// A merge round is bound by bytes: each pass reads and writes the whole
-// array once, so the design counts passes. The strides of a tile and more
-// go through device memory in grouped passes of up to six strides, each
-// thread holding the 2^g elements that g strides link (merge_strides_kernel;
-// one pass of 1 to 5 strides costs about as much as one of 1, 88% of the
-// byte rate), and the strides below a tile run in one pass of the tile
-// network. Where the strides of a tile and more number one more than a
-// multiple of six, the last of them runs in the tile network's pass instead,
-// between the two blocks of a thread-block cluster through each other's
-// shared memory (cluster_strides), which saves a pass: a round of the 2^20
-// plan (two tiles a chunk) is one pass, where one launch a stride made it
-// two. The cluster stops there because a stride exchanged between two SMs
-// costs 0.86 ms per 1M reads at the 2^30 plan against 1.44 ms for a whole
-// grouped pass, and clusters of 4 and 8 tiles add that for every further
-// stride (partition_probe.py, NVIDIA H100 80GB HBM3, 700.00 W). The six
-// rounds of the 2^30 plan (64 tiles a chunk) take 11 passes where they took
-// 27. merge_plan (ops/part_kernel.py) picks the launches.
+// A merge round is bound by bytes: each pass reads and writes the whole array
+// once, so the design counts passes. The strides of a tile and more go through
+// device memory in grouped passes of up to six strides, each thread holding
+// the 2^g elements that g strides link (merge_strides_kernel; one pass of 1 to
+// 5 strides costs about as much as one of 1, 88% of the byte rate), and the
+// strides below a tile run in one pass of the tile network. Where the strides
+// of a tile and more number one more than a multiple of six, the last of them
+// runs in the tile network's pass instead, between the two blocks of a
+// thread-block cluster through each other's shared memory (cluster_strides),
+// which saves a pass: a round of the 2^20 plan (two tiles a chunk) is one
+// pass, where one launch a stride made it two. The cluster stops there because
+// a stride exchanged between two SMs costs 0.86 ms per 1M reads at the 2^30
+// plan against 1.44 ms for a whole grouped pass, and clusters of 4 and 8 tiles
+// add that for every further stride (NVIDIA H100 80GB HBM3, 700.00 W;
+// CHANGES.md, readings behind the comments). The six rounds of the 2^30 plan
+// (64 tiles a chunk) take 11 passes where they took 27. merge_plan
+// (ops/part_kernel.py) picks the launches.
 //
 // partition_bounds reads each row maximum once and writes each table entry
 // once: the maxima of a sorted chunk ascend, so row r owns the entries
@@ -758,42 +758,6 @@ int nthash_merge_span(int device, int* x, long long total, long long chunk,
     return static_cast<int>(launch_cluster(x, total, chunk, k, cluster, stream));
   }
   return static_cast<int>(launch_tiles(x, x, total, chunk, span, k, k, stream));
-}
-
-// Clusters of `cluster` blocks of the merge's cluster instance that the card
-// holds at once (cudaOccupancyMaxActiveClusters), in *active.
-int nthash_merge_clusters(int device, int cluster, int* active) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(sort_span_kernel<kClusterWB, true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kClusterBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      cluster_config(static_cast<long long>(kMaxTile) * cluster * 132,
-                     cluster, nullptr, &attr);
-  return static_cast<int>(cudaOccupancyMaxActiveClusters(
-      active, sort_span_kernel<kClusterWB, true>, &cfg));
-}
-
-// Resident blocks a multiprocessor (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-// of partition_bounds_kernel (which == 0) or the grouped pass of `which`
-// strides (1..6), in *blocks.
-int nthash_partition_blocks(int device, int which, int* blocks) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  switch (which) {
-    case 0: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, partition_bounds_kernel, kBoundsThreads, 0); break;
-    case 1: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, merge_strides_kernel<1, words_for(1)>, kThreads, 0); break;
-    case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, merge_strides_kernel<2, words_for(2)>, kThreads, 0); break;
-    case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, merge_strides_kernel<3, words_for(3)>, kThreads, 0); break;
-    case 4: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, merge_strides_kernel<4, words_for(4)>, kThreads, 0); break;
-    case 5: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, merge_strides_kernel<5, words_for(5)>, kThreads, 0); break;
-    case 6: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, merge_strides_kernel<6, words_for(6)>, kThreads, 0); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
 }
 
 // srt: [chunks, rows, 128] sorted int32 device (rows a power of two); fb:

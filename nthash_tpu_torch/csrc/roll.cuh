@@ -236,7 +236,8 @@ __device__ __forceinline__ unsigned char* load_tables(
 //    stage, then 16-byte streaming stores, kRun / 2 lanes to a run. Runs of
 //    8 windows (half a line) ran the fwd/rev instance at 1.5x the time of
 //    runs of 16, and runs of 32 beat 16 wherever they did not cost
-//    resident warps (seed_kernel_probe.py's stage sweep, PERF.md).
+//    resident warps (a run-length sweep on the card; CHANGES.md, readings
+//    behind the comments).
 //
 // The ring of a lane holds R bytes, R = 32 (M + 2) (kmer_kernel.sequence_ring):
 // chunks c - M - 1 .. c. Word w of lane l is ring[32 w + l]; words R/4 ..

@@ -85,7 +85,8 @@ constexpr size_t kMaxSmem = 232448;  // 227 KB: the most a block may opt into
 // meta: per run q, off_in at 2q and off_out at 2q + 1; then the S + 1 run
 // offsets (seed s owns runs [meta[2*nruns + s], meta[2*nruns + s + 1])).
 // Six blocks a multiprocessor (40 registers): left to itself ptxas gives
-// the hashes instance 32 and spills; seed_kernel_probe.py times the bounds.
+// the hashes instance 32 and spills (each launch bound timed on the card;
+// CHANGES.md, readings behind the comments).
 template <bool kBuckets>
 __global__ void __launch_bounds__(kThreads, kGlobalMinBlocks)
 seed_hash_kernel(const int* __restrict__ codes, int L, long long R, int k,
@@ -408,22 +409,6 @@ int nthash_seed_sequence(int device, const unsigned char* seq, long long C,
       seq, C, k, span, nseeds, nruns, num_hashes, tables, meta, ring,
       seed_copies_log2(nruns), out, pitch, valid);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Blocks of `warps` warps a multiprocessor holds at once for the entry at
-// these shapes (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-int nthash_seed_sequence_occupancy(int k, int nseeds, int nruns,
-                                   int num_hashes, int fwd_rev, int warps,
-                                   int* blocks) {
-  const int ring = 32 * ((k - 1) / 32 + 3);
-  const size_t smem = seed_sequence_smem(nseeds, nruns, num_hashes, warps,
-                                         ring, fwd_rev);
-  auto kernel = fwd_rev ? &seed_sequence_kernel<true> : &seed_sequence_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, kernel, warps * 32, smem));
 }
 
 const char* nthash_cuda_error_string(int code) {

@@ -30,8 +30,6 @@ NVCC_FLAGS = (
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
-#: nvcc's stderr (ptxas register/spill report) per library built in this process.
-BUILD_LOGS: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -69,7 +67,6 @@ def build(name: str) -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
     os.replace(tmp, lib)
-    BUILD_LOGS[name] = proc.stderr
     return lib
 
 

@@ -74,8 +74,9 @@ PRIVATE_COUNTS_MAX_WIDTH_LOG2 = 15
 #: A block of the private-counter route covers at least this many entries
 #: per counter of its row, so that its merge (up to one atomic a counter)
 #: stays a small part. On the card private counters tie with direct atomics
-#: at 1 entry a counter a block and win at every swept width from 2
-#: (``chip_smoke.py`` phase 23 prints the sweep).
+#: at 1 entry a counter a block and win at every swept width from 2 (an
+#: NVIDIA H100 80GB HBM3 at 700 W; CHANGES.md, readings behind the
+#: comments).
 PRIVATE_MIN_ENTRIES_PER_COUNTER = 2
 #: Threads either kernel's private route spreads over all rows: 1,024 on
 #: each of the H100's 132 multiprocessors.
@@ -101,13 +102,13 @@ BINNED_MAX_RANGES = 4096
 #: The binned routes pay where a call brings at least this many updates
 #: (the histogram's, then the presence words'): below it the passes' fixed
 #: costs (five launches, a block a range, the scratch) outweigh what they
-#: save. ``chip_smoke.py`` phase 31 sweeps 2**22..2**25 updates at every
-#: width the rule bins (A2 with 4 rows at 2**16..2**28 and one row at 2**16,
-#: 2**22, 2**27, 2**28, 2**30; C1 with one row at 2**21..2**31 and 4 rows at
-#: 2**21, 2**26) on an NVIDIA H100 80GB HBM3 at 700 W: A2 binned and
-#: clustered win from 2**24 at every width and C1 from 2**25 (from fewer
-#: where the table is past the L2). Each constant is the least that wins at
-#: every swept width.
+#: save. A sweep of 2**22..2**25 updates at every width the rule bins (A2
+#: with 4 rows at 2**16..2**28 and one row at 2**16, 2**22, 2**27, 2**28,
+#: 2**30; C1 with one row at 2**21..2**31 and 4 rows at 2**21, 2**26) on an
+#: NVIDIA H100 80GB HBM3 at 700 W (CHANGES.md, readings behind the
+#: comments): A2 binned and clustered win from 2**24 at every width and C1
+#: from 2**25 (from fewer where the table is past the L2). Each constant is
+#: the least that wins at every swept width.
 #: With at most ``BINNED_MAX_RANGES`` ranges that is at least 4,096 updates
 #: a range.
 BINNED_MIN_ENTRIES = 1 << 24
@@ -147,7 +148,8 @@ PRIVATE_MAX_WIDTH_LOG2 = 20
 #: A block of the private route covers at least this many entries per word
 #: of its row, so that its merge (up to one atomic a word) stays a small
 #: part. On the card private words tie with direct atomics at 1 to 4 entries
-#: a word and win from there (``chip_smoke.py`` phase 21 prints the sweep).
+#: a word and win from there (an NVIDIA H100 80GB HBM3 at 700 W;
+#: CHANGES.md, readings behind the comments).
 PRIVATE_MIN_ENTRIES_PER_WORD = 4
 
 
@@ -389,11 +391,12 @@ def binned_counts_grid(rows: int, n: int,
     route: with 4 rows from 2**16 up to 2**25), else of 2**16..2**18
     counters, each counted a slice at a time in a hash table (the clustered
     route: with 4 rows 2**26..2**28, with one 2**28..2**30). Either needs at
-    least ``BINNED_MIN_ENTRIES`` updates a call (``chip_smoke.py`` phase
-    31's sweep: the clustered route too wins from 2**24 at every width it
-    serves). Weighted counts never take it (:func:`histogram_rows`): the
-    main path counts unweighted buckets, and staging a weight beside each
-    offset would double the stage's bytes for the one caller that passes one
+    least ``BINNED_MIN_ENTRIES`` updates a call (the sweep behind that
+    constant: the clustered route too wins from 2**24 at every width it
+    serves; CHANGES.md, readings behind the comments). Weighted
+    counts never take it (:func:`histogram_rows`): the main path counts
+    unweighted buckets, and staging a weight beside each offset would
+    double the stage's bytes for the one caller that passes one
     (``models/sketch.update``'s 0/1 validity).
     """
     range_log2 = counts_range_log2(rows, width_log2)

@@ -184,9 +184,6 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
             ctypes.c_void_p,
         ]
-        occ = lib.nthash_kmer_sequence_occupancy
-        occ.restype = ctypes.c_int
-        occ.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     return lib
 
 
@@ -284,8 +281,10 @@ def hash_kmers_tm_long(codes_tm: torch.Tensor, k: int, num_hashes: int = 1, *,
 #: Reads from which one thread per read (A1) is faster than segments (B2)
 #: on the H100, for reads longer than one segment: 2**18 reads are 97% of
 #: one wave of resident threads (132 SMs x 2,048 at A1's 32 registers).
-#: Measured by ``chip_smoke.py``'s crossover grid (PERF.md section 6): B2
-#: wins from 4,096 to 2**17 reads at 1,000 and 10,000 bp, A1 from 2**18.
+#: Measured over a crossover grid of L 150 to 10,000 and R 4,096 to 2**20
+#: on an NVIDIA H100 80GB HBM3 at 700 W (CHANGES.md, readings
+#: behind the comments): B2 wins from 4,096 to 2**17 reads at 1,000 and
+#: 10,000 bp, A1 from 2**18.
 SEGMENT_BELOW_READS = 1 << 18
 
 
@@ -438,26 +437,12 @@ def sequence_span(k: int, *, seeds: bool = False,
     bases of k (rounded up), 256 for the spaced-seed entry without fwd/rev.
     A lane rolls 32 ceil(k / 32) warm-up steps first, a third of its steps
     at 64; but its output streams lie span * 8 bytes apart, and the writes
-    gain more from the denser streams than the roll loses
-    (``seed_kernel_probe.py``'s span sweep). The seed entry without fwd/rev
-    writes the fewest bytes a step and rolls the most (a lookup a care run):
-    it keeps the longer span. The plain versions and the pseudo-read routes
-    cut their rows by the default."""
+    gain more from the denser streams than the roll loses (a span sweep on
+    the card; CHANGES.md, readings behind the comments). The seed
+    entry without fwd/rev writes the fewest bytes a step and rolls the most
+    (a lookup a care run): it keeps the longer span. The plain versions and
+    the pseudo-read routes cut their rows by the default."""
     return (256 if seeds and not emit_fwd_rev else 64) * -(-k // 32)
-
-
-def sequence_resident_warps(k: int, num_hashes: int = 1,
-                            emit_fwd_rev: bool = False) -> int:
-    """Warps of :func:`hash_sequence`'s kernel a multiprocessor of the
-    current GPU holds at once, at the rule's warps a block
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs a GPU."""
-    warps, _ = sequence_grid(k, 1, 1, num_hashes, emit_fwd_rev)
-    lib = _lib()
-    blocks = ctypes.c_int(0)
-    cuda_build.check(lib, lib.nthash_kmer_sequence_occupancy(
-        k, num_hashes, int(emit_fwd_rev), warps, ctypes.byref(blocks)),
-        "kmer_hash sequence occupancy")
-    return blocks.value * warps
 
 
 def sequence_codes(codes: torch.Tensor) -> torch.Tensor:

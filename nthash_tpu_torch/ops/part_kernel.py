@@ -230,34 +230,11 @@ def _lib() -> ctypes.CDLL:
             (lib.nthash_merge_strides, [i, vp, ll, ll, ll, ll, i, vp]),
             (lib.nthash_merge_span, [i, vp, ll, ll, ll, i, i, vp]),
             (lib.nthash_partition_bounds, [i, vp, ll, i, i, i, i, vp, vp, vp]),
-            (lib.nthash_merge_clusters, [i, i, vp]),
-            (lib.nthash_partition_blocks, [i, i, vp]),
             (lib.nthash_windows, [i, vp, vp, ll, i, i, i, i, i, vp, vp]),
         ):
             fn.restype = ctypes.c_int
             fn.argtypes = args
     return lib
-
-
-def merge_resources(device: int = 0) -> dict:
-    """What the card holds at once of the redesigned kernels:
-    ``{"clusters": {C: clusters of C merge blocks}, "blocks": {kernel:
-    resident blocks a multiprocessor}}`` (CUDA's occupancy queries)."""
-    lib = _lib()
-    n = ctypes.c_int(0)
-    out = {"clusters": {}, "blocks": {}}
-    for c in (2, 4, 8):
-        cuda_build.check(lib, lib.nthash_merge_clusters(device, c,
-                                                        ctypes.byref(n)),
-                         "cluster occupancy")
-        out["clusters"][c] = n.value
-    for which in range(MERGE_MAX_GROUP + 1):
-        cuda_build.check(lib, lib.nthash_partition_blocks(
-            device, which, ctypes.byref(n)), "occupancy")
-        name = (f"grouped pass of {which}" if which
-                else "partition_bounds_kernel")
-        out["blocks"][name] = n.value
-    return out
 
 
 def _stream(dev) -> int:
@@ -301,7 +278,8 @@ def merge_plan(chunk: int, k: int) -> tuple[tuple[tuple[int, int], ...],
     ``MERGE_MAX_GROUP``): on the card a stride exchanged between two
     blocks' shared memory costs more than half of what a whole grouped pass
     costs, and each further stride in a cluster of 4 or 8 as much again
-    (``partition_probe.py``, PERF.md).
+    (0.86 against 1.44 ms per 1M reads at the 2**30 plan on the card;
+    CHANGES.md, readings behind the comments).
     """
     if not (_pow2(chunk) and _pow2(k) and 2 <= k <= chunk <= MAX_CHUNK):
         raise ValueError(

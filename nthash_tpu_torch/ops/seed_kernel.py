@@ -291,9 +291,6 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
             ctypes.c_void_p,
         ]
-        occ = lib.nthash_seed_sequence_occupancy
-        occ.restype = ctypes.c_int
-        occ.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return lib
 
 
@@ -487,23 +484,6 @@ def sequence_fits(seeds: Sequence[str], num_hashes_per_seed: int = 1,
     seeds = tuple(seeds)
     return sequence_warps(len(seeds[0]), len(seeds), _nruns(seeds),
                           num_hashes_per_seed, emit_fwd_rev, seeds=True) > 0
-
-
-def sequence_resident_warps(seeds: Sequence[str], num_hashes_per_seed: int = 1,
-                            emit_fwd_rev: bool = False) -> int:
-    """Warps of :func:`hash_seeds_sequence`'s kernel a multiprocessor of the
-    current GPU holds at once, at the rule's warps a block
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs a GPU."""
-    seeds = tuple(seeds)
-    k, nruns = len(seeds[0]), _nruns(seeds)
-    warps, _ = sequence_grid(k, len(seeds), nruns, num_hashes_per_seed,
-                             emit_fwd_rev, seeds=True)
-    lib = _lib()
-    blocks = ctypes.c_int(0)
-    cuda_build.check(lib, lib.nthash_seed_sequence_occupancy(
-        k, len(seeds), nruns, num_hashes_per_seed, int(emit_fwd_rev), warps,
-        ctypes.byref(blocks)), "seed_hash sequence occupancy")
-    return blocks.value * warps
 
 
 @lru_cache(maxsize=32)

@@ -6,7 +6,7 @@ and go through both; every state and hash is compared exactly. A JAX state
 is carried into the port (``state_from_numpy``) and a port state back into
 JAX (``state_to_numpy``), and both continue to the same results. On the CPU
 ``roll_many`` runs its plain version, the step loop; the kernel is held to it
-on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 29).
+on the card (``tests/test_torch_cuda.py``).
 """
 
 import jax.numpy as jnp

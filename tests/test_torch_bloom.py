@@ -4,8 +4,8 @@ Inputs are made with numpy from a seed and go through both packages; every
 comparison is of integers (the words' bit patterns), with tolerance 0. The
 JAX Pallas kernels run in interpret mode, as ``tests/test_hist.py`` runs
 them, at widths 2**12..2**13; the port's functions run their plain versions
-on the CPU, which ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the
-CUDA kernels to on the card.
+on the CPU, which ``tests/test_torch_cuda.py`` holds the CUDA kernels to on
+the card.
 """
 
 import jax.numpy as jnp

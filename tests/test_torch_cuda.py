@@ -6,8 +6,14 @@ the suite's conftest imports JAX, which that machine need not have):
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
-``chip_smoke.py`` checks the same kernels at the main path's full size.
+The default paths also run here at their full launch shapes (1M reads in
+batches of 2**18, filters of 2**30 bits, 2**20 walks), and so do the widths
+and sizes past 2**31 entries where the CPU tests cannot go.
 """
+
+import functools
+import re
+import subprocess
 
 import numpy as np
 import pytest
@@ -20,10 +26,12 @@ from nthash_tpu_torch.models.pipeline import (
     ReadHashingPipeline,
     fused_count_step,
 )
-from nthash_tpu_torch.io.stream import pack_codes
+from nthash_tpu_torch.io.stream import pack_codes, packed_shapes
 from nthash_tpu_torch.ops import (
+    cuda_build,
     hist_kernel,
     kmer_kernel,
+    kmer_torch,
     probe_kernel,
     seed_kernel,
     unpack_kernel,
@@ -56,6 +64,50 @@ def cuda():
 def _codes(rng, b=777, length=150):
     codes = rng.integers(0, 6, size=(b, length), dtype=np.uint8)
     return torch.from_numpy(codes)
+
+
+@functools.lru_cache(maxsize=1)
+def _reads(n, length):
+    """uint8 [n, length] codes of random reads with ~1% N, kept for the
+    next test of the same shape (the full-size tests share 1M reads)."""
+    rng = np.random.default_rng(n + length)
+    codes = rng.integers(0, 4, size=(n, length), dtype=np.uint8)
+    codes[rng.random((n, length)) < 0.01] = 4
+    return codes
+
+
+#: Kernels that must not spill registers to local memory, by compile unit:
+#: every instance of the spaced-seed and partition kernels, the one-sequence
+#: entries and the binning pass's scatter (``bin.cuh``).
+NO_SPILL = {"kmer_hash": r"_sequence_kernel", "seed_hash": r"_kernel",
+            "partition": r"_kernel", "histogram": r"^bin_scatter_kernel",
+            "bloom": r"^bin_scatter_kernel"}
+#: The kernel a ptxas line names, out of its mangled name.
+PTXAS_KERNEL = re.compile(
+    r"Function properties for _Z\w*?\d+([a-z][a-z_]*_kernel)")
+
+
+@pytest.mark.parametrize("source", sorted(NO_SPILL))
+def test_no_register_spills(tmp_path, cuda, source):
+    """ptxas's report of a fresh build of ``csrc/<source>.cu`` with the
+    package's flags: no instance of the kernels ``NO_SPILL`` names spills."""
+    proc = subprocess.run(
+        [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o",
+         str(tmp_path / f"lib{source}.so"),
+         str(cuda_build.CSRC_DIR / f"{source}.cu")],
+        capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    kernel, checked, spills = None, set(), []
+    for line in proc.stderr.splitlines():
+        m = PTXAS_KERNEL.search(line)
+        if "Function properties for" in line:
+            kernel = m.group(1) if m else None
+        elif kernel and re.search(NO_SPILL[source], kernel) \
+                and "spill" in line:
+            checked.add(kernel)
+            if re.search(r"[1-9]\d* bytes spill", line):
+                spills.append(f"{kernel}: {line.strip()}")
+    assert checked and not spills, (sorted(checked), spills)
 
 
 @pytest.mark.parametrize("mode", [{}, {"emit_fwd_rev": True},
@@ -324,9 +376,9 @@ def _chunks(rng, wl, rows=2, g=8, skew=False):
 
 
 @pytest.mark.parametrize("skew", [False, True])
-@pytest.mark.parametrize("wl", [19, 20, 22, 28])
+@pytest.mark.parametrize("wl", [19, 20, 22, 28, 30])
 def test_partition_kernels_vs_plain(rng, cuda, wl, skew):
-    x, p_log2, sub_log2, cap = _chunks(rng, wl, g=2 if wl == 28 else 8,
+    x, p_log2, sub_log2, cap = _chunks(rng, wl, g=2 if wl >= 28 else 8,
                                       skew=skew)
     xd = x.to(cuda)
     before = dict(pk.LAUNCHES)
@@ -347,10 +399,11 @@ def test_partition_kernels_vs_plain(rng, cuda, wl, skew):
     assert merges == max(0, (x.shape[2] * 128).bit_length() - 16)
 
 
-@pytest.mark.parametrize("wl", [19, 20, 22, 26])
+@pytest.mark.parametrize("wl", [19, 20, 22, 26, 30])
 def test_partitioned_histogram_vs_plain(rng, cuda, wl):
     width = 1 << wl
-    idx = rng.integers(0, width, size=(4, 1 << 20)).astype(np.int32)
+    rows = 1 if wl == 30 else 4     # a row at 2**30 is 4 GiB of counters
+    idx = rng.integers(0, width, size=(rows, 1 << 20)).astype(np.int32)
     idx[:, rng.random(1 << 20) < 0.01] = -1
     idx[:, rng.random(1 << 20) < 0.01] = width
     idx = torch.from_numpy(idx).to(cuda)
@@ -412,6 +465,78 @@ def test_count_file_cuda_vs_cpu(tmp_path, rng, cuda):
         assert gpu.count_file(path, batch_size=256) == 900
         assert cpu.count_file(path, batch_size=256) == 900
         assert torch.equal(gpu.sketch.rows.cpu(), cpu.sketch.rows)
+
+
+def _plain_count(codes, wl, cuda, batch=1 << 14):
+    """The plain hash -> count of ``codes`` at k=32, 4 hashes, 2**wl (int64),
+    and the valid windows a row."""
+    want = torch.zeros((4, 1 << wl), dtype=torch.int64, device=cuda)
+    valid = 0
+    for s in range(0, codes.shape[0], batch):
+        tm = prepare_codes(torch.from_numpy(codes[s:s + batch]).to(cuda))
+        for r, b in enumerate(hash_kmers_tm_plain(tm, 32, 4, emit_buckets=wl)):
+            want[r] += histogram_rows_plain(b.reshape(1, -1), None, wl)[0]
+        valid += int(kmer_torch.window_valid_tm(tm, 32).sum())
+    return want, valid
+
+
+def _counters():
+    """Every launch counter the default paths move, copied."""
+    return {"A1": kmer_kernel.LAUNCHES, "B2": kmer_kernel.LONG_LAUNCHES,
+            "A2": hist_kernel.LAUNCHES,
+            "route": dict(hist_kernel.ROUTE_LAUNCHES),
+            "bin": dict(hist_kernel.BIN_LAUNCHES),
+            "range": dict(hist_kernel.RANGE_LAUNCHES),
+            "body": dict(hist_kernel.SCATTER_ROUTE_LAUNCHES),
+            "C": dict(hist_kernel.BLOOM_LAUNCHES), "part": dict(pk.LAUNCHES)}
+
+
+def _moved(before):
+    """The launches since ``before``, by counter."""
+    now = _counters()
+    return {key: ({k: v - before[key][k] for k, v in now[key].items()}
+                  if isinstance(now[key], dict) else now[key] - before[key])
+            for key in now}
+
+
+@pytest.mark.parametrize("wl,reads,length,batch", [
+    (14, 1_000_000, 150, 1 << 18), (20, 1_000_000, 150, 1 << 18),
+    (20, 16_384, 10_000, 4096)])
+def test_count_file_full_batches_vs_plain(tmp_path, cuda, wl, reads, length,
+                                          batch):
+    """``count_file`` at the default paths' launch shapes: 1M reads of 150
+    bp in batches of 2**18 at 2**14 (every histogram launch by private
+    counters) and at ``PipelineConfig()``'s 2**20 (every batch binned: one
+    binning pass by the rule's scatter body and one range pass), and 16,384
+    reads of 10,000 bp in batches of 4,096 through B2; the sketch equals the
+    plain hash -> count, a row's sum the valid windows, and no partition
+    kernel launches."""
+    codes = _reads(reads, length)
+    path = _write_fastq(tmp_path / "reads.fq", codes)
+    pipe = ReadHashingPipeline(PipelineConfig(sketch_width_log2=wl),
+                               device=cuda)
+    before = _counters()
+    assert pipe.count_file(path, batch_size=batch, read_length=length) \
+        == reads
+    got = _moved(before)
+    routes = [hist_kernel._counts_route(4, min(batch, reads - s)
+                                        * (length - 31), wl, False, None)[0]
+              for s in range(0, reads, batch)]
+    assert set(routes) == {"private" if wl <= 15 else "binned"}
+    hashed = "B2" if length > 150 else "A1"
+    assert got[hashed] == got["A2"] == len(routes)
+    assert got["A1"] + got["B2"] == len(routes)
+    assert got["route"] == {r: routes.count(r) for r in got["route"]}
+    binned = routes.count("binned")
+    assert got["bin"]["histogram"] == got["range"]["histogram"] == binned
+    body = binned and hist_kernel.scatter_body(wl,
+                                               hist_kernel.COUNTS_RANGE_LOG2)
+    assert got["body"] == {b: binned * (b == body) for b in got["body"]}
+    assert not any(got["part"].values())
+    want, valid = _plain_count(codes, wl, cuda)
+    assert torch.equal(pipe.sketch.rows.long(), want)
+    assert pipe.sketch.rows.sum(dim=1, dtype=torch.int64).tolist() == \
+        [valid] * 4
 
 
 def test_timeit_cuda_events(cuda):
@@ -587,6 +712,52 @@ def test_bloom_insert_from_buckets_cuda_vs_cpu(rng, cuda, wl):
     got = {k: hist_kernel.BLOOM_LAUNCHES[k] - before[k] for k in before}
     # the four tensors are views of the kernel's one output: one launch
     assert got == {"bloom_words": 1, "bloom_words_rows": 0}
+
+
+@pytest.mark.parametrize("wl", [17, 20, 30])
+def test_bloom_path_full_batches_vs_plain(cuda, wl):
+    """The Bloom path over 1M reads in batches of 2**18 (the hash kernel's
+    buckets -> ``insert_from_buckets``) at 2**17, 2**20 and 2**30: one
+    ``bloom_words`` launch a batch (binned where the rule bins: one binning
+    pass by the rule's scatter body and one range pass), no partition kernel
+    and no ``bloom_words_rows``; the filter equals the plain hash -> plain
+    insert, ``contains`` holds on every valid window, and two half-filters
+    merge to the whole."""
+    codes = _reads(1_000_000, 150)
+    tms = [prepare_codes(torch.from_numpy(codes[s:s + (1 << 18)]).to(cuda))
+           for s in range(0, codes.shape[0], 1 << 18)]
+
+    def build(part):
+        bf = bloom.BloomFilter.zeros(wl, device=cuda)
+        for tm in part:
+            bloom.insert_from_buckets(bf, kmer_kernel.hash_kmers_tm_auto(
+                tm, 32, 4, emit_buckets=wl), emitted_width_log2=wl)
+        return bf
+
+    before = _counters()
+    bf = build(tms)
+    got = _moved(before)
+    binned = sum(hist_kernel._words_route_of(
+        1, 4 * tm.shape[1] * (tm.shape[0] - 31), wl, None)[0] == "binned"
+        for tm in tms)
+    assert got["A1"] == len(tms) and got["C"] == {
+        "bloom_words": len(tms), "bloom_words_rows": 0}
+    assert got["bin"]["bloom"] == got["range"]["bloom"] == binned
+    body = binned and hist_kernel.scatter_body(wl,
+                                               hist_kernel.WORDS_RANGE_LOG2)
+    assert got["body"] == {b: binned * (b == body) for b in got["body"]}
+    assert not any(got["part"].values())
+    want = torch.zeros_like(bf.words)
+    for tm in tms:
+        for b in hash_kmers_tm_plain(tm, 32, 4, emit_buckets=wl):
+            hist_kernel.bloom_words_plain(b, None, wl, out=want)
+    assert torch.equal(bf.words, want)
+    for tm in tms:
+        hashes = torch.stack(kmer_kernel.hash_kmers_tm_auto(tm, 32, 4), -1)
+        valid = kmer_torch.window_valid_tm(tm, 32)
+        assert bool(bloom.contains(bf, hashes, wl)[valid].all())
+    assert torch.equal(bloom.merge(build(tms[:2]), build(tms[2:])).words,
+                       bf.words)
 
 
 # ------------- the presence-word kernel's two routes and the tile sort ----
@@ -1028,7 +1199,13 @@ def test_sp_one_launch_each(rng, cuda):
 
 def _packed(rng, reads, length, cuda):
     """pack_codes' planes on the card of reads holding all five codes, the
-    last eighth padding rows."""
+    last eighth padding rows. Past 2**28 codes, random plane bytes made on
+    the card (any bytes are valid input) and no codes."""
+    if reads * length > 1 << 28:
+        gen = torch.Generator(device=cuda).manual_seed(length)
+        return (*(torch.randint(0, 256, shape, generator=gen, device=cuda,
+                                dtype=torch.uint8)
+                  for shape in packed_shapes((reads, length))), None)
     codes = rng.integers(0, 5, size=(reads, length), dtype=np.uint8)
     codes[reads - reads // 8:] = 4
     packed, nmask = pack_codes(codes)
@@ -1036,27 +1213,42 @@ def _packed(rng, reads, length, cuda):
             torch.from_numpy(nmask).to(cuda), codes)
 
 
-@pytest.mark.parametrize("reads", [1, 33, 4096])
+@pytest.mark.parametrize("reads", [1, 33, 4096, 1 << 18])
 @pytest.mark.parametrize("length", [1, 3, 4, 7, 8, 31, 150, 10_000])
 def test_unpack_kernel_vs_plain(rng, cuda, length, reads):
+    """Every (L, B) of the grid, 2**18 x 10,000 (2.6e9 codes, past 2**31)
+    included; the plain version 2**14 reads at a time."""
     packed, nmask, codes = _packed(rng, reads, length, cuda)
     before = unpack_kernel.LAUNCHES
     got = unpack_kernel.unpack_codes_tm(packed, nmask, length)
     assert unpack_kernel.LAUNCHES == before + 1
-    want = unpack_kernel.unpack_codes_tm_plain(packed, nmask, length)
-    torch.cuda.synchronize()
     assert got.is_cuda and got.dtype == torch.int32 and got.is_contiguous()
-    assert torch.equal(got, want)
-    assert np.array_equal(got.T.cpu().numpy(), codes)
+    assert got.shape == (length, reads)
+    for s in range(0, reads, 1 << 14):
+        want = unpack_kernel.unpack_codes_tm_plain(
+            packed[s:s + (1 << 14)], nmask[s:s + (1 << 14)], length)
+        torch.cuda.synchronize()
+        assert torch.equal(got[:, s:s + (1 << 14)], want)
+    if codes is not None:
+        assert np.array_equal(got.T.cpu().numpy(), codes)
+
+
+def _write_fastq(path, codes):
+    """uint8 [n, length] codes (0-4) as a FASTQ file, a record a read."""
+    n, length = codes.shape
+    rec = np.empty((n, 2 * length + 7), dtype=np.uint8)
+    rec[:, :3] = np.frombuffer(b"@r\n", np.uint8)
+    rec[:, 3:3 + length] = np.frombuffer(b"ACGTN", np.uint8)[codes]
+    rec[:, 3 + length:6 + length] = np.frombuffer(b"\n+\n", np.uint8)
+    rec[:, 6 + length:-1] = ord("I")
+    rec[:, -1] = ord("\n")
+    path.write_bytes(rec.tobytes())
+    return path
 
 
 def _fastq(path, rng, n, length):
-    seqs = np.frombuffer(b"ACGTN", np.uint8)[
-        rng.integers(0, 5, size=(n, length))]
-    with open(path, "wb") as f:
-        for s in seqs:
-            f.write(b"@r\n" + s.tobytes() + b"\n+\n" + b"I" * length + b"\n")
-    return path
+    return _write_fastq(path, rng.integers(0, 5, size=(n, length))
+                        .astype(np.uint8))
 
 
 @pytest.mark.parametrize("pack", [False, True])
@@ -1266,12 +1458,12 @@ def _registers_kernel_agrees(state, chars, seeds, h, want, final):
 @pytest.mark.parametrize("walks", [1, 31, 33, 4097])
 def test_blind_roll_many_vs_plain(rng, cuda, walks, steps, h):
     """roll_many through csrc/blind.cu against the step loop, k-mers at
-    k = 5 and 32 and two seed sets, every hash and the final state; codes
+    k = 1, 5, 32 and 97 and two seed sets, every hash and the final state; codes
     outside 0-3 in the windows and the stream."""
     from nthash_tpu_torch.ops import blind_scan as bs
     from nthash_tpu_torch.ops import blind_seed_scan as bss
 
-    for k in (5, 32):
+    for k in (1, 5, 32, 97):
         w = torch.from_numpy(rng.integers(-1, 6, size=(walks, k))
                              .astype(np.int32)).to(cuda)
         chars = torch.from_numpy(rng.integers(0, 6, size=(steps, walks))
@@ -1300,6 +1492,42 @@ def test_blind_roll_many_vs_plain(rng, cuda, walks, steps, h):
         assert torch.equal(ha, hb)
         assert all(torch.equal(x, y) for x, y in zip(a, b))
         _registers_kernel_agrees(st, chars, seeds, h, hb, b)
+
+
+def test_dbg_walks_replayed_through_roll_many(cuda):
+    """The DBG probe at 2**20 walks of 64 steps, k=32, h=4 (``peek4`` ->
+    ``contains`` on a 2**30-bit filter of a 2**25-base genome -> argmax ->
+    ``roll_select``): the chosen bases replayed through ``roll_many`` (one
+    launch) equal its plain version and the walked state."""
+    from nthash_tpu_torch.ops import blind_scan as bs
+
+    k, h, wl, walks, steps = 32, 4, 30, 1 << 20, 64
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    genome = torch.randint(0, 4, (1 << 25,), dtype=torch.uint8, device=cuda,
+                           generator=gen)
+    ghash, gvalid = kmer_kernel.hash_sequence(genome, k, h)
+    bf = bloom.insert(bloom.BloomFilter.zeros(wl, cuda),
+                      torch.stack(ghash, -1), gvalid, wl)
+    del ghash, gvalid
+    starts = torch.randint(0, genome.numel() - k - steps, (walks,),
+                           device=cuda, generator=gen)
+    state0 = bs.init_state(genome[starts[:, None]
+                                  + torch.arange(k, device=cuda)])
+    state = state0
+    choices = torch.empty((steps, walks), dtype=torch.int32, device=cuda)
+    for t in range(steps):
+        hit = bloom.contains(bf, bs.peek4(state, h), wl)
+        choices[t] = torch.argmax(hit.to(torch.int8), dim=1)
+        state = bs.roll_select(state, choices[t])
+    before = bs.LAUNCHES
+    replay, rhash = bs.roll_many(state0, choices, h)
+    assert bs.LAUNCHES == before + 1
+    plain, phash = bs.roll_many_plain(state0, choices, h)
+    torch.cuda.synchronize()
+    assert torch.equal(rhash, phash)
+    assert all(torch.equal(x, y) for x, y in zip(replay, plain))
+    assert all(torch.equal(x, y) for x, y in zip(replay, state))
+    assert torch.equal(rhash[-1], bs.hashes_of(state, h))
 
 
 def test_facade_on_the_card_vs_oracle(rng, cuda):
@@ -1386,9 +1614,10 @@ def nccl_mesh(tmp_path, cuda):
         dist.destroy_process_group()
 
 
-def test_nccl_fused_count_vs_one_device(rng, cuda, nccl_mesh):
+def test_nccl_fused_count_vs_one_device(tmp_path, rng, cuda, nccl_mesh):
     """dp.fused_count (twice) and hash_and_sketch over the NCCL group of
-    one equal the one-device steps, through the kernels."""
+    one equal the one-device steps, through the kernels; ``count_file``
+    over the group equals the plain count."""
     from nthash_tpu_torch.parallel import dp
 
     codes = _codes(rng, 4096).to(cuda)
@@ -1407,6 +1636,11 @@ def test_nccl_fused_count_vs_one_device(rng, cuda, nccl_mesh):
     pipe = ReadHashingPipeline(PipelineConfig(sketch_width_log2=14),
                                device=cuda)
     assert pipe.mesh is not None and pipe.n_devices == 1
+    reads = rng.integers(0, 5, size=(3000, 150)).astype(np.uint8)
+    path = _write_fastq(tmp_path / "reads.fq", reads)
+    assert pipe.count_file(path, batch_size=1024) == 3000
+    assert torch.equal(pipe.sketch.rows.long(), _plain_count(reads, 14,
+                                                              cuda)[0])
     one = cms.CountMinSketch.zeros(4, 14, cuda)
     wh, wv, _ = dp.hash_and_sketch(codes, one, 32, 4, 14, None,
                                    time_major=True)
@@ -1432,6 +1666,91 @@ def test_nccl_union_and_sequence_vs_one_device(rng, cuda, nccl_mesh, k):
     want, wvalid = sp.hash_long_sequence(sp.shard_sequence(seq, k=k), k, 2)
     assert all(torch.equal(a, b) for a, b in zip(hashes, want))
     assert torch.equal(valid, wvalid)
+
+
+def _gloo_rank(rank, world, store, inputs, out):
+    """One rank of a gloo group on the one card (CUDA tensors): its blocks
+    of the reads counted by ``dp.fused_count`` at 2**20 and filtered at
+    2**20 then united by ``union_across``, and its chunk of the sequence
+    hashed over the mesh; saved to ``<out>.<rank>.npz`` with the launches."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from nthash_tpu_torch.parallel import dp, mesh
+
+    dev = torch.device("cuda", 0)
+    mesh.initialize_distributed(
+        "cuda", backend="gloo", rank=rank, world_size=world,
+        store=dist.FileStore(store, world),
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        reads = mesh.device_mesh()
+        data = np.load(inputs)
+        codes = data["codes"]
+        sketch = cms.CountMinSketch.zeros(4, 20, dev)
+        bf = bloom.BloomFilter.zeros(20, dev)
+        before = (kmer_kernel.LAUNCHES, hist_kernel.LAUNCHES,
+                  hist_kernel.BLOOM_LAUNCHES["bloom_words"],
+                  kmer_kernel.SEQUENCE_LAUNCHES)
+        for s in range(0, codes.shape[0], 4096):
+            block = dp.shard_reads(torch.from_numpy(codes[s:s + 4096]),
+                                   reads).to(dev)
+            dp.fused_count(block, sketch, 32, reads)
+            bloom.insert_from_buckets(bf, kmer_kernel.hash_kmers_tm_auto(
+                prepare_codes(block), 32, 4, emit_buckets=20),
+                emitted_width_log2=20)
+        words = bloom.union_across(bf.words, reads)
+        seq_mesh = mesh.device_mesh(axis=mesh.SEQ_AXIS)
+        chunk = sp.shard_sequence(torch.from_numpy(data["seq"]).to(dev),
+                                  seq_mesh, k=32)
+        hashes, valid = sp.hash_long_sequence(chunk, 32, 1, seq_mesh)
+        launches = np.array([after - b for after, b in zip(
+            (kmer_kernel.LAUNCHES, hist_kernel.LAUNCHES,
+             hist_kernel.BLOOM_LAUNCHES["bloom_words"],
+             kmer_kernel.SEQUENCE_LAUNCHES), before)])
+        np.savez(f"{out}.{rank}.npz", sketch=sketch.rows.cpu().numpy(),
+                 words=words.cpu().numpy(), hashes=hashes[0].cpu().numpy(),
+                 valid=valid.cpu().numpy(), launches=launches)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_gloo_groups_share_one_card(tmp_path, rng, cuda, monkeypatch, world):
+    """gloo groups of 2 and 4 processes on the one card, on CUDA tensors:
+    every rank's all-reduced sketch and united filter equal the one-device
+    results over all the reads, and its chunk of the sequence (the halo by
+    one all-gather) equals that slice of the one-device hashes; every rank
+    launched the hash, histogram, presence-word and sequence kernels."""
+    import torch.multiprocessing as mp
+
+    codes = rng.integers(0, 5, size=(3 * 4096 + 100, 150)).astype(np.uint8)
+    seq = rng.integers(0, 5, size=1 << 20).astype(np.uint8)
+    np.savez(tmp_path / "inputs.npz", codes=codes, seq=seq)
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")
+    mp.spawn(_gloo_rank, args=(world, str(tmp_path / "store"),
+                               str(tmp_path / "inputs.npz"),
+                               str(tmp_path / "out")), nprocs=world)
+    want = cms.CountMinSketch.zeros(4, 20, cuda)
+    fused_count_step(prepare_codes(torch.from_numpy(codes).to(cuda)), want,
+                     32)
+    bf = bloom.insert_from_buckets(
+        bloom.BloomFilter.zeros(20, cuda), kmer_kernel.hash_kmers_tm_auto(
+            prepare_codes(torch.from_numpy(codes).to(cuda)), 32, 4,
+            emit_buckets=20), emitted_width_log2=20)
+    hashes, valid = sp.hash_long_sequence(torch.from_numpy(seq).to(cuda),
+                                          32, 1)
+    c = seq.size // world
+    for rank in range(world):
+        got = np.load(tmp_path / f"out.{rank}.npz")
+        assert np.array_equal(got["sketch"], want.rows.cpu().numpy())
+        assert np.array_equal(got["words"], bf.words.cpu().numpy())
+        assert np.array_equal(got["hashes"],
+                              hashes[0][rank * c:(rank + 1) * c].cpu().numpy())
+        assert np.array_equal(got["valid"],
+                              valid[rank * c:(rank + 1) * c].cpu().numpy())
+        assert got["launches"][3] == 1 and (got["launches"] > 0).all()
 
 
 # ----------------------------------- the binned routes (A2 and C1) ----
@@ -1616,7 +1935,9 @@ def test_bin_ranges_at_the_cells_shapes(cuda, wl, rows, rl):
     """The binning pass at the benchmark cells' shapes, on one batch of
     2**18 genome reads hashed at k=32 into 4 hashes: the count-min cell's
     [4, n] buckets at 2**28 (ranges of 2**18 counters) and the Bloom cell's
-    one stream at 2**30 (ranges of 2**20 bits), against the plain pass."""
+    one stream at 2**30 (ranges of 2**20 bits), against the plain pass;
+    then the whole route the rule takes there (the clustered histogram,
+    the binned words) against the plain version and direct atomics."""
     tm = prepare_codes(_genome_batch(cuda))
     idx = hist_kernel.rows_view(hash_kmers_tm(tm, 32, 4, emit_buckets=wl))
     del tm
@@ -1624,6 +1945,23 @@ def test_bin_ranges_at_the_cells_shapes(cuda, wl, rows, rl):
     assert idx.shape[1] == (1 << 20) * 119 // rows
     assert hist_kernel.scatter_body(wl, rl) == "sectors"
     _bins_match(idx, None, wl, rl)
+    if rows == 4:
+        assert hist_kernel._counts_route(rows, idx.shape[1], wl, False,
+                                         None)[0] == "clustered"
+        got = histogram_rows(idx, None, wl)
+        want = histogram_rows_plain(idx, None, wl)
+        direct = hist_kernel._launch(idx, None, wl, None, None,
+                                     route="direct")
+    else:
+        assert hist_kernel._words_route_of(rows, idx.shape[1], wl,
+                                           None)[0] == "binned"
+        got = hist_kernel._words_launch(idx, None, wl, None, None,
+                                        "bloom_words")
+        want = hist_kernel._words_plain(idx, None, wl, None, None)
+        direct = hist_kernel._words_launch(idx, None, wl, None, None,
+                                           "bloom_words", route="direct")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(direct, want)
 
 
 def test_binned_is_the_rule_on_the_wide_paths(rng, cuda):

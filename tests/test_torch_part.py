@@ -3,8 +3,8 @@
 Inputs are made with numpy from a seed and given to both packages; every
 comparison is of integers, with tolerance 0. The JAX Pallas kernels run in
 interpret mode, as ``tests/test_part.py`` runs them; on the CPU the port's
-functions run their plain versions (``*_plain``), which ``chip_smoke.py`` and
-``tests/test_torch_cuda.py`` hold the CUDA kernels to on the card.
+functions run their plain versions (``*_plain``), which
+``tests/test_torch_cuda.py`` holds the CUDA kernels to on the card.
 """
 
 import jax
