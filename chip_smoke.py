@@ -103,11 +103,13 @@ class Part:
 @dataclass
 class Case:
     """A row's calls (one part, or one a batch of the 1M reads), the bytes
-    they must move, and how two outputs differ (0 when equal)."""
+    they must move, how two outputs differ (0 when equal), and what the
+    row reports beside its times (read after them)."""
 
     parts: list[Part]
     nbytes: int
     diff: Callable | None = None
+    notes: Callable[[], dict] | None = None
 
 
 def max_abs_err(a, b) -> float:
@@ -656,12 +658,24 @@ def row_bloom_probe(x: Inputs) -> Case:
                args=lambda: (acc,), fresh=lambda: (torch.zeros_like(acc),))
 
 
+def split_ranges(idx, wl: int) -> dict:
+    """The clustered route's split of idx [R, n] at 2**wl: its owner blocks
+    a chunk and the share of ranges that the binning pass cut into more
+    than one chunk."""
+    rl = hist_kernel.counts_range_log2(idx.shape[0], wl)
+    bins = hist_kernel.bin_ranges(idx, None, wl, rl,
+                                  hist_kernel.CLUSTERED_RANGE_ENTRIES)
+    return {"owners": hist_kernel.range_owners(rl),
+            "split_share": float((bins.counts > bins.per).double().mean())}
+
+
 def row_histogram_ranges_clustered(x: Inputs) -> Case:
     """A2 at 4 x 2**28 by the rule's clustered route (binning, then the
     range pass) over one genomic batch of 2**18 reads, as
     ``cms_short_resident`` counts it, adding into the sketch's rows;
     ``torch.bincount`` of the flat buckets. Bytes: the buckets read once,
-    each touched counter read and written once."""
+    each touched counter read and written once. Beside it the range pass's
+    owners a chunk and its share of split ranges (:func:`split_ranges`)."""
     wl = CMS_WL
     idx = hist_kernel.rows_view(hash_kmers_tm(x.genome_tm, K, H,
                                               emit_buckets=wl))
@@ -670,13 +684,15 @@ def row_histogram_ranges_clustered(x: Inputs) -> Case:
             * ((1 << wl) + 1)).reshape(-1)
     touched = torch.unique(flat[((idx >= 0) & (idx < (1 << wl)))
                                 .reshape(-1)]).numel()
-    return one(lambda o: hist_kernel.histogram_rows(idx, None, wl, out=o),
+    case = one(lambda o: hist_kernel.histogram_rows(idx, None, wl, out=o),
                lambda o: hist_kernel.histogram_rows_plain(idx, None, wl,
                                                           out=o),
                idx.numel() * 4 + touched * 8,
                lambda: torch.bincount(flat, minlength=H * ((1 << wl) + 1)),
                args=lambda: (rows_out,),
                fresh=lambda: (torch.zeros_like(rows_out),))
+    case.notes = lambda: split_ranges(idx, wl)
+    return case
 
 
 #: The kernel table: (name, CUDA source, the TPU kernel or JAX function it
@@ -892,6 +908,7 @@ def measure(name, source, replaces, counter, make, x: Inputs,
         for key, v in in_turns(part).items():
             ms[key] += v
     bound = case.nbytes / rate * 1e3
+    notes = case.notes() if case.notes else {}
     del case
     torch.cuda.empty_cache()
     return {"name": name, "route": "cuda",
@@ -899,7 +916,7 @@ def measure(name, source, replaces, counter, make, x: Inputs,
             "replaces": f"nthash_tpu/{replaces}", "launches": launches,
             "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
             "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": ms["library"] or None}
+            "library_ms": ms["library"] or None, **notes}
 
 
 def main() -> None:
@@ -931,11 +948,14 @@ def main() -> None:
         row["launches"] = path_launches.get(row["name"], row["launches"])
         lib = "" if row["library_ms"] is None else \
             f", library {row['library_ms']:.4f}"
+        split = "" if "owners" not in row else \
+            (f"; {row['owners']} owners a chunk, split ranges "
+             f"{row['split_share']:.4%}")
         print(f"[kernel] {row['name']}: {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f}{lib}, bound {row['bound_ms']:.4f} "
               f"({row['bound_ms'] / row['ms']:.1%} of it); launches "
-              f"{row['launches']}, max_abs_err {row['max_abs_err']:g} [{smi}]",
-              flush=True)
+              f"{row['launches']}, max_abs_err {row['max_abs_err']:g}{split} "
+              f"[{smi}]", flush=True)
     ok = (all(r["max_abs_err"] == 0 and r["launches"] > 0 for r in kernels)
           and not any(path_errs))
     print(json.dumps({"kernels": kernels}))

@@ -14,8 +14,8 @@
 // row-major table [R, width]. The three range passes that follow: the
 // histogram's 2^15 counters (shift 15, 128 KB of int32, a uint16 stage);
 // its clustered route's ranges of 2^16..2^18 counters (shift 16..18, a
-// uint32 stage), too wide for a block, whose range pass counts a slice of a
-// range in a hash table of the offsets it touches; the presence words' 2^15
+// uint32 stage), too wide for a block, whose range pass counts each
+// 2^15-counter slice of a range in its own block; the presence words' 2^15
 // words (shift 20, uint32: word_index keeps b >> 20 in its top bits, so a
 // range's words are contiguous). Out of range indices (-1, the sentinel,
 // anything past the width) and, with a weight, entries whose weight is 0
@@ -28,7 +28,7 @@
 //      count to the range's global count (one atomic a range a block);
 //   2. bin_scan_kernel (one block): the exclusive scan of the range counts
 //      (each range's first stage position, and its cursor), and of the
-//      range pass's blocks per range, ceil(count / per);
+//      range pass's blocks per range, owners * ceil(count / per);
 //   3. bin_scatter_kernel, by one of two bodies, chosen by the ranges a row
 //      (nbins) and the stage's entry size:
 //      "sectors", for more than 256 ranges a row where a 32-byte sector of
@@ -57,14 +57,17 @@
 // commutative, and an OR is commutative and idempotent, so the range pass
 // that follows is exact whatever the order.
 //
-// The range pass (histogram.cu, bloom.cu) runs a grid of (range, chunk)
-// blocks sized on the host from n and the number of ranges: block j finds
-// its range g by a search of the blocks' prefix (range g owns blocks
+// The range pass (histogram.cu, bloom.cu) runs a grid of (range, chunk,
+// owner) blocks sized on the host from n and the number of ranges: block j
+// finds its range g by a search of the blocks' prefix (range g owns blocks
 // [blocks[g], blocks[g + 1]); one thread's binary search, or a warp's 32
-// probes a step for the clustered route), takes `per` staged entries of it,
-// and counts or sets them in shared memory (every bucket of the range, or a
-// hash table of those the slice touches) before one merge into the range's
-// slice of the table. Blocks past the last range's return at once.
+// probes a step for the clustered route), takes chunk (j - blocks[g]) /
+// owners, `per` staged entries of it, and counts or sets them in shared
+// memory before one merge into the range's slice of the table. The binned
+// passes have one owner a chunk (every bucket of the range in one block),
+// the clustered one 2, 4 or 8 (each a 2^15-counter slice of the range,
+// reading the whole chunk and keeping its own offsets). Blocks past the
+// last range's return at once.
 //
 // What bounds the pass: the bytes of the indices, read twice (count,
 // scatter), and of the stage, written once and read once by the range pass
@@ -202,10 +205,11 @@ bin_count_kernel(const int* __restrict__ idx, long long R, long long N,
 }
 
 // One block: starts and cursors = exclusive scan of counts; blocks =
-// exclusive scan of ceil(counts / per); starts[n] and blocks[n] the totals.
+// exclusive scan of owners * ceil(counts / per); starts[n] and blocks[n] the
+// totals.
 __global__ void __launch_bounds__(kScanThreads)
 bin_scan_kernel(u64* __restrict__ meta, int nranges, long long per,
-                const int* __restrict__ gate) {
+                int owners, const int* __restrict__ gate) {
   if (gate && *gate == 0) return;
   __shared__ u64 sa[kScanThreads];
   __shared__ u64 sb[kScanThreads];
@@ -218,10 +222,11 @@ bin_scan_kernel(u64* __restrict__ meta, int nranges, long long per,
   const int lo = t * each;
   const int hi = min(lo + each, nranges);
   const u64 p = static_cast<u64>(per);
+  const u64 q = static_cast<u64>(owners);
   u64 a = 0, b = 0;
   for (int i = lo; i < hi; ++i) {
     a += counts[i];
-    b += (counts[i] + p - 1) / p;
+    b += q * ((counts[i] + p - 1) / p);
   }
   sa[t] = a;
   sb[t] = b;
@@ -240,7 +245,7 @@ bin_scan_kernel(u64* __restrict__ meta, int nranges, long long per,
     cursors[i] = ea;
     blocks[i] = eb;
     ea += counts[i];
-    eb += (counts[i] + p - 1) / p;
+    eb += q * ((counts[i] + p - 1) / p);
   }
   if (t == kScanThreads - 1) {
     starts[nranges] = sa[t];
@@ -751,13 +756,14 @@ int scatter_sectors(const int* idx, long long R, long long N,
 
 // The binning pass over idx [R, N] (weight: nullptr or [N], only with
 // R == 1) into meta and stage (at least R * N entries of T), ranges of
-// 2^shift buckets, `per` staged entries a block of the range pass.
+// 2^shift buckets, `per` staged entries a chunk of the range pass and
+// `owners` blocks a chunk.
 template <typename T>
 int bin_ranges(const int* idx, long long R, long long N, const int* weight,
-               int width_log2, int shift, long long per, u64* meta, T* stage,
-               const int* gate, cudaStream_t stream) {
+               int width_log2, int shift, long long per, int owners, u64* meta,
+               T* stage, const int* gate, cudaStream_t stream) {
   if (width_log2 <= shift || width_log2 > 31 || R < 1 || N < 1 || per < 1 ||
-      (weight && R != 1)) {
+      owners < 1 || (weight && R != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long nbins = 1LL << (width_log2 - shift);
@@ -776,7 +782,8 @@ int bin_ranges(const int* idx, long long R, long long N, const int* weight,
       idx, R, N, weight, width, shift, static_cast<int>(nbins), meta, gate);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bin_scan_kernel<<<1, kScanThreads, 0, stream>>>(meta, nranges, per, gate);
+  bin_scan_kernel<<<1, kScanThreads, 0, stream>>>(meta, nranges, per, owners,
+                                                  gate);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   u64* cursors = meta + 2 * nranges + 1;

@@ -282,7 +282,7 @@ int nthash_bloom_bin(int device, const int* idx, long long R, long long N,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   return nthash_bin::bin_ranges(idx, R, N, weight, width_log2, kRangeLog2,
-                                per, meta, stage, gate, stream);
+                                per, 1, meta, stage, gate, stream);
 }
 
 // The binned route's range pass: `blocks` blocks (at least the binning

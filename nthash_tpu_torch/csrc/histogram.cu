@@ -1,7 +1,6 @@
 // Exact int32 row histograms: private counters in shared memory merged once
-// per block, the updates grouped by range and each range (or a hash table of
-// a slice of it) counted in shared memory, or one global atomic add per
-// update.
+// per block, the updates grouped by range and each range (or each slice of
+// it) counted in shared memory, or one global atomic add per update.
 //
 // Replaces nthash_tpu/ops/hist_pallas.py:133 _hist_kernel (reached through
 // mxu_histogram_rows) and computes what it returns: for indices idx [R, N]
@@ -45,27 +44,35 @@
 // Clustered (the same binning pass, then wide::histogram_ranges_kernel),
 // where the rows hold more than 4,096 ranges of 2^15 counters: ranges of
 // the least of 2^16, 2^17 and 2^18 counters that makes at most 4,096 (with
-// 4 rows 2^26..2^28, with one 2^28..2^30), staged as uint32 offsets, and
-// each block of the range pass clusters a slice of at most 2^14 - 8 of its
-// range's offsets in a hash table in shared memory, one slot and one count
-// a distinct offset, then adds each count to its counter with one global
-// atomic. A range's counters (256 KB to 1 MB) do not fit a block; the
-// table holds only what a slice touches. At 4 x 2^28 a batch of 2^18 reads
-// touches ~7M counters a row, each about 4.4 times, so the slices' merges
-// send about a third of the atomics the direct route sends, each into a
-// range of 1 MB that the slices in flight share, not into 4 GiB. What bounds
-// it: the table's probes, claims and adds in shared memory (1.25 of the
-// range pass's 2.08 ms there, by ablation), then the merge atomics (0.46),
-// and the binning pass beside it (0.72: its scatter writes whole sectors,
-// bin.cuh's "sectors" body, 0.99 before). Holding 16 offsets a thread and
-// claiming their slots before waiting on any was slower (2.38 ms), as were
-// tables of 2^14 slots (two blocks a multiprocessor) and one slice a range
-// with 16-bit counts beside the keys. Counting each range in the
-// distributed shared memory of a thread-block cluster (2^15 counters a
-// block, 8 blocks at 2^18) was exact but slower: on one batch at 4 x 2^28
-// its range pass took 7.80 ms (clusters of 8) against 2.12 ms here, since
-// every update was an atomic on another SM's shared memory (3.61 and 1.48
-// ms at 2^27 and 2^26, clusters of 4 and 2).
+// 4 rows 2^26..2^28, with one 2^28..2^30), staged as uint32 offsets. A
+// range's counters (256 KB to 1 MB) do not fit a block, so the range pass
+// cuts a range's offsets into chunks of at most 2^16 - 8 and gives each
+// chunk one owner block a 2^15-counter slice of the range (2, 4 or 8), which
+// reads the whole chunk, counts its own offsets densely in 16-bit halves of
+// shared words and adds each non-zero count to its counter with one global
+// atomic. At 4 x 2^28 a batch of 2^18 genome reads stages ~30,460 offsets a
+// range, so a range is one chunk and each of the ~27.7M counters it touches
+// is merged once (~44M merges when a block took at most 2^14 - 8 offsets).
+// What bounds it, by ablation of the same pass with 4 owners of 2^16
+// counters in persistent blocks (1.72 ms on one genomic batch at 4 x 2^28):
+// the merge's global atomics 0.76 ms (each touched counter its own 32-byte
+// sector of the table), the owners' reads of the stage and their owner
+// test 0.33, the shared atomics 0.29, the fixed steps of each (chunk,
+// owner) (finding its range, barriers, scanning the words) 0.34; then the
+// binning pass beside it (0.72). The range pass alone, in turns on that
+// batch: 2.10-2.13 ms for the hash table it replaced (a block a slice of
+// 2^14 - 8 offsets, one slot and one count a distinct offset, claimed by
+// atomicCAS), 1.70-1.71 here; 4 owners of 2^16 counters in 128 KB (one
+// block an SM) 1.76-1.77; 8 owners of 2^15 int32 counters in 128 KB
+// 2.23-2.24; persistent blocks looping over the (chunk, owner) pairs 1.71
+// with 4 owners (2.95 -> 3.13-3.17 ms on uniform random buckets) and 1.71
+// here; each pair's non-zero counters listed and merged by one warp while
+// the others counted the next pair 2.30, or by every warp, 32 to an atomic
+// instruction, 2.81; an L2 prefetch of each owned counter while counting
+// 2.01-2.02. Counting each range in the distributed shared memory of a
+// thread-block cluster (2^15 counters a block, 8 blocks at 2^18) was exact
+// but slower still: 7.80 ms (clusters of 8), every update an atomic on
+// another SM's shared memory.
 //
 // Direct atomics (histogram_rows_kernel), every width up to 2^30: a
 // grid-stride loop, one fire-and-forget atomic (RED) per in-range update
@@ -86,10 +93,13 @@
 // one [4, n] launch a batch, binned 2.4685 ms (binning 2.0241, range pass
 // 0.5230) against direct 4.2014 ms in turns, bytes 0.5884 ms. At 4 x 2^28, one
 // [4, n] launch of 2^18 reads (124.8M updates): on reads from a random genome
-// of E. coli's length (27.7M counters touched) clustered 2.8547 ms (binning
-// 0.7244, range pass 2.1848) against direct 8.9155 ms in turns, bound 0.2152
-// ms; on independent random reads (86.8M touched: few repeats to cluster)
-// 5.1663 against 6.7830 ms. A hot bucket costs the direct route most: on one
+// of E. coli's length (27.7M counters touched) clustered 2.4210-2.4242 ms
+// (binning 0.7202, range pass 1.7080-1.7116) against direct 8.9185 ms in
+// turns (2.8490-2.8532 with the hash table), bound 0.2152 ms; on uniform
+// random buckets (117.8M touched) 3.6234-3.6237 against 9.2933 ms direct
+// (5.7594-5.8735 with the hash table); on independent random reads (86.8M
+// touched) the hash table took 5.1663 against 6.7830 ms. A hot bucket costs
+// the direct route most: on one
 // batch at 2^20, direct 12.1965 ms with every eighth entry one value and
 // 86.7354 ms with all of them one value (atomics on one address serialise),
 // binned 0.6678 and 1.0575 ms; at 4 x 2^28 with all of them one value direct
@@ -242,88 +252,74 @@ histogram_ranges_kernel(const unsigned short* __restrict__ stage,
   }
 }
 
-// Clustered route, range pass: block j counts `per` (at most
-// kWideMaxEntries) staged offsets of its range g of 2^range_log2 counters
-// (16..18, too many for a block's shared memory) in a hash table there: one
-// 32-bit slot a distinct offset o, (o << 14) | its count, all ones where
-// empty, probed linearly from a multiplicative hash of o. A slot is claimed
-// by atomicCAS and counted by atomicAdd, whose result nothing waits on. The
-// table has the least power of two of slots, from 2^10, that is at least
-// twice the block's entries, so it is never more than half full and every
-// probe ends; a count stays below 2^14 - 1, so it never reaches the key's
-// bits nor makes a slot read as empty. Then one global atomicAdd a claimed
-// slot into counters [g << range_log2, (g + 1) << range_log2) of the
-// row-major [R, width] table. Nested only to keep the two range passes'
-// kernel names apart for the compiler: both are histogram_ranges_kernel.
+// Clustered route, range pass: the blocks of range g (2^range_log2
+// counters, 16..18, more than a block's shared memory holds) come in chunks
+// of `per` (at most kMaxEntries) of its staged offsets, and each chunk in
+// 2^(range_log2 - 15) owner blocks with adjacent indices, so that the
+// chunk's stage is read from device memory once and then from the L2. Owner
+// j keeps the range's counters [j << 15, (j + 1) << 15) in shared memory as
+// 2^14 words of two uint16 halves (counter c in word c & 0x3fff, its half
+// c >> 14; 64 KB, so two blocks share a multiprocessor and one's merge
+// overlaps the other's count). It reads every offset of its chunk, skips
+// those of the other owners, and adds 1 or 1 << 16 to the word of each of
+// its own by one shared atomicAdd whose result nothing waits on. A chunk
+// has at most 2^16 - 1 entries, so no half wraps into the other. Then one
+// global atomicAdd a non-zero half into counters [g << range_log2, (g + 1)
+// << range_log2) of the row-major [R, width] table. Nested only to keep the
+// two range passes' kernel names apart for the compiler: both are
+// histogram_ranges_kernel.
 namespace wide {
 
-constexpr int kLogSlots = 15;  // 128 KB of slots
-constexpr int kMinLogSlots = 10;
-constexpr int kCountBits = 14;
-constexpr unsigned kCountMask = (1u << kCountBits) - 1;
-constexpr unsigned kEmpty = 0xffffffffu;
-constexpr unsigned kHash = 0x9e3779b1u;  // 2^32 / the golden ratio, odd
-constexpr int kBytes = static_cast<int>(sizeof(unsigned)) << kLogSlots;
+constexpr int kSliceLog2 = 15;  // counters an owner keeps
+constexpr int kWords = 1 << (kSliceLog2 - 1);  // two counters a word
+constexpr int kBytes = static_cast<int>(sizeof(unsigned)) * kWords;  // 64 KB
+// Most staged entries a chunk holds: a half counts at most 2^16 - 1; whole
+// 16-byte loads of the stage from each chunk's start on.
+constexpr long long kMaxEntries = (1LL << 16) - 8;
 
-// Adds a claimed slot's count to its counter of the range at `base`.
-__device__ __forceinline__ void merge_slot(int* base, unsigned v) {
-  if (v != kEmpty) {
-    atomicAdd(base + (v >> kCountBits), static_cast<int>(v & kCountMask));
-  }
+// Adds a word's two halves, where non-zero, to counters w and w + kWords.
+__device__ __forceinline__ void merge_word(int* base, int w, unsigned v) {
+  if (v & 0xffffu) atomicAdd(base + w, static_cast<int>(v & 0xffffu));
+  if (v >> 16) atomicAdd(base + w + kWords, static_cast<int>(v >> 16));
 }
 
-__global__ void __launch_bounds__(kRangeThreads)
+__global__ void __launch_bounds__(kRangeThreads, 2)
 histogram_ranges_kernel(const unsigned* __restrict__ stage,
                         const unsigned long long* __restrict__ meta,
                         int nranges, int range_log2, long long per,
                         int* __restrict__ out, const int* __restrict__ gate) {
   if (gate && *gate == 0) return;
-  extern __shared__ uint4 quads[];  // the table, four slots a quad
-  unsigned* table = reinterpret_cast<unsigned*>(quads);
+  extern __shared__ uint4 quads[];  // the slice's words, four a quad
+  unsigned* words = reinterpret_cast<unsigned*>(quads);
   const unsigned long long* starts = meta + nranges;
   const unsigned long long* blocks = starts + 2 * nranges + 1;
   const int g = nthash_bin::range_of_block_by_warp(blocks, nranges);
   if (g < 0) return;
+  const int owner_bits = range_log2 - kSliceLog2;
+  const unsigned long long j = blockIdx.x - blocks[g];
+  const unsigned owner = static_cast<unsigned>(j) & ((1u << owner_bits) - 1);
   const unsigned long long lo =
-      starts[g] + (blockIdx.x - blocks[g]) * static_cast<unsigned long long>(per);
+      starts[g] + (j >> owner_bits) * static_cast<unsigned long long>(per);
   const unsigned long long hi = min(lo + per, starts[g + 1]);
-  const int len = static_cast<int>(hi - lo);  // >= 1: a block has entries
-  const int log_slots = max(kMinLogSlots, 32 - __clz(2 * len - 1));
-  const unsigned mask = (1u << log_slots) - 1;
-  const int nquads = 1 << (log_slots - 2);
-  for (int i = threadIdx.x; i < nquads; i += blockDim.x) {
-    quads[i] = make_uint4(kEmpty, kEmpty, kEmpty, kEmpty);
+  for (int i = threadIdx.x; i < kWords / 4; i += blockDim.x) {
+    quads[i] = make_uint4(0, 0, 0, 0);
   }
   __syncthreads();
   nthash_bin::for_each_staged(stage, lo, hi, [&](unsigned o) {
-    for (unsigned h = (o * kHash) >> (32 - log_slots);; h = (h + 1) & mask) {
-      unsigned v = table[h];
-      if (v == kEmpty) {
-        v = atomicCAS(table + h, kEmpty, (o << kCountBits) | 1u);
-        if (v == kEmpty) return;
-      }
-      if ((v >> kCountBits) == o) {
-        atomicAdd(table + h, 1u);
-        return;
-      }
+    if ((o >> kSliceLog2) == owner) {
+      atomicAdd(words + (o & (kWords - 1)),
+                1u << ((o >> (kSliceLog2 - 5)) & 16));
     }
   });
   __syncthreads();
-  int* base = out + (static_cast<long long>(g) << range_log2);
-  for (int i = threadIdx.x; i < nquads; i += blockDim.x) {
-    const uint4 v = quads[i];
-    merge_slot(base, v.x);
-    merge_slot(base, v.y);
-    merge_slot(base, v.z);
-    merge_slot(base, v.w);
+  int* base = out + (static_cast<long long>(g) << range_log2) +
+              (static_cast<long long>(owner) << kSliceLog2);
+  for (int w = threadIdx.x; w < kWords; w += blockDim.x) {
+    merge_word(base, w, words[w]);
   }
 }
 
 }  // namespace wide
-
-// Most staged entries a block of the clustered range pass takes: half the
-// slots, and a count below 2^14 - 1.
-constexpr long long kWideMaxEntries = (1LL << (wide::kLogSlots - 1)) - 8;
 
 constexpr int kRangeBytes = static_cast<int>(sizeof(int)) << kRangeLog2;
 
@@ -378,7 +374,8 @@ int nthash_histogram_rows(int device, const int* idx, long long R, long long N,
 // into meta (6 * R * 2^(width_log2 - range_log2) + 2 unsigned 64-bit device
 // words) and stage (R * N device entries: uint16 for ranges of 2^15
 // counters, the binned route; uint32 for 2^16..2^18, the clustered route),
-// `per` staged entries a block of the range pass; width_log2 in
+// `per` staged entries a chunk of the range pass (a block, or on the
+// clustered route 2^(range_log2 - 15) owner blocks); width_log2 in
 // [range_log2 + 1, 31], R * 2^(width_log2 - range_log2) <= 4,096. Launches
 // on `stream` of `device`; returns cudaGetLastError().
 int nthash_histogram_bin(int device, const int* idx, long long R, long long N,
@@ -389,7 +386,7 @@ int nthash_histogram_bin(int device, const int* idx, long long R, long long N,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (range_log2 == kRangeLog2) {
     return nthash_bin::bin_ranges(idx, R, N, nullptr, width_log2, kRangeLog2,
-                                  per, meta,
+                                  per, 1, meta,
                                   static_cast<unsigned short*>(stage), gate,
                                   stream);
   }
@@ -397,14 +394,15 @@ int nthash_histogram_bin(int device, const int* idx, long long R, long long N,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return nthash_bin::bin_ranges(idx, R, N, nullptr, width_log2, range_log2,
-                                per, meta, static_cast<unsigned*>(stage),
-                                gate, stream);
+                                per, 1 << (range_log2 - wide::kSliceLog2),
+                                meta, static_cast<unsigned*>(stage), gate,
+                                stream);
 }
 
 // The range pass over the stage and meta of nthash_histogram_bin with the
 // same range_log2 and `per`: `blocks` blocks (at least the binning pass's
 // block total), added into out [R, width] int32 device; for ranges of 2^16
-// and more (the clustered route) `per` is at most 2^14 - 8.
+// and more (the clustered route) `per` is at most 2^16 - 8.
 int nthash_histogram_ranges(int device, const void* stage,
                             const unsigned long long* meta, int nranges,
                             int range_log2, long long per, long long blocks,
@@ -414,7 +412,7 @@ int nthash_histogram_ranges(int device, const void* stage,
   if (nranges < 1 || nranges > nthash_bin::kMaxRanges || per < 1 ||
       blocks < 1 || blocks > 0x7fffffffLL || range_log2 < kRangeLog2 ||
       range_log2 > kWideMaxRangeLog2 ||
-      (range_log2 > kRangeLog2 && per > kWideMaxEntries)) {
+      (range_log2 > kRangeLog2 && per > wide::kMaxEntries)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (range_log2 > kRangeLog2) {

@@ -9,9 +9,9 @@ for what it computes rather than for the TPU's matrix unit:
   Pallas ``_hist_kernel``). It has four routes: private counters in
   shared memory; binned (the updates grouped by range of 2**15 counters,
   then each range counted in shared memory); clustered (where those ranges
-  are more than one pass takes: ranges of 2**16..2**18 counters, each slice
-  of a range's updates clustered into one count an offset in a hash table
-  in shared memory); or direct atomics. :func:`private_counts_grid` and
+  are more than one pass takes: ranges of 2**16..2**18 counters, each
+  2**15-counter slice of a range counted densely in 16-bit halves in a
+  block's shared memory); or direct atomics. :func:`private_counts_grid` and
   :func:`binned_counts_grid` pick one from the shapes alone;
 - :func:`bloom_words` is ``mxu_bloom_words`` and :func:`bloom_words_rows` is
   ``mxu_bloom_words_rows``; the kernel is ``csrc/bloom.cu`` (replaces
@@ -89,13 +89,18 @@ COUNTS_RANGE_LOG2 = 15
 WORDS_RANGE_LOG2 = 20
 #: The histogram's clustered route: where the rows hold more than
 #: ``BINNED_MAX_RANGES`` ranges of 2**15 counters, ranges of up to 2**18
-#: counters (4 rows at 2**28 in 4,096 ranges), each counted a slice at a
-#: time in a hash table in a block's shared memory that clusters equal
-#: offsets into one count; a block's slice is at most
-#: ``CLUSTERED_RANGE_ENTRIES`` staged entries, so that its table of at most
-#: 2**15 slots (128 KB) stays half full and a 14-bit count never wraps.
+#: counters (4 rows at 2**28 in 4,096 ranges). Its range pass takes a range
+#: in chunks of at most ``CLUSTERED_RANGE_ENTRIES`` staged entries, each
+#: counted by :func:`range_owners` blocks, one a slice of
+#: 2**``CLUSTERED_SLICE_LOG2`` counters, densely in shared memory as 2**14
+#: words of two uint16 halves (64 KB, two blocks a multiprocessor). A chunk
+#: of at most 2**16 - 1 entries never wraps a half; 2**16 - 8 keeps a
+#: chunk's 16-byte loads whole. On the card this beat slices of 2**16
+#: counters in 128 KB (4 owners at 2**18) and of 2**15 int32 counters
+#: (csrc/histogram.cu has the readings).
 CLUSTERED_MAX_RANGE_LOG2 = 18
-CLUSTERED_RANGE_ENTRIES = (1 << 14) - 8
+CLUSTERED_SLICE_LOG2 = 15
+CLUSTERED_RANGE_ENTRIES = (1 << 16) - 8
 #: Most ranges (all rows together) one binning pass takes: its blocks keep
 #: a count, a rank and a base per range of their row in shared memory.
 BINNED_MAX_RANGES = 4096
@@ -321,9 +326,11 @@ class Bins(NamedTuple):
 
     counts: torch.Tensor  #: int64 [nranges], valid updates a range
     starts: torch.Tensor  #: int64 [nranges + 1], exclusive scan of counts
-    blocks: torch.Tensor  #: int64 [nranges + 1], scan of ceil(counts / per)
+    #: int64 [nranges + 1], scan of owners * ceil(counts / per)
+    #: (:func:`range_owners`)
+    blocks: torch.Tensor
     stage: torch.Tensor   #: offsets b & (2**range_log2 - 1), grouped by range
-    per: int              #: staged entries a block of the range pass takes
+    per: int              #: staged entries a chunk of the range pass holds
     range_log2: int       #: log2 of the buckets one range holds
 
 
@@ -338,24 +345,35 @@ def binned_ranges(rows: int, width_log2: int, range_log2: int) -> int:
     return nranges if nranges <= BINNED_MAX_RANGES else 0
 
 
+def range_owners(range_log2: int) -> int:
+    """Blocks of the range pass that count one chunk of a range of
+    2**range_log2 buckets: on the clustered route one a slice of
+    2**``CLUSTERED_SLICE_LOG2`` counters (2, 4 or 8 at 2**16..2**18), else
+    1 (the whole range in one block)."""
+    if COUNTS_RANGE_LOG2 < range_log2 <= CLUSTERED_MAX_RANGE_LOG2:
+        return 1 << (range_log2 - CLUSTERED_SLICE_LOG2)
+    return 1
+
+
 def _range_grid(total: int, nranges: int,
                 range_log2: int) -> tuple[int, int]:
-    """(entries a block of the range pass takes, blocks to launch) for
+    """(entries a chunk of the range pass holds, blocks to launch) for
     ``total`` updates over ``nranges`` ranges of 2**range_log2 buckets.
     ``per`` is ``CLUSTERED_RANGE_ENTRIES`` on the clustered route; else it
     splits the updates over four blocks for each of the H100's 132
     multiprocessors, within [``BINNED_MIN_RANGE_ENTRIES``,
     ``BINNED_RANGE_ENTRIES``], rounded up to whole 16-byte loads. Range g
-    takes ceil(count / per) blocks, so ceil(total / per) + nranges blocks
-    cover any split of ``total`` over the ranges; the blocks past the last
-    range's return at once."""
+    takes ceil(count / per) chunks of :func:`range_owners` blocks each, so
+    owners * (ceil(total / per) + nranges) blocks cover any split of
+    ``total`` over the ranges; the blocks past the last range's return at
+    once."""
     if COUNTS_RANGE_LOG2 < range_log2 <= CLUSTERED_MAX_RANGE_LOG2:
         per = CLUSTERED_RANGE_ENTRIES
     else:
         per = min(BINNED_RANGE_ENTRIES,
                   max(BINNED_MIN_RANGE_ENTRIES, total // (4 * 132)))
         per = -(-per // 8) * 8
-    return per, -(-total // per) + nranges
+    return per, range_owners(range_log2) * (-(-total // per) + nranges)
 
 
 def _binned_grid(rows, n, width_log2, range_log2):
@@ -371,7 +389,7 @@ def counts_range_log2(rows: int, width_log2: int) -> int:
     """log2 of the counters one range of the histogram's binned routes
     holds for ``rows`` rows at width 2**width_log2: the least of 15 (the
     binned route, every counter of a range in a block's shared memory) and
-    16..18 (the clustered route, a hash table there) whose ranges the
+    16..18 (the clustered route, a slice of 2**15 a block) whose ranges the
     binning pass takes (:func:`binned_ranges`), or 0 where none does (the
     private widths, and 4 rows past 2**28)."""
     for range_log2 in range(COUNTS_RANGE_LOG2, CLUSTERED_MAX_RANGE_LOG2 + 1):
@@ -383,17 +401,17 @@ def counts_range_log2(rows: int, width_log2: int) -> int:
 def binned_counts_grid(rows: int, n: int,
                        width_log2: int) -> tuple[int, int]:
     """The histogram's binned or clustered route for idx [rows, n], from
-    the shapes alone: (entries a block of the range pass takes, blocks of
+    the shapes alone: (entries a chunk of the range pass holds, blocks of
     the range pass), or (0, 0) where neither applies.
 
     One binning pass, its range read from the shapes
     (:func:`counts_range_log2`): ranges of 2**15 counters (the binned
     route: with 4 rows from 2**16 up to 2**25), else of 2**16..2**18
-    counters, each counted a slice at a time in a hash table (the clustered
-    route: with 4 rows 2**26..2**28, with one 2**28..2**30). Either needs at
-    least ``BINNED_MIN_ENTRIES`` updates a call (the sweep behind that
-    constant: the clustered route too wins from 2**24 at every width it
-    serves; CHANGES.md, readings behind the comments). Weighted
+    counters, each chunk counted by one block a 2**15-counter slice (the
+    clustered route: with 4 rows 2**26..2**28, with one 2**28..2**30).
+    Either needs at least ``BINNED_MIN_ENTRIES`` updates a call (the sweep
+    behind that constant: the clustered route too wins from 2**24 at every
+    width it serves; CHANGES.md, readings behind the comments). Weighted
     counts never take it (:func:`histogram_rows`): the main path counts
     unweighted buckets, and staging a weight beside each offset would
     double the stage's bytes for the one caller that passes one
@@ -428,8 +446,10 @@ def bin_ranges_plain(idx: torch.Tensor, weight: torch.Tensor | None,
     counts.index_add_(0, rid, torch.ones_like(rid))
     zero = torch.zeros(1, dtype=torch.int64, device=dev)
     stage = (b[keep] & ((1 << range_log2) - 1))[order]
+    chunks = (counts + per - 1) // per
     return Bins(counts, torch.cat([zero, counts.cumsum(0)]),
-                torch.cat([zero, ((counts + per - 1) // per).cumsum(0)]),
+                torch.cat([zero, (range_owners(range_log2) * chunks)
+                           .cumsum(0)]),
                 stage.to(_stage_dtype(range_log2)), per, range_log2)
 
 
@@ -572,14 +592,46 @@ def _staged_buckets(bins: Bins) -> torch.Tensor:
 def histogram_ranges_plain(bins: Bins, rows: int, width_log2: int, *,
                            out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of the binned and clustered histogram's range
-    pass: each staged offset counted at its range's counters, into ``out``
-    (int32 [rows, 2**width_log2], zeroed when not given)."""
-    flat = _staged_buckets(bins)
+    pass, block by block as the kernels split it, into ``out`` (int32
+    [rows, 2**width_log2], zeroed when not given).
+
+    Staged entry i of range g lies in chunk (i - starts[g]) // per. Its
+    block is blocks[g] + chunk * owners + the owner of its slice
+    (:func:`range_owners`). A binned block counts its range in int32
+    counters. A clustered block counts its 2**15-counter slice in 2**14
+    uint32 words, counter c adding 1 << 16 * (c >> 14) to word c & 0x3fff,
+    and reads each word's halves back. Each block then adds its non-zero
+    counters into ``out``."""
+    rl = bins.range_log2
+    total = int(bins.starts[-1])
+    g = _range_ids(bins)
+    o = bins.stage[:total].to(torch.int64) & ((1 << rl) - 1)
+    chunk = (torch.arange(total, device=o.device) - bins.starts[g]) // bins.per
+    slice_log2 = min(rl, CLUSTERED_SLICE_LOG2)
+    owner = o >> slice_log2
+    block = bins.blocks[g] + chunk * range_owners(rl) + owner
+    c = o & ((1 << slice_log2) - 1)
+    # counter c of a clustered block is half c >> 14 of word c & 0x3fff
+    halves = rl > COUNTS_RANGE_LOG2
+    word_log2 = slice_log2 - 1 if halves else slice_log2
+    key, inv = torch.unique(
+        (block << slice_log2) | (c & ((1 << word_log2) - 1)),
+        return_inverse=True)
+    add = torch.ones_like(c) << (16 * (c >> word_log2))
+    words = torch.zeros(key.shape, dtype=torch.int64, device=o.device)
+    words = words.index_add_(0, inv, add) & 0xffffffff  # a uint32 word
+    # the key's first counter in the table: its range's, owner's, word's
+    first = torch.zeros_like(words).scatter_(
+        0, inv, (g << rl) | (owner << slice_log2)) + (
+        key & ((1 << word_log2) - 1))
+    if halves:
+        first = torch.cat([first, first + (1 << word_log2)])
+        words = torch.cat([words & 0xffff, words >> 16])
     if out is None:
         out = torch.zeros((rows, 1 << width_log2), dtype=torch.int32,
-                          device=flat.device)
-    out.view(-1).index_add_(0, flat, torch.ones(flat.shape, dtype=torch.int32,
-                                                device=flat.device))
+                          device=o.device)
+    nz = words != 0
+    out.view(-1).index_add_(0, first[nz], words[nz].to(torch.int32))
     return out
 
 
@@ -686,8 +738,8 @@ def histogram_rows(idx: torch.Tensor, weight: torch.Tensor | None,
     There is no ``weight_bits``: every int32 weight is exact.
 
     A CUDA tensor goes through the CUDA kernels (``csrc/histogram.cu``), by
-    private counters, binned ranges (each range's counters, or a hash table
-    of a slice of its updates, in a block's shared memory) or direct
+    private counters, binned ranges (each range's counters, or each
+    2**15-counter slice of it, in a block's shared memory) or direct
     atomics as :func:`private_counts_grid` and
     :func:`binned_counts_grid` pick; a CPU
     tensor through :func:`histogram_rows_plain`; either inside the span

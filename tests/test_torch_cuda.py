@@ -1873,13 +1873,27 @@ def test_clustered_histogram_vs_plain(rng, cuda, wl, rows):
     """The clustered A2 route at 4 x 2**26..2**28 and 1 x 2**28, forced,
     against plain on whole tables at the edge shapes (n below the 4,096
     ranges, a row off a 16-byte boundary, every update in the last range,
-    every update one value, sentinel-only rows, a hot counter); one binning,
-    one range pass and one ``ROUTE_LAUNCHES["clustered"]`` a call; a gate
-    of 0 and 1 into an accumulating ``out``; and the rule's own choice for
-    a call of 2**24 updates."""
+    every update one value, sentinel-only rows, a hot counter), a uniform
+    batch of one main-path batch's 124,780,544 updates, and a range with
+    one offset 75,001 times a row (two chunks, a count past 65,535); one
+    binning, one range pass and one ``ROUTE_LAUNCHES["clustered"]`` a
+    call; a gate of 0 and 1 into an accumulating ``out``; and the rule's
+    own choice for a call of 2**24 updates."""
     rl = hist_kernel.counts_range_log2(rows, wl)
     assert 16 <= rl <= 18
-    for what, idx in _binned_edges(rng, rows, wl, rl, cuda):
+    width = 1 << wl
+    hot = torch.randint(0, width, (rows, 150_002), device=cuda,
+                        dtype=torch.int32)
+    hot[:, 1::2] = width - (1 << rl) + (1 << 15) + 5
+    bins = hist_kernel.bin_ranges(hot, None, wl, rl,
+                                  hist_kernel.CLUSTERED_RANGE_ENTRIES)
+    assert int(bins.counts.max()) > bins.per  # the hot range takes 2 chunks
+    del bins
+    cases = _binned_edges(rng, rows, wl, rl, cuda) + [
+        ("uniform batch", torch.randint(0, width, (rows, 124_780_544 // rows),
+                                        device=cuda, dtype=torch.int32)),
+        ("hot range", hot)]
+    for what, idx in cases:
         before = (hist_kernel.BIN_LAUNCHES["histogram"],
                   hist_kernel.RANGE_LAUNCHES["histogram"],
                   hist_kernel.ROUTE_LAUNCHES["clustered"])

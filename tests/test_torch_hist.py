@@ -278,7 +278,9 @@ def test_binned_pieces_compose_to_plain(rng, rows, wl, n):
 def test_bin_ranges_plain_groups_by_range(rng, rows, wl, range_log2):
     """Range g = (r << (wl - range_log2)) | (b >> range_log2) holds exactly
     the valid updates of its row and range, as offsets, in row order; the
-    starts scan the counts and the blocks scan ceil(count / per)."""
+    starts scan the counts and the blocks scan owners * ceil(count / per),
+    one owner a range of the binned routes and one a 2**15-counter slice
+    of the clustered route's."""
     n, per = 7_001, 300
     idx = _skewed(rng, rows, n, min(wl, 30))
     if wl == 31:
@@ -290,7 +292,10 @@ def test_bin_ranges_plain_groups_by_range(rng, rows, wl, range_log2):
     starts = bins.starts.numpy()
     assert counts.shape == (rows * nbins,) and starts[0] == 0
     assert np.array_equal(np.diff(starts), counts)
-    assert np.array_equal(np.diff(bins.blocks.numpy()), -(-counts // per))
+    owners = 1 << max(0, range_log2 - 15) if range_log2 <= 18 else 1
+    assert hist_kernel.range_owners(range_log2) == owners
+    assert np.array_equal(np.diff(bins.blocks.numpy()),
+                          owners * -(-counts // per))
     assert bins.per == per and bins.stage.shape == (starts[-1],)
     stage = bins.stage.numpy().astype(np.int64) & ((1 << range_log2) - 1)
     for r in range(rows):
@@ -309,12 +314,13 @@ def test_bin_ranges_plain_groups_by_range(rng, rows, wl, range_log2):
     (4, 31_195_136, 25, (1 << 17, 952 + 4096)),
     (1, 124_780_544, 27, (1 << 17, 952 + 4096)),
     # past 4,096 ranges of 2**15: the clustered route, 4,096 ranges of
-    # 2**16..2**18 counters, 2**14 - 8 entries a block of its range pass
-    (4, 31_195_136, 26, (16_376, 7620 + 4096)),
-    (1, 124_780_544, 28, (16_376, 7620 + 4096)),
-    (4, 31_195_136, 27, (16_376, 7620 + 4096)),
-    (4, 31_195_136, 28, (16_376, 7620 + 4096)),
-    (1, 124_780_544, 30, (16_376, 7620 + 4096)),
+    # 2**16..2**18 counters, chunks of 2**16 - 8 entries, 2, 4 or 8
+    # owner blocks a chunk
+    (4, 31_195_136, 26, (65_528, 2 * (1905 + 4096))),
+    (1, 124_780_544, 28, (65_528, 2 * (1905 + 4096))),
+    (4, 31_195_136, 27, (65_528, 4 * (1905 + 4096))),
+    (4, 31_195_136, 28, (65_528, 8 * (1905 + 4096))),
+    (1, 124_780_544, 30, (65_528, 8 * (1905 + 4096))),
     # private widths and too many ranges even of 2**18: none
     (4, 31_195_136, 15, (0, 0)),
     (4, 31_195_136, 29, (0, 0)),
@@ -325,7 +331,7 @@ def test_bin_ranges_plain_groups_by_range(rng, rows, wl, range_log2):
     (4, (1 << 22) - 1, 25, (0, 0)),
     (1, 1 << 24, 27, (31_776, 528 + 4096)),
     (4, (1 << 22) - 1, 28, (0, 0)),
-    (4, 1 << 22, 28, (16_376, 1025 + 4096)),
+    (4, 1 << 22, 28, (65_528, 8 * (257 + 4096))),
     (0, 100, 20, (0, 0)),
     (4, 0, 20, (0, 0)),
 ])
@@ -352,11 +358,13 @@ def test_binned_counts_grid_bounds(rows, n, wl):
         if rl == 15:
             assert (hist_kernel.BINNED_MIN_RANGE_ENTRIES <= per
                     <= hist_kernel.BINNED_RANGE_ENTRIES)
-        else:  # a hash table of 2**15 slots stays half full
+        else:  # a chunk's count never wraps a 16-bit half
             assert 15 < rl <= 18 and per == hist_kernel.CLUSTERED_RANGE_ENTRIES
-            assert 2 * per <= 1 << 15 and per < (1 << 14) - 1
+            assert per < 1 << 16
         # every split of the updates over the ranges has its blocks
-        assert blocks >= -(-rows * n // per) + nranges - 1
+        owners = hist_kernel.range_owners(rl)
+        assert owners == (1 << (rl - 15) if rl > 15 else 1)
+        assert blocks >= owners * (-(-rows * n // per) + nranges - 1)
         assert blocks < 2 ** 31
 
 
@@ -439,6 +447,40 @@ def test_scatter_route_launches_stay_zero_on_cpu(rng):
 # ------------------------------------------------ the clustered route ----
 
 
+#: Counters a block of the clustered range pass owns, and its words (two
+#: 16-bit halves each).
+SLICE = 1 << hist_kernel.CLUSTERED_SLICE_LOG2
+WORDS = SLICE >> 1
+
+
+def _blocks_counted(bins, rows, wl):
+    """The clustered range pass block by block, as the kernel runs it
+    (numpy, one block at a time): block j's range g (the last with
+    blocks[g] <= j), its chunk and owner, the chunk's offsets of that owner
+    counted in ``WORDS`` uint32 words of two 16-bit halves, each non-zero
+    half added to its counter."""
+    rl, per = bins.range_log2, bins.per
+    blocks, starts = bins.blocks.numpy(), bins.starts.numpy()
+    stage = bins.stage.numpy().astype(np.int64) & ((1 << rl) - 1)
+    owners = (1 << rl) // SLICE
+    out = np.zeros(rows << wl, dtype=np.int64)
+    for j in range(int(blocks[-1])):
+        g = int(np.searchsorted(blocks, j, side="right")) - 1
+        chunk, owner = divmod(j - int(blocks[g]), owners)
+        lo = int(starts[g]) + chunk * per
+        hi = min(lo + per, int(starts[g + 1]))
+        assert lo < hi  # every block of the grid has entries
+        o = stage[lo:hi]
+        c = o[o // SLICE == owner] % SLICE
+        words = np.zeros(WORDS, dtype=np.uint32)
+        np.add.at(words, c % WORDS, (np.uint32(1) << (16 * (c // WORDS)))
+                  .astype(np.uint32))
+        base = (g << rl) + owner * SLICE
+        out[base:base + WORDS] += words & 0xffff
+        out[base + WORDS:base + SLICE] += words >> 16
+    return out.reshape(rows, 1 << wl)
+
+
 @pytest.mark.parametrize("rows,wl,range_log2", [(1, 17, 16), (3, 18, 16),
                                                 (2, 19, 17), (4, 20, 17),
                                                 (1, 20, 18), (2, 21, 18)])
@@ -446,22 +488,75 @@ def test_clustered_pieces_compose_to_plain(rng, rows, wl, range_log2):
     """The binning pass at ranges of 2**16..2**18 (an int32 stage) and the
     range pass's plain version, composed, count what
     ``histogram_rows_plain`` counts, into zeros and into an ``out`` that
-    accumulates; every split of a range over blocks (``per``) alike."""
+    accumulates; every split of a range into chunks (``per``) alike; and
+    the range pass block by block (each chunk's 2, 4 or 8 owners of a
+    2**15-counter slice, in 16-bit halves) counts the same."""
     idx = _skewed(rng, rows, 30_001, wl)
     idx[:, 5::11] = (1 << wl) - (1 << range_log2) + 7  # the last range
     t = torch.from_numpy(idx)
     want = histogram_rows_plain(t, None, wl)
-    for per in (8, 1000, 1 << 20):
+    for per in (8, 1000, hist_kernel.CLUSTERED_RANGE_ENTRIES):
         bins = hist_kernel.bin_ranges(t, None, wl, range_log2, per)
         assert bins.stage.dtype == torch.int32
         assert bins.range_log2 == range_log2
         assert bins.counts.numel() == rows << (wl - range_log2)
         assert torch.equal(hist_kernel.histogram_ranges_plain(bins, rows, wl),
                            want)
+        if per > 8:
+            assert np.array_equal(_blocks_counted(bins, rows, wl),
+                                  want.numpy())
     base = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(rows, 1 << wl),
                                          dtype=np.int64).astype(np.int32))
     got = hist_kernel.histogram_ranges_plain(bins, rows, wl, out=base.clone())
     assert torch.equal(got, histogram_rows_plain(t, None, wl, out=base.clone()))
+
+
+def _slice_cases(rng, rows, wl, rl, case):
+    """idx [rows, n] for one of the clustered range pass's edges: every
+    slice's and every half's first and last counter in every range; both
+    halves of one word from every slice; one hot offset 70,000 times a
+    row (past a 16-bit half and past a chunk) among uniform updates."""
+    width, nranges = 1 << wl, 1 << (wl - rl)
+    base = np.arange(nranges)[:, None] << rl
+    if case == "slice edges":
+        edges = np.array([e + s for s in range(0, 1 << rl, WORDS)
+                          for e in (0, WORDS - 1)])
+        idx = np.repeat((base + edges).reshape(-1), 3)
+    elif case == "both halves":
+        c = base + rng.integers(0, WORDS, size=(nranges, 50))
+        slices = np.arange(0, 1 << rl, SLICE)
+        idx = np.concatenate([(c[:, :, None] + slices + h).reshape(-1)
+                              for h in (0, WORDS)])
+    else:
+        hot = np.full(70_000, (width >> 1) + WORDS + 3)
+        idx = np.concatenate([hot, rng.integers(0, width, size=5_000)])
+    idx = np.tile(rng.permutation(idx), (rows, 1))
+    return idx.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["slice edges", "both halves", "hot"])
+@pytest.mark.parametrize("range_log2", [16, 17, 18])
+def test_clustered_slices_and_halves(rng, range_log2, case):
+    """The clustered range pass's edges, composed with the binning pass's
+    plain version, against ``histogram_rows_plain``: offsets on the edges
+    of every owner's slice and of each half of a word, both halves of one
+    word, and one offset counted 70,000 times a row, which takes two chunks
+    and a count past 65,535. A chunk past 2**16 - 1 entries would wrap the
+    hot counter's half into its neighbour's: the cap is what keeps it
+    exact."""
+    rows, wl = 2, range_log2 + 2
+    t = torch.from_numpy(_slice_cases(rng, rows, wl, range_log2, case))
+    want = histogram_rows_plain(t, None, wl)
+    per = hist_kernel.CLUSTERED_RANGE_ENTRIES
+    bins = hist_kernel.bin_ranges(t, None, wl, range_log2, per)
+    assert torch.equal(hist_kernel.histogram_ranges_plain(bins, rows, wl),
+                       want)
+    assert np.array_equal(_blocks_counted(bins, rows, wl), want.numpy())
+    if case == "hot":
+        assert int(want.max()) == 70_000 and int(bins.counts.max()) > per
+        over = hist_kernel.bin_ranges(t, None, wl, range_log2, 1 << 17)
+        assert not torch.equal(
+            hist_kernel.histogram_ranges_plain(over, rows, wl), want)
 
 
 @pytest.mark.parametrize("rows,n,wl,weighted,kind,range_log2", [
@@ -512,4 +607,4 @@ def test_clustered_route_refused(rows, wl, weighted):
         hist_kernel._launch(idx, w, wl, None, None, route="clustered")
     route = hist_kernel._counts_route
     assert route(4, 1000, 28, False, "clustered") == (
-        "clustered", (1 << 14) - 8, 1 + 4096)
+        "clustered", (1 << 16) - 8, 8 * (1 + 4096))
