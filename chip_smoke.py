@@ -7,7 +7,8 @@ imports nothing of JAX. It prints the card's name and power limit, then one
 line a path (``PATHS``): an entry of the package run at its default shape
 with every launch counter set to 0 just before (``count_file`` over 1M
 reads at 2**14 and 2**20, the Bloom path at 2**17 and 2**30, the
-partitioned routes at 2**20, the count-min and screening cells' steps),
+partitioned routes at 2**20, the count-min, screening and host screening
+cells' steps),
 its output against the plain chain and the launches of the kernels it
 covers. Then one line a kernel (``ROWS``, at the shapes the table records):
 the kernel, its plain PyTorch version and its library call where the table
@@ -18,7 +19,7 @@ least time its bytes take at the card's memory rate
 (``portbench/core/bounds.py``); the largest difference of its output from
 the plain version's on the same inputs (``max_abs_err``); its launches,
 those of the path that covers it, else of one call with the counters at 0.
-The line before the last is ``{"kernels": [...]}`` (25 entries), the last
+The line before the last is ``{"kernels": [...]}`` (28 entries), the last
 ``{"ok": ..., "device": ...}``; the exit code is 1 where an error is not 0
 or a kernel never launched. The checks of each kernel's edges live in
 ``tests/test_torch_cuda.py``.
@@ -83,6 +84,9 @@ SCREEN_SEEDS = ("11101111110111011011101111110111",
                 "11111011111011100111011111011111",
                 "11011110111101111110111101111011")
 SCREEN_H, SCREEN_WL, GENOME = 4, 28, 4_641_652
+#: The host screening cell's width (portbench/configs/
+#: grch38_screen_seeds_k32.json): 2**37 bits, 16 GiB of words.
+HOST_WL = 37
 CMS_WL = 28                         # the count-min cell's width: 4 x 2**28
 
 
@@ -290,6 +294,21 @@ class Inputs:
             emitted_width_log2=SCREEN_WL)
         return bf, sk.hash_seeds_tm(self.genome_tm, SCREEN_SEEDS, SCREEN_H,
                                     emit_buckets=SCREEN_WL)
+
+
+    @cached_property
+    def host(self):
+        """A filter at the host screening cell's 2**37 bits of the genome
+        under the four seeds (``insert_sequence_seeds``: B1's wide buckets,
+        then C1's wide route) and the batch's int64 buckets at that
+        width. The genome is E. coli's length, so the filter is far
+        emptier than the cell's and a batch probes fewer distinct sectors
+        of it (PERF.md section 6)."""
+        bf = bloom.insert_sequence_seeds(
+            bloom.BloomFilter.zeros(HOST_WL, device=self.dev), self.genome,
+            SCREEN_SEEDS, SCREEN_H)
+        return bf, sk.hash_seeds_tm(self.genome_tm, SCREEN_SEEDS, SCREEN_H,
+                                    emit_buckets=HOST_WL)
 
 
 def one(kernel, plain, nbytes, library=None, **kw) -> Case:
@@ -658,6 +677,78 @@ def row_bloom_probe(x: Inputs) -> Case:
                args=lambda: (acc,), fresh=lambda: (torch.zeros_like(acc),))
 
 
+def row_bloom_words_wide(x: Inputs) -> Case:
+    """C1's wide route as the host screening cell's build launches it: one
+    chunk of ``insert_sequence_seeds`` (as many windows of a random sequence
+    as 2 GiB of int64 buckets hold under four seeds x 4 hashes) into a
+    2**37-bit filter (16 GiB), by direct atomics, OR-ing into one set of
+    words that the timed calls share (made after the error check, so that
+    at most two filters live at once). Bytes: the buckets read once, and
+    each distinct 32-byte sector of the filter they touch read and written
+    once."""
+    n = bloom.BUILD_CHUNK_BYTES // (8 * len(SCREEN_SEEDS) * SCREEN_H)
+    rows = prepare_codes(kmer_kernel.sequence_rows(
+        x.sequence(n + K - 1), K, bloom.SEQUENCE_ROW))
+    idx = hist_kernel.rows_view(sk.hash_seeds_tm_auto(
+        rows, SCREEN_SEEDS, SCREEN_H, emit_buckets=HOST_WL))
+    assert idx is not None, "B1's planes are views of one output"
+    del rows
+    seen = torch.zeros((1 << HOST_WL) // 256, dtype=torch.bool, device=x.dev)
+    for b in idx:
+        seen[hist_kernel.word_index(b[b < (1 << HOST_WL)]) >> 3] = True
+    sectors = int(seen.sum())
+    del seen
+    nwords = (1 << HOST_WL) // 32
+    shared = []
+
+    def timed():
+        if not shared:
+            shared.append(torch.zeros(nwords, dtype=torch.int32,
+                                      device=x.dev))
+        return (shared[0],)
+
+    return one(lambda w: hist_kernel.bloom_words(idx, None, HOST_WL, out=w),
+               lambda w: hist_kernel.bloom_words_plain(idx, None, HOST_WL,
+                                                       out=w),
+               8 * idx.numel() + 64 * sectors, args=timed,
+               fresh=lambda: (torch.zeros(nwords, dtype=torch.int32,
+                                          device=x.dev),))
+
+
+def row_seed_hash_wide(x: Inputs) -> Case:
+    """B1's wide buckets at the host screening cell's shape: one batch
+    [150, 2**18], four seeds x 4 hashes to int64 buckets at 2**37."""
+    tm = x.genome_tm
+    planes = len(SCREEN_SEEDS) * SCREEN_H
+    return one(lambda: sk.hash_seeds_tm(tm, SCREEN_SEEDS, SCREEN_H,
+                                        emit_buckets=HOST_WL),
+               lambda: sk.hash_seeds_tm_plain(tm, SCREEN_SEEDS, SCREEN_H,
+                                              emit_buckets=HOST_WL),
+               4 * L * BATCH + 8 * (L - K + 1) * BATCH * planes)
+
+
+def row_bloom_probe_wide(x: Inputs) -> Case:
+    """The wide probe over that batch's int64 buckets against the 2**37-bit
+    filter (16 GiB, in device memory), adding into one count tensor. Bytes:
+    the buckets read once, each distinct 32-byte sector of the filter the
+    batch probes read once, the counts read and written once."""
+    bf, buckets = x.host
+    s = len(SCREEN_SEEDS)
+    seen = torch.zeros((1 << HOST_WL) // 256, dtype=torch.bool, device=x.dev)
+    for b in buckets:
+        seen[hist_kernel.word_index(b[b < (1 << HOST_WL)]) >> 3] = True
+    sectors = int(seen.sum())
+    del seen
+    acc = torch.zeros((s, BATCH), dtype=torch.int32, device=x.dev)
+    return one(lambda o: probe_kernel.probe_counts(
+                   buckets, bf.words, s, SCREEN_H, HOST_WL, out=o),
+               lambda o: o.add_(probe_kernel.probe_counts_plain(
+                   buckets, bf.words, s, SCREEN_H, HOST_WL)),
+               8 * (L - K + 1) * BATCH * s * SCREEN_H + 32 * sectors
+               + 2 * 4 * s * BATCH,
+               args=lambda: (acc,), fresh=lambda: (torch.zeros_like(acc),))
+
+
 def split_ranges(idx, wl: int) -> dict:
     """The clustered route's split of idx [R, n] at 2**wl: its owner blocks
     a chunk and the share of ranges that the binning pass cut into more
@@ -750,6 +841,12 @@ ROWS = (
     ("histogram_ranges_clustered", "histogram.cu", "ops/hist_pallas.py:133",
      lambda: hist_kernel.ROUTE_LAUNCHES["clustered"],
      row_histogram_ranges_clustered),
+    ("bloom_words_wide", "bloom.cu", "ops/hist_pallas.py:157",
+     lambda: hist_kernel.ROUTE_LAUNCHES["wide_words"], row_bloom_words_wide),
+    ("seed_hash_wide", "seed_hash.cu", "ops/seed_pallas.py:105",
+     lambda: sk.ROUTE_LAUNCHES["wide"], row_seed_hash_wide),
+    ("bloom_probe_wide", "probe.cu", "models/bloom.py:162",
+     lambda: probe_kernel.ROUTE_LAUNCHES["wide"], row_bloom_probe_wide),
 )
 
 
@@ -834,6 +931,19 @@ def screen_plain(x: Inputs):
         words, len(SCREEN_SEEDS), SCREEN_H, SCREEN_WL)
 
 
+def host_screen_step(x: Inputs):
+    """``screen_reads`` of the batch against the host screening cell's
+    2**37-bit filter."""
+    return bloom.screen_reads(x.host[0], x.genome_tm, SCREEN_SEEDS, SCREEN_H)
+
+
+def host_screen_plain(x: Inputs):
+    return probe_kernel.probe_counts_plain(
+        sk.hash_seeds_tm_plain(x.genome_tm, SCREEN_SEEDS, SCREEN_H,
+                               emit_buckets=HOST_WL),
+        x.host[0].words, len(SCREEN_SEEDS), SCREEN_H, HOST_WL)
+
+
 #: Entries run at their default shapes, each with the counters at 0: (what,
 #: the rows whose launches it gives, the entry, its plain chain).
 PATHS = (
@@ -858,6 +968,11 @@ PATHS = (
     ("screen_short_resident's step: screen_reads of one batch against its "
      "filter (built before the reset)", ("seed_hash_screen", "bloom_probe"),
      screen_step, screen_plain),
+    ("host_screen_short_resident's step: screen_reads of one batch against "
+     "a 2**37-bit filter (built before the reset by C1's wide route, "
+     "which the bloom_words_wide row checks)",
+     ("seed_hash_wide", "bloom_probe_wide"),
+     host_screen_step, host_screen_plain),
 )
 
 
@@ -937,7 +1052,8 @@ def main() -> None:
         x = Inputs(args.seed, torch.device("cuda", 0), Path(tmp))
         kernels = [measure(*entry, x, rate) for entry in ROWS]
         path_errs, path_launches = [], {}
-        x.screen    # the screening cell's set-up, before any count is reset
+        x.screen    # the screening cells' set-ups, before any count is reset
+        x.host
         for what, names, run, plain in PATHS:
             err, launches = run_path(run, plain, names, counters, x)
             print(f"[path] {what}: max_abs_err {err:g}; launches {launches}",

@@ -19,7 +19,7 @@
 // filter, 256 MB of words), where the sentinel no longer fits an int32 and
 // callers fold invalid updates to -1.
 //
-// Three routes, chosen by the caller from the shapes alone
+// Three routes for int32 indices, chosen by the caller from the shapes alone
 // (ops/hist_kernel.py::private_words_grid, binned_words_grid):
 //
 // Private words (bloom_rows_private_kernel). A block owns one row and one
@@ -49,6 +49,10 @@
 // 20.8668 ms in turns, bytes 0.7286 ms (CHANGES.md, readings behind
 // the comments); the binning's scatter writes whole 32-byte sectors there
 // (bin.cuh's "sectors" body: 1,024 ranges of an int32 stage).
+//
+// Filters past 2^31 bits (to 2^38) take int64 indices through the wide
+// route, bloom_wide_kernel: direct atomics with 64-bit word offsets. (The
+// binned route would need 2^17 ranges of 2^20 bits at 2^37, past its 4,096.)
 //
 // Direct atomics (bloom_rows_kernel): a grid-stride loop, one global atomic OR
 // (a fire-and-forget RED) per valid update. For rows whose words do not fit a
@@ -90,25 +94,35 @@ constexpr int kRangeLog2 = 20;  // buckets of one range of the binned route
 constexpr int kRangeWords = 1 << (kRangeLog2 - 5);
 constexpr int kRangeThreads = 1024;
 
-__global__ void __launch_bounds__(kThreads)
-bloom_rows_kernel(const int* __restrict__ idx, long long R, long long N,
-                  const int* __restrict__ weight, unsigned width,
-                  unsigned* __restrict__ words, const int* __restrict__ gate) {
+// The body of the direct route's instances: indices of type B read as U.
+template <typename B, typename U>
+__device__ __forceinline__ void
+direct_or(const B* __restrict__ idx, long long R, long long N,
+          const int* __restrict__ weight, U width,
+          unsigned* __restrict__ words, const int* __restrict__ gate) {
   if (gate && *gate == 0) return;
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   // 64-bit row offset: at 2^30 with 8,192 partitions the rows hold 2^25 words
   const long long row_words = static_cast<long long>(width >> 5);
   for (long long r = blockIdx.y; r < R; r += gridDim.y) {
-    const int* row = idx + r * N;
+    const B* row = idx + r * N;
     unsigned* wrow = words + r * row_words;
     for (long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
          n < N; n += step) {
-      const unsigned b = static_cast<unsigned>(row[n]);
+      const U b = static_cast<U>(row[n]);
       if (b < width && (!weight || weight[n] != 0)) {
-        atomicOr(wrow + (((b >> 12) << 7) | (b & 127u)), 1u << ((b >> 7) & 31u));
+        atomicOr(wrow + (((b >> 12) << 7) | (b & 127u)),
+                 1u << static_cast<unsigned>((b >> 7) & 31u));
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+bloom_rows_kernel(const int* __restrict__ idx, long long R, long long N,
+                  const int* __restrict__ weight, unsigned width,
+                  unsigned* __restrict__ words, const int* __restrict__ gate) {
+  direct_or<int, unsigned>(idx, R, N, weight, width, words, gate);
 }
 
 // Set bucket b's bit in the block's private words, unless it shows already.
@@ -224,6 +238,18 @@ bloom_ranges_kernel(const unsigned* __restrict__ stage,
   }
 }
 
+// The wide route: int64 indices into a filter of up to 2^38 bits (32 GiB of
+// words, offsets past 32 bits), the direct route's body on 64-bit indices.
+// Where the filter is far larger than the L2, every update is a
+// read-modify-write of a random sector of device memory.
+__global__ void __launch_bounds__(kThreads)
+bloom_wide_kernel(const long long* __restrict__ idx, long long R, long long N,
+                  const int* __restrict__ weight, unsigned long long width,
+                  unsigned* __restrict__ words, const int* __restrict__ gate) {
+  direct_or<long long, unsigned long long>(idx, R, N, weight, width, words,
+                                           gate);
+}
+
 }  // namespace
 
 extern "C" {
@@ -266,6 +292,30 @@ int nthash_bloom_words_rows(int device, const int* idx, long long R, long long N
   bloom_rows_private_kernel<<<dim3(static_cast<unsigned>(blocks_x), by),
                               threads, static_cast<size_t>(bytes), stream>>>(
       idx, R, N, weight, 1u << width_log2, words, gate, per);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide route: idx [R, N] int64 device, words [R, 2^width_log2 / 32],
+// width_log2 in [12, 38]; weight and gate as above. Direct atomics, at most
+// 4,096 blocks a row. Launches on `stream` of `device`; returns
+// cudaGetLastError().
+int nthash_bloom_words_wide(int device, const long long* idx, long long R,
+                            long long N, const int* weight, int width_log2,
+                            unsigned* words, const int* gate,
+                            cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (width_log2 < 12 || width_log2 > 38 || R < 0 || N < 0 ||
+      (weight && R != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (R == 0 || N == 0) return static_cast<int>(cudaSuccess);
+  const unsigned by = static_cast<unsigned>(R < kMaxBlocksY ? R : kMaxBlocksY);
+  long long bx = (N + kThreads - 1) / kThreads;
+  if (bx > kMaxBlocksX) bx = kMaxBlocksX;
+  bloom_wide_kernel<<<dim3(static_cast<unsigned>(bx), by), kThreads, 0,
+                      stream>>>(idx, R, N, weight, 1ULL << width_log2, words,
+                                gate);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,6 +32,10 @@
 // a window issued together, and 4.95 against 5.11 ms in reads of the
 // filter's genome (94% hit), where the threads in flight hide the chain of
 // round trips. The count is exact.
+//
+// Filters past 2^31 bits (to 2^38, 32 GiB) take int64 buckets and word
+// offsets past 32 bits: bloom_probe_wide_kernel, the same body on 64-bit
+// buckets. Such a filter lies in device memory, not in the L2.
 
 #include <cuda_runtime.h>
 
@@ -40,33 +44,69 @@ namespace {
 constexpr int kThreads = 256;
 constexpr long long kMaxSeeds = 65535;  // the grid's y extent
 
-__device__ __forceinline__ unsigned word_of(unsigned b) {
+// The filter's layout for a bucket b of unsigned type U: 32 bits for the
+// int32 buckets, 64 for the wide ones, whose word offsets pass 32 bits.
+template <typename U>
+__device__ __forceinline__ U word_of(U b) {
   return ((b >> 12) << 7) | (b & 127u);
 }
 
-__device__ __forceinline__ unsigned bit_of(unsigned b) { return (b >> 7) & 31u; }
+template <typename U>
+__device__ __forceinline__ unsigned bit_of(U b) {
+  return static_cast<unsigned>((b >> 7) & 31u);
+}
 
+// The body of the probe's instances, buckets of type B read as U.
 // buckets: plane q = j * h + i starts at buckets + q * plane, window w of
 // read r at w * R + r. out: seed j's counts at out + j * pitch.
-__global__ void __launch_bounds__(kThreads)
-bloom_probe_kernel(const int* __restrict__ buckets, long long plane, int h,
-                   long long W, long long R, const unsigned* __restrict__ words,
-                   unsigned width, int* __restrict__ out, long long pitch) {
+template <typename B, typename U>
+__device__ __forceinline__ void
+probe_windows(const B* __restrict__ buckets, long long plane, int h,
+              long long W, long long R, const unsigned* __restrict__ words,
+              U width, int* __restrict__ out, long long pitch) {
   const long long r = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (r >= R) return;
-  const int* first = buckets + static_cast<long long>(blockIdx.y) * h * plane + r;
+  const B* first = buckets + static_cast<long long>(blockIdx.y) * h * plane + r;
   int hits = 0;
 #pragma unroll 2
   for (long long w = 0; w < W; ++w) {
-    const int* at = first + w * R;
+    const B* at = first + w * R;
     bool hit = true;
     for (int i = 0; i < h && hit; ++i) {
-      const unsigned b = static_cast<unsigned>(__ldcs(at + i * plane));
+      const U b = static_cast<U>(__ldcs(at + i * plane));
       hit = b < width && ((__ldg(words + word_of(b)) >> bit_of(b)) & 1u);
     }
     hits += hit;
   }
   out[blockIdx.y * pitch + r] += hits;
+}
+
+__global__ void __launch_bounds__(kThreads)
+bloom_probe_kernel(const int* __restrict__ buckets, long long plane, int h,
+                   long long W, long long R, const unsigned* __restrict__ words,
+                   unsigned width, int* __restrict__ out, long long pitch) {
+  probe_windows<int, unsigned>(buckets, plane, h, W, R, words, width, out,
+                               pitch);
+}
+
+// The wide probe: int64 buckets (seed_hash.cu's wide buckets) into a filter
+// of up to 2^38 bits. Past 2^28 bits the filter no longer fits the L2, so
+// each bucket tested is a random 32-byte sector of device memory.
+__global__ void __launch_bounds__(kThreads)
+bloom_probe_wide_kernel(const long long* __restrict__ buckets,
+                        long long plane, int h, long long W, long long R,
+                        const unsigned* __restrict__ words,
+                        unsigned long long width, int* __restrict__ out,
+                        long long pitch) {
+  probe_windows<long long, unsigned long long>(buckets, plane, h, W, R, words,
+                                               width, out, pitch);
+}
+
+bool valid_shape(int nseeds, int h, long long W, long long R, long long plane,
+                 long long pitch) {
+  return nseeds >= 1 && nseeds <= kMaxSeeds && h >= 1 && W >= 0 && R >= 0 &&
+         plane >= W * R && pitch >= R &&
+         (R + kThreads - 1) / kThreads <= 0x7fffffffLL;
 }
 
 }  // namespace
@@ -84,9 +124,8 @@ int nthash_bloom_probe(int device, const int* buckets, long long plane,
                        long long pitch, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (nseeds < 1 || nseeds > kMaxSeeds || h < 1 || W < 0 || R < 0 ||
-      plane < W * R || pitch < R || width_log2 < 12 || width_log2 > 30 ||
-      (R + kThreads - 1) / kThreads > 0x7fffffffLL) {
+  if (!valid_shape(nseeds, h, W, R, plane, pitch) || width_log2 < 12 ||
+      width_log2 > 30) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (W == 0 || R == 0) return static_cast<int>(cudaSuccess);
@@ -94,6 +133,26 @@ int nthash_bloom_probe(int device, const int* buckets, long long plane,
                   static_cast<unsigned>(nseeds));
   bloom_probe_kernel<<<grid, kThreads, 0, stream>>>(
       buckets, plane, h, W, R, words, 1u << width_log2, out, pitch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As nthash_bloom_probe, over int64 buckets into words [2^width_log2 / 32],
+// width_log2 in [12, 38].
+int nthash_bloom_probe_wide(int device, const long long* buckets,
+                            long long plane, int nseeds, int h, long long W,
+                            long long R, const unsigned* words, int width_log2,
+                            int* out, long long pitch, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!valid_shape(nseeds, h, W, R, plane, pitch) || width_log2 < 12 ||
+      width_log2 > 38) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (W == 0 || R == 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid(static_cast<unsigned>((R + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(nseeds));
+  bloom_probe_wide_kernel<<<grid, kThreads, 0, stream>>>(
+      buckets, plane, h, W, R, words, 1ULL << width_log2, out, pitch);
   return static_cast<int>(cudaGetLastError());
 }
 

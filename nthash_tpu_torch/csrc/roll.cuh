@@ -38,22 +38,23 @@ __device__ __forceinline__ unsigned code_at(const int* __restrict__ codes,
 // elements apart: the canonical hash fwd + rev and its num_hashes - 1 nte64
 // extensions (multipliers `mult`), then fwd and rev if emit_fwd_rev, as
 // uint64; or, with kBuckets, the low bucket_bits bits of the num_hashes
-// values as int32, each the sentinel 2^bucket_bits where !valid.
-template <bool kBuckets>
+// values as B (int to 2^30, long long for the wide buckets past it), each
+// the sentinel 2^bucket_bits where !valid.
+template <bool kBuckets, typename B = int>
 __device__ __forceinline__ void write_window(
     void* __restrict__ out, size_t at, size_t plane, unsigned long long fwd,
     unsigned long long rev, bool valid, int num_hashes, int emit_fwd_rev,
     int bucket_bits, const unsigned long long* mult) {
   const unsigned long long canon = fwd + rev;
   if (kBuckets) {
-    int* o = static_cast<int*>(out);
+    B* o = static_cast<B*>(out);
     const unsigned long long mask = (1ULL << bucket_bits) - 1;
-    const int sentinel = 1 << bucket_bits;
-    o[at] = valid ? static_cast<int>(canon & mask) : sentinel;
+    const B sentinel = static_cast<B>(1) << bucket_bits;
+    o[at] = valid ? static_cast<B>(canon & mask) : sentinel;
     for (int i = 1; i < num_hashes; ++i) {
       unsigned long long e = canon * mult[i - 1];
       e ^= e >> kMultiShift;
-      o[i * plane + at] = valid ? static_cast<int>(e & mask) : sentinel;
+      o[i * plane + at] = valid ? static_cast<B>(e & mask) : sentinel;
     }
   } else {
     unsigned long long* o = static_cast<unsigned long long*>(out);

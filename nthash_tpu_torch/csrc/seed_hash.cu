@@ -15,7 +15,11 @@
 //                values as int32 planes [S * num_hashes, W, R], or the
 //                sentinel 2^b where any of the window's k bases is invalid,
 //                don't-care positions included (strict validity, a rolling
-//                count as in seed_pallas.py:112-128).
+//                count as in seed_pallas.py:112-128); the wide buckets
+//                (seed_staged_wide_kernel, seed_hash_wide_kernel: the same
+//                bodies) write them as int64, b up to 38, for filters past
+//                2^31 bits, where the sentinel and the buckets from 2^31 on
+//                no longer fit an int32.
 //
 // The recurrence is the Pallas kernel's (seed_pallas.py:8-11, 130-141): for
 // each maximal care run [s, e) of the seed, a step is two taps,
@@ -84,16 +88,14 @@ constexpr size_t kMaxSmem = 232448;  // 227 KB: the most a block may opt into
 // then the num_hashes - 1 nte64 multipliers.
 // meta: per run q, off_in at 2q and off_out at 2q + 1; then the S + 1 run
 // offsets (seed s owns runs [meta[2*nruns + s], meta[2*nruns + s + 1])).
-// Six blocks a multiprocessor (40 registers): left to itself ptxas gives
-// the hashes instance 32 and spills (each launch bound timed on the card;
-// CHANGES.md, readings behind the comments).
-template <bool kBuckets>
-__global__ void __launch_bounds__(kThreads, kGlobalMinBlocks)
-seed_hash_kernel(const int* __restrict__ codes, int L, long long R, int k,
-                 int nseeds, int nruns, int seg, long long nseg,
-                 int num_hashes, int emit_fwd_rev, int bucket_bits,
-                 const unsigned long long* __restrict__ tables,
-                 const int* __restrict__ meta, void* __restrict__ out) {
+// The body of the global kernel's instances, buckets of type B.
+template <bool kBuckets, typename B>
+__device__ __forceinline__ void
+global_roll(const int* __restrict__ codes, int L, long long R, int k,
+            int nseeds, int nruns, int seg, long long nseg, int num_hashes,
+            int emit_fwd_rev, int bucket_bits,
+            const unsigned long long* __restrict__ tables,
+            const int* __restrict__ meta, void* __restrict__ out) {
   extern __shared__ unsigned long long smem[];
   const int ntab = nruns * kTabPerRun + num_hashes - 1;
   const int nmeta = 2 * nruns + nseeds + 1;
@@ -143,23 +145,51 @@ seed_hash_kernel(const int* __restrict__ codes, int L, long long R, int k,
       if (dt >= k) inv -= code_at(codes, static_cast<long long>(t - k) * R + r) >= 4;
     }
     if (dt < k - 1) continue;
-    nthash::write_window<kBuckets>(
+    nthash::write_window<kBuckets, B>(
         out, first + static_cast<size_t>(t - k + 1) * R + r, plane, fwd, rev,
         inv == 0, num_hashes, emit_fwd_rev, bucket_bits, mult);
   }
 }
 
+// Six blocks a multiprocessor (40 registers): left to itself ptxas gives
+// the hashes instance 32 and spills (each launch bound timed on the card;
+// CHANGES.md, readings behind the comments).
+template <bool kBuckets>
+__global__ void __launch_bounds__(kThreads, kGlobalMinBlocks)
+seed_hash_kernel(const int* __restrict__ codes, int L, long long R, int k,
+                 int nseeds, int nruns, int seg, long long nseg,
+                 int num_hashes, int emit_fwd_rev, int bucket_bits,
+                 const unsigned long long* __restrict__ tables,
+                 const int* __restrict__ meta, void* __restrict__ out) {
+  global_roll<kBuckets, int>(codes, L, R, k, nseeds, nruns, seg, nseg,
+                             num_hashes, emit_fwd_rev, bucket_bits, tables,
+                             meta, out);
+}
+
+// The wide buckets (int64, widths past 2^30): the bucket instance's body
+// writing 8 bytes a bucket.
+__global__ void __launch_bounds__(kThreads, kGlobalMinBlocks)
+seed_hash_wide_kernel(const int* __restrict__ codes, int L, long long R,
+                      int k, int nseeds, int nruns, int seg, long long nseg,
+                      int num_hashes, int emit_fwd_rev, int bucket_bits,
+                      const unsigned long long* __restrict__ tables,
+                      const int* __restrict__ meta, void* __restrict__ out) {
+  global_roll<true, long long>(codes, L, R, k, nseeds, nruns, seg, nseg,
+                               num_hashes, emit_fwd_rev, bucket_bits, tables,
+                               meta, out);
+}
+
 // Layout of the staged kernel's shared memory: the tables (as in
 // nthash::load_tables), then per warp the seeds' states [nseeds][32] and the
-// ring [ring_rows][32].
-template <bool kBuckets>
-__global__ void __launch_bounds__(256)
-seed_staged_kernel(const int* __restrict__ codes, int L, long long R, int k,
-                   int nseeds, int nruns, int seg, long long nseg,
-                   int num_hashes, int emit_fwd_rev, int bucket_bits,
-                   const unsigned long long* __restrict__ tables,
-                   const int* __restrict__ meta, int rmask, int vec,
-                   void* __restrict__ out) {
+// ring [ring_rows][32]. The body of its instances, buckets of type B.
+template <bool kBuckets, typename B>
+__device__ __forceinline__ void
+staged_roll(const int* __restrict__ codes, int L, long long R, int k,
+            int nseeds, int nruns, int seg, long long nseg, int num_hashes,
+            int emit_fwd_rev, int bucket_bits,
+            const unsigned long long* __restrict__ tables,
+            const int* __restrict__ meta, int rmask, int vec,
+            void* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char sm[];
   const ulonglong2* pairs;
   const unsigned long long* mult;
@@ -212,7 +242,7 @@ seed_staged_kernel(const int* __restrict__ codes, int L, long long R, int k,
         const int dt = c0 + i;
         nthash::roll_step(ring, rmask, lane, dt, offs, pairs, q0, q1, fwd, rev);
         if (dt < k - 1 || r >= R) continue;
-        nthash::write_window<kBuckets>(
+        nthash::write_window<kBuckets, B>(
             out, first + static_cast<size_t>(t0 + dt - k + 1) * R + r, plane,
             fwd, rev, (vbits >> i) & 1, num_hashes, emit_fwd_rev, bucket_bits,
             mult);
@@ -220,6 +250,32 @@ seed_staged_kernel(const int* __restrict__ codes, int L, long long R, int k,
       state[s * 32 + lane] = make_ulonglong2(fwd, rev);
     }
   }
+}
+
+template <bool kBuckets>
+__global__ void __launch_bounds__(256)
+seed_staged_kernel(const int* __restrict__ codes, int L, long long R, int k,
+                   int nseeds, int nruns, int seg, long long nseg,
+                   int num_hashes, int emit_fwd_rev, int bucket_bits,
+                   const unsigned long long* __restrict__ tables,
+                   const int* __restrict__ meta, int rmask, int vec,
+                   void* __restrict__ out) {
+  staged_roll<kBuckets, int>(codes, L, R, k, nseeds, nruns, seg, nseg,
+                             num_hashes, emit_fwd_rev, bucket_bits, tables,
+                             meta, rmask, vec, out);
+}
+
+// The wide buckets: the bucket instance's body writing 8 bytes a bucket.
+__global__ void __launch_bounds__(256)
+seed_staged_wide_kernel(const int* __restrict__ codes, int L, long long R,
+                        int k, int nseeds, int nruns, int seg, long long nseg,
+                        int num_hashes, int emit_fwd_rev, int bucket_bits,
+                        const unsigned long long* __restrict__ tables,
+                        const int* __restrict__ meta, int rmask, int vec,
+                        void* __restrict__ out) {
+  staged_roll<true, long long>(codes, L, R, k, nseeds, nruns, seg, nseg,
+                               num_hashes, emit_fwd_rev, bucket_bits, tables,
+                               meta, rmask, vec, out);
 }
 
 // Output runs, windows a lane: 32, or 16 without fwd/rev, where a warp's
@@ -274,10 +330,17 @@ size_t seed_sequence_smem(int nseeds, int nruns, int num_hashes, int warps,
                                          seed_run(fwd_rev));
 }
 
-template <bool kBuckets>
-cudaError_t launch_global(const int* codes, int L, long long R, int k,
-                          int nseeds, int nruns, int seg, int num_hashes,
-                          int emit_fwd_rev, int bucket_bits,
+using GlobalKernel = void (*)(const int*, int, long long, int, int, int, int,
+                             long long, int, int, int,
+                             const unsigned long long*, const int*, void*);
+using StagedKernel = void (*)(const int*, int, long long, int, int, int, int,
+                             long long, int, int, int,
+                             const unsigned long long*, const int*, int, int,
+                             void*);
+
+cudaError_t launch_global(GlobalKernel kernel, const int* codes, int L,
+                          long long R, int k, int nseeds, int nruns, int seg,
+                          int num_hashes, int emit_fwd_rev, int bucket_bits,
                           const unsigned long long* tables, const int* meta,
                           void* out, cudaStream_t stream) {
   const long long nseg = (static_cast<long long>(L - k + 1) + seg - 1) / seg;
@@ -289,20 +352,19 @@ cudaError_t launch_global(const int* codes, int L, long long R, int k,
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        seed_hash_kernel<kBuckets>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  seed_hash_kernel<kBuckets><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       codes, L, R, k, nseeds, nruns, seg, nseg, num_hashes, emit_fwd_rev,
       bucket_bits, tables, meta, out);
   return cudaGetLastError();
 }
 
-template <bool kBuckets>
-cudaError_t launch_staged(const int* codes, int L, long long R, int k,
-                          int nseeds, int nruns, int seg, int num_hashes,
-                          int emit_fwd_rev, int bucket_bits,
+cudaError_t launch_staged(StagedKernel kernel, const int* codes, int L,
+                          long long R, int k, int nseeds, int nruns, int seg,
+                          int num_hashes, int emit_fwd_rev, int bucket_bits,
                           const unsigned long long* tables, const int* meta,
                           int warps, int ring, void* out, cudaStream_t stream) {
   const long long nseg = (static_cast<long long>(L - k + 1) + seg - 1) / seg;
@@ -314,11 +376,11 @@ cudaError_t launch_staged(const int* codes, int L, long long R, int k,
                                     static_cast<size_t>(ring) * 32);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      seed_staged_kernel<kBuckets>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int vec = R % 4 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
-  seed_staged_kernel<kBuckets><<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
       codes, L, R, k, nseeds, nruns, seg, nseg, num_hashes, emit_fwd_rev,
       bucket_bits, tables, meta, ring - 1, vec, out);
   return cudaGetLastError();
@@ -334,8 +396,9 @@ extern "C" {
 
 // codes: [L, R] int32 device; out: [nseeds * per_seed, L - k + 1, R] uint64
 // (bucket_bits == 0; per_seed = num_hashes + 2 * emit_fwd_rev) or
-// [nseeds * num_hashes, L - k + 1, R] int32 buckets; seg: windows per
-// segment (>= 1; seg >= L - k + 1 is one segment per read).
+// [nseeds * num_hashes, L - k + 1, R] buckets, int32 (bucket_bits 1..30) or,
+// with wide, int64 (bucket_bits 1..38); seg: windows per segment (>= 1; seg
+// >= L - k + 1 is one segment per read).
 // warps > 0: the staged kernel, `warps` a block, a ring of `ring` rows (a
 // power of two >= k + 32); tables: per run its 25 (fwd, rev) pairs, then the
 // num_hashes - 1 nte64 multipliers, as uint64.
@@ -345,30 +408,31 @@ extern "C" {
 // Launches on `stream` of `device`; returns cudaGetLastError().
 int nthash_seed_hash(int device, const int* codes, int L, long long R, int k,
                      int nseeds, int nruns, int seg, int num_hashes,
-                     int emit_fwd_rev, int bucket_bits,
+                     int emit_fwd_rev, int bucket_bits, int wide,
                      const unsigned long long* tables, const int* meta,
                      int warps, int ring, void* out, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (seg < 1 || nseeds < 1 || nruns < nseeds || warps < 0 || warps > 8 ||
-      (warps > 0 && !valid_ring(ring, k))) {
+      (warps > 0 && !valid_ring(ring, k)) || bucket_bits < 0 ||
+      bucket_bits > (wide ? 38 : 30) || (wide && bucket_bits == 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool buckets = bucket_bits > 0;
-  if (warps > 0 && buckets) {
-    err = launch_staged<true>(codes, L, R, k, nseeds, nruns, seg, num_hashes,
-                              0, bucket_bits, tables, meta, warps, ring, out,
-                              stream);
-  } else if (warps > 0) {
-    err = launch_staged<false>(codes, L, R, k, nseeds, nruns, seg, num_hashes,
-                               emit_fwd_rev, 0, tables, meta, warps, ring, out,
-                               stream);
-  } else if (buckets) {
-    err = launch_global<true>(codes, L, R, k, nseeds, nruns, seg, num_hashes,
-                              0, bucket_bits, tables, meta, out, stream);
+  const int fr = buckets ? 0 : emit_fwd_rev;
+  if (warps > 0) {
+    StagedKernel kernel = seed_staged_kernel<false>;
+    if (buckets) kernel = seed_staged_kernel<true>;
+    if (wide) kernel = seed_staged_wide_kernel;
+    err = launch_staged(kernel, codes, L, R, k, nseeds, nruns, seg,
+                        num_hashes, fr, bucket_bits, tables, meta, warps, ring,
+                        out, stream);
   } else {
-    err = launch_global<false>(codes, L, R, k, nseeds, nruns, seg, num_hashes,
-                               emit_fwd_rev, 0, tables, meta, out, stream);
+    GlobalKernel kernel = seed_hash_kernel<false>;
+    if (buckets) kernel = seed_hash_kernel<true>;
+    if (wide) kernel = seed_hash_wide_kernel;
+    err = launch_global(kernel, codes, L, R, k, nseeds, nruns, seg,
+                        num_hashes, fr, bucket_bits, tables, meta, out, stream);
   }
   return static_cast<int>(err);
 }

@@ -10,13 +10,18 @@ and :meth:`BloomFilter.to_numpy` carry them to and from the JAX package's
 ``np.asarray(bf.words)``.
 
 Insertion is a scatter-OR: one ``bloom_words`` call (``csrc/bloom.cu``)
-at every width, 2**12..2**31. Up to 2**20 each block ORs its share of the
+at every width, 2**12..2**38. Up to 2**20 each block ORs its share of the
 updates into private words in shared memory and merges them into the
 filter once; above that, for batches large enough to pay, a binning pass
 groups the updates by range of 2**20 bits and each range's words are set in
 shared memory and merged once, else the updates go to the filter's words
 directly (``ops/hist_kernel.private_words_grid`` and ``binned_words_grid``
-pick). The
+pick). From 2**31 bits up (to 2**38, 32 GiB: a whole human reference's
+spaced-seed filter) a bucket, or the sentinel, no longer fits an int32,
+and the filter takes the wide routes: the seed kernels' int64 buckets
+(past 2**30), ``bloom_words``' direct atomics with 64-bit word offsets
+(past 2**31) and the probe's ``bloom_probe_wide_kernel`` (past 2**30). The
+JAX package stops at 2**31. The
 JAX package routes 2**19..2**30 through the sort-partitioned words and
 2**31 through an int8 scatter presence, because a TPU core can neither hold
 a wide filter in VMEM nor scatter; ``ops/part_kernel.py``'s
@@ -30,6 +35,8 @@ Tools' categorizer does with multiple spaced seeds, is ``screen_reads``:
 the seed kernels emit buckets at the filter's width and
 ``hits_from_buckets`` counts, per seed and read, the windows whose bits
 are all set (``ops/probe_kernel.py``, ``csrc/probe.cu`` on the card).
+``insert_sequence_seeds`` builds such a filter from one sequence of any
+length, a reference genome, in chunks of bounded size.
 ``union_across`` ORs the ranks' words of a process group together: one
 all-gather, then an OR-fold over the ranks, as in the JAX package (NCCL
 has no bitwise all-reduce).
@@ -50,22 +57,30 @@ from ..ops.hist_kernel import (
     BLOOM_MIN_WIDTH_LOG2,
     MAX_WIDTH_LOG2,
     PACK,
+    WIDE_MAX_WIDTH_LOG2,
     bit_index,
     bloom_words,
     rows_view,
     word_index,
 )
+from ..ops.kmer_kernel import prepare_codes, sequence_codes, sequence_rows
 from ..ops.probe_kernel import probe_counts
 from ..ops.seed_torch import check_seeds
 from ..parallel.mesh import all_gather
+from ..utils.profiling import span
+
+#: Windows a row of :func:`insert_sequence_seeds`: one segment of B1 a row.
+SEQUENCE_ROW = 256
+#: Bytes of one chunk's bucket planes in :func:`insert_sequence_seeds`.
+BUILD_CHUNK_BYTES = 1 << 31
 
 
 def check_width(width_log2: int) -> None:
-    """Raise ValueError for a width outside [2**12, 2**31]."""
-    if not BLOOM_MIN_WIDTH_LOG2 <= width_log2 <= BLOOM_MAX_WIDTH_LOG2:
+    """Raise ValueError for a width outside [2**12, 2**38]."""
+    if not BLOOM_MIN_WIDTH_LOG2 <= width_log2 <= WIDE_MAX_WIDTH_LOG2:
         raise ValueError(
             f"width_log2 ({width_log2}) must be in "
-            f"[{BLOOM_MIN_WIDTH_LOG2}, {BLOOM_MAX_WIDTH_LOG2}]")
+            f"[{BLOOM_MIN_WIDTH_LOG2}, {WIDE_MAX_WIDTH_LOG2}]")
 
 
 class BloomFilter(NamedTuple):
@@ -75,7 +90,7 @@ class BloomFilter(NamedTuple):
 
     @staticmethod
     def zeros(width_log2: int, device="cuda") -> "BloomFilter":
-        """An empty filter of 2**width_log2 bits (12..31), on the card
+        """An empty filter of 2**width_log2 bits (12..38), on the card
         unless the caller names another device."""
         check_width(width_log2)
         return BloomFilter(torch.zeros((1 << width_log2) // PACK,
@@ -105,8 +120,10 @@ class BloomFilter(NamedTuple):
 
 
 def _indices(hashes: torch.Tensor, width_log2: int) -> torch.Tensor:
-    """Bucket per int64 hash: the low ``width_log2`` bits, int32."""
-    return (hashes & ((1 << width_log2) - 1)).to(torch.int32)
+    """Bucket per int64 hash: the low ``width_log2`` bits, int32 up to
+    2**31 bits, int64 past it (``bloom_words``' wide route)."""
+    b = hashes & ((1 << width_log2) - 1)
+    return b if width_log2 > BLOOM_MAX_WIDTH_LOG2 else b.to(torch.int32)
 
 
 def pack_presence(presence: torch.Tensor) -> torch.Tensor:
@@ -162,8 +179,10 @@ def insert_from_buckets(bf: BloomFilter, buckets, *,
 
     buckets: int32 tensors (any shapes) from ``hash_kmers_tm(...,
     emit_buckets=width_log2)`` at the filter's width (2**12..2**30: the hash
-    kernels emit at most 2**30). Invalid windows carry the out-of-range
-    sentinel and are dropped. Pass ``emitted_width_log2`` (the
+    kernels emit at most 2**30 as int32), or the int64 wide buckets of
+    ``seed_kernel.hash_seeds_tm`` (to 2**38), which take ``bloom_words``'
+    wide route. Invalid windows carry the out-of-range sentinel and are
+    dropped. Pass ``emitted_width_log2`` (the
     ``emit_buckets`` value used) to guard against width drift: buckets
     emitted at a smaller width would insert their sentinel as a real bit of
     the wider filter.
@@ -174,10 +193,11 @@ def insert_from_buckets(bf: BloomFilter, buckets, *,
     Neither copies the buckets. Returns ``bf``, its words updated.
     """
     width_log2 = emitted_width(bf, emitted_width_log2)
-    if width_log2 > MAX_WIDTH_LOG2:
+    wide = buckets[0].dtype == torch.int64
+    if width_log2 > MAX_WIDTH_LOG2 and not wide:
         raise ValueError(
-            f"buckets are emitted at widths up to 2**{MAX_WIDTH_LOG2}; "
-            f"the filter is 2**{width_log2}")
+            f"int32 buckets are emitted at widths up to 2**{MAX_WIDTH_LOG2}; "
+            f"the filter is 2**{width_log2}: its buckets are int64")
     stream = rows_view(buckets)
     for b in (buckets if stream is None else (stream,)):
         bloom_words(b, None, width_log2, out=bf.words)
@@ -195,12 +215,47 @@ def contains(bf: BloomFilter, hashes: torch.Tensor,
     return (((got >> bit_index(b)) & 1) != 0).all(dim=-1)
 
 
+def insert_sequence_seeds(bf: BloomFilter, codes: torch.Tensor, seeds,
+                          num_hashes_per_seed: int) -> BloomFilter:
+    """Insert every window of one sequence under spaced seeds, in place.
+
+    codes: [C] base codes, any length (a chromosome, or a whole reference
+    joined), as ``kmer_kernel.sequence_codes`` takes them: 0-3, anything
+    else invalid. The windows go in chunks of as many rows of
+    ``SEQUENCE_ROW`` windows (``kmer_kernel.sequence_rows``) as
+    ``BUILD_CHUNK_BYTES`` of bucket planes hold, at least one, each chunk
+    hashed under every seed to buckets at the filter's width by
+    ``seed_kernel.hash_seeds_tm_auto`` (B1) and inserted by
+    :func:`insert_from_buckets` (C1), so that a chunk's transients stay
+    near that size whatever C is. A window holding an invalid base sets
+    nothing; one that straddles two chunks is hashed in the later. The
+    route follows from the width (the wide buckets past 2**30). Runs inside
+    the span ``nthash.build``. Returns ``bf``, its words updated.
+    """
+    seeds = tuple(seeds)
+    k = check_seeds(seeds)
+    width_log2 = bf.width.bit_length() - 1
+    row_bytes = (seed_kernel.bucket_dtype(width_log2).itemsize
+                 * len(seeds) * num_hashes_per_seed * SEQUENCE_ROW)
+    chunk = max(1, BUILD_CHUNK_BYTES // row_bytes) * SEQUENCE_ROW
+    with span("nthash.build"):
+        codes = sequence_codes(codes)
+        for s in range(0, codes.shape[0] - k + 1, chunk):
+            rows = prepare_codes(sequence_rows(codes[s:s + chunk + k - 1], k,
+                                               SEQUENCE_ROW))
+            insert_from_buckets(bf, seed_kernel.hash_seeds_tm_auto(
+                rows, seeds, num_hashes_per_seed, emit_buckets=width_log2),
+                emitted_width_log2=width_log2)
+    return bf
+
+
 def hits_from_buckets(bf: BloomFilter, buckets, *, num_seeds: int,
                       num_hashes: int, emitted_width_log2: int,
                       out: torch.Tensor | None = None) -> torch.Tensor:
     """Per seed, the windows of each read whose every bucket's bit is set.
 
-    buckets: int32 [S * h, W, R], or that list of [W, R] views, from
+    buckets: int32 [S * h, W, R] (int64 past 2**30 bits, the wide probe),
+    or that list of [W, R] views, from
     ``seed_kernel.hash_seeds_tm(..., emit_buckets=width_log2)`` in its
     seed-major order (``num_seeds`` S, ``num_hashes`` h a seed), read
     where they lie. ``emitted_width_log2`` must be the filter's width:
@@ -228,7 +283,7 @@ def screen_reads(bf: BloomFilter, codes_tm: torch.Tensor, seeds,
     per seed, the windows of each read whose bits are all set. Reads
     shorter than k (L < k) have no window and add nothing. A read's score
     (its hits over its windows) and the threshold it is held to are the
-    caller's.
+    caller's. Filters past 2**30 bits take the wide buckets and probe.
     """
     seeds = tuple(seeds)
     k = check_seeds(seeds)

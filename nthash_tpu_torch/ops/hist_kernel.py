@@ -19,7 +19,9 @@ for what it computes rather than for the TPU's matrix unit:
   :func:`word_index` / :func:`bit_index` layout. It has three routes,
   private words in shared memory, binned (ranges of 2**20 buckets) or
   direct atomics, and :func:`private_words_grid` and
-  :func:`binned_words_grid` pick one from the shapes alone.
+  :func:`binned_words_grid` pick one from the shapes alone; int64 buckets,
+  which filters past 2**31 bits (to 2**38) take, go a fourth, direct
+  atomics with 64-bit word offsets.
 
 The binned and clustered routes share one binning pass, ``csrc/bin.cuh``
 (:func:`bin_ranges`), whose scatter has two bodies (:func:`scatter_body`:
@@ -63,11 +65,16 @@ from . import cuda_build
 
 MIN_WIDTH_LOG2 = 10
 MAX_WIDTH_LOG2 = 30
+#: The widest filter, and buckets, of the wide routes (int64 buckets):
+#: 2**38 bits, 32 GiB of words.
+WIDE_MAX_WIDTH_LOG2 = 38
 
 #: Kernel launches made by :func:`histogram_rows` in this process, and the
-#: same launches by route.
+#: same launches by route; "wide_words" counts :func:`bloom_words`'s wide
+#: route (int64 buckets, filters past 2**31 bits).
 LAUNCHES = 0
-ROUTE_LAUNCHES = {"private": 0, "direct": 0, "binned": 0, "clustered": 0}
+ROUTE_LAUNCHES = {"private": 0, "direct": 0, "binned": 0, "clustered": 0,
+                  "wide_words": 0}
 #: Widest row whose counters a block keeps in shared memory: 2**15 int32
 #: counters are 128 KB of the 227 KB a block may use.
 PRIVATE_COUNTS_MAX_WIDTH_LOG2 = 15
@@ -159,12 +166,14 @@ PRIVATE_MIN_ENTRIES_PER_WORD = 4
 
 
 def _rows_and_weight(idx, weight, width_log2, lo=MIN_WIDTH_LOG2,
-                     hi=MAX_WIDTH_LOG2):
+                     hi=MAX_WIDTH_LOG2, dtype=torch.int32):
     """Validate; return (idx [R, N], weight None | [N] | [R, N])."""
     if not lo <= width_log2 <= hi:
         raise ValueError(f"width_log2 ({width_log2}) must be in [{lo}, {hi}]")
-    if idx.dtype != torch.int32 or idx.dim() < 1:
-        raise TypeError(f"idx must be an int32 [R, ...] tensor, got {idx.dtype}")
+    if idx.dtype != dtype or idx.dim() < 1:
+        name = str(dtype).removeprefix("torch.")
+        raise TypeError(f"idx must be an {name} [R, ...] tensor, got "
+                        f"{idx.dtype}")
     rows = idx.shape[0]
     idx = idx.reshape(rows, -1)
     n = idx.shape[1]
@@ -784,10 +793,10 @@ def bit_index(bucket):
     return (bucket >> 7) & 31
 
 
-def _words_args(idx, weight, width_log2, hi, gate, out):
+def _words_args(idx, weight, width_log2, hi, gate, out, dtype=torch.int32):
     """Validate; return (idx [R, N], weight None | [N])."""
     idx, weight = _rows_and_weight(idx, weight, width_log2,
-                                   BLOOM_MIN_WIDTH_LOG2, hi)
+                                   BLOOM_MIN_WIDTH_LOG2, hi, dtype)
     if weight is not None and idx.shape[0] != 1:
         raise ValueError("a weight needs a single row of indices")
     _check_extras(idx, (1 << width_log2) // PACK, gate, out)
@@ -809,7 +818,8 @@ def _words_plain(idx, weight, width_log2, gate, out):
         out = torch.zeros((rows, (1 << width_log2) // PACK), dtype=torch.int32,
                           device=dev)
     keep = idx >= 0
-    if width_log2 < 31:  # every non-negative int32 is in range at 2**31
+    if idx.dtype == torch.int64 or width_log2 < 31:
+        # every non-negative int32 is in range at 2**31
         keep &= idx < (1 << width_log2)
     if weight is not None:
         keep &= weight.reshape(1, -1) != 0
@@ -855,6 +865,13 @@ def _bloom_lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ]
+        wide = lib.nthash_bloom_words_wide
+        wide.restype = ctypes.c_int
+        wide.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p,
         ]
         _bind_binned(lib, "bloom")
     return lib
@@ -940,10 +957,12 @@ def _words_route_of(rows, n, width_log2, route):
 def _words_launch(idx, weight, width_log2, gate, out, name, route=None):
     """Launch ``csrc/bloom.cu``. ``route`` ("direct", "private" or
     "binned") overrides the rule's choice (:func:`_words_route_of`), for
-    the tests and the smoke run."""
+    the tests and the smoke run; int64 idx take the wide route (direct
+    atomics with 64-bit word offsets) whatever ``route`` says."""
     rows, n = idx.shape
     dev = idx.device
-    kind, a, b = _words_route_of(rows, n, width_log2, route)
+    kind, a, b = (("wide", 0, 0) if idx.dtype == torch.int64
+                  else _words_route_of(rows, n, width_log2, route))
     if out is None:
         out = torch.zeros((rows, (1 << width_log2) // PACK), dtype=torch.int32,
                           device=dev)
@@ -957,13 +976,19 @@ def _words_launch(idx, weight, width_log2, gate, out, name, route=None):
         _ranges_launch("bloom", bins, b, out, gate)
     else:
         lib = _bloom_lib()
-        status = lib.nthash_bloom_words_rows(
-            dev.index, idx.data_ptr(), rows, n,
-            None if weight is None else weight.data_ptr(), width_log2,
-            out.data_ptr(), None if gate is None else gate.data_ptr(), a, b,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        wptr = None if weight is None else weight.data_ptr()
+        gptr = None if gate is None else gate.data_ptr()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if kind == "wide":
+            status = lib.nthash_bloom_words_wide(
+                dev.index, idx.data_ptr(), rows, n, wptr, width_log2,
+                out.data_ptr(), gptr, stream)
+        else:
+            status = lib.nthash_bloom_words_rows(
+                dev.index, idx.data_ptr(), rows, n, wptr, width_log2,
+                out.data_ptr(), gptr, a, b, stream)
         cuda_build.check(lib, status, f"{name} launch")
+    ROUTE_LAUNCHES["wide_words"] += kind == "wide"
     BLOOM_LAUNCHES[name] += 1
     return out
 
@@ -1026,13 +1051,26 @@ def bloom_words_rows(idx: torch.Tensor, width_log2: int, *,
     return _words_route(idx, None, width_log2, gate, out, "bloom_words_rows")
 
 
+def _bloom_words_args(idx, weight, width_log2, gate, out):
+    """:func:`bloom_words`' arguments as rows of one, validated: int32 idx
+    to 2**31 bits, int64 idx (the wide route) to 2**38."""
+    wide = idx.dtype == torch.int64
+    if not wide and width_log2 > BLOOM_MAX_WIDTH_LOG2:
+        raise ValueError(f"a filter of 2**{width_log2} bits takes int64 idx, "
+                         f"got {idx.dtype}")
+    idx, weight, out2 = _one_row(idx, weight, out)
+    idx, weight = _words_args(
+        idx, weight, width_log2,
+        WIDE_MAX_WIDTH_LOG2 if wide else BLOOM_MAX_WIDTH_LOG2, gate, out2,
+        torch.int64 if wide else torch.int32)
+    return idx, weight, out2
+
+
 def bloom_words_plain(idx: torch.Tensor, weight: torch.Tensor | None,
                       width_log2: int, *, gate: torch.Tensor | None = None,
                       out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`bloom_words`, on any device."""
-    idx, weight, out2 = _one_row(idx, weight, out)
-    idx, weight = _words_args(idx, weight, width_log2, BLOOM_MAX_WIDTH_LOG2,
-                              gate, out2)
+    idx, weight, out2 = _bloom_words_args(idx, weight, width_log2, gate, out)
     return _words_plain(idx, weight, width_log2, gate, out2)[0]
 
 
@@ -1053,10 +1091,12 @@ def bloom_words(idx: torch.Tensor, weight: torch.Tensor | None,
     ``gate`` and ``out`` (contiguous int32 [2**width_log2 / 32], OR-ed into
     in place) are as in :func:`bloom_words_rows`.
 
+    int64 ``idx``, which filters past 2**31 bits (to 2**38) take, go the
+    wide route at any width: direct atomics with 64-bit word offsets
+    (``ROUTE_LAUNCHES["wide_words"]``).
+
     A CUDA tensor goes through the CUDA kernel (``csrc/bloom.cu``), a CPU
     tensor through :func:`bloom_words_plain`.
     """
-    idx, weight, out2 = _one_row(idx, weight, out)
-    idx, weight = _words_args(idx, weight, width_log2, BLOOM_MAX_WIDTH_LOG2,
-                              gate, out2)
+    idx, weight, out2 = _bloom_words_args(idx, weight, width_log2, gate, out)
     return _words_route(idx, weight, width_log2, gate, out2, "bloom_words")[0]

@@ -67,9 +67,11 @@ def prepare_codes(codes: torch.Tensor) -> torch.Tensor:
     return torch.where(codes > 4, 4, codes).T.contiguous()
 
 
-def check_args(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets) -> None:
+def check_args(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets,
+               max_bucket_bits: int = 30) -> None:
     """Raise on what the kernels do not take: the codes' layout, k, the
-    hash count and the output mode."""
+    hash count and the output mode (buckets of 1..``max_bucket_bits``
+    bits)."""
     if codes_tm.dtype != torch.int32 or codes_tm.dim() != 2:
         raise TypeError(
             f"codes_tm must be a 2-D int32 [L, R] tensor, got "
@@ -86,21 +88,24 @@ def check_args(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets) -> None:
     if emit_buckets is not None:
         if emit_fwd_rev:
             raise ValueError("emit_buckets and emit_fwd_rev are exclusive")
-        if not 1 <= emit_buckets <= 30:
-            raise ValueError(f"emit_buckets ({emit_buckets}) must be in [1, 30]")
+        if not 1 <= emit_buckets <= max_bucket_bits:
+            raise ValueError(f"emit_buckets ({emit_buckets}) must be in "
+                             f"[1, {max_bucket_bits}]")
 
 
 def finish_planes(codes_tm, fwd, rev, k, num_hashes, emit_fwd_rev,
-                  emit_buckets):
+                  emit_buckets, bucket_dtype=torch.int32):
     """[W, R] fwd/rev -> the wrappers' outputs: the nte64 extensions (+ fwd,
-    rev) or, in bucket mode, their low bits with invalid windows set to the
-    sentinel. The spaced-seed wrappers use it once per seed."""
+    rev) or, in bucket mode, their low bits as ``bucket_dtype`` with invalid
+    windows set to the sentinel. The spaced-seed wrappers use it once per
+    seed."""
     ext = u64.extend_hashes(u64.add(fwd, rev), k, num_hashes)
     if emit_buckets is None:
         return ext + [fwd, rev] if emit_fwd_rev else ext
     valid = window_valid_tm(codes_tm, k)
     mask, width = (1 << emit_buckets) - 1, 1 << emit_buckets
-    return [torch.where(valid, (e & mask).to(torch.int32), width) for e in ext]
+    return [torch.where(valid, (e & mask).to(bucket_dtype), width)
+            for e in ext]
 
 
 def hash_kmers_tm_plain(codes_tm: torch.Tensor, k: int, num_hashes: int = 1, *,

@@ -12,6 +12,12 @@ the global one. :func:`hash_seeds_sequence` hashes one flat sequence in one
 launch (``parallel/sp.py``'s kernel route). The source note says what bounds
 the kernels on the H100.
 
+Buckets past 2**30 bits (to 2**38, a filter past 2**31 bits) take the wide
+route: the same kernels' int64 instances (``seed_staged_wide_kernel``,
+``seed_hash_wide_kernel``), which write each bucket, and the sentinel
+``2**emit_buckets``, in 8 bytes. The route follows from the width alone;
+``route="wide"`` forces it at any width, for the tests.
+
 The rolling reformulation is the JAX package's: the spaced-seed hash is an
 XOR of independently rotated per-base seeds over the care positions, so for
 each maximal care run [s, e) rolling the window by one base is two edge
@@ -35,6 +41,7 @@ from .. import u64
 from ..constants import COMP_CODE, SROL_PERIOD, nte64_multiplier, srol_seed
 from ..utils.profiling import span
 from . import cuda_build
+from .hist_kernel import MAX_WIDTH_LOG2, WIDE_MAX_WIDTH_LOG2
 from .kmer_kernel import (
     MAX_SHARED_BYTES,
     aligned,
@@ -64,8 +71,11 @@ LONG_LAUNCHES = 0
 SEQUENCE_LAUNCHES = 0
 #: Of those, launches of its fwd/rev instance (``emit_fwd_rev=True``).
 FWD_REV_LAUNCHES = 0
-#: Read-kernel launches by route ("staged", "global").
-ROUTE_LAUNCHES = {"staged": 0, "global": 0}
+#: Read-kernel launches by route ("staged", "global", and "wide": either
+#: kernel's int64 buckets).
+ROUTE_LAUNCHES = {"staged": 0, "global": 0, "wide": 0}
+#: The routes a read wrapper's ``route`` may name.
+ROUTES = (None, "staged", "global", "wide")
 
 
 class BlockTaps(NamedTuple):
@@ -123,8 +133,30 @@ def _check(codes_tm, seeds, num_hashes, emit_fwd_rev, emit_buckets) -> int:
     """Validate the arguments; returns k, the seeds' common length."""
     k = check_seeds(seeds)
     _all_taps(tuple(seeds))  # a pattern with no care position raises
-    check_args(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets)
+    check_args(codes_tm, k, num_hashes, emit_fwd_rev, emit_buckets,
+               WIDE_MAX_WIDTH_LOG2)
     return k
+
+
+def is_wide(emit_buckets: int | None, route: str | None = None) -> bool:
+    """Whether a call emits the wide buckets (int64): buckets past
+    2**``MAX_WIDTH_LOG2`` bits, or ``route="wide"`` at any width. Raises
+    for a route that cannot emit them."""
+    if route not in ROUTES:
+        raise ValueError(f"unknown seed_hash route {route!r}")
+    if route == "wide" and emit_buckets is None:
+        raise ValueError("the wide route emits buckets: give emit_buckets")
+    wide = route == "wide" or (emit_buckets or 0) > MAX_WIDTH_LOG2
+    if wide and route != "wide" and route is not None:
+        raise ValueError(f"emit_buckets ({emit_buckets}) past "
+                         f"{MAX_WIDTH_LOG2} takes the wide route, not "
+                         f"{route!r}")
+    return wide
+
+
+def bucket_dtype(emit_buckets: int | None, route: str | None = None):
+    """The dtype of a call's buckets: int64 on the wide route, else int32."""
+    return torch.int64 if is_wide(emit_buckets, route) else torch.int32
 
 
 def roll_seeds_tm(codes_tm: torch.Tensor, seeds: Sequence[str]):
@@ -165,44 +197,51 @@ def roll_seeds_tm(codes_tm: torch.Tensor, seeds: Sequence[str]):
     return fwd_seq, rev_seq
 
 
-def _finish(codes_tm, fwds, revs, k, num_hashes, emit_fwd_rev, emit_buckets):
-    """Per-seed [W, R] fwd/rev -> the wrappers' outputs in hash_arr order."""
+def _finish(codes_tm, fwds, revs, k, num_hashes, emit_fwd_rev, emit_buckets,
+            dtype):
+    """Per-seed [W, R] fwd/rev -> the wrappers' outputs in hash_arr order,
+    buckets as ``dtype``."""
     return [o for f, r in zip(fwds, revs)
             for o in finish_planes(codes_tm, f, r, k, num_hashes,
-                                   emit_fwd_rev, emit_buckets)]
+                                   emit_fwd_rev, emit_buckets, dtype)]
 
 
 def hash_seeds_tm_plain(codes_tm: torch.Tensor, seeds: Sequence[str],
                         num_hashes_per_seed: int = 1, *,
                         emit_fwd_rev: bool = False,
-                        emit_buckets: int | None = None) -> list[torch.Tensor]:
+                        emit_buckets: int | None = None,
+                        route: str | None = None) -> list[torch.Tensor]:
     """Plain PyTorch version of :func:`hash_seeds_tm`, on any device: the
     two-tap roll over whole reads (:func:`roll_seeds_tm`), then the nte64
-    extensions per seed and, in bucket mode, strict validity."""
+    extensions per seed and, in bucket mode, strict validity; int64
+    buckets on the wide route."""
     k = _check(codes_tm, seeds, num_hashes_per_seed, emit_fwd_rev,
                emit_buckets)
+    dtype = bucket_dtype(emit_buckets, route)
     fwds, revs = roll_seeds_tm(codes_tm, seeds)
     return _finish(codes_tm, fwds, revs, k, num_hashes_per_seed,
-                   emit_fwd_rev, emit_buckets)
+                   emit_fwd_rev, emit_buckets, dtype)
 
 
 def hash_seeds_tm_long_plain(codes_tm: torch.Tensor, seeds: Sequence[str],
                              num_hashes_per_seed: int = 1, *,
                              time_tile: int | None = None,
                              emit_fwd_rev: bool = False,
-                             emit_buckets: int | None = None
+                             emit_buckets: int | None = None,
+                             route: str | None = None
                              ) -> list[torch.Tensor]:
     """Plain PyTorch version of :func:`hash_seeds_tm_long`, on any device:
     the kernel's segments rolled from zero state as reads of their own
     (``kmer_torch.segment_codes``), then put back in window order."""
     k = _check(codes_tm, seeds, num_hashes_per_seed, emit_fwd_rev,
                emit_buckets)
+    dtype = bucket_dtype(emit_buckets, route)
     w, reads = codes_tm.shape[0] - k + 1, codes_tm.shape[1]
     seg = min(resolve_time_tile(k, time_tile), w)
     fwds, revs = roll_seeds_tm(segment_codes(codes_tm, k, seg), seeds)
     return _finish(codes_tm, [unsegment(f, w, reads) for f in fwds],
                    [unsegment(r, w, reads) for r in revs], k,
-                   num_hashes_per_seed, emit_fwd_rev, emit_buckets)
+                   num_hashes_per_seed, emit_fwd_rev, emit_buckets, dtype)
 
 
 @lru_cache(maxsize=32)
@@ -278,9 +317,9 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p,
         ]
         seq = lib.nthash_seed_sequence
         seq.restype = ctypes.c_int
@@ -297,14 +336,15 @@ def _lib() -> ctypes.CDLL:
 def _launch(codes_tm, seeds, k, num_hashes, emit_fwd_rev, emit_buckets, seg,
             route=None):
     """Launch ``seed_hash.cu`` with ``seg`` windows per segment: the staged
-    kernel where :func:`seed_grid` fits it, else the global one; ``route``
-    ("staged" or "global") forces one, for the tests and the smoke run."""
+    kernel where :func:`seed_grid` fits it, else the global one, each in
+    its int64 instance on the wide route (:func:`is_wide`); ``route``
+    ("staged", "global" or "wide") forces one, for the tests and the smoke
+    run."""
     length, reads = codes_tm.shape
     dev = codes_tm.device
     nruns = sum(len(t) for t in _all_taps(seeds))
     warps, ring = seed_grid(k, len(seeds), nruns, num_hashes)
-    if route not in (None, "staged", "global"):
-        raise ValueError(f"unknown seed_hash route {route!r}")
+    wide = is_wide(emit_buckets, route)
     if route == "staged" and not warps:
         raise ValueError(f"{nruns} care runs at k={k} do not fit the staged "
                          "kernel's shared memory")
@@ -318,7 +358,7 @@ def _launch(codes_tm, seeds, k, num_hashes, emit_fwd_rev, emit_buckets, seg,
                 f"the {MAX_SHARED_BYTES} bytes of shared memory a block may "
                 "use")
     per_seed = num_hashes + (2 if emit_fwd_rev else 0)
-    dtype = torch.int64 if emit_buckets is None else torch.int32
+    dtype = torch.int64 if emit_buckets is None or wide else torch.int32
     out = torch.empty((len(seeds) * per_seed, length - k + 1, reads),
                       dtype=dtype, device=dev)
     if reads == 0:
@@ -328,19 +368,20 @@ def _launch(codes_tm, seeds, k, num_hashes, emit_fwd_rev, emit_buckets, seg,
         seeds, num_hashes, dev)
     status = lib.nthash_seed_hash(
         dev.index, codes_tm.data_ptr(), length, reads, k, len(seeds), nruns,
-        seg, num_hashes, int(emit_fwd_rev), emit_buckets or 0,
+        seg, num_hashes, int(emit_fwd_rev), emit_buckets or 0, int(wide),
         tables.data_ptr(), meta.data_ptr(), warps, ring, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, status, "seed_hash launch")
-    ROUTE_LAUNCHES["staged" if warps else "global"] += 1
+    ROUTE_LAUNCHES["wide" if wide else "staged" if warps else "global"] += 1
     return list(out.unbind(0))
 
 
 def hash_seeds_tm(codes_tm: torch.Tensor, seeds: Sequence[str],
                   num_hashes_per_seed: int = 1, *,
                   emit_fwd_rev: bool = False,
-                  emit_buckets: int | None = None) -> list[torch.Tensor]:
+                  emit_buckets: int | None = None,
+                  route: str | None = None) -> list[torch.Tensor]:
     """Spaced-seed hash of every window of time-major coded reads.
 
     Args:
@@ -349,15 +390,18 @@ def hash_seeds_tm(codes_tm: torch.Tensor, seeds: Sequence[str],
       seeds: '1'/'0' pattern strings, all of one length k.
       num_hashes_per_seed: canonical + nte64 extensions per seed.
       emit_fwd_rev: additionally emit each seed's forward/reverse hashes.
-      emit_buckets: if set (a width_log2 in [1, 30]), emit int32 bucket
-        indices with strict window validity (invalid -> sentinel
-        ``2**emit_buckets``), as ``kmer_kernel.hash_kmers_tm`` does.
+      emit_buckets: if set (a width_log2 in [1, 38]), emit bucket indices
+        with strict window validity (invalid -> sentinel
+        ``2**emit_buckets``), as ``kmer_kernel.hash_kmers_tm`` does: int32
+        up to 30, int64 past it (the wide route).
+      route: None (by the shapes and the width), "staged", "global" or
+        "wide" (int64 buckets at any width), for the tests.
 
     Returns:
       A list of [W, R] tensors in the reference hash_arr order (seed-major:
       seeds[0]'s hashes, then seeds[1]'s, ...); with emit_fwd_rev each
       seed's group is followed by its (fwd, rev). int64 hashes, or int32
-      buckets.
+      (int64 on the wide route) buckets.
 
     A CUDA tensor goes through the CUDA kernel (``csrc/seed_hash.cu``), a
     CPU tensor through :func:`hash_seeds_tm_plain`.
@@ -370,14 +414,14 @@ def hash_seeds_tm(codes_tm: torch.Tensor, seeds: Sequence[str],
         if codes_tm.is_cuda:
             out = _launch(codes_tm, seeds, k, num_hashes_per_seed,
                           emit_fwd_rev, emit_buckets,
-                          codes_tm.shape[0] - k + 1)
+                          codes_tm.shape[0] - k + 1, route)
             # an empty batch launches nothing
             LAUNCHES += codes_tm.shape[1] > 0
             return out
         if codes_tm.device.type == "cpu":
             return hash_seeds_tm_plain(codes_tm, seeds, num_hashes_per_seed,
                                        emit_fwd_rev=emit_fwd_rev,
-                                       emit_buckets=emit_buckets)
+                                       emit_buckets=emit_buckets, route=route)
     raise ValueError(f"no seed_hash route for device {codes_tm.device}")
 
 
@@ -385,7 +429,8 @@ def hash_seeds_tm_long(codes_tm: torch.Tensor, seeds: Sequence[str],
                        num_hashes_per_seed: int = 1, *,
                        time_tile: int | None = None,
                        emit_fwd_rev: bool = False,
-                       emit_buckets: int | None = None) -> list[torch.Tensor]:
+                       emit_buckets: int | None = None,
+                       route: str | None = None) -> list[torch.Tensor]:
     """:func:`hash_seeds_tm` cut into segments of ``time_tile`` windows (a
     multiple of k; default ``kmer_kernel.pick_time_tile(k)``), one thread
     each. Same arguments and outputs as :func:`hash_seeds_tm`.
@@ -402,7 +447,7 @@ def hash_seeds_tm_long(codes_tm: torch.Tensor, seeds: Sequence[str],
         if codes_tm.is_cuda:
             out = _launch(codes_tm, seeds, k, num_hashes_per_seed,
                           emit_fwd_rev, emit_buckets,
-                          min(tile, codes_tm.shape[0] - k + 1))
+                          min(tile, codes_tm.shape[0] - k + 1), route)
             LONG_LAUNCHES += codes_tm.shape[1] > 0
             return out
         if codes_tm.device.type == "cpu":
@@ -410,7 +455,8 @@ def hash_seeds_tm_long(codes_tm: torch.Tensor, seeds: Sequence[str],
                                             num_hashes_per_seed,
                                             time_tile=tile,
                                             emit_fwd_rev=emit_fwd_rev,
-                                            emit_buckets=emit_buckets)
+                                            emit_buckets=emit_buckets,
+                                            route=route)
     raise ValueError(f"no seed_hash route for device {codes_tm.device}")
 
 

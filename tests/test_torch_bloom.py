@@ -217,9 +217,9 @@ def test_cpu_route_launches_no_kernel(rng):
 
 @pytest.mark.parametrize("bad,err", [
     (dict(wl=11), ValueError),
-    (dict(wl=32), ValueError),
+    (dict(wl=39), ValueError),
     (dict(rows_wl=27), ValueError),
-    (dict(idx=torch.zeros(8, dtype=torch.int64)), TypeError),
+    (dict(idx=torch.zeros(8, dtype=torch.int16)), TypeError),
     (dict(weight=torch.ones(8, dtype=torch.int64)), TypeError),
     (dict(weight=torch.ones(5, dtype=torch.int32)), ValueError),
     (dict(out=torch.zeros(129, dtype=torch.int32)), ValueError),
@@ -245,7 +245,7 @@ def test_zeros_layout_and_range():
     bf = bloom.BloomFilter.zeros(14, device=CPU)
     assert bf.words.dtype == torch.int32 and bf.words.shape == (512,)
     assert bf.width == 1 << 14
-    for wl in (11, 32):
+    for wl in (11, 39):
         with pytest.raises(ValueError):
             bloom.BloomFilter.zeros(wl, device=CPU)
 
@@ -328,7 +328,7 @@ def test_insert_rejects():
     bf = bloom.BloomFilter.zeros(14, device=CPU)
     h = torch.zeros((2, 3), dtype=torch.int64)
     v = torch.ones(2, dtype=torch.bool)
-    for wl in (11, 32):
+    for wl in (11, 39):
         with pytest.raises(ValueError, match="width_log2"):
             bloom.insert(bf, h, v, wl)
     with pytest.raises(ValueError, match="width"):

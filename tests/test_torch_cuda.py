@@ -2165,3 +2165,140 @@ def test_screen_reads_cuda_vs_cpu(rng, cuda, seeds, h, wl):
     want = bloom.screen_reads(on_cpu, prepare_codes(reads), seeds, h)
     assert torch.equal(got.cpu(), want)
     assert int(want.sum()) > 0
+
+
+# The wide routes: int64 buckets into filters past 2**31 bits.
+
+
+def _direct_buckets(codes, seeds, h, wl):
+    """int64 bucket planes [W, R] of reads [R, L] by the direct engine
+    (``seed_torch.hash_kmers_seeds``), the sentinel 2**wl where a window is
+    not valid."""
+    from nthash_tpu_torch.ops.seed_torch import hash_kmers_seeds
+
+    res = hash_kmers_seeds(codes, seeds, h)
+    return [torch.where(res.valid, res.hashes[..., i] & ((1 << wl) - 1),
+                        1 << wl).T for i in range(len(seeds) * h)]
+
+
+@pytest.mark.parametrize("wl", [12, 30])
+@pytest.mark.parametrize("seeds", [SCREEN_SEEDS, ("10101", "11011"),
+                                   ("10" * 500,)])
+def test_wide_seed_buckets_vs_plain(rng, cuda, seeds, wl):
+    """B1 and B3 forced wide, by the staged kernel's int64 instance and
+    (500 care runs, which the staged kernel cannot hold) the global one's:
+    the direct engine's buckets as int64 planes, and the narrow route's
+    int32 planes widened."""
+    k = len(seeds[0])
+    codes = _codes(rng, 50 if k > 100 else 333, k + 119).to(cuda)
+    tm = prepare_codes(codes)
+    want = _direct_buckets(codes, seeds, 2, wl)
+    if k < 100:
+        _same(seed_kernel.hash_seeds_tm_plain(tm, seeds, 2, emit_buckets=wl,
+                                              route="wide"), want)
+    before = dict(seed_kernel.ROUTE_LAUNCHES)
+    got = seed_kernel.hash_seeds_tm(tm, seeds, 2, emit_buckets=wl,
+                                    route="wide")
+    assert seed_kernel.ROUTE_LAUNCHES["wide"] == before["wide"] + 1
+    _same(got, want)
+    _same(seed_kernel.hash_seeds_tm_long(tm, seeds, 2, emit_buckets=wl,
+                                         time_tile=k, route="wide"), want)
+    narrow = seed_kernel.hash_seeds_tm(tm, seeds, 2, emit_buckets=wl)
+    _same([n.long() for n in narrow], want)
+
+
+@pytest.mark.parametrize("wl", [36, 37])
+def test_wide_seed_buckets_at_the_cell_widths(cuda, wl):
+    """One batch of 2**18 reads of 150 bp under the four seeds x 4 hashes
+    at 2**36 and 2**37, by the width alone: int64 buckets equal to the
+    plain version's on slices of the reads, values past 2**31 and the
+    sentinel among them."""
+    g = torch.Generator(device=cuda).manual_seed(2**31 + 36)
+    reads = torch.randint(0, 4, (1 << 18, 150), generator=g, device=cuda,
+                          dtype=torch.uint8)
+    reads[torch.rand(reads.shape, generator=g, device=cuda) < 0.001] = 4
+    tm = prepare_codes(reads)
+    before = dict(seed_kernel.ROUTE_LAUNCHES)
+    got = seed_kernel.hash_seeds_tm_auto(tm, SCREEN_SEEDS, 4, emit_buckets=wl)
+    assert seed_kernel.ROUTE_LAUNCHES == {**before,
+                                          "wide": before["wide"] + 1}
+    flat = torch.stack(got)
+    assert flat.dtype == torch.int64
+    assert int((flat == 1 << wl).sum()) > 0
+    assert int(flat[flat < 1 << wl].max()) >= 1 << (wl - 1)
+    for lo in (0, 123_457, (1 << 18) - 4096):
+        part = tm[:, lo:lo + 4096].contiguous()
+        want = seed_kernel.hash_seeds_tm_plain(part, SCREEN_SEEDS, 4,
+                                               emit_buckets=wl)
+        _same([p[:, lo:lo + 4096] for p in got], want)
+
+
+def _filter_of(genome, wl):
+    """The screening seeds' filter of ``genome`` at 2**wl, built on the
+    card by the chunked entry (B1's buckets, then C1)."""
+    return bloom.insert_sequence_seeds(
+        bloom.BloomFilter.zeros(wl, device=genome.device), genome,
+        SCREEN_SEEDS, 4)
+
+
+@pytest.mark.parametrize("wl", [36, 37])
+def test_wide_probe_at_the_cell_widths(cuda, wl):
+    """The wide probe at 2**36 and 2**37 (8 and 16 GiB of words, offsets
+    past 2**31) over one batch of 2**18 genome reads, half of them random:
+    its counts equal the plain version's on slices of the reads, reads of
+    the genome hit and random reads do not. The filter is the plain
+    build's, set by the wide C1 on the card."""
+    g = torch.Generator(device=cuda).manual_seed(2**31 + wl)
+    genome = torch.randint(0, 4, (3_000_000,), generator=g, device=cuda,
+                           dtype=torch.uint8)
+    before = hist_kernel.ROUTE_LAUNCHES["wide_words"]
+    bf = _filter_of(genome, wl)
+    assert hist_kernel.ROUTE_LAUNCHES["wide_words"] > before
+    # set words in the upper half: offsets past 2**31 at 2**37
+    assert int(torch.nonzero(bf.words[bf.words.numel() // 2:]).numel()) > 0
+    n = 1 << 18
+    starts = torch.randint(0, genome.shape[0] - 150 + 1, (n, 1), generator=g,
+                           device=cuda)
+    reads = genome[starts + torch.arange(150, device=cuda)]
+    reads[1::2] = torch.randint(0, 4, (n // 2, 150), generator=g,
+                                device=cuda, dtype=torch.uint8)
+    reads[torch.rand((n, 150), generator=g, device=cuda) < 0.001] = 4
+    tm = prepare_codes(reads)
+    buckets = seed_kernel.hash_seeds_tm_auto(tm, SCREEN_SEEDS, 4,
+                                             emit_buckets=wl)
+    before = dict(probe_kernel.ROUTE_LAUNCHES)
+    got = probe_kernel.probe_counts(buckets, bf.words, 4, 4, wl)
+    assert probe_kernel.ROUTE_LAUNCHES == {**before,
+                                           "wide": before["wide"] + 1}
+    for lo in (0, 77_777, n - 8192):
+        want = probe_kernel.probe_counts_plain(
+            [b[:, lo:lo + 8192] for b in buckets], bf.words, 4, 4, wl)
+        torch.cuda.synchronize()
+        assert torch.equal(got[:, lo:lo + 8192], want)
+    genomic, rand = got[:, 0::2].float().mean(), got[:, 1::2].float().mean()
+    assert genomic > 100 and rand < 1
+    counts = bloom.screen_reads(bf, tm, SCREEN_SEEDS, 4)
+    assert torch.equal(counts, got)
+
+
+def test_wide_words_direct_at_2_37(rng, cuda):
+    """C1's wide route (direct atomics, 64-bit word offsets) at 2**37 into
+    a 16 GiB filter: int64 buckets across the whole width, -1, the sentinel
+    and values past it among them, weighted, OR-ed into existing words;
+    the words equal the plain version's, slice by slice."""
+    wl = 37
+    idx = torch.from_numpy(rng.integers(0, 1 << wl, 2_000_003)).to(cuda)
+    idx[:5] = torch.tensor([-1, 1 << wl, (1 << wl) + 3, (1 << wl) - 1, 0])
+    w = torch.from_numpy(rng.integers(0, 3, 2_000_003, dtype=np.int32)).to(
+        cuda)
+    got = torch.zeros((1 << wl) // 32, dtype=torch.int32, device=cuda)
+    got[::4096] = 0x10001
+    want = got.clone()
+    before = hist_kernel.ROUTE_LAUNCHES["wide_words"]
+    hist_kernel.bloom_words(idx, w, wl, out=got)
+    assert hist_kernel.ROUTE_LAUNCHES["wide_words"] == before + 1
+    hist_kernel.bloom_words_plain(idx, w, wl, out=want)
+    torch.cuda.synchronize()
+    for a, b in zip(got.split(1 << 28), want.split(1 << 28)):
+        assert torch.equal(a, b)
+    assert int(torch.nonzero(got[1 << 31:] & ~0x10001).numel()) > 0

@@ -203,13 +203,13 @@ def _planes(s=2, h=2, w=5, r=3, dtype=torch.int32):
         bf, _planes(h=3), num_seeds=2, num_hashes=2, emitted_width_log2=12),
      "bucket planes are not"),
     (lambda bf: bloom.hits_from_buckets(
-        bf, _planes(dtype=torch.int64), num_seeds=2, num_hashes=2,
+        bf, _planes(dtype=torch.int16), num_seeds=2, num_hashes=2,
         emitted_width_log2=12), "int32"),
     (lambda bf: probe_kernel.probe_counts(_planes(), bf.words, 2, 2, 13),
      "words must be"),
     (lambda bf: probe_kernel.probe_counts(
         _planes(), bf.words.to(torch.int64), 2, 2, 12), "words must be"),
-    (lambda bf: probe_kernel.probe_counts(_planes(), bf.words, 2, 2, 31),
+    (lambda bf: probe_kernel.probe_counts(_planes(), bf.words, 2, 2, 39),
      "width_log2"),
     (lambda bf: probe_kernel.probe_counts(
         [torch.zeros((5, 3), dtype=torch.int32)] * 3

@@ -238,7 +238,7 @@ def test_cpu_route_launches_no_kernel(rng):
     (("10101", "00000"), {}, "no care positions"),
     ((), {}, "at least one seed"),
     (BASELINE, {"emit_fwd_rev": True, "emit_buckets": 10}, "exclusive"),
-    (BASELINE, {"emit_buckets": 31}, "emit_buckets"),
+    (BASELINE, {"emit_buckets": 39}, "emit_buckets"),
     (("1" * 41,), {}, "smaller than k"),
 ])
 def test_wrappers_reject(seeds, kw, match):

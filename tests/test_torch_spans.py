@@ -32,7 +32,7 @@ SPANS = {"nthash.hash", "nthash.histogram", "nthash.bloom", "nthash.bin",
          "nthash.ranges", "nthash.parse", "nthash.pinned.wait",
          "nthash.stream.wait", "nthash.copy", "nthash.step",
          "nthash.allreduce", "nthash.checkpoint", "nthash.seed",
-         "nthash.probe"}
+         "nthash.probe", "nthash.build"}
 
 
 def spans_of(fn, *args, **kwargs):
@@ -289,3 +289,25 @@ def span_names(package: Path) -> set[str]:
 def test_every_span_at_its_boundary_and_no_other():
     assert span_names(ROOT / "nthash_tpu_torch") == SPANS
     assert span_names(ROOT / "nthash_tpu") == set()
+
+
+def test_insert_sequence_seeds_records_build(monkeypatch):
+    """One ``nthash.build`` over the whole call, each chunk's seed hash and
+    insertion inside it."""
+    (tm,) = batches(1)
+    genome = tm.T.reshape(-1)
+    bf = bloom.BloomFilter.zeros(12, device="cpu")
+    # chunks of one row: 2 seeds x 2 int32 buckets of its 256 windows
+    monkeypatch.setattr(bloom, "BUILD_CHUNK_BYTES", 4096)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        bloom.insert_sequence_seeds(bf, genome, SEEDS, 2)
+    rows = {n: [(e.time_range.start, e.time_range.end)
+                for e in prof.events() if e.name == n]
+            for n in ("nthash.build", "nthash.seed", "nthash.bloom")}
+    (s, t), = rows["nthash.build"]
+    chunks = -(-(genome.numel() - len(SEEDS[0]) + 1) // 256)
+    assert len(rows["nthash.seed"]) == chunks
+    # the CPU route's planes are tensors of their own: an insertion each
+    assert len(rows["nthash.bloom"]) == chunks * len(SEEDS) * 2
+    assert all(s <= a and b <= t for n in ("nthash.seed", "nthash.bloom")
+               for a, b in rows[n])
