@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -136,15 +137,41 @@ def max_abs_err(a, b) -> float:
 def bins_err(got, want) -> float:
     """A binning pass (``hist_kernel.Bins``) against the plain one: counts,
     starts and blocks, and each range's staged offsets as a multiset (the
-    order inside a range is free)."""
-    total, rl = int(want.starts[-1]), want.range_log2
+    order inside a range is free; ``hist_kernel.staged`` reads a paged
+    stage in range order)."""
+    rl = want.range_log2
     rid = torch.repeat_interleave(
         torch.arange(want.counts.numel(), device=want.counts.device),
         want.counts)
     return max(max_abs_err(list(got[:3]), list(want[:3])), max_abs_err(*(
-        torch.sort((rid << rl) | (b.stage[:total].long()
+        torch.sort((rid << rl) | (hist_kernel.staged(b).long()
                                   & ((1 << rl) - 1))).values
         for b in (got, want))))
+
+
+def kernel_ms(fns, calls: int = 5) -> dict:
+    """Device ms of each kernel that the calls ``fns`` run, summed over
+    them, a call's mean over ``calls`` rounds after a warm-up, from
+    ``torch.profiler``'s device rows: ``{"<name>_ms": ms}``, <name> the
+    kernel's name without namespace, template or arguments."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        m = re.search(r"(\w+_kernel)[<(]", e.key)
+        us = getattr(e, "self_device_time_total", 0)
+        if m and us:
+            key = f"{m.group(1)}_ms"
+            out[key] = out.get(key, 0.0) + us / 1e3 / calls
+    return out
 
 
 def time_ms(fn, args, calls: int) -> float:
@@ -588,7 +615,9 @@ def binned(x: Inputs, wl: int) -> list:
 
 
 def bins_case(x: Inputs, wl: int, sort_key, stage_bytes: int) -> Case:
-    """The binning pass a batch; ``torch.sort`` of the flat buckets."""
+    """The binning pass a batch; ``torch.sort`` of the flat buckets. Beside
+    it each of its kernels' device ms over the batches (:func:`kernel_ms`:
+    the scatter alone, and the count where the body runs one)."""
     parts, nbytes = [], 0
     for idx, rl, per, _, _, _, valid in binned(x, wl):
         parts.append(Part(
@@ -598,7 +627,8 @@ def bins_case(x: Inputs, wl: int, sort_key, stage_bytes: int) -> Case:
                 i, None, wl, rl, per),
             lambda f=sort_key(idx): torch.sort(f)))
         nbytes += idx.numel() * 4 + valid * stage_bytes
-    return Case(parts, nbytes, bins_err)
+    return Case(parts, nbytes, bins_err,
+                lambda: kernel_ms([p.kernel for p in parts]))
 
 
 def row_bin_ranges_counts(x: Inputs) -> Case:
@@ -782,7 +812,8 @@ def row_histogram_ranges_clustered(x: Inputs) -> Case:
                lambda: torch.bincount(flat, minlength=H * ((1 << wl) + 1)),
                args=lambda: (rows_out,),
                fresh=lambda: (torch.zeros_like(rows_out),))
-    case.notes = lambda: split_ranges(idx, wl)
+    case.notes = lambda: {**split_ranges(idx, wl), **kernel_ms(
+        [lambda: hist_kernel.histogram_rows(idx, None, wl, out=rows_out)])}
     return case
 
 
@@ -1067,6 +1098,8 @@ def main() -> None:
         split = "" if "owners" not in row else \
             (f"; {row['owners']} owners a chunk, split ranges "
              f"{row['split_share']:.4%}")
+        split += "".join(f"; {k} {v:.4f}" for k, v in row.items()
+                         if k.endswith("_kernel_ms"))
         print(f"[kernel] {row['name']}: {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f}{lib}, bound {row['bound_ms']:.4f} "
               f"({row['bound_ms'] / row['ms']:.1%} of it); launches "

@@ -21,38 +21,54 @@
 // anything past the width) and, with a weight, entries whose weight is 0
 // are dropped here.
 //
-// Three kernels, all on the device, no host sync between them:
-//   1. bin_count_kernel: a block counts its slice of one row by range in a
-//      shared-memory histogram (one a warp where the ranges are few, so the
-//      warps' atomics on one range do not serialise) and adds each non-zero
-//      count to the range's global count (one atomic a range a block);
-//   2. bin_scan_kernel (one block): the exclusive scan of the range counts
-//      (each range's first stage position, and its cursor), and of the
-//      range pass's blocks per range, owners * ceil(count / per);
-//   3. bin_scatter_kernel, by one of two bodies, chosen by the ranges a row
-//      (nbins) and the stage's entry size:
-//      "sectors", for more than 256 ranges a row where a 32-byte sector of
-//      carried entries a range fits the shared memory (int32 stage: up to
-//      1,024 ranges; uint16: up to 512): the count-min cell (4 x 2^28 in
-//      ranges of 2^18) and the Bloom cell (2^30 in ranges of 2^20). A
-//      persistent block an SM owns every bpr-th tile of one row. It holds
-//      a tile in registers, counts it by range in shared memory, claims
-//      each range's whole 32-byte sectors with one atomicAdd on the range's
-//      sector counter, sorts the tile by range behind the entries it
-//      carried from its last tile, writes only the claimed whole sectors
-//      (on 32-byte boundaries of the range's slice) and carries the rest,
-//      fewer than a sector a range, to its next tile. The next tile's loads
-//      are in flight while it writes. Its leftovers, and claims past a
-//      slice's whole sectors, fill the slice's head and top sectors at the
-//      end.
-//      "runs", elsewhere (PipelineConfig()'s 2^20: 32 ranges a row): a
-//      block a tile, in registers, ranks each entry within its range by a
-//      shared atomicAdd (one histogram a warp where the ranges are few),
-//      sorts the tile by range in shared memory, reserves one run a range
-//      with one atomicAdd on the range's cursor, and writes the runs out
-//      by consecutive threads; 512 threads where the ranges are few, else
-//      1,024. With few ranges the runs are long, and with more than 1,024
-//      the carries do not fit.
+// Three kernels, all on the device, no host sync between them, in one of
+// two orders, chosen by the ranges a row (nbins) and the stage's entry
+// size:
+//   "sectors", for more than 256 ranges a row where a 32-byte sector of
+//   carried entries a range fits the shared memory (int32 stage: up to
+//   1,024 ranges; uint16: up to 512): the count-min cell (4 x 2^28 in
+//   ranges of 2^18) and the Bloom cell (2^30 in ranges of 2^20). No count
+//   first: the stage is a pool of pages, each taken by one range as it
+//   fills. A page holds the fewest whole chunks of the range pass (`per`
+//   entries) that hold a tile (page_entries): one chunk at both cells'
+//   shapes.
+//     1. bin_scatter_kernel: a persistent block an SM owns every bpr-th
+//        tile of one row. It holds a tile in registers, counts it by range
+//        in shared memory, claims each range's whole 32-byte sectors with
+//        one atomicAdd on the range's sector counter, sorts the tile by
+//        range behind the entries it carried from its last tile, writes
+//        only the claimed whole sectors and carries the rest, fewer than a
+//        sector a range, to its next tile. Sector f of range g is entries
+//        [f * sector, (f + 1) * sector) of the range, in its page c = f *
+//        sector / page: the claim that holds a page's first entry takes the
+//        pool's next page (one atomicAdd) and publishes it in the page table
+//        [nranges][pages]; a claim that starts inside a page another claim
+//        took reads it there, waiting (rarely, briefly) until it shows. A
+//        claim is at most a tile, so it touches at most two pages. The
+//        next tile's loads are in flight while it writes. After its last
+//        tile every block waits for the others (the launch is cooperative,
+//        so all are resident), and then places its leftovers after the
+//        range's claimed sectors, by one atomicAdd on the range's leftover
+//        count.
+//     2. bin_scan_kernel (one block): each range's count (sector * its
+//        claims + its leftovers), their exclusive scan (each range's
+//        first entry in range order) and that of the range pass's blocks
+//        per range, owners * ceil(count / per).
+//   "runs", elsewhere (PipelineConfig()'s 2^20: 32 ranges a row): the
+//   stage holds the ranges one after another.
+//     1. bin_count_kernel: a block counts its slice of one row by range in a
+//        shared-memory histogram (one a warp where the ranges are few, so the
+//        warps' atomics on one range do not serialise) and adds each non-zero
+//        count to the range's global count (one atomic a range a block);
+//     2. bin_scan_kernel: the exclusive scan of the range counts (each
+//        range's first stage position, and its cursor), and of the blocks;
+//     3. bin_scatter_kernel: a block a tile, in registers, ranks each entry
+//        within its range by a shared atomicAdd (one histogram a warp where
+//        the ranges are few), sorts the tile by range in shared memory,
+//        reserves one run a range with one atomicAdd on the range's cursor,
+//        and writes the runs out by consecutive threads; 512 threads where
+//        the ranges are few, else 1,024. With few ranges the runs are long,
+//        and with more than 1,024 the carries do not fit.
 // Entries of one range may land in any order: an int32 add mod 2^32 is
 // commutative, and an OR is commutative and idempotent, so the range pass
 // that follows is exact whatever the order.
@@ -61,19 +77,23 @@
 // owner) blocks sized on the host from n and the number of ranges: block j
 // finds its range g by a search of the blocks' prefix (range g owns blocks
 // [blocks[g], blocks[g + 1]); one thread's binary search, or a warp's 32
-// probes a step for the clustered route), takes chunk (j - blocks[g]) /
-// owners, `per` staged entries of it, and counts or sets them in shared
-// memory before one merge into the range's slice of the table. The binned
-// passes have one owner a chunk (every bucket of the range in one block),
-// the clustered one 2, 4 or 8 (each a 2^15-counter slice of the range,
-// reading the whole chunk and keeping its own offsets). Blocks past the
-// last range's return at once.
+// probes a step for the clustered route), takes chunk c = (j - blocks[g]) /
+// owners, `per` staged entries of it (chunk_span: from its page, or from
+// the range's start where the stage is not paged), and counts or sets
+// them in shared memory before one merge into the range's slice of the
+// table. The binned passes have one owner a chunk (every bucket of the
+// range in one block), the clustered one 2, 4 or 8 (each a 2^15-counter
+// slice of the range, reading the whole chunk and keeping its own offsets).
+// Blocks past the last range's return at once.
 //
-// What bounds the pass: the bytes of the indices, read twice (count,
-// scatter), and of the stage, written once and read once by the range pass
-// (2 bytes an entry for the histogram's binned route, 4 for its clustered
-// route and the words). A hot range or a hot bucket costs shared atomics
-// inside one block, not serialised atomics on one address of the L2.
+// What bounds the pass: the bytes of the indices, read once ("sectors") or
+// twice ("runs": count, scatter), and of the stage, written once and read
+// once by the range pass (2 bytes an entry for the histogram's binned
+// route, 4 for its clustered route and the words). A hot range or a hot
+// bucket costs shared atomics inside one block, not serialised atomics on
+// one address of the L2. The pool has room for the worst split: each range
+// leaves less than a page unfilled, so floor((n - k) / page) + k pages hold
+// any n entries over k <= nranges non-empty ranges (scratch()).
 //
 // What bounded the scatter on the H100 (one batch of 2^18 genome reads at
 // either cell's shape, 124.8M indices, 0.98 GB, a byte bound of 0.293 ms):
@@ -93,13 +113,18 @@
 // they saved. The "sectors" body writes each sector once, whole: 0.52-0.54
 // ms at both shapes. Of that, by ablation, the loads, counts, claims and
 // scan take 0.29 ms, the placing atomics 0.05, the write-out's shared loads
-// most of the rest and its stores 0.065.
+// most of the rest and its stores 0.065. With its slices from a count pass
+// before it, that pass read the indices a second time: 0.17 ms a batch at
+// both cells' shapes, at its byte bound.
 //
-// Scratch (meta, stage) comes from the caller; the kernels allocate
-// nothing. meta holds 6 * nranges + 2 unsigned 64-bit words: counts
-// [nranges], starts [nranges + 1], cursors [nranges], blocks [nranges + 1],
-// then the "sectors" body's claims: sectors [nranges] and leftover slots
-// [nranges] a range.
+// Scratch (meta, stage) comes from the caller, of the sizes scratch()
+// names; the kernels allocate nothing. meta holds 6 * nranges + 5 unsigned
+// 64-bit words: counts [nranges], starts [nranges + 1], cursors [nranges],
+// blocks [nranges + 1], then the "sectors" body's claims: sectors [nranges]
+// and leftovers [nranges] a range, the pages taken and the blocks past its
+// barrier; then the page table's row length (pages, 0 where the stage is
+// not paged); after them, for the "sectors" body, the page table, unsigned
+// [nranges][pages] (page + 1; 0 until taken), pages = ceil(N / page).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -122,6 +147,20 @@ constexpr int kSectorMaxCarried = 8192;  // most bins * sector entries a
                                          // whole-sector scatter carries
 constexpr int kScanThreads = 1024;
 constexpr long long kMaxBlocksY = 65535;
+// Entries of the whole-sector scatter's tile, the most a claim holds.
+constexpr long long kSectorTile = static_cast<long long>(kWideThreads) *
+                                  kPerThread;
+// Words of meta before the "sectors" body's page table.
+__host__ __device__ __forceinline__ long long meta_head(long long nranges) {
+  return 6 * nranges + 5;
+}
+
+// Entries of a page of the "sectors" body's pool for range-pass chunks of
+// `per` entries: the fewest whole chunks that hold a tile, so that one
+// claim touches at most two pages and a chunk lies in one page.
+__host__ __device__ __forceinline__ long long page_entries(long long per) {
+  return (kSectorTile + per - 1) / per * per;
+}
 
 // Entries [lo, lo + kT * kPerThread) of a row of n, this thread's
 // kPerThread of them (16-byte loads where the row is aligned and the chunk
@@ -206,17 +245,21 @@ bin_count_kernel(const int* __restrict__ idx, long long R, long long N,
 
 // One block: starts and cursors = exclusive scan of counts; blocks =
 // exclusive scan of owners * ceil(counts / per); starts[n] and blocks[n] the
-// totals.
+// totals; `pages` into the page table's row length word. With `sector` > 0
+// (the "sectors" body, after its scatter) each count is first made from
+// the range's claims: sector * its whole sectors + its leftovers.
 __global__ void __launch_bounds__(kScanThreads)
 bin_scan_kernel(u64* __restrict__ meta, int nranges, long long per,
-                int owners, const int* __restrict__ gate) {
+                int owners, int sector, long long pages,
+                const int* __restrict__ gate) {
   if (gate && *gate == 0) return;
   __shared__ u64 sa[kScanThreads];
   __shared__ u64 sb[kScanThreads];
-  const u64* counts = meta;
+  u64* counts = meta;
   u64* starts = meta + nranges;
   u64* cursors = starts + nranges + 1;
   u64* blocks = cursors + nranges;
+  const u64* claims = blocks + nranges + 1;
   const int t = threadIdx.x;
   const int each = (nranges + kScanThreads - 1) / kScanThreads;
   const int lo = t * each;
@@ -225,6 +268,9 @@ bin_scan_kernel(u64* __restrict__ meta, int nranges, long long per,
   const u64 q = static_cast<u64>(owners);
   u64 a = 0, b = 0;
   for (int i = lo; i < hi; ++i) {
+    if (sector) {
+      counts[i] = static_cast<u64>(sector) * claims[i] + claims[nranges + i];
+    }
     a += counts[i];
     b += q * ((counts[i] + p - 1) / p);
   }
@@ -250,6 +296,7 @@ bin_scan_kernel(u64* __restrict__ meta, int nranges, long long per,
   if (t == kScanThreads - 1) {
     starts[nranges] = sa[t];
     blocks[nranges] = sb[t];
+    meta[meta_head(nranges) - 1] = static_cast<u64>(pages);
   }
 }
 
@@ -294,6 +341,16 @@ __device__ __forceinline__ int block_exclusive_scan(int* x, int n, int* tmp) {
   const int total = tmp[kWarps];
   __syncthreads();
   return total;
+}
+
+// Whether `nbins` ranges a row of an entry of `entry_bytes` take the
+// "sectors" body (and its pages): more than the grouped histograms' bins,
+// at most a block's threads, and a sector of carried entries a range in
+// kSectorMaxCarried.
+__host__ __device__ __forceinline__ bool paged_body(int nbins,
+                                                    int entry_bytes) {
+  return nbins > kGroupedMaxBins && nbins <= kWideThreads &&
+         nbins * (32 / entry_bytes) <= kSectorMaxCarried;
 }
 
 // Shared memory of bin_scatter_kernel<T, kT> for `nbins` bins, in bytes.
@@ -409,82 +466,139 @@ __device__ __forceinline__ int scan_one(int x, int* tmp) {
 }
 
 // A range's place in the whole-sector scatter's write-out, one 16-byte
-// shared load: its stage offset (from the sorted tile's index) and where
-// its claimed and its whole sectors end in the sorted tile.
+// shared load: sorted entry k < brk goes to stage[off + k] (the claim's
+// first page), brk <= k < cut to stage[far + k] (the page after it, `far`
+// a shared word of its own, read only there), k >= cut is carried.
 struct alignas(16) RunPlace {
   u64 off;
-  int lim, cut;
+  int cut, brk;
+};
+
+// The page a range's owner thread last wrote: its first entry in the range
+// (`lo`, none at first) and in the stage.
+struct alignas(16) Page {
+  u64 lo = ~0ULL, base = 0;
 };
 
 // Shared memory of the whole-sector bin_scatter_kernel<T, kT> for `nbins`
 // bins (at most kT, more than kGroupedMaxBins: one histogram) and sectors
-// of `sector` entries, in bytes: the runs' places [nbins] (RunPlace); the
-// sorted tile with the carried entries [kT * kPerThread + (sector - 1) *
-// nbins], the histogram [nbins] and the scan's [kT / 32 + 1] (ints); the
-// carried entries [nbins][sector - 1] (T).
+// of `sector` entries, in bytes: the runs' places [nbins] (RunPlace), each
+// range's last page [nbins] (Page) and the runs' second pages [nbins]
+// (u64); the sorted tile with the carried entries
+// [kT * kPerThread + (sector - 1) * nbins], the histogram [nbins] and the
+// scan's [kT / 32 + 1] (ints); the carried entries [nbins][sector - 1] (T).
 template <typename T, int kT>
 __host__ __device__ __forceinline__ size_t sector_shared_bytes(int nbins,
                                                                int sector) {
   const size_t carry = static_cast<size_t>(sector - 1) * nbins;
-  return sizeof(RunPlace) * nbins +
+  return (sizeof(RunPlace) + sizeof(Page) + sizeof(u64)) * nbins +
          sizeof(int) * (static_cast<size_t>(kT) * kPerThread + carry +
                         static_cast<size_t>(nbins) + kT / 32 + 1) +
          sizeof(T) * carry;
 }
 
-// Range g's slice [s, e) of the stage, cut into whole sectors of `sector`
-// entries: [a, a + sector * cap) starts on a 32-byte boundary (`lead` is
-// the stage's first entry's place in its sector); the rest, the head
-// [s, min(a, e)) and the top, is filled by the leftover slots: slot p at
-// s + p in the head, then downwards from e - 1.
-struct Slice {
-  u64 s = 0, e = 0, a = 0, cap = 0;
-  Slice() = default;
-  __device__ __forceinline__ Slice(const u64* starts, int g, int sector,
-                                   int lead) {
-    s = starts[g];
-    e = starts[g + 1];
-    const u64 v = static_cast<u64>(sector);
-    a = (s + lead + v - 1) / v * v - lead;
-    const u64 z = (e + lead) / v * v;  // the last boundary, counted from lead
-    cap = z > a + lead ? (z - a - lead) / v : 0;
+// The pool's next page, taken for a range's page-table slot and published
+// there; its first stage entry.
+__device__ __forceinline__ u64 take_page(unsigned* slot, u64* taken,
+                                         u64 page) {
+  const unsigned p = static_cast<unsigned>(atomicAdd(taken, 1ULL)) + 1;
+  *reinterpret_cast<volatile unsigned*>(slot) = p;
+  return static_cast<u64>(p - 1) * page;
+}
+
+// Polls a wait loop makes before it takes the wait for a fault and traps
+// (seconds), so that a fault ends the launch with an error, not a hang.
+constexpr unsigned kMaxPolls = 1u << 25;
+
+// The first stage entry of the page in `slot`, which another claim takes:
+// read past the L1 until it shows.
+__device__ __forceinline__ u64 wait_page(const unsigned* slot, u64 page) {
+  unsigned p;
+  for (unsigned polls = 0;
+       (p = *reinterpret_cast<const volatile unsigned*>(slot)) == 0;
+       ++polls) {
+    if (polls == kMaxPolls) __trap();
+    __nanosleep(64);
   }
-  __device__ __forceinline__ u64 leftover(u64 p) const {
-    const u64 h = (a < e ? a : e) - s;
-    return p < h ? s + p : e - 1 - (p - h);
-  }
+  return static_cast<u64>(p - 1) * page;
+}
+
+// Where a claim's entries go: entry a of the range at stage[at], through
+// the end of a's page (`end`, in the range); past it, entry end at
+// stage[next].
+struct Claim {
+  u64 at, end, next;
 };
 
+// A claim of entries [a, b) of a range, b - a <= page (row: the range's
+// page-table row), by the range's owner thread. The page past a's it takes
+// (the claim holds that page's first entry), then a's page: `last`'s, or
+// taken where the claim holds its first entry, else another claim's, from
+// the table (that claim takes its pages before it waits on any). `last`
+// becomes the claim's last page.
+__device__ __forceinline__ Claim claim_pages(unsigned* row, u64 a, u64 b,
+                                             u64 page, u64* taken,
+                                             Page& last) {
+  const u64 c = a / page, lo = c * page;
+  Claim k;
+  k.end = lo + page;
+  const bool two = b > k.end;
+  k.next = two ? take_page(row + c + 1, taken, page) : 0;
+  const u64 base = lo == last.lo ? last.base
+                   : a == lo     ? take_page(row + c, taken, page)
+                                 : wait_page(row + c, page);
+  last.lo = two ? k.end : lo;
+  last.base = two ? k.next : base;
+  k.at = base + (a - lo);
+  return k;
+}
+
+// Every block of the grid past this point once, all resident (a
+// cooperative launch): the leftovers wait for every claim.
+__device__ __forceinline__ void grid_barrier(u64* arrived) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(arrived, 1ULL);
+    for (unsigned polls = 0;
+         *reinterpret_cast<volatile u64*>(arrived) < gridDim.x; ++polls) {
+      if (polls == kMaxPolls) __trap();
+      __nanosleep(128);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
 // The whole-sector scatter, for more than kGroupedMaxBins and at most kT
-// ranges a row. A persistent block owns every bpr-th tile of one row (bpr
-// blocks a row), kT * kPerThread entries a tile, kPerThread a thread in
-// registers; thread i owns range i of the row. Per range it carries fewer
-// than `sector` entries (32 bytes of the stage) from tile to tile, so that
-// it writes only whole sectors, each claimed by one atomicAdd on the
-// range's sector counter (`claims`, the first [nranges]) and each on a
-// 32-byte boundary of the range's slice (Slice). What its tiles leave over,
-// and a claim past the slice's whole sectors (at most two sectors a range),
-// takes leftover slots (`claims` + nranges): the head and top sectors,
-// written in part, once per block and range. Each range's cursor gains its
-// entries, so the cursors end at the next range's start. A tile runs
+// ranges a row, into a pool of pages of `page` entries (a multiple of
+// `sector`, at least a tile). A persistent block owns every bpr-th tile of
+// one row (bpr blocks a row), kT * kPerThread entries a tile, kPerThread a
+// thread in registers; thread i owns range i of the row. Per range it
+// carries fewer than `sector` entries (32 bytes of the stage) from tile to
+// tile, so that it writes only whole sectors, each claimed by one atomicAdd
+// on the range's sector counter (`claims`, the first [nranges]) and each on
+// a 32-byte boundary of its page (claim_pages). `claims` + nranges counts
+// each range's leftovers, then the pages taken and the blocks past the
+// barrier; `table` is the page table [nranges][pages]. A tile runs
 //   1. each entry counted by range (a shared atomicAdd, no result);
 //   2. per range: carried + counted entries, their whole sectors claimed
 //      (the claim's result waits in a register through the scan), a scan
 //      of one range a thread gives each range's start in the sorted tile;
 //   3. the carried entries first in each range, then each counted entry
-//      placed by an atomicAdd on its range's cursor;
-//   4. the next tile's loads issued into the same registers; claims past
-//      the slice to leftover slots;
+//      placed by an atomicAdd on its range's cursor; with the tile's
+//      registers free, the claim's pages;
+//   4. the next tile's loads issued into the same registers;
 //   5. the runs written out by consecutive threads (whole sectors, stores
 //      to one range contiguous), the remainder carried in shared memory;
-//   6. after its last tile, the carries to leftover slots.
+//   6. after its last tile and the barrier, the carries after the range's
+//      sectors.
 template <typename T, int kT>
 __global__ void __launch_bounds__(kT, 1)
 bin_scatter_kernel(const int* __restrict__ idx, long long R, long long N,
                    const int* __restrict__ weight, unsigned width, int shift,
-                   int nbins, const u64* __restrict__ starts,
-                   u64* __restrict__ cursors, u64* __restrict__ claims,
-                   int sector, T* __restrict__ stage,
+                   int nbins, u64* claims, unsigned* table, long long pages,
+                   long long page, int sector, T* __restrict__ stage,
                    const int* __restrict__ gate) {
   constexpr int kTile = kT * kPerThread;
   if (gate && *gate == 0) return;
@@ -492,31 +606,31 @@ bin_scatter_kernel(const int* __restrict__ idx, long long R, long long N,
   const int bpr = static_cast<int>(gridDim.x / R);  // blocks a row
   const long long r = blockIdx.x / bpr;
   long long j = blockIdx.x % bpr;
-  if (r >= R || j >= row_tiles) return;
   const long long nranges = R * nbins;
+  u64* lefts = claims + nranges;
+  u64* taken = lefts + nranges;
   const int keep = sector - 1;
   extern __shared__ __align__(16) RunPlace place[];  // [nbins]
-  int* sorted = reinterpret_cast<int*>(place + nbins);  // [kTile + keep nbins]
+  Page* last = reinterpret_cast<Page*>(place + nbins);  // [nbins]
+  u64* far = reinterpret_cast<u64*>(last + nbins);      // [nbins]
+  int* sorted = reinterpret_cast<int*>(far + nbins);  // [kTile + keep nbins]
   int* hist = sorted + kTile + keep * nbins;  // [nbins]
   int* tmp = hist + nbins;                    // [kT / 32 + 1]
   T* carry = reinterpret_cast<T*>(tmp + kT / 32 + 1);  // [nbins][keep]
   const int t = threadIdx.x;
   const bool owner = t < nbins;  // of range t of the row
   const unsigned mask = (1u << shift) - 1;
-  const int lead = static_cast<int>(
-      (reinterpret_cast<uintptr_t>(stage) / sizeof(T)) % sector);
+  const long long g = r * nbins + t;  // range t's index over all rows
   int carried = 0;  // entries range t carries
-  Slice sl;
 
   if (owner) {
     hist[t] = 0;
-    sl = Slice(starts, static_cast<int>(r * nbins + t), sector, lead);
+    last[t] = Page();
   }
-  const long long g = r * nbins + t;  // range t's index over all rows
   int v[kPerThread];
-  load_chunk<kT>(idx + r * N, weight, N, j * kTile, v);
+  if (j < row_tiles) load_chunk<kT>(idx + r * N, weight, N, j * kTile, v);
   __syncthreads();
-  for (;;) {
+  while (j < row_tiles) {
     // 1. count
 #pragma unroll
     for (int e = 0; e < kPerThread; ++e) {
@@ -528,24 +642,19 @@ bin_scatter_kernel(const int* __restrict__ idx, long long R, long long N,
     int all = 0, whole = 0;
     u64 f = 0;
     if (owner) {
-      const int run = hist[t];
-      all = carried + run;
+      all = carried + hist[t];
       whole = all / sector;
-      if (run) atomicAdd(cursors + g, static_cast<u64>(run));
       if (whole) f = atomicAdd(claims + g, static_cast<u64>(whole));
     }
     const int s0 = scan_one<kT>(all, tmp);
     const int nvalid = tmp[kT / 32];
-    // 3. carried entries first, then the cursors
+    // 3. carried entries first, then the cursors, then the claim's pages
     if (owner) {
       for (int e = 0; e < carried; ++e) {
         sorted[s0 + e] = static_cast<int>(
             (static_cast<unsigned>(t) << shift) | carry[t * keep + e]);
       }
       hist[t] = s0 + carried;
-      const u64 ok = f >= sl.cap ? 0 : min(static_cast<u64>(whole), sl.cap - f);
-      place[t] = {sl.a + f * sector - static_cast<u64>(s0),
-                  s0 + sector * static_cast<int>(ok), s0 + sector * whole};
     }
     __syncthreads();
 #pragma unroll
@@ -555,22 +664,28 @@ bin_scatter_kernel(const int* __restrict__ idx, long long R, long long N,
         sorted[atomicAdd(hist + (b >> shift), 1)] = static_cast<int>(b);
       }
     }
+    if (owner) {
+      const int cut = s0 + sector * whole;
+      RunPlace w = {0, cut, cut};
+      if (whole) {
+        const u64 a = f * sector, b = a + static_cast<u64>(sector) * whole;
+        const Claim k = claim_pages(table + g * pages, a, b, page, taken,
+                                    last[t]);
+        w.off = k.at - static_cast<u64>(s0);
+        if (b > k.end) {  // past the first page: the page after it
+          w.brk = s0 + static_cast<int>(k.end - a);
+          far[t] = k.next - static_cast<u64>(w.brk);
+        }
+      }
+      place[t] = w;
+    }
     __syncthreads();
-    // 4. the next tile in flight; claims past the slice to leftover slots
+    // 4. the next tile in flight
     j += bpr;
     if (j < row_tiles) load_chunk<kT>(idx + r * N, weight, N, j * kTile, v);
     if (owner) {
       hist[t] = 0;
       carried = all - sector * whole;
-      const RunPlace w = place[t];
-      if (w.cut > w.lim) {
-        const u64 p = atomicAdd(claims + nranges + g,
-                                static_cast<u64>(w.cut - w.lim));
-        for (int k = w.lim; k < w.cut; ++k) {
-          stage[sl.leftover(p + (k - w.lim))] =
-              static_cast<T>(static_cast<unsigned>(sorted[k]) & mask);
-        }
-      }
     }
     // 5. whole sectors out, the rest carried
 #pragma unroll 4
@@ -578,20 +693,28 @@ bin_scatter_kernel(const int* __restrict__ idx, long long R, long long N,
       const unsigned b = static_cast<unsigned>(sorted[k]);
       const unsigned bin = b >> shift;
       const RunPlace w = place[bin];
-      if (k < w.lim) {
-        stage[w.off + static_cast<unsigned>(k)] = static_cast<T>(b & mask);
-      } else if (k >= w.cut) {
-        carry[bin * keep + (k - w.cut)] = static_cast<T>(b & mask);
+      const T o = static_cast<T>(b & mask);
+      if (k < w.brk) {
+        stage[w.off + static_cast<unsigned>(k)] = o;
+      } else if (k < w.cut) {
+        stage[far[bin] + static_cast<unsigned>(k)] = o;
+      } else {
+        carry[bin * keep + (k - w.cut)] = o;
       }
     }
     __syncthreads();
-    if (j >= row_tiles) break;
   }
-  // 6. the row done: the carries to leftover slots
+  // 6. every claim in: the carries after the range's whole sectors
+  grid_barrier(taken + 1);
   if (owner && carried) {
-    const u64 p = atomicAdd(claims + nranges + g, static_cast<u64>(carried));
+    const u64 a = __ldcg(claims + g) * sector +
+                  atomicAdd(lefts + g, static_cast<u64>(carried));
+    const Claim k = claim_pages(table + g * pages, a, a + carried, page,
+                                taken, last[t]);
     for (int e = 0; e < carried; ++e) {
-      stage[sl.leftover(p + e)] = carry[t * keep + e];
+      const u64 i = a + e;
+      stage[i < k.end ? k.at + e : k.next + (i - k.end)] =
+          carry[t * keep + e];
     }
   }
 }
@@ -645,6 +768,29 @@ __device__ __forceinline__ int range_of_block_by_warp(
   }
   __syncthreads();
   return s_g;
+}
+
+// The staged entries [lo, hi) of chunk c of range g (`per` entries a
+// chunk): in its page, from the page table after meta's head, where the
+// stage is paged (meta's row length word not 0), else from the range's
+// start.
+__device__ __forceinline__ void chunk_span(const u64* __restrict__ meta,
+                                           int nranges, int g, u64 c,
+                                           long long per, u64& lo, u64& hi) {
+  const u64 p = static_cast<u64>(per);
+  const u64* starts = meta + nranges;
+  const u64 pages = meta[meta_head(nranges) - 1];
+  if (pages) {
+    const unsigned* table =
+        reinterpret_cast<const unsigned*>(meta + meta_head(nranges));
+    const u64 page = static_cast<u64>(page_entries(per));
+    const u64 e = c * p;  // the chunk's first entry in the range
+    lo = static_cast<u64>(table[g * pages + e / page] - 1) * page + e % page;
+    hi = lo + min(p, meta[g] - e);
+  } else {
+    lo = starts[g] + c * p;
+    hi = min(lo + p, starts[g + 1]);
+  }
 }
 
 // Calls f(offset) for each staged entry [lo, hi) of T, by this block's
@@ -712,17 +858,20 @@ int scatter(const int* idx, long long R, long long N, const int* weight,
 }
 
 // Launches the whole-sector bin_scatter_kernel<T, kWideThreads> over idx
-// [R, N]: as many blocks as are resident at once on the device's SMs, a
-// whole number a row (at least one, at most the row's tiles), sectors of 32
-// bytes.
+// [R, N], cooperatively (cudaLaunchKernelEx's cooperative attribute, so
+// that a profiler's launch rows name it as they name the other kernels'):
+// as many blocks as are resident at once on the device's SMs, a whole
+// number a row (at least one, at most the row's tiles), sectors of 32
+// bytes, pages of `page` entries, `pages` a range.
 template <typename T>
 int scatter_sectors(const int* idx, long long R, long long N,
                     const int* weight, unsigned width, int shift, int nbins,
-                    const u64* starts, u64* cursors, u64* claims, T* stage,
-                    const int* gate, cudaStream_t stream) {
+                    u64* claims, unsigned* table, long long pages,
+                    long long page, T* stage, const int* gate,
+                    cudaStream_t stream) {
   void (*kernel)(const int*, long long, long long, const int*, unsigned, int,
-                 int, const u64*, u64*, u64*, int, T*, const int*) =
-      bin_scatter_kernel<T, kWideThreads>;
+                 int, u64*, unsigned*, long long, long long, int, T*,
+                 const int*) = bin_scatter_kernel<T, kWideThreads>;
   const int sector = 32 / static_cast<int>(sizeof(T));
   const size_t bytes = sector_shared_bytes<T, kWideThreads>(nbins, sector);
   cudaError_t err = cudaFuncSetAttribute(
@@ -739,29 +888,63 @@ int scatter_sectors(const int* idx, long long R, long long N,
                                                         kWideThreads, bytes);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long row_tiles = (N + kWideThreads * kPerThread - 1) /
-                              (kWideThreads * kPerThread);
+  const long long row_tiles = (N + kSectorTile - 1) / kSectorTile;
   long long per_row =
       static_cast<long long>(sms) * (resident > 0 ? resident : 1) / R;
   if (per_row > row_tiles) per_row = row_tiles;
   if (per_row < 1) per_row = 1;
-  const long long blocks = per_row * R;
-  err = cudaMemsetAsync(claims, 0, sizeof(u64) * 2 * R * nbins, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(blocks), kWideThreads, bytes, stream>>>(
-      idx, R, N, weight, width, shift, nbins, starts, cursors, claims, sector,
-      stage, gate);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(per_row * R));
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, kernel, idx, R, N, weight, width, shift, nbins, claims, table,
+      pages, page, sector, stage, gate));
+}
+
+// The scratch bin_ranges needs over idx [R, N] in `nranges` ranges of
+// `nbins` a row, with a stage entry of `entry_bytes` and chunks of `per`:
+// meta's unsigned 64-bit words and the stage's entries. By the "sectors"
+// body (paged_body) meta's head and a page table of ceil(N / page) pages a
+// range, and a pool of floor((R * N - k) / page) + k pages (k = min(nranges,
+// R * N): each non-empty range leaves less than a page unfilled); else
+// meta's head and R * N entries. Returns the table's row length, 0 where
+// the stage is not paged, or -1 where the pool's pages would not fit the
+// table's 32-bit entries.
+inline long long scratch(long long R, long long N, long long nbins,
+                         int entry_bytes, long long per,
+                         long long& meta_words, long long& stage_entries) {
+  const long long nranges = R * nbins;
+  meta_words = meta_head(nranges);
+  stage_entries = R * N;
+  if (!paged_body(static_cast<int>(nbins), entry_bytes)) return 0;
+  const long long page = page_entries(per);
+  const long long k = nranges < R * N ? nranges : R * N;
+  const long long pool = (R * N - k) / page + k;
+  if (pool >= 0xffffffffLL) return -1;
+  const long long pages = (N + page - 1) / page;
+  meta_words += (nranges * pages + 1) / 2;
+  stage_entries = pool * page;
+  return pages;
 }
 
 // The binning pass over idx [R, N] (weight: nullptr or [N], only with
-// R == 1) into meta and stage (at least R * N entries of T), ranges of
-// 2^shift buckets, `per` staged entries a chunk of the range pass and
-// `owners` blocks a chunk.
+// R == 1) into meta and stage (of at least the words and entries that
+// scratch() names; refused where they are fewer), ranges of 2^shift
+// buckets, `per` staged entries a chunk of the range pass and `owners`
+// blocks a chunk. By the "sectors" body (paged_body) `per` is a multiple of
+// a 32-byte sector's entries.
 template <typename T>
 int bin_ranges(const int* idx, long long R, long long N, const int* weight,
                int width_log2, int shift, long long per, int owners, u64* meta,
-               T* stage, const int* gate, cudaStream_t stream) {
+               long long meta_words, T* stage, long long stage_entries,
+               const int* gate, cudaStream_t stream) {
   if (width_log2 <= shift || width_log2 > 31 || R < 1 || N < 1 || per < 1 ||
       owners < 1 || (weight && R != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -769,9 +952,31 @@ int bin_ranges(const int* idx, long long R, long long N, const int* weight,
   const long long nbins = 1LL << (width_log2 - shift);
   if (R * nbins > kMaxRanges) return static_cast<int>(cudaErrorInvalidValue);
   const int nranges = static_cast<int>(R * nbins);
+  const unsigned width = static_cast<unsigned>(1ULL << width_log2);
+  const long long sector = 32 / static_cast<long long>(sizeof(T));
+  long long need_meta = 0, need_stage = 0;
+  const long long pages = scratch(R, N, nbins, static_cast<int>(sizeof(T)),
+                                  per, need_meta, need_stage);
+  if (pages < 0 || meta_words < need_meta || stage_entries < need_stage ||
+      (pages && per % sector != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (pages) {
+    cudaError_t err = cudaMemsetAsync(meta, 0, sizeof(u64) * need_meta,
+                                      stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    u64* claims = meta + 4 * nranges + 2;
+    const int status = scatter_sectors<T>(
+        idx, R, N, weight, width, shift, static_cast<int>(nbins), claims,
+        reinterpret_cast<unsigned*>(meta + meta_head(nranges)), pages,
+        page_entries(per), stage, gate, stream);
+    if (status != 0) return status;
+    bin_scan_kernel<<<1, kScanThreads, 0, stream>>>(
+        meta, nranges, per, owners, static_cast<int>(sector), pages, gate);
+    return static_cast<int>(cudaGetLastError());
+  }
   cudaError_t err = cudaMemsetAsync(meta, 0, sizeof(u64) * nranges, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned width = static_cast<unsigned>(1ULL << width_log2);
   const unsigned by = static_cast<unsigned>(R < kMaxBlocksY ? R : kMaxBlocksY);
   const long long count_blocks =
       (N + kCountChunks * kChunk - 1) / (kCountChunks * kChunk);
@@ -783,16 +988,10 @@ int bin_ranges(const int* idx, long long R, long long N, const int* weight,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   bin_scan_kernel<<<1, kScanThreads, 0, stream>>>(meta, nranges, per, owners,
-                                                  gate);
+                                                  0, 0, gate);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   u64* cursors = meta + 2 * nranges + 1;
-  if (nbins > kGroupedMaxBins && nbins <= kWideThreads &&
-      nbins * (32 / static_cast<long long>(sizeof(T))) <= kSectorMaxCarried) {
-    return scatter_sectors<T>(
-        idx, R, N, weight, width, shift, static_cast<int>(nbins),
-        meta + nranges, cursors, meta + 4 * nranges + 2, stage, gate, stream);
-  }
   return nbins > kGroupedMaxBins
              ? scatter<T, kWideThreads>(idx, R, N, weight, width, shift,
                                         static_cast<int>(nbins), by, cursors,

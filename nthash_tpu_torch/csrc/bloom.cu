@@ -42,8 +42,10 @@
 // each block of the range pass sets a slice of one range's bits in 2^15
 // private words (128 KB), as the private kernel does, and merges them into
 // the range's words, which word_index keeps contiguous. What bounds it: the
-// indices' bytes, read twice, and the stage's, written and read once, in
-// place of one read-modify-write of a random DRAM sector per update. At
+// indices' bytes, read once where bin.cuh's "sectors" body pages the stage
+// (512 or 1,024 ranges a row: rows of 2^29 or 2^30 bits), else twice, and
+// the stage's, written and read once, in place of one read-modify-write of
+// a random DRAM sector per update. At
 // 2^30, per 1M reads (476M updates, one call a batch, into zeroed words):
 // binned 4.3431 ms (binning 2.5918, range pass 1.4525) against direct
 // 20.8668 ms in turns, bytes 0.7286 ms (CHANGES.md, readings behind
@@ -208,9 +210,9 @@ bloom_rows_private_kernel(const int* __restrict__ idx, long long R,
 }
 
 // Binned route, range pass: block j sets the bits of `per` staged offsets of
-// its range g (bin.cuh) in 2^15 private words, then merges them into words
-// [g << 15, (g + 1) << 15) of the row-major [R, width / 32] words, as the
-// private kernel merges.
+// its range g (bin.cuh's chunk_span) in 2^15 private words, then merges
+// them into words [g << 15, (g + 1) << 15) of the row-major [R, width / 32]
+// words, as the private kernel merges.
 __global__ void __launch_bounds__(kRangeThreads)
 bloom_ranges_kernel(const unsigned* __restrict__ stage,
                     const unsigned long long* __restrict__ meta, int nranges,
@@ -218,13 +220,12 @@ bloom_ranges_kernel(const unsigned* __restrict__ stage,
                     const int* __restrict__ gate) {
   if (gate && *gate == 0) return;
   extern __shared__ unsigned sw[];
-  const unsigned long long* starts = meta + nranges;
-  const unsigned long long* blocks = starts + 2 * nranges + 1;
+  const unsigned long long* blocks = meta + 3 * nranges + 1;
   const int g = nthash_bin::range_of_block(blocks, nranges);
   if (g < 0) return;
-  const unsigned long long lo =
-      starts[g] + (blockIdx.x - blocks[g]) * static_cast<unsigned long long>(per);
-  const unsigned long long hi = min(lo + per, starts[g + 1]);
+  unsigned long long lo, hi;
+  nthash_bin::chunk_span(meta, nranges, g, blockIdx.x - blocks[g], per, lo,
+                         hi);
   for (int w = threadIdx.x; w < kRangeWords; w += blockDim.x) sw[w] = 0;
   __syncthreads();
   nthash_bin::for_each_staged(stage, lo, hi, [&](unsigned o) {
@@ -321,18 +322,21 @@ int nthash_bloom_words_wide(int device, const long long* idx, long long R,
 
 // The binned route's binning pass (bin.cuh) over idx [R, N] int32 device
 // (weight: nullptr or [N] int32 device, R == 1; zero weights dropped) into
-// meta (6 * R * 2^(width_log2 - 20) + 2 unsigned 64-bit device words) and
-// stage (R * N uint32 device), `per` staged entries a block of the range
-// pass; width_log2 in [21, 31], R * 2^(width_log2 - 20) <= 4,096. Launches
-// on `stream` of `device`; returns cudaGetLastError().
+// meta (`meta_words` unsigned 64-bit device words) and stage
+// (`stage_entries` uint32 device entries), at least what bin.cuh's
+// scratch() names for nranges = R * 2^(width_log2 - 20), `per` staged
+// entries a block of the range pass; width_log2 in [21, 31], nranges <=
+// 4,096. Launches on `stream` of `device`; returns cudaGetLastError().
 int nthash_bloom_bin(int device, const int* idx, long long R, long long N,
                      const int* weight, int width_log2, long long per,
-                     unsigned long long* meta, unsigned* stage,
+                     unsigned long long* meta, long long meta_words,
+                     unsigned* stage, long long stage_entries,
                      const int* gate, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   return nthash_bin::bin_ranges(idx, R, N, weight, width_log2, kRangeLog2,
-                                per, 1, meta, stage, gate, stream);
+                                per, 1, meta, meta_words, stage,
+                                stage_entries, gate, stream);
 }
 
 // The binned route's range pass: `blocks` blocks (at least the binning

@@ -38,7 +38,8 @@
 // with no sort, staged as uint16 offsets, and each block of the range pass
 // counts a slice of one range in 2^15 private counters (128 KB) and merges
 // them into the range's counters. What bounds it: the indices' bytes, read
-// twice, and the stage's, written and read once; a hot bucket costs shared
+// twice, or once where bin.cuh's "sectors" body pages the stage (512 ranges
+// a row), and the stage's, written and read once; a hot bucket costs shared
 // atomics in one block, not serialised atomics on one L2 address.
 //
 // Clustered (the same binning pass, then wide::histogram_ranges_kernel),
@@ -223,8 +224,8 @@ histogram_rows_private_kernel(const int* __restrict__ idx, long long R,
 }
 
 // Binned route, range pass: block j counts `per` staged offsets of its range
-// g (bin.cuh) into 2^15 private counters, then merges them into counters
-// [g << 15, (g + 1) << 15) of the row-major [R, width] table.
+// g (bin.cuh's chunk_span) into 2^15 private counters, then merges them
+// into counters [g << 15, (g + 1) << 15) of the row-major [R, width] table.
 __global__ void __launch_bounds__(kRangeThreads)
 histogram_ranges_kernel(const unsigned short* __restrict__ stage,
                         const unsigned long long* __restrict__ meta,
@@ -232,13 +233,12 @@ histogram_ranges_kernel(const unsigned short* __restrict__ stage,
                         const int* __restrict__ gate) {
   if (gate && *gate == 0) return;
   extern __shared__ int counts[];
-  const unsigned long long* starts = meta + nranges;
-  const unsigned long long* blocks = starts + 2 * nranges + 1;
+  const unsigned long long* blocks = meta + 3 * nranges + 1;
   const int g = nthash_bin::range_of_block(blocks, nranges);
   if (g < 0) return;
-  const unsigned long long lo =
-      starts[g] + (blockIdx.x - blocks[g]) * static_cast<unsigned long long>(per);
-  const unsigned long long hi = min(lo + per, starts[g + 1]);
+  unsigned long long lo, hi;
+  nthash_bin::chunk_span(meta, nranges, g, blockIdx.x - blocks[g], per, lo,
+                         hi);
   constexpr int kWidth = 1 << kRangeLog2;
   for (int b = threadIdx.x; b < kWidth; b += blockDim.x) counts[b] = 0;
   __syncthreads();
@@ -291,16 +291,14 @@ histogram_ranges_kernel(const unsigned* __restrict__ stage,
   if (gate && *gate == 0) return;
   extern __shared__ uint4 quads[];  // the slice's words, four a quad
   unsigned* words = reinterpret_cast<unsigned*>(quads);
-  const unsigned long long* starts = meta + nranges;
-  const unsigned long long* blocks = starts + 2 * nranges + 1;
+  const unsigned long long* blocks = meta + 3 * nranges + 1;
   const int g = nthash_bin::range_of_block_by_warp(blocks, nranges);
   if (g < 0) return;
   const int owner_bits = range_log2 - kSliceLog2;
   const unsigned long long j = blockIdx.x - blocks[g];
   const unsigned owner = static_cast<unsigned>(j) & ((1u << owner_bits) - 1);
-  const unsigned long long lo =
-      starts[g] + (j >> owner_bits) * static_cast<unsigned long long>(per);
-  const unsigned long long hi = min(lo + per, starts[g + 1]);
+  unsigned long long lo, hi;
+  nthash_bin::chunk_span(meta, nranges, g, j >> owner_bits, per, lo, hi);
   for (int i = threadIdx.x; i < kWords / 4; i += blockDim.x) {
     quads[i] = make_uint4(0, 0, 0, 0);
   }
@@ -371,32 +369,35 @@ int nthash_histogram_rows(int device, const int* idx, long long R, long long N,
 }
 
 // The binned routes' binning pass (bin.cuh) over idx [R, N] int32 device
-// into meta (6 * R * 2^(width_log2 - range_log2) + 2 unsigned 64-bit device
-// words) and stage (R * N device entries: uint16 for ranges of 2^15
-// counters, the binned route; uint32 for 2^16..2^18, the clustered route),
+// into meta (`meta_words` unsigned 64-bit device words) and stage
+// (`stage_entries` device entries: uint16 for ranges of 2^15 counters, the
+// binned route; uint32 for 2^16..2^18, the clustered route), at least what
+// bin.cuh's scratch() names for nranges = R * 2^(width_log2 - range_log2),
 // `per` staged entries a chunk of the range pass (a block, or on the
 // clustered route 2^(range_log2 - 15) owner blocks); width_log2 in
-// [range_log2 + 1, 31], R * 2^(width_log2 - range_log2) <= 4,096. Launches
-// on `stream` of `device`; returns cudaGetLastError().
+// [range_log2 + 1, 31], nranges <= 4,096. Launches on `stream` of
+// `device`; returns cudaGetLastError().
 int nthash_histogram_bin(int device, const int* idx, long long R, long long N,
                          int width_log2, int range_log2, long long per,
-                         unsigned long long* meta, void* stage,
+                         unsigned long long* meta, long long meta_words,
+                         void* stage, long long stage_entries,
                          const int* gate, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (range_log2 == kRangeLog2) {
     return nthash_bin::bin_ranges(idx, R, N, nullptr, width_log2, kRangeLog2,
-                                  per, 1, meta,
-                                  static_cast<unsigned short*>(stage), gate,
-                                  stream);
+                                  per, 1, meta, meta_words,
+                                  static_cast<unsigned short*>(stage),
+                                  stage_entries, gate, stream);
   }
   if (range_log2 < kRangeLog2 || range_log2 > kWideMaxRangeLog2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return nthash_bin::bin_ranges(idx, R, N, nullptr, width_log2, range_log2,
                                 per, 1 << (range_log2 - wide::kSliceLog2),
-                                meta, static_cast<unsigned*>(stage), gate,
-                                stream);
+                                meta, meta_words,
+                                static_cast<unsigned*>(stage), stage_entries,
+                                gate, stream);
 }
 
 // The range pass over the stage and meta of nthash_histogram_bin with the

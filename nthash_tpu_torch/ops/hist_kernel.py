@@ -25,8 +25,9 @@ for what it computes rather than for the TPU's matrix unit:
 
 The binned and clustered routes share one binning pass, ``csrc/bin.cuh``
 (:func:`bin_ranges`), whose scatter has two bodies (:func:`scatter_body`:
-whole 32-byte sectors of the stage where a row has more than 256 ranges
-and their carries fit, else a run a range a tile); its plain version
+whole 32-byte sectors of the stage into pages each range takes as it fills,
+with no count first, where a row has more than 256 ranges and their carries
+fit; else a count by range, then a run a range a tile); its plain version
 :func:`bin_ranges_plain` and the range passes' :func:`histogram_ranges_plain`
 (both histogram routes) and :func:`bloom_ranges_plain` compose to
 :func:`histogram_rows_plain` and :func:`bloom_words_plain`.
@@ -136,9 +137,14 @@ RANGE_LAUNCHES = {"histogram": 0, "bloom": 0}
 #: The binning pass's scatter has two bodies, chosen by ``scatter_body``
 #: as ``csrc/bin.cuh`` chooses them: "sectors" (a persistent block a
 #: multiprocessor that carries each range's remainder from tile to tile and
-#: writes only whole 32-byte sectors of the stage) and "runs" (a block a
-#: tile, each range's run at its cursor). Launches of each in this process.
+#: writes only whole 32-byte sectors of the stage, into pages
+#: (:func:`page_entries`) that each range takes from a pool as it fills: no
+#: count first) and "runs" (a block a tile, each range's run at its cursor,
+#: after a count by range). Launches of each in this process.
 SCATTER_ROUTE_LAUNCHES = {"sectors": 0, "runs": 0}
+#: Binning passes that ran ``bin_count_kernel`` (the "runs" body), by
+#: library as ``BIN_LAUNCHES``.
+BIN_COUNT_LAUNCHES = {"histogram": 0, "bloom": 0}
 #: The "sectors" body takes more than this many ranges a row (fewer: each
 #: tile's runs are long and one histogram a warp pays) ...
 SCATTER_GROUPED_MAX_BINS = 256
@@ -146,6 +152,9 @@ SCATTER_GROUPED_MAX_BINS = 256
 #: entries of a 32-byte sector) in its shared memory.
 SCATTER_MAX_CARRIED = 8192
 SECTOR_BYTES = 32
+#: Entries of a "sectors" tile (1,024 threads of 16): the most one claim of
+#: a range holds.
+SECTOR_TILE_ENTRIES = 1024 * 16
 
 PACK = 32  # buckets per packed word
 BLOOM_MIN_WIDTH_LOG2 = 12  # the layout tiles the width in 4,096-bucket blocks
@@ -281,7 +290,7 @@ def _bind_binned(lib: ctypes.CDLL, name: str) -> None:
     fn = getattr(lib, f"nthash_{name}_bin")
     fn.restype = i
     fn.argtypes = ([i, p, ll, ll] + ([p, i] if name == "bloom" else [i, i])
-                   + [ll, p, p, p, p])
+                   + [ll, p, ll, p, ll, p, p])
     fn = getattr(lib, f"nthash_{name}_ranges")
     fn.restype = i
     fn.argtypes = ([i, p, p, i] + ([i] if name == "histogram" else [])
@@ -329,18 +338,27 @@ class Bins(NamedTuple):
     """What a binning pass leaves for its range pass. Ranges are numbered
     row by row: range g = (r << (width_log2 - range_log2)) | (b >> range_log2)
     holds the updates b of row r in [g << range_log2, (g + 1) << range_log2)
-    of the row-major table. On the kernel route ``counts``, ``starts`` and
-    ``blocks`` are views of one int64 buffer (``counts`` at its start), as
-    the kernels take it."""
+    of the row-major table. On the kernel route ``counts``, ``starts``,
+    ``blocks`` and ``pages`` are views of one int64 buffer (``counts`` at
+    its start), as the kernels take it. Range g's entries in range order
+    are ``starts[g]`` on in the stage, or, where ``pages`` is given, its
+    c-th page of :func:`page_entries` entries is page ``pages[g, c] - 1``
+    of the stage (:func:`staged`)."""
 
     counts: torch.Tensor  #: int64 [nranges], valid updates a range
-    starts: torch.Tensor  #: int64 [nranges + 1], exclusive scan of counts
+    #: int64 [nranges + 1], exclusive scan of counts: each range's first
+    #: entry in range order
+    starts: torch.Tensor
     #: int64 [nranges + 1], scan of owners * ceil(counts / per)
     #: (:func:`range_owners`)
     blocks: torch.Tensor
     stage: torch.Tensor   #: offsets b & (2**range_log2 - 1), grouped by range
     per: int              #: staged entries a chunk of the range pass holds
     range_log2: int       #: log2 of the buckets one range holds
+    #: int32 [nranges, most pages a range takes] (:func:`page_pool`): page
+    #: + 1 of each page of each range, 0 past its last; None where the
+    #: ranges lie one after another in the stage
+    pages: torch.Tensor | None = None
 
 
 def binned_ranges(rows: int, width_log2: int, range_log2: int) -> int:
@@ -371,7 +389,9 @@ def _range_grid(total: int, nranges: int,
     ``per`` is ``CLUSTERED_RANGE_ENTRIES`` on the clustered route; else it
     splits the updates over four blocks for each of the H100's 132
     multiprocessors, within [``BINNED_MIN_RANGE_ENTRIES``,
-    ``BINNED_RANGE_ENTRIES``], rounded up to whole 16-byte loads. Range g
+    ``BINNED_RANGE_ENTRIES``], rounded up to whole 32-byte sectors of an
+    int16 stage (a page of the "sectors" body holds whole chunks of whole
+    sectors). Range g
     takes ceil(count / per) chunks of :func:`range_owners` blocks each, so
     owners * (ceil(total / per) + nranges) blocks cover any split of
     ``total`` over the ranges; the blocks past the last range's return at
@@ -381,7 +401,7 @@ def _range_grid(total: int, nranges: int,
     else:
         per = min(BINNED_RANGE_ENTRIES,
                   max(BINNED_MIN_RANGE_ENTRIES, total // (4 * 132)))
-        per = -(-per // 8) * 8
+        per = -(-per // 16) * 16
     return per, range_owners(range_log2) * (-(-total // per) + nranges)
 
 
@@ -432,6 +452,40 @@ def binned_counts_grid(rows: int, n: int,
     return _binned_grid(rows, n, width_log2, range_log2)
 
 
+def page_entries(per: int) -> int:
+    """Entries of a page of the "sectors" body's pool for range-pass chunks
+    of ``per`` entries: the fewest whole chunks that hold a tile
+    (``SECTOR_TILE_ENTRIES``), so that one claim of a range touches at most
+    two pages; ``per`` itself from 2**14 on, as on both routes' own
+    chunks."""
+    return -(-SECTOR_TILE_ENTRIES // per) * per
+
+
+def page_pool(rows: int, n: int, nranges: int, per: int) -> tuple[int, int]:
+    """(pages of the pool, most pages one range takes) for the "sectors"
+    body's paged stage (:func:`scatter_body`) over idx [rows, n] in
+    ``nranges`` ranges, chunks of ``per`` entries, pages of
+    :func:`page_entries`. Each range takes ceil(count / page) pages
+    (:func:`range_pages`), so k non-empty ranges leave less than a page
+    each unfilled: n' <= rows * n valid updates take at most
+    floor((n' - k) / page) + k pages, largest at n' = rows * n and k =
+    min(nranges, rows * n). One range holds updates of one row only, at
+    most ceil(n / page) pages. ``csrc/bin.cuh``'s scratch() sizes the same
+    and refuses a shorter stage."""
+    page = page_entries(per)
+    total = rows * n
+    k = min(nranges, total)
+    return (total - k) // page + k, -(-n // page)
+
+
+def range_pages(counts: torch.Tensor, per: int) -> torch.Tensor:
+    """Pages each range takes for chunks of ``per`` entries:
+    ceil(count / page), page = :func:`page_entries` (ceil(count / per)
+    from 2**14 on)."""
+    page = page_entries(per)
+    return (counts + page - 1) // page
+
+
 def bin_ranges_plain(idx: torch.Tensor, weight: torch.Tensor | None,
                      width_log2: int, range_log2: int,
                      per: int = BINNED_RANGE_ENTRIES) -> Bins:
@@ -439,7 +493,7 @@ def bin_ranges_plain(idx: torch.Tensor, weight: torch.Tensor | None,
     valid updates (in range, weight non-zero) ordered by range with a
     stable sort, so each range keeps its updates in row order (the kernel's
     order within a range is free); the stage is int16 for ranges of 2**15
-    buckets, else int32."""
+    buckets, else int32, the ranges one after another."""
     idx, weight = _bin_args(idx, weight, width_log2, range_log2)
     rows = idx.shape[0]
     nbins = 1 << (width_log2 - range_log2)
@@ -460,6 +514,24 @@ def bin_ranges_plain(idx: torch.Tensor, weight: torch.Tensor | None,
                 torch.cat([zero, (range_owners(range_log2) * chunks)
                            .cumsum(0)]),
                 stage.to(_stage_dtype(range_log2)), per, range_log2)
+
+
+def _stage_positions(bins: Bins) -> torch.Tensor:
+    """int64 position in the paged stage of each entry of ``bins`` in range
+    order."""
+    g = _range_ids(bins)
+    i = torch.arange(g.numel(), device=g.device) - bins.starts[g]
+    page = page_entries(bins.per)
+    return (bins.pages[g, i // page].to(torch.int64) - 1) * page + i % page
+
+
+def staged(bins: Bins) -> torch.Tensor:
+    """The staged offsets of ``bins`` in range order: range g's
+    ``counts[g]`` entries from ``starts[g]`` on, read from its pages where
+    the stage is paged."""
+    if bins.pages is None:
+        return bins.stage[:int(bins.starts[-1])]
+    return bins.stage[_stage_positions(bins)]
 
 
 def _stage_dtype(range_log2: int) -> torch.dtype:
@@ -499,16 +571,31 @@ def _bin_args(idx, weight, width_log2, range_log2):
 
 def _bin_launch(idx, weight, width_log2, range_log2, per, gate) -> Bins:
     """Launch the binning pass on validated idx [R, N] (R * N > 0): scratch
-    from ``torch.empty``, the stage sized for every update; inside the
-    span ``nthash.bin``."""
+    from ``torch.empty``, the stage sized for every update (by the
+    "sectors" body a pool of :func:`page_pool` pages, the page table after
+    meta's words; the library refuses scratch shorter than it needs);
+    inside the span ``nthash.bin``."""
     rows, n = idx.shape
     nranges = binned_ranges(rows, width_log2, range_log2)
     dev = idx.device
+    dtype = _stage_dtype(range_log2)
+    body = scatter_body(width_log2, range_log2)
+    pool = most = 0
+    if body == "sectors":
+        sector = SECTOR_BYTES // dtype.itemsize
+        if per % sector:
+            raise ValueError(f"per ({per}) must be a multiple of {sector}, "
+                             "the entries of a 32-byte sector of the stage")
+        pool, most = page_pool(rows, n, nranges, per)
     with span("nthash.bin"):
-        # counts, starts, cursors, blocks, then the scatter's claims
-        meta = torch.empty(6 * nranges + 2, dtype=torch.int64, device=dev)
-        stage = torch.empty(rows * n, dtype=_stage_dtype(range_log2),
-                            device=dev)
+        # counts, starts, cursors, blocks, the scatter's claims, leftovers,
+        # pages taken, blocks past its barrier, the page table's row
+        # length; then the page table
+        words = 6 * nranges + 5
+        meta = torch.empty(words + -(-nranges * most // 2),
+                           dtype=torch.int64, device=dev)
+        stage = torch.empty(pool * page_entries(per) if pool else rows * n,
+                            dtype=dtype, device=dev)
         name = "bloom" if range_log2 == WORDS_RANGE_LOG2 else "histogram"
         lib = _lib() if name == "histogram" else _bloom_lib()
         args = [dev.index, idx.contiguous().data_ptr(), rows, n]
@@ -518,15 +605,18 @@ def _bin_launch(idx, weight, width_log2, range_log2, per, gate) -> Bins:
         else:
             args += [width_log2, range_log2]
         status = getattr(lib, f"nthash_{name}_bin")(
-            *args, per, meta.data_ptr(), stage.data_ptr(),
-            None if gate is None else gate.data_ptr(),
+            *args, per, meta.data_ptr(), meta.numel(), stage.data_ptr(),
+            stage.numel(), None if gate is None else gate.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         cuda_build.check(lib, status, f"{name} binning launch")
         BIN_LAUNCHES[name] += 1
-        SCATTER_ROUTE_LAUNCHES[scatter_body(width_log2, range_log2)] += 1
+        BIN_COUNT_LAUNCHES[name] += body == "runs"
+        SCATTER_ROUTE_LAUNCHES[body] += 1
+        pages = None if not most else (meta[words:].view(torch.int32)
+                                       [:nranges * most].view(nranges, most))
         return Bins(meta[:nranges], meta[nranges:2 * nranges + 1],
                     meta[3 * nranges + 1:4 * nranges + 2], stage, per,
-                    range_log2)
+                    range_log2, pages)
 
 
 def _ranges_launch(name: str, bins: Bins, blocks: int, out: torch.Tensor,
@@ -561,12 +651,16 @@ def bin_ranges(idx: torch.Tensor, weight: torch.Tensor | None,
     ``csrc/histogram.cu``, or 20 (the presence words', int32, from
     ``csrc/bloom.cu``); ``weight`` (int32 [N], one row only) drops the
     updates whose weight is 0. Returns :class:`Bins`; on the kernel route
-    the stage has R * N entries, of which the first ``starts[-1]`` are
-    written, each range's in any order.
+    each range's entries lie in any order: by the "runs" body the stage has
+    R * N entries, of which the first ``starts[-1]`` are written; by the
+    "sectors" body it is a pool of :func:`page_pool` pages (``per`` a
+    multiple of a 32-byte sector's entries), each range in the pages
+    ``Bins.pages`` names (:func:`staged` reads them in range order).
 
-    A CUDA tensor goes through ``csrc/bin.cuh``'s three kernels (a count by
-    range, a scan, a scatter by :func:`scatter_body`'s body; no host sync),
-    a CPU tensor through :func:`bin_ranges_plain`.
+    A CUDA tensor goes through ``csrc/bin.cuh``'s kernels by
+    :func:`scatter_body`'s body, with no host sync: "runs" a count by range
+    (``BIN_COUNT_LAUNCHES``), a scan and a scatter; "sectors" the scatter,
+    then the scan. A CPU tensor goes through :func:`bin_ranges_plain`.
     """
     idx2, w = _bin_args(idx, weight, width_log2, range_log2)
     if idx2.is_cuda:
@@ -593,8 +687,7 @@ def _range_ids(bins: Bins) -> torch.Tensor:
 
 def _staged_buckets(bins: Bins) -> torch.Tensor:
     """Each staged update as its flat index row * width + b, int64."""
-    total = int(bins.starts[-1])
-    off = bins.stage[:total].to(torch.int64) & ((1 << bins.range_log2) - 1)
+    off = staged(bins).to(torch.int64) & ((1 << bins.range_log2) - 1)
     return (_range_ids(bins) << bins.range_log2) | off
 
 
@@ -604,7 +697,8 @@ def histogram_ranges_plain(bins: Bins, rows: int, width_log2: int, *,
     pass, block by block as the kernels split it, into ``out`` (int32
     [rows, 2**width_log2], zeroed when not given).
 
-    Staged entry i of range g lies in chunk (i - starts[g]) // per. Its
+    Entry i in range order (:func:`staged`), of range g, lies in chunk
+    (i - starts[g]) // per. Its
     block is blocks[g] + chunk * owners + the owner of its slice
     (:func:`range_owners`). A binned block counts its range in int32
     counters. A clustered block counts its 2**15-counter slice in 2**14
@@ -612,10 +706,10 @@ def histogram_ranges_plain(bins: Bins, rows: int, width_log2: int, *,
     and reads each word's halves back. Each block then adds its non-zero
     counters into ``out``."""
     rl = bins.range_log2
-    total = int(bins.starts[-1])
     g = _range_ids(bins)
-    o = bins.stage[:total].to(torch.int64) & ((1 << rl) - 1)
-    chunk = (torch.arange(total, device=o.device) - bins.starts[g]) // bins.per
+    o = staged(bins).to(torch.int64) & ((1 << rl) - 1)
+    chunk = (torch.arange(o.numel(), device=o.device)
+             - bins.starts[g]) // bins.per
     slice_log2 = min(rl, CLUSTERED_SLICE_LOG2)
     owner = o >> slice_log2
     block = bins.blocks[g] + chunk * range_owners(rl) + owner

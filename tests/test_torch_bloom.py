@@ -563,6 +563,51 @@ def test_binned_rows_compose_to_plain(rng, rows, wl):
                            hk.bloom_words_rows_plain(t, wl))
 
 
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("wl,n,per", [(21, 2 * hp.CHUNK + 7, 8),
+                                      (22, 5_001, 16), (29, 9_999, 4096),
+                                      (30, 70_001, 16), (30, 1_023, 8)])
+def test_paged_pool_holds_skewed_words(rng, wl, n, per, weighted):
+    """C1's pool over streams with a hot bucket, the last bucket,
+    sentinels, buckets past the width and a weight dropping entries: the
+    pages the ranges take (``range_pages``) fit ``page_pool``'s, and the
+    binning and range passes' plain versions, composed, set what
+    ``bloom_words_plain`` sets (at 2**21 and 2**22 also what the JAX
+    ``mxu_bloom_words`` sets in interpret mode)."""
+    idx = _skewed_stream(rng, n, wl)
+    w = rng.integers(-2, 3, size=n).astype(np.int32) if weighted else None
+    t = torch.from_numpy(idx)
+    tw = None if w is None else torch.from_numpy(w)
+    bins = hk.bin_ranges_plain(t[None], tw, wl, 20, per)
+    pool, most = hk.page_pool(1, n, bins.counts.numel(), per)
+    need = hk.range_pages(bins.counts, per)
+    assert int(need.sum()) <= pool and int(need.max()) <= most
+    assert int(bins.counts.sum()) <= pool * hk.page_entries(per)
+    got = hk.bloom_ranges_plain(bins, 1, wl)
+    assert torch.equal(got[0], hk.bloom_words_plain(t, tw, wl))
+    if wl <= 22:
+        want = np.asarray(hp.mxu_bloom_words(
+            jnp.asarray(idx), None if w is None else jnp.asarray(w), wl,
+            interpret=True))
+        assert np.array_equal(_words(got[0]), want)
+
+
+@pytest.mark.parametrize("wl", range(21, 32))
+def test_words_binning_counts_first_only_by_runs(rng, wl):
+    """C1's binning pass pages its stage and counts nothing first
+    ("sectors": 512 and 1,024 ranges a row, 2**29 and 2**30 bits) where
+    the rule says so; every other binned width counts by range before its
+    "runs" scatter (``BIN_COUNT_LAUNCHES``). The CPU route launches
+    neither."""
+    body = hk.scatter_body(wl, hk.WORDS_RANGE_LOG2)
+    assert body == ("sectors" if wl in (29, 30) else "runs")
+    before = dict(hk.BIN_COUNT_LAUNCHES)
+    t = torch.from_numpy(_skewed_stream(rng, 1_000, wl))
+    bins = hk.bin_ranges(t[None], None, wl, hk.WORDS_RANGE_LOG2, 16)
+    assert bins.pages is None
+    assert hk.BIN_COUNT_LAUNCHES == before
+
+
 @pytest.mark.parametrize("rows,n,wl,want", [
     # the 2**30 Bloom path: batch 0's [4, n] buckets as one stream
     (1, 124_780_544, 30, (1 << 17, 952 + 1024)),

@@ -1783,28 +1783,55 @@ def _binned_edges(rng, rows, wl, rl, cuda):
                ("hot", hot)])
 
 
-def _bins_match(idx, weight, wl, rl):
+def _bins_match(idx, weight, wl, rl, per=4096):
     """The kernel's binning pass, by the rule's scatter body
-    (``SCATTER_ROUTE_LAUNCHES``), against the plain one: counts, starts and
-    blocks equal, every range's cursor ended at the next range's start, each
-    range's offsets equal as a multiset."""
-    before = dict(hist_kernel.SCATTER_ROUTE_LAUNCHES)
-    got = hist_kernel.bin_ranges(idx, weight, wl, rl, 4096)
-    before[hist_kernel.scatter_body(wl, rl)] += 1
-    assert hist_kernel.SCATTER_ROUTE_LAUNCHES == before
-    want = hist_kernel.bin_ranges_plain(idx, weight, wl, rl, 4096)
+    (``SCATTER_ROUTE_LAUNCHES``; ``BIN_COUNT_LAUNCHES`` for the "runs"
+    body only), against the plain one: counts, starts and blocks equal,
+    each range's offsets equal as a multiset (:func:`hist_kernel.staged`).
+    "runs": every range's cursor ended at the next range's start, and
+    meta's row length word is 0. "sectors": range g took its pages
+    [0, ``range_pages``) and none past them, each page of the pool once,
+    the pages taken that meta counts (its word after the claims) are their
+    sum, within ``page_pool``'s, and meta's row length word is the page
+    table's."""
+    body = hist_kernel.scatter_body(wl, rl)
+    name = "bloom" if rl == hist_kernel.WORDS_RANGE_LOG2 else "histogram"
+    before = (dict(hist_kernel.SCATTER_ROUTE_LAUNCHES),
+              dict(hist_kernel.BIN_COUNT_LAUNCHES))
+    got = hist_kernel.bin_ranges(idx, weight, wl, rl, per)
+    before[0][body] += 1
+    before[1][name] += body == "runs"
+    assert (hist_kernel.SCATTER_ROUTE_LAUNCHES,
+            hist_kernel.BIN_COUNT_LAUNCHES) == before
+    want = hist_kernel.bin_ranges_plain(idx, weight, wl, rl, per)
     assert all(torch.equal(a, b) for a, b in zip(got[:3], want[:3]))
     nranges = got.counts.numel()
     meta = torch.empty(0, dtype=torch.int64, device=idx.device).set_(
         got.counts.untyped_storage())
-    assert torch.equal(meta[2 * nranges + 1:3 * nranges + 1], want.starts[1:])
-    total = int(want.starts[-1])
+    if body == "runs":
+        assert got.pages is None and int(meta[6 * nranges + 4]) == 0
+        assert torch.equal(meta[2 * nranges + 1:3 * nranges + 1],
+                           want.starts[1:])
+    else:
+        need = hist_kernel.range_pages(want.counts, per)
+        pool, most = hist_kernel.page_pool(*idx.shape, nranges, per)
+        assert got.pages.shape == (nranges, most)
+        assert int(meta[6 * nranges + 4]) == most
+        page = torch.arange(most, device=idx.device)
+        assert torch.equal(got.pages > 0, page < need[:, None])
+        taken = got.pages[got.pages > 0].long()
+        assert int(meta[6 * nranges + 2]) == int(need.sum()) \
+            == taken.numel() <= pool
+        assert torch.equal(torch.sort(taken).values,
+                           torch.arange(1, taken.numel() + 1,
+                                        device=idx.device))
     rid = torch.repeat_interleave(
         torch.arange(want.counts.numel(), device=idx.device), want.counts)
     mask = (1 << rl) - 1
     assert torch.equal(
-        torch.sort((rid << rl) | (got.stage[:total].long() & mask)).values,
-        torch.sort((rid << rl) | (want.stage[:total].long() & mask)).values)
+        torch.sort((rid << rl) | (hist_kernel.staged(got).long()
+                                  & mask)).values,
+        torch.sort((rid << rl) | (want.stage.long() & mask)).values)
 
 
 @pytest.mark.parametrize("wl,rows", [(16, 4), (20, 4), (21, 3), (24, 4),
@@ -1944,38 +1971,155 @@ def _genome_batch(cuda, seed=2024, n=1 << 18, length=150):
     return torch.where(sub, (reads + shift) % 4, reads)
 
 
+def _kernels_run(fn):
+    """Names of the kernels the device ran over ``fn()`` and a sync."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, {e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA}
+
+
 @pytest.mark.parametrize("wl,rows,rl", [(28, 4, 18), (30, 1, 20)])
 def test_bin_ranges_at_the_cells_shapes(cuda, wl, rows, rl):
     """The binning pass at the benchmark cells' shapes, on one batch of
     2**18 genome reads hashed at k=32 into 4 hashes: the count-min cell's
     [4, n] buckets at 2**28 (ranges of 2**18 counters) and the Bloom cell's
-    one stream at 2**30 (ranges of 2**20 bits), against the plain pass;
-    then the whole route the rule takes there (the clustered histogram,
-    the binned words) against the plain version and direct atomics."""
+    one stream at 2**30 (ranges of 2**20 bits), against the plain pass, in
+    chunks of 4,096 and of the route's own ``per`` (pages of 2**16 - 8 and
+    2**17 entries); then the whole route the rule takes there (the
+    clustered histogram, the binned words) against the plain version and
+    direct atomics, with no ``bin_count_kernel`` on the device and
+    ``BIN_COUNT_LAUNCHES`` unmoved."""
     tm = prepare_codes(_genome_batch(cuda))
     idx = hist_kernel.rows_view(hash_kmers_tm(tm, 32, 4, emit_buckets=wl))
     del tm
     idx = idx.reshape(rows, -1)
     assert idx.shape[1] == (1 << 20) * 119 // rows
     assert hist_kernel.scatter_body(wl, rl) == "sectors"
-    _bins_match(idx, None, wl, rl)
+    before = dict(hist_kernel.BIN_COUNT_LAUNCHES)
     if rows == 4:
-        assert hist_kernel._counts_route(rows, idx.shape[1], wl, False,
-                                         None)[0] == "clustered"
-        got = histogram_rows(idx, None, wl)
+        kind, per, _ = hist_kernel._counts_route(rows, idx.shape[1], wl,
+                                                 False, None)
+        assert kind == "clustered"
+        got, kernels = _kernels_run(lambda: histogram_rows(idx, None, wl))
         want = histogram_rows_plain(idx, None, wl)
         direct = hist_kernel._launch(idx, None, wl, None, None,
                                      route="direct")
     else:
-        assert hist_kernel._words_route_of(rows, idx.shape[1], wl,
-                                           None)[0] == "binned"
-        got = hist_kernel._words_launch(idx, None, wl, None, None,
-                                        "bloom_words")
+        kind, per, _ = hist_kernel._words_route_of(rows, idx.shape[1], wl,
+                                                   None)
+        assert kind == "binned"
+        got, kernels = _kernels_run(lambda: hist_kernel._words_launch(
+            idx, None, wl, None, None, "bloom_words"))
         want = hist_kernel._words_plain(idx, None, wl, None, None)
         direct = hist_kernel._words_launch(idx, None, wl, None, None,
                                            "bloom_words", route="direct")
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(direct, want)
+    assert hist_kernel.BIN_COUNT_LAUNCHES == before
+    assert any("bin_scatter_kernel" in k for k in kernels), kernels
+    assert not any("bin_count_kernel" in k for k in kernels), kernels
+    del got, want, direct
+    for chunk in (4096, per):
+        _bins_match(idx, None, wl, rl, chunk)
+
+
+def _skews(cuda, rows, wl, rl, n):
+    """(label, idx [rows, n]) at the "sectors" body's worst splits: every
+    update in one range (many pages), every range but one empty with
+    sentinels and out-of-range buckets beside it, one range per row
+    holding all but a scattered few, n a multiple of no tile or page."""
+    width = 1 << wl
+    last = width - (1 << rl)
+    gen = torch.Generator(device=cuda).manual_seed(wl)
+
+    def rand(lo, hi):
+        return torch.randint(lo, hi, (rows, n), generator=gen, device=cuda,
+                             dtype=torch.int32)
+
+    junk = rand(-3, 3)
+    junk[junk >= 0] = width + junk[junk >= 0] if wl < 31 else -1
+    one = rand(last, width)
+    one[:, ::3] = junk[:, ::3]
+    few = rand(last, width)
+    few[:, ::1000] = rand(0, width)[:, ::1000]
+    return [("one range", rand(last, width)),
+            ("one range among sentinels", one),
+            ("one value", torch.full((rows, n), last + 5, dtype=torch.int32,
+                                     device=cuda)),
+            ("one range and a few others", few)]
+
+
+@pytest.mark.parametrize("wl,rows,rl,route", [
+    (28, 4, 18, "clustered"), (24, 4, 15, "binned"), (30, 1, 20, "words")])
+def test_paged_bins_at_the_worst_skews(cuda, wl, rows, rl, route):
+    """The "sectors" body's pages at the worst splits (:func:`_skews`),
+    each hot range spanning many pages, with the route's own chunks: the
+    pass against the plain one (:func:`_bins_match`) and the whole route,
+    forced, bit for bit against the plain version."""
+    assert hist_kernel.scatter_body(wl, rl) == "sectors"
+    for what, idx in _skews(cuda, rows, wl, rl, 3_000_017):
+        n = idx.shape[1]
+        if route == "words":
+            per = hist_kernel._words_route_of(rows, n, wl, "binned")[1]
+            got = hist_kernel._words_launch(idx, None, wl, None, None,
+                                            "bloom_words", route="binned")
+            want = hist_kernel._words_plain(idx, None, wl, None, None)
+        else:
+            per = hist_kernel._counts_route(rows, n, wl, False, route)[1]
+            got = hist_kernel._launch(idx, None, wl, None, None, route=route)
+            want = histogram_rows_plain(idx, None, wl)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), what
+        del got, want
+        bins = hist_kernel.bin_ranges(idx, None, wl, rl, per)
+        assert int(hist_kernel.range_pages(bins.counts, per).max()) > 10, \
+            what
+        del bins
+        _bins_match(idx, None, wl, rl, per)
+
+
+@pytest.mark.parametrize("wl,rows,rl", [(28, 4, 18), (24, 4, 15),
+                                        (30, 1, 20), (20, 4, 15)])
+def test_bin_refuses_short_scratch(cuda, wl, rows, rl):
+    """The binning pass's C entry sizes its scratch itself (bin.cuh's
+    scratch()): meta and a stage of the words and entries ``_bin_launch``
+    gives pass, and one word or one entry fewer is refused
+    (cudaErrorInvalidValue) before anything is launched, on both bodies
+    and at chunks shorter than a tile (pages of several chunks)."""
+    n = 300_007
+    idx = torch.randint(0, 1 << wl, (rows, n), device=cuda,
+                        dtype=torch.int32)
+    nranges = hist_kernel.binned_ranges(rows, wl, rl)
+    name = "bloom" if rl == hist_kernel.WORDS_RANGE_LOG2 else "histogram"
+    lib = hist_kernel._lib() if name == "histogram" \
+        else hist_kernel._bloom_lib()
+    dtype = hist_kernel._stage_dtype(rl)
+    for per in (4096, hist_kernel.BINNED_RANGE_ENTRIES):
+        pool, most = 0, 0
+        if hist_kernel.scatter_body(wl, rl) == "sectors":
+            pool, most = hist_kernel.page_pool(rows, n, nranges, per)
+        words = 6 * nranges + 5 + -(-nranges * most // 2)
+        entries = pool * hist_kernel.page_entries(per) if pool \
+            else rows * n
+        for short_words, short_entries, ok in ((0, 0, True), (1, 0, False),
+                                               (0, 1, False)):
+            meta = torch.empty(words, dtype=torch.int64, device=cuda)
+            stage = torch.empty(entries, dtype=dtype, device=cuda)
+            args = [cuda.index or 0, idx.data_ptr(), rows, n]
+            args += ([None, wl] if name == "bloom" else [wl, rl])
+            status = getattr(lib, f"nthash_{name}_bin")(
+                *args, per, meta.data_ptr(), words - short_words,
+                stage.data_ptr(), entries - short_entries, None,
+                torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            assert (status == 0) == ok, (per, short_words, short_entries,
+                                         status)
 
 
 def test_binned_is_the_rule_on_the_wide_paths(rng, cuda):

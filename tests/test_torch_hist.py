@@ -442,6 +442,162 @@ def test_scatter_route_launches_stay_zero_on_cpu(rng):
                             None, 30)
     assert dict(hist_kernel.SCATTER_ROUTE_LAUNCHES) == before
     assert set(before) == {"sectors", "runs"}
+    assert hist_kernel.BIN_COUNT_LAUNCHES == {"histogram": 0, "bloom": 0}
+
+
+# ------------------------------------ the "sectors" body's page pool ----
+
+
+@pytest.mark.parametrize("rows,n,nranges,per,want", [
+    # the count-min cell: 4 x 2**28 in 4,096 ranges, pages of 2**16 - 8
+    (4, 31_195_136, 4096, 65_528, ((124_780_544 - 4096) // 65_528 + 4096,
+                                   477)),
+    # the Bloom cell: one stream at 2**30 in 1,024 ranges, pages of 2**17
+    (1, 124_780_544, 1024, 1 << 17, (951 + 1024, 952)),
+    # fewer updates than ranges: each a page of its own at most
+    (2, 3, 1024, 16, (6, 1)),
+    (1, 1 << 14, 512, 1 << 14, (0 + 512, 1)),
+    (1, (1 << 14) + 1, 512, 1 << 14, (0 + 512, 2)),
+    (1, (1 << 14) + 512, 512, 1 << 14, (1 + 512, 2)),
+    # chunks shorter than a tile: pages of 4 chunks of 4,096 or 4,104
+    (1, 4096, 512, 4096, (0 + 512, 1)),
+    (1, (1 << 14) + 1, 512, 4096, (0 + 512, 2)),
+    (1, 16_416 + 512, 512, 4104, (1 + 512, 2)),
+    (3, 0, 8, 16, (0, 0)),
+])
+def test_page_pool(rows, n, nranges, per, want):
+    """The pool's pages and a range's most: floor((n' - k) / page) + k for
+    all rows * n updates over k = min(nranges, rows * n) non-empty ranges,
+    and ceil(n / page) for one range (the updates of one row), page =
+    ``page_entries(per)``."""
+    assert hist_kernel.page_pool(rows, n, nranges, per) == want
+
+
+@pytest.mark.parametrize("per,want", [
+    (8, 1 << 14), (16, 1 << 14), (4096, 1 << 14), (4104, 16_416),
+    (10_000, 20_000), (1 << 14, 1 << 14), (65_528, 65_528),
+    (1 << 17, 1 << 17)])
+def test_page_entries(per, want):
+    """A page holds the fewest whole chunks that hold a tile of 2**14
+    entries, so a claim touches at most two pages and a chunk one."""
+    assert hist_kernel.page_entries(per) == want
+    assert want % per == 0 and want >= hist_kernel.SECTOR_TILE_ENTRIES
+    assert want - per < hist_kernel.SECTOR_TILE_ENTRIES
+
+
+@pytest.mark.parametrize("per", [8, 16, 4096, 1 << 14, 65_528, 1 << 17])
+def test_range_pages(per):
+    page = hist_kernel.page_entries(per)
+    counts = torch.tensor([0, 1, page - 1, page, page + 1, 5 * page,
+                           5 * page + 3])
+    want = [0, 1, 1, 1, 2, 5, 6]
+    assert hist_kernel.range_pages(counts, per).tolist() == want
+
+
+def _pool_skew(rng, rows, n, wl, rl, case):
+    """idx [rows, n] for the pool's worst splits: every update in one range,
+    every range but one empty beside sentinels and out-of-range buckets,
+    one update in each range and the rest in one, uniform."""
+    width = 1 << wl
+    last = width - (1 << rl)
+    if case == "one range":
+        idx = rng.integers(last, width, size=(rows, n))
+    elif case == "one range among sentinels":
+        idx = rng.integers(last, width, size=(rows, n))
+        junk = rng.random((rows, n)) < 0.4
+        idx[junk] = rng.choice([-1, width, width + 7, -(1 << 31)],
+                               size=int(junk.sum()))
+    elif case == "one each, the rest in one":
+        idx = rng.integers(last, width, size=(rows, n))
+        k = min(n, width >> rl)
+        idx[:, :k] = (np.arange(k) << rl) + 3
+    else:
+        idx = rng.integers(0, width, size=(rows, n))
+    return idx.astype(np.int32)
+
+
+def _paged_at_random(rng, bins, rows, n):
+    """``bins`` (contiguous) laid out as the "sectors" body leaves a stage:
+    a pool of ``page_pool`` pages, each range's pages anywhere in it (the
+    kernel takes them in the order its claims reach them: here at random),
+    the rest of the pool unwritten."""
+    per, nranges = bins.per, bins.counts.numel()
+    page = hist_kernel.page_entries(per)
+    pool, most = hist_kernel.page_pool(rows, n, nranges, per)
+    need = hist_kernel.range_pages(bins.counts, per)
+    taken = torch.from_numpy(rng.permutation(pool)[:int(need.sum())] + 1)
+    table = torch.zeros((nranges, most), dtype=torch.int32)
+    table[torch.arange(most)[None, :] < need[:, None]] = taken.to(torch.int32)
+    pooled = torch.empty(pool * page, dtype=bins.stage.dtype)
+    paged = bins._replace(stage=pooled, pages=table)
+    pooled[hist_kernel._stage_positions(paged)] = bins.stage
+    return paged
+
+
+@pytest.mark.parametrize("case", ["one range", "one range among sentinels",
+                                  "one each, the rest in one", "uniform"])
+@pytest.mark.parametrize("rows,wl,rl,n,per", [
+    (4, 24, 15, 20_011, 16), (4, 24, 15, 70_001, 4096),
+    (2, 26, 16, 9_999, 8), (4, 28, 18, 33_333, 1000),
+    (1, 30, 20, 50_021, 4096), (1, 29, 20, 1_023, 16)])
+def test_paged_pool_holds_the_worst_skews(rng, rows, wl, rl, n, per, case):
+    """The pool at the worst splits: range g takes ceil(count / page)
+    pages, their sum fits ``page_pool``'s and no range needs more than its
+    most; a stage paged as the kernel pages it (:func:`_paged_at_random`)
+    reads back in range order (``staged``) as the contiguous one, and the
+    range passes' plain versions count over it what
+    ``histogram_rows_plain`` counts and set what ``bloom_words_plain``
+    sets."""
+    t = torch.from_numpy(_pool_skew(rng, rows, n, wl, rl, case))
+    flat = hist_kernel.bin_ranges_plain(t, None, wl, rl, per)
+    assert flat.pages is None
+    need = hist_kernel.range_pages(flat.counts, per)
+    pool, most = hist_kernel.page_pool(rows, n, flat.counts.numel(), per)
+    assert int(need.sum()) <= pool and int(need.max()) <= most
+    bins = _paged_at_random(rng, flat, rows, n)
+    assert torch.equal(hist_kernel.staged(bins), flat.stage)
+    if rl == hist_kernel.WORDS_RANGE_LOG2:
+        want = hist_kernel._words_plain(t, None, wl, None, None)
+        assert torch.equal(hist_kernel.bloom_ranges_plain(bins, rows, wl),
+                           want)
+    else:
+        want = histogram_rows_plain(t, None, wl)
+        assert torch.equal(
+            hist_kernel.histogram_ranges_plain(bins, rows, wl), want)
+
+
+@pytest.mark.parametrize("rows,n,wl,weighted,counted", [
+    (4, 31_195_136, 28, False, False),  # the count-min cell: clustered
+    (4, 31_195_136, 26, False, False),  # clustered, 1,024 ranges a row
+    (4, 1 << 22, 24, False, False),     # binned, 512 ranges a row
+    (4, 31_195_136, 20, False, True),   # PipelineConfig()'s 2**20: runs
+    (4, 31_195_136, 25, False, True),   # 1,024 ranges of an int16 stage
+    (1, 124_780_544, 27, False, True),  # 4,096 ranges of 2**15 in one row
+])
+def test_count_pass_runs_only_before_runs(rows, n, wl, weighted, counted):
+    """The routes whose binning pass counts first (``BIN_COUNT_LAUNCHES``)
+    are those whose scatter body is "runs": the binned and clustered
+    routes with more than 256 ranges a row whose sector carries fit page
+    their stage and count nothing first."""
+    kind, per, _ = hist_kernel._counts_route(rows, n, wl, weighted, None)
+    rl = hist_kernel.counts_range_log2(rows, wl)
+    assert kind in ("binned", "clustered")
+    assert (hist_kernel.scatter_body(wl, rl) == "runs") == counted
+    if not counted:
+        sector = hist_kernel.SECTOR_BYTES // (2 if rl == 15 else 4)
+        assert per % sector == 0
+
+
+@pytest.mark.parametrize("wl,rl,per", [(28, 18, 65_524), (24, 15, 4104),
+                                       (30, 20, 100)])
+def test_paged_chunks_hold_whole_sectors(wl, rl, per):
+    """The "sectors" body's pages hold whole 32-byte sectors: a ``per``
+    that is no multiple of a sector's entries is refused before anything
+    reaches the card."""
+    idx = torch.zeros((1, 8), dtype=torch.int32)
+    assert hist_kernel.scatter_body(wl, rl) == "sectors"
+    with pytest.raises(ValueError, match="multiple"):
+        hist_kernel._bin_launch(idx, None, wl, rl, per, None)
 
 
 # ------------------------------------------------ the clustered route ----
